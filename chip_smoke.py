@@ -12,24 +12,24 @@ printing one JSON line:
    ``speakingstyle_torch/csrc`` (one ``nvcc`` per source, in parallel).
    The parity comparisons run in full float32 (TF32 off in matmuls and
    cuDNN); the synthesis phases at PyTorch's defaults.
-2. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes, with padding masks and unequal lengths, in
-   float32 and bfloat16: the max abs error against the stated tolerance,
-   and the kernel / plain / library times (CUDA events, warm, median).
-3. ``synthesize``: a ``SynthesisEngine`` at the full width of the LJSpeech
+2. ``synthesize``: a ``SynthesisEngine`` at the full width of the LJSpeech
    preset (bf16, fused attention, ``conv_impl="xla"``) with seeded random
    weights answers 4 requests of different text lengths, G2P included,
-   whose style comes from a seeded synthetic reference wav. Every kernel
-   count is set to 0 just before and read just after: the attention
-   kernel must have run 14 times per dispatch.
-4. ``synthesize_pallas_conv``: the same under ``conv_impl="pallas"``; the
-   conv kernel must have run 42 times per dispatch. Then, in float32 and
-   teacher-forced on phase 3's durations, pitch and energy, the acoustic
-   output of the kernel paths is held against the library / plain paths.
-
+   each with its own seeded synthetic reference wav of a different length.
+   Every kernel count is set to 0 just before and read just after: the
+   attention kernel must have run 14 times per dispatch.
+3. ``kernels``: each kernel against its plain PyTorch version on the card,
+   at every shape the main path gives it (phase 2's serve and style
+   buckets) with the padding masks of the requests' real lengths, in
+   float32 and bfloat16: the max abs error against the stated tolerance,
+   and the kernel / plain / library times (CUDA events, warm, median).
+4. ``synthesize_pallas_conv``: phase 2 under ``conv_impl="pallas"``; the
+   conv kernel must have run 42 times per dispatch. Then the acoustic
+   model, teacher-forced on phase 2's durations, pitch and energy, with
+   our kernels against library ones, in float32 and in bfloat16.
 5. ``profile``: one dispatch of each path traced with ``torch.profiler``:
    device time per engine stage, the busiest kernels and the device's
-   idle share.
+   idle share within the traced window.
 
 Then a summary line of every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -76,27 +76,18 @@ ACT_STEP = {"float32": 0.0, "bfloat16": 2 ** -7}
 # different orders
 ACOUSTIC_RTOL = 1e-4
 
-ATTN_SHAPES = [  # [B, L, H, D]: ref-encoder, decoder at T_mel 1000, encoder
-    (4, 600, 8, 32), (4, 1000, 2, 128), (4, 100, 2, 128),
-]
-# (name, K, Cin, Cout, relu, layernorm): every conv of the main path
-CONV_CASES = [
-    ("ref_conv_in", 3, 80, 1024, True, True),
-    ("ref_conv", 3, 1024, 1024, True, True),
-    ("ffn_w1", 9, 256, 1024, True, False),
-    ("ffn_w2", 1, 1024, 256, False, False),
-    ("ref_ffn_w1", 3, 256, 1024, True, False),
-    ("ref_ffn_w2", 3, 1024, 256, False, False),
-    ("variance_predictor", 3, 256, 256, True, False),
-    ("postnet_in", 5, 80, 512, False, False),
-    ("postnet_mid", 5, 512, 512, False, False),
-    ("postnet_out", 5, 512, 80, False, False),
-]
-CONV_BT = (4, 600)
+# bfloat16 teacher-forced acoustic comparison of phase 4: the pallas-conv
+# model's distance to the cuDNN-conv model, over the cuDNN-conv model's own
+# distance to float32 (what bf16 rounding does to the mel). Both round at
+# the same points (bf16 operands, f32 sums, bf16 outputs), so by the
+# triangle inequality the ratio is <= 1 + (the kernel's rounding error over
+# cuDNN's): 3 lets the kernel's be up to twice cuDNN's
+BF16_ACOUSTIC_RATIO = 3.0
+
 # the cases the summary line reports per kernel: the largest of each on
-# the path, in the path's dtype
-SUMMARY_CASES = {"fused_attention_fwd": "attn_4x1000x2x128_bfloat16",
-                 "fused_conv1d_fwd": "conv_ffn_w1_bfloat16"}
+# the path (the decoder's, at T_mel), in the path's dtype
+SUMMARY_CASES = {"fused_attention_fwd": "attn_decoder_bfloat16",
+                 "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16"}
 
 TEXTS = [
     "Hello world.",
@@ -140,7 +131,9 @@ crafts K R AE1 F T S
 represented R EH2 P R IH0 Z EH1 N T IH0 D
 exhibition EH2 K S AH0 B IH1 SH AH0 N
 """
-REF_SECONDS = 7.0  # ~600 reference frames at hop 256, 22050 Hz
+# one reference recording per request, of unequal lengths: 603, 474, 345
+# and 216 frames at hop 256, 22050 Hz, in the style bucket of 1000
+REF_SECONDS = (7.0, 5.5, 4.0, 2.5)
 DISPATCHES = 3
 FRAMES_PER_PHONEME = 6
 
@@ -210,41 +203,105 @@ def compare(got, want, kind: str, dtype: str, ln_parts=None):
     return diff.max().item(), tol, ok
 
 
-def unequal_lengths(B: int, L: int):
+def pad_mask(lens, L: int):
+    """[B, L] bool, True at padding, from the valid lengths ``lens``."""
     import torch
 
-    fracs = [1.0, 0.8, 0.6, 0.35][:B]
-    lens = torch.tensor([max(1, int(L * f)) for f in fracs])
-    return lens, torch.arange(L)[None, :] >= lens[:, None]
+    return torch.arange(L)[None, :] >= torch.tensor(lens)[:, None]
 
 
 # ---------------------------------------------------------------- phase 2
 
 
-def attention_case(shape, dtype, g, dev):
+def attention_cases(cfg):
+    """(name, length axis, heads, head dim, launches per dispatch) of every
+    attention of the main path."""
+    tr, re = cfg.model.transformer, cfg.model.reference_encoder
+    return [
+        ("ref_encoder", "ref", re.encoder_head, re.encoder_hidden // re.encoder_head,
+         re.encoder_layer),
+        ("encoder", "src", tr.encoder_head, tr.encoder_hidden // tr.encoder_head,
+         tr.encoder_layer),
+        ("decoder", "mel", tr.decoder_head, tr.decoder_hidden // tr.decoder_head,
+         tr.decoder_layer),
+    ]
+
+
+def conv_cases(cfg):
+    """(name, length axis, K, Cin, Cout, relu, layernorm, launches per
+    dispatch) of every conv of the main path under ``conv_impl="pallas"``."""
+    m = cfg.model
+    tr, re, vp = m.transformer, m.reference_encoder, m.variance_predictor
+    n_mels = cfg.preprocess.preprocessing.mel.n_mel_channels
+    k1, k2 = tr.conv_kernel_size
+    rk, rf = re.conv_kernel_size, re.conv_filter_size
+    pk, pe = m.postnet_kernel_size, m.postnet_embedding_dim
+    return [
+        ("ref_conv_in", "ref", rk, n_mels, rf, True, True, 1),
+        ("ref_conv", "ref", rk, rf, rf, True, True, re.conv_layer - 1),
+        ("ref_ffn_w1", "ref", rk, re.encoder_hidden, rf, True, False, re.encoder_layer),
+        ("ref_ffn_w2", "ref", rk, rf, re.encoder_hidden, False, False, re.encoder_layer),
+        ("enc_ffn_w1", "src", k1, tr.encoder_hidden, tr.conv_filter_size, True, False,
+         tr.encoder_layer),
+        ("enc_ffn_w2", "src", k2, tr.conv_filter_size, tr.encoder_hidden, False, False,
+         tr.encoder_layer),
+        # two convs in each of the duration, pitch and energy predictors
+        # (phoneme-level); the second's Cin is filter_size, equal here
+        ("variance_predictor", "src", vp.kernel_size, tr.encoder_hidden, vp.filter_size,
+         True, False, 6),
+        ("dec_ffn_w1", "mel", k1, tr.decoder_hidden, tr.conv_filter_size, True, False,
+         tr.decoder_layer),
+        ("dec_ffn_w2", "mel", k2, tr.conv_filter_size, tr.decoder_hidden, False, False,
+         tr.decoder_layer),
+        ("postnet_in", "mel", pk, n_mels, pe, False, False, 1),
+        ("postnet_mid", "mel", pk, pe, pe, False, False, m.postnet_layers - 2),
+        ("postnet_out", "mel", pk, pe, n_mels, False, False, 1),
+    ]
+
+
+def path_lengths(engine, requests, results):
+    """{length axis: (batch, padded length, valid lengths)} of the main
+    path's dispatch: the style bucket over the reference frames, and the
+    serve bucket over the phonemes and the predicted mel frames."""
+    b = results[0].bucket
+    sb, r = engine.style_lattice.cover(len(requests), max(len(q.ref_mel) for q in requests))
+
+    def rows(lens, n):
+        return list(lens) + [0] * (n - len(lens))
+
+    return {
+        "ref": (sb, r, rows([len(q.ref_mel) for q in requests], sb)),
+        "src": (b.b, b.l_src, rows([res.src_len for res in results], b.b)),
+        "mel": (b.b, b.t_mel, rows([res.mel_len for res in results], b.b)),
+    }
+
+
+def attention_case(case, lengths, dtype, g, dev):
     import torch
     import torch.nn.functional as F
 
     from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_plain
 
-    B, L, H, D = shape
+    name, axis, H, D, per_dispatch = case
+    B, L, lens = lengths[axis]
+    shape = (B, L, H, D)
     q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(3))
-    lens, mask = unequal_lengths(B, L)
-    mask = mask.to(dev)
-    name = str(dtype).split(".")[-1]
+    mask = pad_mask(lens, L).to(dev)
+    dname = str(dtype).split(".")[-1]
     got = fused_mha(q, k, v, mask)
     want = fused_mha_plain(q, k, v, mask)
     torch.cuda.synchronize()
-    err, tol, ok = compare(got, want, "attention", name)
+    err, tol, ok = compare(got, want, "attention", dname)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     keep = ~mask[:, None, None, :]
     itemsize = q.element_size()
     # data-dependent work: every query row against its batch row's valid keys
-    flops = 4.0 * H * D * L * float(lens.sum())
-    bound_ms, bound_by = bound(4 * q.numel() * itemsize + mask.numel(), flops, name)
+    flops = 4.0 * H * D * L * float(sum(lens))
+    bound_ms, bound_by = bound(4 * q.numel() * itemsize + mask.numel(), flops, dname)
     return {
-        "case": f"attn_{B}x{L}x{H}x{D}_{name}", "kernel": "fused_attention_fwd",
-        "dtype": name, "shape": list(shape), "lengths": lens.tolist(),
+        "case": f"attn_{name}_{dname}", "kernel": "fused_attention_fwd",
+        "dtype": dname, "shape": list(shape), "lengths": list(lens),
+        "launches_per_dispatch": per_dispatch,
         "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": time_ms(lambda: fused_mha(q, k, v, mask)),
         "plain_ms": time_ms(lambda: fused_mha_plain(q, k, v, mask)),
@@ -253,7 +310,7 @@ def attention_case(shape, dtype, g, dev):
     }
 
 
-def conv_case(case, dtype, g, dev):
+def conv_case(case, lengths, dtype, g, dev):
     import torch
     import torch.nn.functional as F
 
@@ -261,9 +318,9 @@ def conv_case(case, dtype, g, dev):
         fused_conv1d, fused_conv_plain, fused_conv_relu_ln,
     )
 
-    name, K, cin, cout, relu, ln = case
-    B, T = CONV_BT
-    lens, mask = unequal_lengths(B, T)
+    name, axis, K, cin, cout, relu, ln, per_dispatch = case
+    B, T, lens = lengths[axis]
+    mask = pad_mask(lens, T)
     x = torch.randn((B, T, cin), generator=g).masked_fill(mask[..., None], 0.0)
     w = torch.randn((K, cin, cout), generator=g) / (K * cin) ** 0.5
     b = torch.randn(cout, generator=g) * 0.1
@@ -288,6 +345,7 @@ def conv_case(case, dtype, g, dev):
     return {
         "case": f"conv_{name}_{dname}", "kernel": "fused_conv1d_fwd", "dtype": dname,
         "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout, "relu": relu, "ln": ln},
+        "lengths": list(lens), "launches_per_dispatch": per_dispatch,
         "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": time_ms(run), "plain_ms": time_ms(plain),
         # the conv alone (cuDNN), without the ReLU / LayerNorm epilogue
@@ -296,34 +354,33 @@ def conv_case(case, dtype, g, dev):
     }
 
 
-def kernels_phase(dev, seed):
+def kernels_phase(cfg, lengths, dev, seed):
+    """Every kernel case of the main path (shapes and valid lengths from
+    ``path_lengths``) in float32 and bfloat16; returns {case: result}."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ATTN_SHAPES:
-            cases.append(attention_case(shape, dtype, g, dev))
+        for case in attention_cases(cfg):
+            cases.append(attention_case(case, lengths, dtype, g, dev))
             emit("kernels", **cases[-1])
-        for case in CONV_CASES:
-            cases.append(conv_case(case, dtype, g, dev))
+        for case in conv_cases(cfg):
+            cases.append(conv_case(case, lengths, dtype, g, dev))
             emit("kernels", **cases[-1])
-    bad = [c["case"] for c in cases if not c["ok"]]
-    if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
     return {c["case"]: c for c in cases}
 
 
-# ---------------------------------------------------------------- phases 3 and 4
+# ---------------------------------------------------------------- phases 2 and 4
 
 
-def reference_wav(seed: int, sr: int):
+def reference_wav(seed: int, sr: int, seconds: float):
     """A seeded synthetic voice-like reference: a gliding harmonic source
     with vibrato under a syllable-rate envelope, plus breath noise."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    t = np.arange(int(REF_SECONDS * sr)) / sr
+    t = np.arange(int(seconds * sr)) / sr
     f0 = 140 + 30 * np.sin(2 * np.pi * 0.3 * t) + 4 * np.sin(2 * np.pi * 5.5 * t)
     phase = 2 * np.pi * np.cumsum(f0) / sr
     amps = rng.uniform(0.2, 1.0, 12) / np.arange(1, 13)
@@ -345,13 +402,14 @@ def make_requests(cfg, seed):
         word, *phones = line.split()
         lexicon[word] = phones
     pp = cfg.preprocess.preprocessing
-    ref_mel = mel_from_wav_array(cfg, reference_wav(seed, pp.audio.sampling_rate))
     requests = []
-    for i, text in enumerate(TEXTS):
+    for i, (text, seconds) in enumerate(zip(TEXTS, REF_SECONDS)):
         spans = english_word_spans(text, lexicon)
         if any(ps == ["spn"] for _, ps in spans):
             fail(f"a word of {text!r} is missing from the lexicon")
         seq = spans_to_sequence(spans, pp.text.text_cleaners)
+        ref_mel = mel_from_wav_array(
+            cfg, reference_wav(seed + i, pp.audio.sampling_rate, seconds))
         requests.append(SynthesisRequest(id=f"r{i}", sequence=np.asarray(seq, np.int32),
                                          ref_mel=ref_mel, raw_text=text))
     return requests
@@ -449,14 +507,16 @@ def synthesize_phase(phase, cfg, requests, seed, dev, want_per_dispatch):
         # a kernel of this path must have run; one off it must not have
         if counts[name] != per * n or (per > 0 and counts[name] == 0):
             fail(f"{phase}: {name} launched {counts[name]} times, want {per} x {n}")
-    return engine, results, counts, statistics.median(walls)
+    return engine, results, counts
 
 
-def profile_dispatch(path, engine, requests, wall_ms):
+def profile_dispatch(path, engine, requests):
     """One dispatch under ``torch.profiler``: the device time of the
     kernels inside each engine stage's range (``synthesis.*``), the
-    busiest kernels, and the device's idle share against ``wall_ms``, the
-    unprofiled dispatch wall time."""
+    busiest kernels, and the device's idle share within the traced window,
+    from the start of its first device operation to the end of its last.
+    The profiler adds host time to every launch, so the share is an upper
+    bound on an unprofiled dispatch's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -468,7 +528,18 @@ def profile_dispatch(path, engine, requests, wall_ms):
     spans = {e.name: e.time_range for e in on_device
              if e.is_user_annotation and e.name.startswith("synthesis.")}
     kernels = [e for e in on_device if not e.is_user_annotation]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not kernels:
+        fail(f"profile of {path}: the trace holds no device operation")
+    # busy = the union of the operations' intervals (us)
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, (lo, hi) = 0.0, intervals[0]
+    for s, e in intervals[1:]:
+        if s > hi:
+            busy_us, lo = busy_us + hi - lo, s
+        hi = max(hi, e)
+    busy_us += hi - lo
+    window = (hi - intervals[0][0]) / 1e3
+    busy = busy_us / 1e3
     stages = {
         name: {"span_ms": r.elapsed_us() / 1e3,
                "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels
@@ -485,18 +556,34 @@ def profile_dispatch(path, engine, requests, wall_ms):
     ours = {name: sum(ms for n, (ms, _) in by_name.items() if symbol in n)
             for name, symbol in (("fused_attention_fwd", "(anonymous namespace)::attn_fwd"),
                                  ("fused_conv1d_fwd", "(anonymous namespace)::conv_fwd"))}
-    emit("profile", path=path, wall_ms=wall_ms, device_busy_ms=busy,
-         idle_share=1.0 - busy / wall_ms, kernel_launches=len(kernels), stages=stages,
+    emit("profile", path=path, trace_window_ms=window, device_busy_ms=busy,
+         idle_share=1.0 - busy / window, device_ops=len(kernels), stages=stages,
          port_kernel_ms=ours,
          top_kernels=[{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top])
-    if busy <= 0:
-        fail(f"profile of {path}: the trace holds no device time")
+
+
+# (tag, compute dtype, conv_impl, attention_kernel) of the teacher-forced runs
+PARITY_RUNS = (
+    ("f32_kernels", "float32", "pallas", "fused"),
+    ("f32_cudnn_conv", "float32", "xla", "fused"),
+    ("f32_plain", "float32", "xla", "einsum"),
+    ("bf16_kernels", "bfloat16", "pallas", "fused"),
+    ("bf16_cudnn_conv", "bfloat16", "xla", "fused"),
+)
 
 
 def teacher_forced_parity(cfg, engine, requests, results, dev):
-    """float32, teacher-forced on phase 3's durations, pitch and energy:
-    the fused-attention + kernel-conv model against the fused-attention +
-    cuDNN-conv model (phase 3's path) and against the all-plain model."""
+    """The acoustic model teacher-forced on phase 2's durations, pitch and
+    energy (so that no duration's rounding flip can hide a fault), with our
+    kernels against library ones; returns the failed checks.
+
+    * float32: the fused-attention + kernel-conv model and the all-plain
+      model against the fused-attention + cuDNN-conv model (phase 2's
+      path), within ``ACOUSTIC_RTOL`` of max |mel|;
+    * bfloat16, the model's compute dtype (the conv on the tensor-core
+      kernel): the kernel-conv model's distance to the cuDNN-conv model
+      over the cuDNN-conv model's own distance to float32, within
+      ``BF16_ACOUSTIC_RATIO``."""
     import numpy as np
     import torch
 
@@ -522,10 +609,8 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
           dict(mels=mels, mel_lens=mel_lens, d_targets=d, p_targets=p, e_targets=e).items()}
     state = engine.model.state_dict()
     outs = {}
-    for tag, conv_impl, attention in (("kernels", "pallas", "fused"),
-                                      ("fused_attention_cudnn_conv", "xla", "fused"),
-                                      ("plain", "xla", "einsum")):
-        mcfg = dataclasses.replace(cfg.model, compute_dtype="float32", conv_impl=conv_impl,
+    for tag, dtype, conv_impl, attention in PARITY_RUNS:
+        mcfg = dataclasses.replace(cfg.model, compute_dtype=dtype, conv_impl=conv_impl,
                                    attention_kernel=attention)
         model = build_model(dataclasses.replace(cfg, model=mcfg),
                             n_position=engine.model.encoder.layer_stack.pe.shape[0])
@@ -534,20 +619,32 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
         with torch.inference_mode():
             outs[tag] = model(*args, max_mel_len=T, **kw)["mel_postnet"].float()
         del model
-    mel_lens_out = [res.mel_len for res in results]
     keep = torch.zeros((B, T, 1), dtype=torch.bool, device=dev)
-    for i, m in enumerate(mel_lens_out):
-        keep[i, :m] = True
-    ref = outs["fused_attention_cudnn_conv"]
-    scale = float(ref.masked_fill(~keep, 0).abs().max())
-    report = {"max_abs_mel": scale, "rtol": ACOUSTIC_RTOL}
-    for tag in ("kernels", "plain"):
-        diff = (outs[tag] - ref).masked_fill(~keep, 0).abs().max().item()
-        report[f"{tag}_vs_fused_attention_cudnn_conv_max_abs_err"] = diff
-    emit("acoustic_parity_f32", **report)
-    for tag in ("kernels", "plain"):
-        if not report[f"{tag}_vs_fused_attention_cudnn_conv_max_abs_err"] <= ACOUSTIC_RTOL * scale:
-            fail(f"acoustic parity: {tag} path disagrees ({report})")
+    for i, res in enumerate(results):
+        keep[i, : res.mel_len] = True
+
+    def dist(a, b):  # max abs difference over the real frames
+        return (outs[a] - outs[b]).masked_fill(~keep, 0).abs().max().item()
+
+    scale = float(outs["f32_cudnn_conv"].masked_fill(~keep, 0).abs().max())
+    f32 = {"max_abs_mel": scale, "rtol": ACOUSTIC_RTOL,
+           "kernels_vs_cudnn_conv_max_abs_err": dist("f32_kernels", "f32_cudnn_conv"),
+           "plain_vs_cudnn_conv_max_abs_err": dist("f32_plain", "f32_cudnn_conv")}
+    emit("acoustic_parity_f32", **f32)
+    err, noise = dist("bf16_kernels", "bf16_cudnn_conv"), dist("bf16_cudnn_conv", "f32_cudnn_conv")
+    bf16 = {"max_abs_mel": scale,
+            "kernels_vs_cudnn_conv_max_abs_err": err,
+            "cudnn_conv_vs_f32_max_abs_err": noise,
+            "kernels_vs_f32_max_abs_err": dist("bf16_kernels", "f32_cudnn_conv"),
+            "ratio": err / noise if noise > 0 else math.inf,
+            "max_ratio": BF16_ACOUSTIC_RATIO}
+    emit("acoustic_parity_bf16", **bf16)
+    bad = [f"float32 {tag}: {f32[f'{tag}_vs_cudnn_conv_max_abs_err']}"
+           for tag in ("kernels", "plain")
+           if not f32[f"{tag}_vs_cudnn_conv_max_abs_err"] <= ACOUSTIC_RTOL * scale]
+    if not bf16["ratio"] <= BF16_ACOUSTIC_RATIO:
+        bad.append(f"bfloat16 kernels: ratio {bf16['ratio']}")
+    return bad
 
 
 # ---------------------------------------------------------------- main
@@ -582,22 +679,31 @@ def main(argv=None) -> int:
          tf32_in_synthesis_phases={"matmul": torch.backends.cuda.matmul.allow_tf32,
                                    "cudnn": torch.backends.cudnn.allow_tf32})
 
-    with strict_float32():
-        cases = kernels_phase(dev, args.seed)
-
     cfg = load_config(preset="LJSpeech")
     requests = make_requests(cfg, args.seed)
-    xla_engine, results, attn_counts, xla_wall = synthesize_phase(
+    # launches per dispatch of each kernel: 14 attentions, 42 convs
+    attn_per = sum(c[-1] for c in attention_cases(cfg))
+    conv_per = sum(c[-1] for c in conv_cases(cfg))
+    xla_engine, results, attn_counts = synthesize_phase(
         "synthesize", cfg, requests, args.seed, dev,
-        {"fused_attention_fwd": 14, "fused_conv1d_fwd": 0})
-    pallas_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, conv_impl="pallas"))
-    engine, _, conv_counts, pallas_wall = synthesize_phase(
-        "synthesize_pallas_conv", pallas_cfg, requests, args.seed, dev,
-        {"fused_attention_fwd": 14, "fused_conv1d_fwd": 42})
+        {"fused_attention_fwd": attn_per, "fused_conv1d_fwd": 0})
+
     with strict_float32():
-        teacher_forced_parity(cfg, engine, requests, results, dev)
-    profile_dispatch("xla", xla_engine, requests, xla_wall)
-    profile_dispatch("pallas", engine, requests, pallas_wall)
+        cases = kernels_phase(cfg, path_lengths(xla_engine, requests, results), dev, args.seed)
+    bad = [c["case"] for c in cases.values() if not c["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+
+    pallas_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, conv_impl="pallas"))
+    engine, _, conv_counts = synthesize_phase(
+        "synthesize_pallas_conv", pallas_cfg, requests, args.seed, dev,
+        {"fused_attention_fwd": attn_per, "fused_conv1d_fwd": conv_per})
+    with strict_float32():
+        bad = teacher_forced_parity(cfg, engine, requests, results, dev)
+    if bad:
+        fail(f"acoustic parity: {bad}")
+    profile_dispatch("xla", xla_engine, requests)
+    profile_dispatch("pallas", engine, requests)
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",

@@ -33,7 +33,7 @@ NVCC_FLAGS = ARCH_FLAGS + [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.RLock()  # load() holds it around build_all()
 # seconds each library took to build in this process (0.0 = found built)
 build_seconds: Dict[str, float] = {}
 
@@ -110,11 +110,7 @@ def load(name: str, signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDL
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            job = _start_build(name)
-            if job is None:
-                build_seconds.setdefault(name, 0.0)
-            else:
-                _finish_build(name, job)
+            build_all([name])
             lib = ctypes.CDLL(_lib_path(name))
             for fn, argtypes in (signatures or {}).items():
                 getattr(lib, fn).argtypes = list(argtypes)

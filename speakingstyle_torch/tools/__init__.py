@@ -1,0 +1,1 @@
+"""Checks run on the card beside ``chip_smoke.py``."""

@@ -18,6 +18,7 @@ import torch
 from speakingstyle_torch.ops import fused_attention as t_attn
 from speakingstyle_torch.ops import fused_conv as t_conv
 from speakingstyle_torch.ops import kernels
+from speakingstyle_torch.tools import mutation_check
 
 
 def _lengths_mask(rng, B, L):
@@ -54,6 +55,18 @@ def test_missing_nvcc_raises(monkeypatch):
     kernels.check(0, "fused_conv1d_fwd")
 
 
+@pytest.mark.parametrize("variant", sorted(mutation_check.MUTANTS))
+def test_mutation_check_variants_apply_to_the_source(variant):
+    """Each broken variant of the mutation check changes the tensor-core
+    conv kernel at exactly one place of the current source ("none" at
+    none), so the check cannot go stale silently as the kernel is edited."""
+    with open(os.path.join(kernels.CSRC_DIR, "fused_conv.cu")) as f:
+        source = f.read()
+    mutated = mutation_check.mutate(source, variant)
+    assert (mutated == source) == (variant == "none")
+    if variant != "none":
+        with pytest.raises(ValueError, match="occurs 0 times"):
+            mutation_check.mutate(mutated, variant)
 
 @pytest.fixture
 def cuda_device():
