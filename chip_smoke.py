@@ -30,6 +30,18 @@ printing one JSON line:
 5. ``profile``: one dispatch of each path traced with ``torch.profiler``:
    device time per engine stage, the busiest kernels and the device's
    idle share within the traced window.
+6. ``train``: FastSpeech2 training at the full width of the LJSpeech_paper
+   preset (batch 48, bf16, hash dropout) on a synthetic corpus written from
+   ``--seed``, through ``training/trainer.py``'s step, on the kernel path
+   (``fused`` + ``pallas``) and the library path (``einsum`` + ``xla``):
+   every kernel count set to 0 just before the measured steps and read
+   just after (per step: 14 attention forwards and backwards, 42 conv
+   forwards of which the 3 LayerNorm ones write ``act``), finite losses,
+   the median step wall time, mel frames/s, peak memory, and one traced
+   step's idle share and kernel ms. Then the backward kernel against its
+   plain version at the first batch's shapes and lengths, the LN conv's
+   ``act`` output against the plain one, and one step's per-leaf
+   gradients, kernel path against library path, in float32 and bfloat16.
 
 Then a summary line of every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -43,9 +55,11 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -87,7 +101,8 @@ BF16_ACOUSTIC_RATIO = 3.0
 # the cases the summary line reports per kernel: the largest of each on
 # the path (the decoder's, at T_mel), in the path's dtype
 SUMMARY_CASES = {"fused_attention_fwd": "attn_decoder_bfloat16",
-                 "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16"}
+                 "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16",
+                 "fused_attention_bwd": "attn_bwd_decoder_bfloat16"}
 
 TEXTS = [
     "Hello world.",
@@ -451,18 +466,21 @@ def strict_float32():
 
 
 def reset_counts():
-    from speakingstyle_torch.ops.fused_attention import fused_mha
+    from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_bwd
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
-    fused_mha.launches = 0
-    fused_conv1d.launches = 0
+    fused_mha.launches = fused_mha_bwd.launches = 0
+    fused_conv1d.launches = fused_conv1d.act_launches = 0
 
 
 def read_counts():
-    from speakingstyle_torch.ops.fused_attention import fused_mha
+    from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_bwd
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
-    return {"fused_attention_fwd": fused_mha.launches, "fused_conv1d_fwd": fused_conv1d.launches}
+    return {"fused_attention_fwd": fused_mha.launches,
+            "fused_attention_bwd": fused_mha_bwd.launches,
+            "fused_conv1d_fwd": fused_conv1d.launches,
+            "fused_conv1d_fwd_act": fused_conv1d.act_launches}
 
 
 def synthesize_phase(phase, cfg, requests, seed, dev, want_per_dispatch):
@@ -528,9 +546,34 @@ def profile_dispatch(path, engine, requests):
     spans = {e.name: e.time_range for e in on_device
              if e.is_user_annotation and e.name.startswith("synthesis.")}
     kernels = [e for e in on_device if not e.is_user_annotation]
+    window, busy, by_name, ours = device_time(f"profile of {path}", kernels)
+    stages = {
+        name: {"span_ms": r.elapsed_us() / 1e3,
+               "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels
+                                if r.start <= e.time_range.start < r.end) / 1e3}
+        for name, r in spans.items()
+    }
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
+    emit("profile", path=path, trace_window_ms=window, device_busy_ms=busy,
+         idle_share=1.0 - busy / window, device_ops=len(kernels), stages=stages,
+         port_kernel_ms=ours,
+         top_kernels=[{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top])
+
+
+# the port's kernels by symbol (csrc/fused_conv.cu has conv_fwd_kernel and
+# conv_fwd_mma_kernel; the attention backward attn_bwd_dkdv_kernel and
+# attn_bwd_dq_kernel)
+PORT_SYMBOLS = (("fused_attention_fwd", "(anonymous namespace)::attn_fwd"),
+                ("fused_attention_bwd", "(anonymous namespace)::attn_bwd"),
+                ("fused_conv1d_fwd", "(anonymous namespace)::conv_fwd"))
+
+
+def device_time(what, kernels):
+    """(traced window ms from the first device operation's start to the
+    last one's end, busy ms = the union of their intervals, {name: (ms,
+    calls)}, {port kernel: ms}) of a trace's device operations."""
     if not kernels:
-        fail(f"profile of {path}: the trace holds no device operation")
-    # busy = the union of the operations' intervals (us)
+        fail(f"{what}: the trace holds no device operation")
     intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, (lo, hi) = 0.0, intervals[0]
     for s, e in intervals[1:]:
@@ -538,28 +581,13 @@ def profile_dispatch(path, engine, requests):
             busy_us, lo = busy_us + hi - lo, s
         hi = max(hi, e)
     busy_us += hi - lo
-    window = (hi - intervals[0][0]) / 1e3
-    busy = busy_us / 1e3
-    stages = {
-        name: {"span_ms": r.elapsed_us() / 1e3,
-               "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels
-                                if r.start <= e.time_range.start < r.end) / 1e3}
-        for name, r in spans.items()
-    }
     by_name = {}
     for e in kernels:
         ms, calls = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
-    # device time of the port's own kernels in this dispatch, by symbol
-    # (csrc/fused_conv.cu has conv_fwd_kernel and conv_fwd_mma_kernel)
     ours = {name: sum(ms for n, (ms, _) in by_name.items() if symbol in n)
-            for name, symbol in (("fused_attention_fwd", "(anonymous namespace)::attn_fwd"),
-                                 ("fused_conv1d_fwd", "(anonymous namespace)::conv_fwd"))}
-    emit("profile", path=path, trace_window_ms=window, device_busy_ms=busy,
-         idle_share=1.0 - busy / window, device_ops=len(kernels), stages=stages,
-         port_kernel_ms=ours,
-         top_kernels=[{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top])
+            for name, symbol in PORT_SYMBOLS}
+    return (hi - intervals[0][0]) / 1e3, busy_us / 1e3, by_name, ours
 
 
 # (tag, compute dtype, conv_impl, attention_kernel) of the teacher-forced runs
@@ -647,6 +675,320 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
     return bad
 
 
+# ---------------------------------------------------------------- phase 6: training
+
+TRAIN_WARMUP = 2    # steps before the measured ones (cuDNN plans, allocator)
+TRAIN_STEPS = 10    # measured steps on each path
+# the corpus: ~100 phonemes x ~6 frames, so T_mel buckets up to 896
+CORPUS_UTTS, CORPUS_VAL = 288, 48
+# (tag, model overrides) of the two training paths
+TRAIN_PATHS = (("kernels", {"attention_kernel": "fused", "conv_impl": "pallas"}),
+               ("library", {"attention_kernel": "einsum", "conv_impl": "xla"}))
+# the backward kernel against its plain version: |kernel - plain| <=
+# rel_max * max|plain| + rtol * |plain|, per gradient. float32: sums in
+# another order, and the row term as dO.O instead of rowsum(dP o P) (the
+# same sum reordered). bfloat16: also flipped roundings of P and dS (<=
+# 2^-8 relative each) inside sums over L terms, a small share of the max,
+# where a dropped tile errs by a whole tile's probability mass
+BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -6, 2 ** -7)}
+# float32 gradient parity, kernel path against library path, relative to
+# each leaf's max |grad|. Reordered sums alone give ~eps sqrt(n) per
+# reduction (eps 6e-8, n <= B*T = 43k: 1.2e-5) over ~30 layers, ~4e-4. The
+# L1 mel losses add more: their gradient is sign(pred - target) / N, so
+# where the two forwards straddle a target (|pred - target| ~ 1e-6 of the
+# N = B*T*80 = 3.4M elements: a few) the mel gradient moves by 2/N there,
+# which moves a postnet weight's gradient, itself a sum of N such terms of
+# size ~1/sqrt(N) of its max, by ~2/sqrt(N) = 1e-3 per flip (3.5e-3
+# measured with one flip at N = 1e5 in a CPU rehearsal at small width).
+# 2e-2 covers a few flips; a broken kernel moves gradients by O(1)
+F32_GRAD_RTOL = 2e-2
+# and the float32 losses of the two paths, relative
+F32_LOSS_RTOL = 1e-5
+# bfloat16 gradient parity: the kernel path's distance to the library
+# path over the library path's own distance to float32 (both as max over
+# leaves of max|difference| / max|float32 grad|). By the triangle
+# inequality the ratio is <= 1 + (the kernel path's error over the library
+# path's): 3 lets it be up to twice the library's (as BF16_ACOUSTIC_RATIO)
+BF16_GRAD_RATIO = 3.0
+# parameters whose gradient is zero in exact arithmetic, hence rounding
+# noise on both paths: the key projection's bias (the softmax cancels a
+# shift of a row's scores) and a postnet conv's bias (the train-mode
+# BatchNorm after it cancels it); they must stay below this share of the
+# largest gradient instead
+ZERO_GRAD = re.compile(r"slf_attn\.w_ks\.bias$|^postnet\.conv_\d+\.bias$")
+ZERO_GRAD_SHARE = 1e-3
+
+
+def train_config(corpus, out, seed, **model):
+    from speakingstyle_torch.configs.config import load_config
+
+    cfg = load_config(preset="LJSpeech_paper")
+    rep = dataclasses.replace
+    pre = rep(cfg.preprocess, path=rep(cfg.preprocess.path, preprocessed_path=corpus))
+    train = rep(cfg.train, seed=seed, path=rep(
+        cfg.train.path, ckpt_path=os.path.join(out, "ckpt"), log_path=os.path.join(out, "log")))
+    return rep(cfg, preprocess=pre, train=train, model=rep(cfg.model, **model))
+
+
+def train_batches(cfg, n):
+    """The first ``n`` training batches (host numpy), as run_training cuts them."""
+    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+
+    max_len = cfg.model.max_seq_len
+    stream = iter(BucketedBatcher(SpeechDataset("train.txt", cfg, sort=True, drop_last=True),
+                                  max_src=max_len, max_mel=max_len, seed=cfg.train.seed))
+    return [next(stream) for _ in range(n)]
+
+
+def train_run(tag, cfg, batches, dev, want_per_step):
+    """Warm-up steps, then ``TRAIN_STEPS`` steps of ``make_train_step``, one
+    synchronisation each, with every kernel count set to 0 just before and
+    read just after; one more step traced. Returns the counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.training.trainer import build_state, make_train_step, to_device
+
+    state = build_state(cfg, dev)
+    step = make_train_step(cfg)
+    for b in batches[:TRAIN_WARMUP]:
+        step(state, to_device(b.arrays(), dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    measured = batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]
+    walls, losses = [], []
+    reset_counts()
+    for b in measured:
+        t0 = time.perf_counter()
+        out, _ = step(state, to_device(b.arrays(), dev))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out["total_loss"])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = [float(v) for v in torch.stack(losses).cpu()]
+    frames = sum(int(b.mel_lens.sum()) for b in measured)
+    traced = batches[TRAIN_WARMUP + TRAIN_STEPS]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, to_device(traced.arrays(), dev))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    window, busy, by_name, ours = device_time(f"train profile of {tag}", kernels)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    n = len(measured)
+    emit("train", path=tag, attention_kernel=cfg.model.attention_kernel,
+         conv_impl=cfg.model.conv_impl, compute_dtype=cfg.model.compute_dtype,
+         batch=cfg.train.optimizer.batch_size,
+         shapes=[{"l_src": int(b.texts.shape[1]), "t_mel": int(b.mels.shape[1])}
+                 for b in measured],
+         steps=n, total_loss=total, step_wall_ms=walls,
+         step_wall_ms_median=statistics.median(walls),
+         mel_frames_per_s=frames / (sum(walls) / 1e3),
+         max_memory_allocated_bytes=peak, launches=counts,
+         want_launches_per_step=want_per_step,
+         traced_step={"shape": {"l_src": int(traced.texts.shape[1]),
+                                "t_mel": int(traced.mels.shape[1])},
+                      "trace_window_ms": window, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / window, "device_ops": len(kernels),
+                      "port_kernel_ms": ours,
+                      "top_kernels": [{"name": k[:100], "ms": ms, "calls": c}
+                                      for k, (ms, c) in top]})
+    if not all(math.isfinite(v) for v in total):
+        fail(f"train {tag}: non-finite total loss {total}")
+    for name, per in want_per_step.items():
+        if counts[name] != per * n or (per > 0 and counts[name] == 0):
+            fail(f"train {tag}: {name} launched {counts[name]} times, want {per} x {n}")
+    return counts
+
+
+def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
+    """The backward kernel at one training shape and its lengths, against
+    its plain version and SDPA's backward with the same mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from speakingstyle_torch.ops.fused_attention import (
+        fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
+    )
+
+    shape = (B, L, H, D)
+    q, k, v, dout = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(4))
+    mask = pad_mask(lens, L).to(dev)
+    scale = D ** -0.5
+    out, lse = fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+    run = lambda: fused_mha_bwd(q, k, v, mask, out, lse, dout, scale)
+    plain = lambda: fused_mha_bwd_plain(q, k, v, mask, dout, scale)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    rel_max, rtol = BWD_TOL[dname]
+    err, ok = 0.0, True
+    for a, w in zip(got, want):
+        diff = (a.float() - w.float()).abs()
+        ok &= bool((diff <= rel_max * w.float().abs().max() + rtol * w.float().abs()).all())
+        err = max(err, diff.max().item())
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=~mask[:, None, None, :])
+    dot = dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+    itemsize = q.element_size()
+    # reads q, k, v, out, dout, lse and the mask once, writes dq, dk, dv;
+    # five products (S, dP, dV, dQ, dK) over every query row and its batch
+    # row's valid keys
+    nbytes = 8 * q.numel() * itemsize + lse.numel() * 4 + mask.numel()
+    bound_ms, bound_by = bound(nbytes, 10.0 * H * D * L * float(sum(lens)), dname)
+    return {
+        "case": f"attn_bwd_{name}_{dname}", "kernel": "fused_attention_bwd", "dtype": dname,
+        "shape": list(shape), "lengths": list(lens), "launches_per_step": None,
+        "max_abs_err": err, "tol": {"rel_max": rel_max, "rtol": rtol}, "ok": ok,
+        "ms": time_ms(run), "plain_ms": time_ms(plain, inner=3, outer=3),
+        "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def act_case(name, B, T, K, cin, cout, lens, dtype, g, dev):
+    """The LN conv's act output against the plain version's."""
+    import torch
+
+    from speakingstyle_torch.ops.fused_conv import fused_conv_fwd, fused_conv_plain_parts
+
+    x = torch.randn((B, T, cin), generator=g).masked_fill(pad_mask(lens, T)[..., None], 0.0)
+    w = torch.randn((K, cin, cout), generator=g) / (K * cin) ** 0.5
+    b, s, sb = (torch.randn(cout, generator=g) * 0.1 for _ in range(3))
+    x, w, b, s, sb = (t.to(dev, dtype) for t in (x, w, b, s, sb))
+    _, act = fused_conv_fwd(x, w, b, s, sb, relu=True, want_act=True)
+    _, want = fused_conv_plain_parts(x, w, b, s, sb, 1, True)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    err, tol, ok = compare(act, want, "conv", dname)
+    return {"case": f"act_{name}_{dname}", "kernel": "fused_conv1d_fwd (act)",
+            "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout},
+            "max_abs_err": err, "tol": tol, "ok": ok}
+
+
+def train_kernel_cases(cfg, batch, dev, seed):
+    """The backward kernel at the first batch's shapes and real lengths
+    (reference encoder and decoder over the mel frames, encoder over the
+    phonemes), in float32 and bfloat16, and the LN conv's act output."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 7)
+    B, L_src = batch.texts.shape
+    T = batch.mels.shape[1]
+    src, mel = [int(x) for x in batch.src_lens], [int(x) for x in batch.mel_lens]
+    tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+    n_mels = cfg.preprocess.preprocessing.mel.n_mel_channels
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, L, H, D, lens in (
+                ("ref_encoder", T, re_.encoder_head, re_.encoder_hidden // re_.encoder_head, mel),
+                ("encoder", L_src, tr.encoder_head, tr.encoder_hidden // tr.encoder_head, src),
+                ("decoder", T, tr.decoder_head, tr.decoder_hidden // tr.decoder_head, mel)):
+            cases.append(attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev))
+            emit("train_kernels", **cases[-1])
+        for name, cin in (("ref_conv_in", n_mels), ("ref_conv", re_.conv_filter_size)):
+            cases.append(act_case(name, B, T, re_.conv_kernel_size, cin, re_.conv_filter_size,
+                                  mel, dtype, g, dev))
+            emit("train_kernels", **cases[-1])
+    return {c["case"]: c for c in cases}
+
+
+def grad_parity(cfg, batch, dev, seed):
+    """One train step's per-leaf gradients from the same weights, batch and
+    dropout masks, kernel path against library path: float32 (TF32 off)
+    within F32_GRAD_RTOL of each leaf's max |grad|, bfloat16 by the distance
+    ratio. Returns the failed checks."""
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model, init_weights
+    from speakingstyle_torch.ops.dropout import DropoutRNG
+    from speakingstyle_torch.training.trainer import compute_losses, to_device
+
+    weights = init_weights(build_model(cfg), seed).state_dict()
+    arrays = to_device(batch.arrays(), dev)
+    grads, loss = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for tag, model_kw in TRAIN_PATHS:
+            c = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=dtype, **model_kw))
+            model = build_model(c)
+            model.load_state_dict(weights)
+            model = model.to(dev)
+            named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+            with strict_float32():
+                losses = compute_losses(model, c, arrays, deterministic=False,
+                                        rng=DropoutRNG(seed, dev))
+                gs = torch.autograd.grad(losses["total_loss"], [p for _, p in named])
+            grads[f"{dtype}_{tag}"] = {n: gr.float() for (n, _), gr in zip(named, gs)}
+            loss[f"{dtype}_{tag}"] = float(losses["total_loss"].detach())
+            del model, gs, losses
+    ref = grads["float32_library"]
+    top = max(g.abs().max().item() for g in ref.values())
+    rows, bad = {}, []
+    loss_err = abs(loss["float32_kernels"] - loss["float32_library"]) / abs(loss["float32_library"])
+    if not loss_err <= F32_LOSS_RTOL:
+        bad.append(f"float32 total loss {loss['float32_kernels']} vs {loss['float32_library']}")
+    for name, want in ref.items():
+        scale = want.abs().max().item()
+        if ZERO_GRAD.search(name):
+            worst = max(grads[k][name].abs().max().item() for k in grads)
+            if worst > ZERO_GRAD_SHARE * top:
+                bad.append(f"{name}: |grad| {worst} with zero exact gradient")
+            continue
+        d = lambda a, b: (grads[a][name] - grads[b][name]).abs().max().item() / scale
+        rows[name] = (d("float32_kernels", "float32_library"),
+                      d("bfloat16_kernels", "bfloat16_library"),
+                      d("bfloat16_library", "float32_library"))
+        if not rows[name][0] <= F32_GRAD_RTOL:
+            bad.append(f"float32 {name}: {rows[name][0]} of its max |grad| {scale}")
+    f32_worst = max(rows.items(), key=lambda kv: kv[1][0])
+    err = max(r[1] for r in rows.values())
+    noise = max(r[2] for r in rows.values())
+    ratio = err / noise if noise > 0 else math.inf
+    emit("train_grad_parity", leaves=len(ref), zero_gradient_leaves=len(ref) - len(rows),
+         max_abs_grad=top, total_loss=loss,
+         float32={"worst_leaf": f32_worst[0], "worst_rel_err": f32_worst[1][0],
+                  "median_rel_err": statistics.median(r[0] for r in rows.values()),
+                  "rtol": F32_GRAD_RTOL, "loss_rel_err": loss_err},
+         bfloat16={"kernels_vs_library": err, "library_vs_float32": noise, "ratio": ratio,
+                   "max_ratio": BF16_GRAD_RATIO})
+    if not ratio <= BF16_GRAD_RATIO:
+        bad.append(f"bfloat16 gradient ratio {ratio}")
+    return bad
+
+
+def train_phase(cfg_of, dev, seed):
+    """Phase 6 on a synthetic corpus in a temporary directory; returns
+    (the kernel path's counts, the kernel cases)."""
+    from speakingstyle_torch.data.synthetic import generate_corpus
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        corpus = generate_corpus(os.path.join(tmp, "corpus"), n_utts=CORPUS_UTTS,
+                                 val_utts=CORPUS_VAL, seed=seed)
+        runs = {tag: cfg_of(corpus, tmp, seed, **kw) for tag, kw in TRAIN_PATHS}
+        cfg = runs["kernels"]
+        batches = train_batches(cfg, TRAIN_WARMUP + TRAIN_STEPS + 1)
+        tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+        attn = re_.encoder_layer + tr.encoder_layer + tr.decoder_layer
+        convs = sum(c[-1] for c in conv_cases(cfg))
+        want = {"fused_attention_fwd": attn, "fused_attention_bwd": attn,
+                "fused_conv1d_fwd": convs, "fused_conv1d_fwd_act": re_.conv_layer}
+        counts = train_run("kernels", cfg, batches, dev, want)
+        train_run("library", runs["library"], batches, dev, {k: 0 for k in want})
+        with strict_float32():
+            cases = train_kernel_cases(cfg, batches[0], dev, seed)
+        bad = [c["case"] for c in cases.values() if not c["ok"]]
+        if bad:
+            fail(f"train kernels disagree with their plain versions: {bad}")
+        bad = grad_parity(cfg, batches[0], dev, seed)
+        if bad:
+            fail(f"train gradient parity: {bad}")
+    return counts, cases
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -704,6 +1046,9 @@ def main(argv=None) -> int:
         fail(f"acoustic parity: {bad}")
     profile_dispatch("xla", xla_engine, requests)
     profile_dispatch("pallas", engine, requests)
+    del xla_engine, engine
+    train_counts, train_cases = train_phase(train_config, dev, args.seed)
+    cases.update(train_cases)
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -712,6 +1057,9 @@ def main(argv=None) -> int:
         "fused_conv1d_fwd": ("speakingstyle_torch/csrc/fused_conv.cu",
                              "speakingstyle_tpu/ops/pallas_conv.py:91",
                              conv_counts["fused_conv1d_fwd"]),
+        "fused_attention_bwd": ("speakingstyle_torch/csrc/fused_attention.cu",
+                                "speakingstyle_tpu/ops/pallas_attention.py:92",
+                                train_counts["fused_attention_bwd"]),
     }
     summary = []
     for name, (source, replaces, launches) in sources.items():

@@ -4,7 +4,7 @@ import argparse
 import importlib
 import sys
 
-COMMANDS = ("synthesize",)
+COMMANDS = ("synthesize", "train")
 
 
 def main(argv=None):

@@ -1,4 +1,5 @@
-"""The weight carrier: the JAX package's Flax variables -> the port's modules.
+"""The weight carrier between the JAX package's Flax variables and the
+port's modules, both ways.
 
 ``load_flax_variables(module, variables)`` takes a Flax variable tree
 (``{"params": ..., "batch_stats": ...}``) as nested dicts of numpy arrays
@@ -17,9 +18,15 @@ tree's names, so each leaf's path is its module path plus a leaf rule:
 Every expected leaf must be present with its exact shape and no other
 leaf may be: a missing, extra or misshapen leaf raises and names itself,
 so a renamed module cannot load silently.
+
+``to_flax_tree(module)`` is the inverse: the module's parameters and
+BatchNorm statistics as Flax-named numpy trees, so that gradients and
+updated parameters compare leaf by leaf against the JAX package
+(``load_flax_variables`` then ``to_flax_tree`` gives back the same bits).
+``flax_param_names`` maps the module's state-dict keys to those paths.
 """
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,3 +108,37 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             )
         tensor.copy_(torch.from_numpy(np.array(value, np.float32)))
     return module
+
+
+def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def to_flax_tree(module: nn.Module, tensors: Optional[Mapping[int, torch.Tensor]] = None
+                 ) -> Dict:
+    """``{"params": ..., "batch_stats": ...}`` of float32 numpy arrays in
+    the Flax layout. ``tensors`` (``id(parameter) -> tensor``) substitutes
+    other tensors of the same shapes for the parameters, e.g. their
+    gradients."""
+    flat = {}
+    for path, (tensor, perm) in expected_leaves(module).items():
+        t = tensor if tensors is None else tensors.get(id(tensor), tensor)
+        value = t.detach().float().cpu().numpy()
+        if perm is not None:
+            value = np.transpose(value, np.argsort(perm))
+        flat[path] = np.ascontiguousarray(value)
+    return _nest(flat)
+
+
+def flax_param_names(module: nn.Module) -> Dict[str, str]:
+    """The module's state-dict key -> its '/'-joined Flax path (without
+    the collection), for every carried parameter and statistic."""
+    by_id = {id(t): "/".join(path[1:]) for path, (t, _) in expected_leaves(module).items()}
+    named = list(module.named_parameters()) + list(module.named_buffers())
+    return {name: by_id[id(t)] for name, t in named if id(t) in by_id}

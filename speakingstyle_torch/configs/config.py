@@ -13,9 +13,18 @@ knobs keep their values and meanings:
   (ops/fused_attention.py), ``"einsum"`` plain tensor math.
 
 Every key is checked at load time; an unknown key raises and names itself.
-The training keys of ``train.yaml`` (optimizer, steps, loss, paths) belong
-to the training path, which this package does not run yet: they are read
-and ignored, so the JAX package's files load unchanged.
+``train.yaml`` loads into ``TrainConfig`` (the JAX package's blocks and
+defaults) plus the serve block. The trainer (training/trainer.py) reads
+``path``, ``optimizer``, ``step``, ``loss``, ``seed``,
+``resilience.max_to_keep`` and ``ignore_layers``. Knobs that tune only the
+JAX package's compiler or runtime have no meaning here and are accepted as
+they are: ``fast_prng`` (the PRNG behind dropout bits), ``fused_optimizer``
+(three layouts of one update, which the port computes one way),
+``obs.compilation_cache_dir`` / ``obs.program_card``, and the
+``resilience`` knobs of the sentinel, async saves and loader retries.
+What asks for a path not ported yet raises ``NotImplementedError`` when
+training starts (``check_train_supported``): a mesh other than one device,
+``sharding.remat: true``, or fault injection (``SPEAKINGSTYLE_FAULTS``).
 """
 
 from __future__ import annotations
@@ -233,6 +242,174 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# train.yaml: the training blocks (the JAX package's schema and defaults)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    batch_size: int = 16
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip_thresh: float = 1.0
+    grad_acc_step: int = 1
+    warm_up_step: int = 4000  # vestigial in the reference; kept for config parity
+    anneal_steps: List[int] = field(default_factory=lambda: [300000, 400000, 500000])
+    anneal_rate: float = 0.3
+    init_lr: float = 1e-4
+    anneal_lr: float = 1e-3
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    total_step: int = 900000
+    log_step: int = 100
+    synth_step: int = 1000
+    val_step: int = 1000
+    save_step: int = 1000
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    lambda_f: float = 0.0  # FiLM-gate L2 weight
+    anneal_steps: int = 10000  # LR ramp length
+
+
+@dataclass(frozen=True)
+class TrainPathConfig:
+    ckpt_path: str = "./output/ckpt"
+    log_path: str = "./output/log"
+    result_path: str = "./output/result"
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """The legacy mesh block (``train.parallel`` is the current one)."""
+
+    data_axis: int = -1  # -1: all devices on the data axis
+    model_axis: int = 1  # tensor-parallel degree (1 = pure data parallel)
+    remat: bool = False  # recompute the FFT stacks in the backward
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """``mesh = [dp, tp]``; ``[1, 1]`` is one device. ``dp = -1`` takes
+    every device not claimed by ``tp``."""
+
+    mesh: List[int] = field(default_factory=lambda: [1, 1])
+    seq: int = 1
+    partition_rules: List[List[str]] = field(default_factory=list)
+
+    def __post_init__(self):
+        if len(self.mesh) != 2:
+            raise ValueError(f"parallel.mesh must be [dp, tp], got {self.mesh}")
+        dp, tp = self.mesh
+        if tp < 1:
+            raise ValueError(f"parallel.mesh tp must be >= 1, got {tp}")
+        if dp < 1 and dp != -1:
+            raise ValueError(
+                f"parallel.mesh dp must be >= 1 (or -1 for all remaining devices), got {dp}"
+            )
+        if self.seq < 1:
+            raise ValueError(f"parallel.seq must be >= 1, got {self.seq}")
+        for rule in self.partition_rules:
+            if len(rule) != 2 or not all(isinstance(x, str) for x in rule):
+                raise ValueError(
+                    f"parallel.partition_rules entries must be [path_regex, axes] "
+                    f"string pairs, got {rule!r}"
+                )
+
+    def is_single(self) -> bool:
+        return tuple(self.mesh) == (1, 1) and self.seq == 1
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    async_checkpointing: bool = True
+    max_to_keep: int = 5  # newest N step checkpoints; 0 keeps everything
+    keep_best: bool = True
+    nan_sentinel: bool = True
+    max_rollbacks: int = 3
+    loader_retries: int = 3
+    loader_backoff: float = 0.05
+    bad_sample_budget: int = 16
+
+    def __post_init__(self):
+        for name in ("max_to_keep", "max_rollbacks", "loader_retries", "bad_sample_budget"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got {getattr(self, name)}")
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    events: bool = True
+    events_max_bytes: int = 8_000_000
+    events_keep: int = 3
+    compilation_cache_dir: str = ""
+    program_card: bool = True
+
+    def __post_init__(self):
+        if self.events_max_bytes <= 0:
+            raise ValueError(f"events_max_bytes must be > 0, got {self.events_max_bytes}")
+        if self.events_keep < 1:
+            raise ValueError(f"events_keep must be >= 1, got {self.events_keep}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    path: TrainPathConfig = field(default_factory=TrainPathConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    step: StepConfig = field(default_factory=StepConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    ignore_layers: List[str] = field(default_factory=list)
+    seed: int = 1234
+    fast_prng: bool = True
+    fused_optimizer: object = False  # False | True | "flat" | "leaf"
+
+    def __post_init__(self):
+        if self.fused_optimizer not in (False, True, "flat", "leaf"):
+            raise ValueError(
+                "fused_optimizer must be False|True|'flat'|'leaf', "
+                f"got {self.fused_optimizer!r}"
+            )
+        if self.optimizer.grad_acc_step < 1:
+            raise ValueError(
+                f"grad_acc_step must be >= 1, got {self.optimizer.grad_acc_step}"
+            )
+
+
+FAULTS_ENV = "SPEAKINGSTYLE_FAULTS"
+
+
+def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
+    """Raise ``NotImplementedError`` for a training setting whose path is
+    not ported yet (ROADMAP.md queue A): more than one device, remat, or
+    fault injection. ``n_devices`` is what ``sharding.data_axis = -1``
+    resolves to."""
+    par, sh = train.parallel, train.sharding
+    dp = n_devices if sh.data_axis == -1 else sh.data_axis
+    if not par.is_single() or sh.model_axis != 1 or dp != 1:
+        raise NotImplementedError(
+            f"train.parallel.mesh {par.mesh} (seq {par.seq}) / train.sharding "
+            f"data_axis {sh.data_axis}, model_axis {sh.model_axis}: the port trains "
+            "on one device; multi-device training is ROADMAP.md queue A item 8"
+        )
+    if sh.remat:
+        raise NotImplementedError(
+            "train.sharding.remat: true is not ported yet (ROADMAP.md queue A item 6)"
+        )
+    if os.environ.get(FAULTS_ENV):
+        raise NotImplementedError(
+            f"{FAULTS_ENV} is set: fault injection and the resilience drills are "
+            "not ported yet (ROADMAP.md queue A item 6)"
+        )
+
+
+# ---------------------------------------------------------------------------
 # train.yaml: the serve block
 # ---------------------------------------------------------------------------
 
@@ -278,10 +455,11 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The (preprocess, model) pair plus the serve block."""
+    """The (preprocess, model, train) triple plus the serve block."""
 
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
 
@@ -309,6 +487,7 @@ def load_config(
     pc = _build(PreprocessConfig, load_yaml(preprocess)) if preprocess else PreprocessConfig()
     mc = _build(ModelConfig, load_yaml(model)) if model else ModelConfig()
     train_data = load_yaml(train) if train else {}
-    serve_data = train_data.get("serve") if isinstance(train_data, dict) else None
+    serve_data = train_data.pop("serve", None) if isinstance(train_data, dict) else None
+    tc = _build(TrainConfig, train_data) if train else TrainConfig()
     sc = _build(ServeConfig, serve_data, "serve") if serve_data else ServeConfig()
-    return Config(preprocess=pc, model=mc, serve=sc)
+    return Config(preprocess=pc, model=mc, train=tc, serve=sc)

@@ -8,7 +8,10 @@
 // accumulated in f32 (x zero outside [0, T)), then ReLU if asked, then, with
 // LayerNorm, the activation rounded to the storage dtype first and mean /
 // variance (eps 1e-5) taken over all Cout channels of each time step before
-// the affine; one write of the result in the storage dtype.
+// the affine; one write of the result in the storage dtype. With LayerNorm
+// it can also write that rounded post-ReLU, pre-LN activation (`act`, the
+// TPU kernel's second output under want_act), which the analytic backward
+// reads (ops/fused_conv.py).
 //
 // Design: an implicit GEMM, M = time steps, N = Cout, reduction over the K
 // taps and Cin. A block owns a tile of time steps of one batch row and a
@@ -79,13 +82,31 @@ __device__ __forceinline__ void block_row_sums(float (&part)[BT], float* stat,
   __syncthreads();
 }
 
+// Stores a block's BT x (NT * CPT) tile of rows t0.. of batch row b.
+template <int CPT>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[BT][CPT],
+                                           const int (&co)[CPT], const bool (&co_ok)[CPT],
+                                           int T_len, int Cout, int b, int t0) {
+#pragma unroll
+  for (int r = 0; r < BT; ++r) {
+    const int t = t0 + r;
+    if (t >= T_len) break;
+    float* row = dst + ((size_t)b * T_len + t) * Cout;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      if (co_ok[c]) row[co[c]] = acc[r][c];
+  }
+}
+
 // x: [B, T, Cin]; w: [K, Cin, Cout]; bias, ln_scale, ln_shift: [Cout] (bias
-// may be null); out: [B, T, Cout]. All contiguous float32.
+// may be null); out and act (null unless wanted): [B, T, Cout]. All
+// contiguous float32.
 template <int CPT, bool LN>
 __global__ void __launch_bounds__(NT) conv_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_shift,
-    float* __restrict__ out, int T_len, int Cin, int Cout, int K, int dil, int pad_lo, int relu) {
+    float* __restrict__ out, float* __restrict__ act, int T_len, int Cin, int Cout, int K,
+    int dil, int pad_lo, int relu) {
   extern __shared__ float4 halo4[];  // [rows][BCI / 4]
   float* halo = reinterpret_cast<float*>(halo4);
   __shared__ float red[NT / 32][BT];
@@ -160,6 +181,7 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(
       acc[r][c] = v;
     }
   }
+  if (act != nullptr) store_rows<CPT>(act, acc, co, co_ok, T_len, Cout, b, t0);
   if (LN) {
     const float inv_n = 1.f / (float)Cout;
     float part[BT];
@@ -194,21 +216,13 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    const int t = t0 + r;
-    if (t >= T_len) break;
-    float* orow = out + ((size_t)b * T_len + t) * Cout;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (co_ok[c]) orow[co[c]] = acc[r][c];
-  }
+  store_rows<CPT>(out, acc, co, co_ok, T_len, Cout, b, t0);
 }
 
 template <int CPT, bool LN>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* ln_scale,
-                   const void* ln_shift, void* out, int B, int T_len, int Cin, int Cout,
-                   int K, int dil, int relu, cudaStream_t stream) {
+                   const void* ln_shift, void* out, void* act, int B, int T_len, int Cin,
+                   int Cout, int K, int dil, int relu, cudaStream_t stream) {
   static int configured = 48 * 1024;  // default dynamic shared memory limit
   const int span = (K - 1) * dil + 1;
   const int smem = (BT + span - 1) * BCI * (int)sizeof(float);
@@ -222,23 +236,24 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* l
   conv_fwd_kernel<CPT, LN><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_shift), static_cast<float*>(out), T_len, Cin, Cout, K, dil, (span - 1) / 2, relu);
+      static_cast<const float*>(ln_shift), static_cast<float*>(out), static_cast<float*>(act),
+      T_len, Cin, Cout, K, dil, (span - 1) / 2, relu);
   return cudaGetLastError();
 }
 
 template <bool LN>
 cudaError_t dispatch_cpt(const void* x, const void* w, const void* bias,
-                         const void* ln_scale, const void* ln_shift, void* out, int B,
-                         int T_len, int Cin, int Cout, int K, int dil, int relu,
+                         const void* ln_scale, const void* ln_shift, void* out, void* act,
+                         int B, int T_len, int Cin, int Cout, int K, int dil, int relu,
                          cudaStream_t s) {
   // channels per thread: enough for one block to cover Cout up to 1024
   const int cpt = min(4, (Cout + NT - 1) / NT);
   if (LN && Cout > NT * 4) return cudaErrorInvalidValue;
   switch (cpt) {
-    case 1: return launch<1, LN>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
-    case 2: return launch<2, LN>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
-    case 3: return launch<3, LN>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
-    default: return launch<4, LN>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    case 1: return launch<1, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+    case 2: return launch<2, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+    case 3: return launch<3, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+    default: return launch<4, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   }
 }
 
@@ -265,6 +280,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Stores a warp's MT x NT8 mma accumulator tiles, rows t0.. and columns c0..
+// of batch row b: acc[mt][nt][i] is row mt*16 + g + 8*(i >> 1), column
+// nt*8 + 2*q + (i & 1).
+template <int MT, int NT8>
+__device__ __forceinline__ void store_mma_tile(bf16* dst, const float (&acc)[MT][NT8][4],
+                                               int T_len, int Cout, int b, int t0, int c0,
+                                               int g, int q) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + mt * 16 + g + 8 * h;
+      if (t >= T_len) continue;
+      bf16* row = dst + ((size_t)b * T_len + t) * Cout;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = c0 + nt * 8 + 2 * q + e;
+          if (co < Cout) row[co] = __float2bfloat16(acc[mt][nt][2 * h + e]);
+        }
+    }
+}
+
 // The same contract as conv_fwd_kernel, for bfloat16 tensors. Warps form a
 // WM x WN grid; each owns MT 16-row and NT8 8-column mma tiles, so a block
 // covers BM = WM*MT*16 steps and BN = WN*NT8*8 channels. With LN the block
@@ -273,8 +312,8 @@ template <int WM, int WN, int MT, int NT8, bool LN>
 __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
     const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_shift,
-    bf16* __restrict__ out, int T_len, int Cin, int Cout, int K, int dil, int pad_lo,
-    int relu, int vec_x, int vec_w) {
+    bf16* __restrict__ out, bf16* __restrict__ act, int T_len, int Cin, int Cout, int K,
+    int dil, int pad_lo, int relu, int vec_x, int vec_w) {
   constexpr int NTH = WM * WN * 32;
   constexpr int BM = WM * MT * 16;
   constexpr int BN = WN * NT8 * 8;
@@ -394,6 +433,8 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
           acc[mt][nt][2 * h + e] = v;
         }
     }
+  const int r0 = wm * MT * 16, c0 = n0 + wn * NT8 * 8;  // this warp's tile
+  if (act != nullptr) store_mma_tile(act, acc, T_len, Cout, b, t0 + r0, c0, g, q);
   if (LN) {
     // per-row sums over all Cout: in-thread, over the 4 threads of a row
     // group (shuffles), then over the WN warps along Cout (shared memory)
@@ -452,27 +493,13 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
           }
       }
   }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = t0 + wm * MT * 16 + mt * 16 + g + 8 * h;
-      if (t >= T_len) continue;
-      bf16* orow = out + ((size_t)b * T_len + t) * Cout;
-#pragma unroll
-      for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = n0 + wn * NT8 * 8 + nt * 8 + 2 * q + e;
-          if (co < Cout) orow[co] = __float2bfloat16(acc[mt][nt][2 * h + e]);
-        }
-    }
+  store_mma_tile(out, acc, T_len, Cout, b, t0 + r0, c0, g, q);
 }
 
 template <int WM, int WN, int MT, int NT8, bool LN>
 cudaError_t launch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
-                       const void* ln_shift, void* out, int B, int T_len, int Cin, int Cout,
-                       int K, int dil, int relu, cudaStream_t stream) {
+                       const void* ln_shift, void* out, void* act, int B, int T_len, int Cin,
+                       int Cout, int K, int dil, int relu, cudaStream_t stream) {
   constexpr int BM = WM * MT * 16, BN = WN * NT8 * 8;
   static int configured = 48 * 1024;  // default dynamic shared memory limit
   const int span = (K - 1) * dil + 1;
@@ -487,14 +514,15 @@ cudaError_t launch_mma(const void* x, const void* w, const void* bias, const voi
   conv_fwd_mma_kernel<WM, WN, MT, NT8, LN><<<grid, WM * WN * 32, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(ln_scale), static_cast<const bf16*>(ln_shift),
-      static_cast<bf16*>(out), T_len, Cin, Cout, K, dil, (span - 1) / 2, relu,
+      static_cast<bf16*>(out), static_cast<bf16*>(act), T_len, Cin, Cout, K, dil,
+      (span - 1) / 2, relu,
       Cin % 8 == 0 && aligned16(x), Cout % 8 == 0 && aligned16(w));
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
-                         const void* ln_shift, void* out, int B, int T_len, int Cin,
-                         int Cout, int K, int dil, int relu, cudaStream_t s) {
+                         const void* ln_shift, void* out, void* act, int B, int T_len,
+                         int Cin, int Cout, int K, int dil, int relu, cudaStream_t s) {
   if (ln_scale == nullptr) {
     // 64 steps x 128 channels (2 x 4 warps of 32 x 32); where that leaves
     // SMs idle, 32 steps x 128 channels (2 x 4 warps of 16 x 32)
@@ -507,37 +535,39 @@ cudaError_t dispatch_mma(const void* x, const void* w, const void* bias, const v
     }
     const long tiles64 = (long)((T_len + 63) / 64) * ((Cout + 127) / 128) * B;
     if (tiles64 >= sms)
-      return launch_mma<2, 4, 2, 4, false>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
-    return launch_mma<2, 4, 1, 4, false>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+      return launch_mma<2, 4, 2, 4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+    return launch_mma<2, 4, 1, 4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   }
   // LayerNorm: 16 steps x all Cout, the 8 warps side by side along Cout
   if (Cout <= 128)
-    return launch_mma<1, MMA_WARPS, 1, 2, true>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    return launch_mma<1, MMA_WARPS, 1, 2, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   if (Cout <= 256)
-    return launch_mma<1, MMA_WARPS, 1, 4, true>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    return launch_mma<1, MMA_WARPS, 1, 4, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   if (Cout <= 512)
-    return launch_mma<1, MMA_WARPS, 1, 8, true>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    return launch_mma<1, MMA_WARPS, 1, 8, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   if (Cout <= 1024)
-    return launch_mma<1, MMA_WARPS, 1, 16, true>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    return launch_mma<1, MMA_WARPS, 1, 16, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null; ln_scale / ln_shift
-// null means no LayerNorm.
+// null means no LayerNorm. act (null unless wanted) takes the rounded
+// post-ReLU, pre-LN activation, and is taken only with LayerNorm.
 extern "C" int fused_conv1d_fwd(const void* x, const void* w, const void* bias,
                                 const void* ln_scale, const void* ln_shift, void* out,
-                                int B, int T_len, int Cin, int Cout, int K, int dil,
-                                int relu, int dtype, void* stream) {
+                                void* act, int B, int T_len, int Cin, int Cout, int K,
+                                int dil, int relu, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ln = ln_scale != nullptr;
+  if (act != nullptr && !ln) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == 0)
-    e = ln ? dispatch_cpt<true>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s)
-           : dispatch_cpt<false>(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    e = ln ? dispatch_cpt<true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s)
+           : dispatch_cpt<false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   else if (dtype == 1)
-    e = dispatch_mma(x, w, bias, ln_scale, ln_shift, out, B, T_len, Cin, Cout, K, dil, relu, s);
+    e = dispatch_mma(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -8,6 +8,9 @@ frames; decoder + ``mel_linear`` + postnet residual give the mel pair.
 FiLM enters either from a reference mel (``mels``) or precomputed
 (``gammas``/``betas``, the serve path). Teacher-forced and free-running
 are the same forward, told apart by whether ``d_targets`` is None.
+``deterministic=False`` (training) turns on dropout at the JAX package's
+sites, with masks from ``rng`` (an ``ops.dropout.DropoutRNG``), and runs
+the postnet's BatchNorm on batch statistics, updating its running ones.
 """
 
 from typing import Optional
@@ -39,19 +42,20 @@ class FastSpeech2(nn.Module):
         common = dict(
             conv_impl=m.conv_impl, dtype=self.dtype,
             softmax_dtype=torch_dtype(m.attention_softmax_dtype),
-            attention_kernel=m.attention_kernel,
+            attention_kernel=m.attention_kernel, dropout_impl=m.dropout_impl,
         )
         self.use_ref = m.use_reference_encoder
         if self.use_ref:
             self.reference_encoder = ReferenceEncoder(
                 self.n_mels, ref.conv_layer, ref.conv_filter_size, ref.conv_kernel_size,
                 ref.encoder_layer, ref.encoder_head, ref.encoder_hidden,
-                n_position=n_position, **common,
+                n_position=n_position, dropout=ref.dropout, **common,
             )
         stack = dict(common, attention_impl=m.attention_impl)
         self.encoder = Encoder(
             tf.encoder_layer, tf.encoder_hidden, tf.encoder_head, tf.conv_filter_size,
-            tuple(tf.conv_kernel_size), n_position, film=self.use_ref, **stack,
+            tuple(tf.conv_kernel_size), n_position, film=self.use_ref,
+            dropout=tf.encoder_dropout, **stack,
         )
         self.speaker_emb = (
             nn.Embedding(n_speakers, tf.encoder_hidden) if m.multi_speaker else None
@@ -64,22 +68,25 @@ class FastSpeech2(nn.Module):
             pitch_feature_level=pp.pitch.feature, energy_feature_level=pp.energy.feature,
             d_model=tf.encoder_hidden, filter_size=m.variance_predictor.filter_size,
             kernel_size=m.variance_predictor.kernel_size, film=self.use_ref,
-            conv_impl=m.conv_impl, dtype=self.dtype,
+            conv_impl=m.conv_impl, dtype=self.dtype, dropout=m.variance_predictor.dropout,
+            dropout_impl=m.dropout_impl,
         )
         self.decoder = Decoder(
             tf.decoder_layer, tf.decoder_hidden, tf.decoder_head, tf.conv_filter_size,
-            tuple(tf.conv_kernel_size), n_position, film=self.use_ref, **stack,
+            tuple(tf.conv_kernel_size), n_position, film=self.use_ref,
+            dropout=tf.decoder_dropout, **stack,
         )
         self.mel_linear = nn.Linear(tf.decoder_hidden, self.n_mels)
+        # the JAX package's postnet dropout is 0.5 whatever the config says
         self.postnet = PostNet(
             self.n_mels, m.postnet_embedding_dim, m.postnet_kernel_size, m.postnet_layers,
-            conv_impl=m.conv_impl, dtype=self.dtype,
+            conv_impl=m.conv_impl, dtype=self.dtype, dropout_impl=m.dropout_impl,
         )
 
     def forward(self, speakers, texts, src_lens, mels=None, mel_lens=None,
                 max_mel_len: Optional[int] = None, p_targets=None, e_targets=None,
                 d_targets=None, p_control=1.0, e_control=1.0, d_control=1.0,
-                gammas=None, betas=None):
+                gammas=None, betas=None, deterministic: bool = True, rng=None):
         B, L_src = texts.shape
         src_pad_mask = length_to_mask(src_lens, L_src)
         if self.use_ref and gammas is None:
@@ -89,18 +96,18 @@ class FastSpeech2(nn.Module):
                     "precomputed `gammas`/`betas`"
                 )
             mel_pad_mask = length_to_mask(mel_lens, mels.shape[1])
-            gammas, betas = self.reference_encoder(mels, mel_pad_mask)
+            gammas, betas = self.reference_encoder(mels, mel_pad_mask, deterministic, rng)
         elif not self.use_ref:
             gammas = betas = None
 
-        x = self.encoder(texts, src_pad_mask, gammas, betas)
+        x = self.encoder(texts, src_pad_mask, gammas, betas, deterministic, rng)
         if self.speaker_emb is not None:
             x = x + self.speaker_emb.weight.to(self.dtype)[speakers][:, None, :]
         va = self.variance_adaptor(
             x, src_pad_mask, max_mel_len, p_targets, e_targets, d_targets,
-            p_control, e_control, d_control, gammas, betas,
+            p_control, e_control, d_control, gammas, betas, deterministic, rng,
         )
-        dec = self.decoder(va["features"], va["mel_pad_mask"], gammas, betas)
+        dec = self.decoder(va["features"], va["mel_pad_mask"], gammas, betas, deterministic, rng)
         mel_out = linear(self.mel_linear, dec, self.dtype)
         postnet_in, keep = mel_out, None
         if d_targets is None:
@@ -109,7 +116,7 @@ class FastSpeech2(nn.Module):
             # at that length, so its convs zero-pad there)
             keep = torch.arange(mel_out.shape[1], device=mel_out.device) < va["mel_lens"].max()
             postnet_in = mel_out.masked_fill(~keep[None, :, None], 0.0)
-        mel_postnet = mel_out + self.postnet(postnet_in, keep_mask=keep)
+        mel_postnet = mel_out + self.postnet(postnet_in, keep, deterministic, rng)
         return {
             "mel": mel_out.float(),
             "mel_postnet": mel_postnet.float(),

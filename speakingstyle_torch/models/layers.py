@@ -5,8 +5,10 @@ Submodule and parameter names follow the JAX package's parameter tree
 (``w_qs``, ``pos_ffn``, ``layer_norm``, ``film/s_gamma``, ...) so weights
 carry across by name (compat/from_jax.py). Parameters are float32 and cast
 to the compute dtype at use; LayerNorm computes in float32 and casts its
-output, as Flax's does. Dropout is the identity at inference and is not
-modelled.
+output, as Flax's does. Dropout sits where the JAX package's does (after
+the attention's ``fc`` and after the conv FFN); ``deterministic=True``
+(the default, as in Flax) makes it the identity, and ``rng`` (an
+``ops.dropout.DropoutRNG``) feeds its masks in training.
 """
 
 import math
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from speakingstyle_torch.ops.conv import Conv1d
+from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.fused_attention import fused_mha
 from speakingstyle_torch.ops.masking import attention_bias, mask_fill
 
@@ -56,7 +59,8 @@ class MultiHeadSelfAttention(nn.Module):
 
     def __init__(self, n_head: int, d_model: int, dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", dropout: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         if attention_impl != "dense":
             raise NotImplementedError(
@@ -68,11 +72,12 @@ class MultiHeadSelfAttention(nn.Module):
         self.n_head, self.d_model = n_head, d_model
         self.dtype, self.softmax_dtype = dtype, softmax_dtype
         self.attention_kernel = attention_kernel
+        self.dropout, self.dropout_impl = dropout, dropout_impl
         for name in ("w_qs", "w_ks", "w_vs", "fc"):
             self.add_module(name, nn.Linear(d_model, d_model))
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, deterministic: bool = True, rng=None):
         B, L, _ = x.shape
         d_head = self.d_model // self.n_head
         residual = x
@@ -91,6 +96,7 @@ class MultiHeadSelfAttention(nn.Module):
             attn = torch.softmax(logits, dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         out = linear(self.fc, out.reshape(B, L, self.d_model), self.dtype)
+        out = maybe_dropout(out, self.dropout, deterministic, rng, self.dropout_impl)
         return layer_norm(self.layer_norm, out + residual, self.dtype)
 
 
@@ -98,16 +104,19 @@ class ConvFFN(nn.Module):
     """Position-wise conv feed-forward: conv k0 + ReLU, conv k1, residual LN."""
 
     def __init__(self, d_model: int, d_inner: int, kernel_sizes: Tuple[int, int],
-                 conv_impl: str = "xla", dtype=torch.float32):
+                 conv_impl: str = "xla", dtype=torch.float32, dropout: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         self.dtype = dtype
+        self.dropout, self.dropout_impl = dropout, dropout_impl
         self.w_1 = Conv1d(d_model, d_inner, kernel_sizes[0], impl=conv_impl,
                           activation="relu", dtype=dtype)
         self.w_2 = Conv1d(d_inner, d_model, kernel_sizes[1], impl=conv_impl, dtype=dtype)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, rng=None):
         h = self.w_2(self.w_1(x))
+        h = maybe_dropout(h, self.dropout, deterministic, rng, self.dropout_impl)
         return layer_norm(self.layer_norm, h + x, self.dtype)
 
 
@@ -118,18 +127,22 @@ class FFTBlock(nn.Module):
                  kernel_sizes: Tuple[int, int], film: bool = True,
                  conv_impl: str = "xla", dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", dropout: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         self.slf_attn = MultiHeadSelfAttention(
             n_head, d_model, dtype=dtype, softmax_dtype=softmax_dtype,
             attention_kernel=attention_kernel, attention_impl=attention_impl,
+            dropout=dropout, dropout_impl=dropout_impl,
         )
-        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, conv_impl=conv_impl, dtype=dtype)
+        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, conv_impl=conv_impl, dtype=dtype,
+                               dropout=dropout, dropout_impl=dropout_impl)
         self.film = FiLM() if film else None
 
-    def forward(self, x, pad_mask, gammas=None, betas=None):
-        x = mask_fill(self.slf_attn(x, pad_mask), pad_mask)
-        x = self.pos_ffn(x)
+    def forward(self, x, pad_mask, gammas=None, betas=None, deterministic: bool = True,
+                rng=None):
+        x = mask_fill(self.slf_attn(x, pad_mask, deterministic, rng), pad_mask)
+        x = self.pos_ffn(x, deterministic, rng)
         if self.film is not None and gammas is not None and betas is not None:
             x = self.film(x, gammas, betas)
         return mask_fill(x, pad_mask)

@@ -1,18 +1,31 @@
 """PostNet mel refiner: 5 conv1d(512, k=5) + BatchNorm, tanh on all but the
-last (JAX counterpart: speakingstyle_tpu/models/postnet.py). Inference
-only: BatchNorm runs at its running statistics."""
+last, dropout 0.5 after each (JAX counterpart:
+speakingstyle_tpu/models/postnet.py)."""
 
 import torch
 from torch import nn
 
 from speakingstyle_torch.ops.conv import Conv1d
+from speakingstyle_torch.ops.dropout import maybe_dropout
 
 
 class BatchNorm(nn.Module):
-    """Channel-last BatchNorm at running statistics, in float32 with the
-    output cast to the compute dtype (Flax's ``use_running_average=True``).
-    Parameters ``scale``/``bias``, buffers ``mean``/``var``: the JAX
-    package's names."""
+    """Channel-last BatchNorm with Flax's semantics, which are not
+    ``torch.nn.BatchNorm1d``'s. Parameters ``scale``/``bias``, buffers
+    ``mean``/``var``: the JAX package's names.
+
+    * ``deterministic=True`` (``use_running_average``): the running
+      statistics.
+    * ``deterministic=False``: the batch's statistics in float32 over every
+      (B, T) position, padding included; the biased variance as
+      E[x^2] - E[x]^2, clipped at 0; the running statistics updated in
+      place as ``0.9 * old + 0.1 * batch`` (Flax's ``batch_stats``
+      collection after a ``mutable=["batch_stats"]`` apply).
+
+    Both normalise in float32 and cast the output to the compute dtype.
+    """
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
@@ -22,24 +35,34 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return ((x.float() - self.mean) * mul + self.bias).to(self.dtype)
+    def forward(self, x, deterministic: bool = True):
+        xf = x.float()
+        if deterministic:
+            mean, var = self.mean, self.var
+        else:
+            mean = xf.mean(dim=(0, 1))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
+                self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
 class PostNet(nn.Module):
     def __init__(self, n_mel_channels: int = 80, embedding_dim: int = 512,
                  kernel_size: int = 5, n_convolutions: int = 5, conv_impl: str = "xla",
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.5, dropout_impl: str = "hash"):
         super().__init__()
         self.n, self.dtype = n_convolutions, dtype
+        self.dropout, self.dropout_impl = dropout, dropout_impl
         for i in range(n_convolutions):
             cin = n_mel_channels if i == 0 else embedding_dim
             cout = n_mel_channels if i == n_convolutions - 1 else embedding_dim
             self.add_module(f"conv_{i}", Conv1d(cin, cout, kernel_size, impl=conv_impl, dtype=dtype))
             self.add_module(f"bn_{i}", BatchNorm(cout, dtype=dtype))
 
-    def forward(self, mel, keep_mask=None):
+    def forward(self, mel, keep_mask=None, deterministic: bool = True, rng=None):
         """mel [B, T, n_mels] -> residual [B, T, n_mels]. ``keep_mask``
         ([T] or [B, T], True = real frame) re-zeroes every layer's output at
         masked frames: the free-running parity rule of the JAX package."""
@@ -47,9 +70,10 @@ class PostNet(nn.Module):
         if keep_mask is not None and keep_mask.dim() == 1:
             keep_mask = keep_mask[None, :]
         for i in range(self.n):
-            x = getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x))
+            x = getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x), deterministic)
             if i < self.n - 1:
                 x = torch.tanh(x)
+            x = maybe_dropout(x, self.dropout, deterministic, rng, self.dropout_impl)
             if keep_mask is not None:
                 x = x.masked_fill(~keep_mask[..., None], 0.0)
         return x

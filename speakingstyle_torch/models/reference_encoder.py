@@ -1,7 +1,7 @@
 """Style reference encoder: mel -> FiLM conditioning vectors (gamma, beta)
 (JAX counterpart: speakingstyle_tpu/models/reference_encoder.py).
 
-3 x (conv k=3 + ReLU + LN) over the mel, padded steps zeroed, sinusoid PE,
+3 x (conv k=3 + ReLU + LN + dropout) over the mel, padded steps zeroed, sinusoid PE,
 1024 -> 256 projection, 4 FFT blocks (8 heads, no FiLM), time mean-pool,
 256 -> 512 affine, split into gamma/beta [B, 1, 256]. Under
 ``conv_impl="pallas"`` each conv -> ReLU -> LN runs as one fused kernel
@@ -18,6 +18,7 @@ from torch import nn
 from speakingstyle_torch.models.layers import (
     LN_EPS, ConvNorm, FFTBlock, LinearNorm, layer_norm, position_table,
 )
+from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.fused_conv import fused_conv_relu_ln
 from speakingstyle_torch.ops.masking import mask_fill
 from speakingstyle_torch.ops.positional import add_position_encoding
@@ -28,10 +29,12 @@ class ReferenceEncoder(nn.Module):
                  conv_filter_size: int = 1024, conv_kernel_size: int = 3,
                  n_layers: int = 4, n_head: int = 8, d_model: int = 256,
                  n_position: int = 1001, conv_impl: str = "xla", dtype=torch.float32,
-                 softmax_dtype=torch.float32, attention_kernel: str = "einsum"):
+                 softmax_dtype=torch.float32, attention_kernel: str = "einsum",
+                 dropout: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
         self.n_conv_layers, self.n_layers = n_conv_layers, n_layers
         self.conv_impl, self.dtype = conv_impl, dtype
+        self.dropout, self.dropout_impl = dropout, dropout_impl
         for i in range(n_conv_layers):
             cin = n_mels if i == 0 else conv_filter_size
             self.add_module(f"conv_{i}", ConvNorm(
@@ -47,10 +50,11 @@ class ReferenceEncoder(nn.Module):
                 d_model, n_head, conv_filter_size, (conv_kernel_size, conv_kernel_size),
                 film=False, conv_impl=conv_impl, dtype=dtype,
                 softmax_dtype=softmax_dtype, attention_kernel=attention_kernel,
+                dropout=dropout, dropout_impl=dropout_impl,
             ))
         self.feature_wise_affine = LinearNorm(d_model, 2 * d_model, dtype=dtype)
 
-    def forward(self, mel, pad_mask):
+    def forward(self, mel, pad_mask, deterministic: bool = True, rng=None):
         """mel [B, T, n_mels], pad_mask [B, T] -> (gammas, betas) [B, 1, d_model]."""
         x = mask_fill(mel.to(self.dtype), pad_mask)
         for i in range(self.n_conv_layers):
@@ -62,11 +66,12 @@ class ReferenceEncoder(nn.Module):
                 )
             else:
                 x = layer_norm(ln, torch.relu(conv(x)), self.dtype)
+            x = maybe_dropout(x, self.dropout, deterministic, rng, self.dropout_impl)
         x = mask_fill(x, pad_mask)
         x = add_position_encoding(x, self.pe)
         x = self.fftb_linear(x)
         for i in range(self.n_layers):
-            x = getattr(self, f"fftb_{i}")(x, pad_mask)
+            x = getattr(self, f"fftb_{i}")(x, pad_mask, deterministic=deterministic, rng=rng)
         pooled = x.mean(dim=1, keepdim=True)  # over the padded length
         gammas, betas = self.feature_wise_affine(pooled).chunk(2, dim=-1)
         return gammas, betas

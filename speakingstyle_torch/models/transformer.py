@@ -24,7 +24,8 @@ class FFTStack(nn.Module):
                  kernel_sizes: Tuple[int, int], n_position: int, film: bool = True,
                  conv_impl: str = "xla", dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", dropout: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         self.n_layers = n_layers
         self.register_buffer("pe", position_table(n_position, d_model), persistent=False)
@@ -33,12 +34,14 @@ class FFTStack(nn.Module):
                 d_model, n_head, d_inner, kernel_sizes, film=film,
                 conv_impl=conv_impl, dtype=dtype, softmax_dtype=softmax_dtype,
                 attention_kernel=attention_kernel, attention_impl=attention_impl,
+                dropout=dropout, dropout_impl=dropout_impl,
             ))
 
-    def forward(self, x, pad_mask, gammas=None, betas=None):
+    def forward(self, x, pad_mask, gammas=None, betas=None, deterministic: bool = True,
+                rng=None):
         x = add_position_encoding(x, self.pe)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, pad_mask, gammas, betas)
+            x = getattr(self, f"layer_{i}")(x, pad_mask, gammas, betas, deterministic, rng)
         return x
 
 
@@ -55,9 +58,10 @@ class Encoder(nn.Module):
         self.layer_stack = FFTStack(n_layers, d_model, n_head, d_inner, kernel_sizes,
                                     n_position, film=film, **stack_kwargs)
 
-    def forward(self, token_ids, pad_mask, gammas=None, betas=None):
+    def forward(self, token_ids, pad_mask, gammas=None, betas=None,
+                deterministic: bool = True, rng=None):
         x = F.embedding(token_ids, self.src_word_emb.weight.to(self.dtype))
-        return self.layer_stack(x, pad_mask, gammas, betas)
+        return self.layer_stack(x, pad_mask, gammas, betas, deterministic, rng)
 
 
 class Decoder(nn.Module):
@@ -70,5 +74,6 @@ class Decoder(nn.Module):
         self.layer_stack = FFTStack(n_layers, d_model, n_head, d_inner, kernel_sizes,
                                     n_position, film=film, **stack_kwargs)
 
-    def forward(self, x, pad_mask, gammas=None, betas=None):
-        return self.layer_stack(x, pad_mask, gammas, betas)
+    def forward(self, x, pad_mask, gammas=None, betas=None, deterministic: bool = True,
+                rng=None):
+        return self.layer_stack(x, pad_mask, gammas, betas, deterministic, rng)

@@ -14,17 +14,20 @@ from torch import nn
 
 from speakingstyle_torch.models.layers import FiLM, LN_EPS, layer_norm, linear
 from speakingstyle_torch.ops.conv import Conv1d
+from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.length_regulator import length_regulate, predicted_durations
 from speakingstyle_torch.ops.quantize import bucketize, make_bins
 
 
 class VariancePredictor(nn.Module):
-    """2 x (conv k=3 + ReLU + LN) -> optional FiLM -> linear -> scalar."""
+    """2 x (conv k=3 + ReLU + LN + dropout) -> optional FiLM -> linear -> scalar."""
 
     def __init__(self, in_channels: int, filter_size: int = 256, kernel_size: int = 3,
-                 film: bool = False, conv_impl: str = "xla", dtype=torch.float32):
+                 film: bool = False, conv_impl: str = "xla", dtype=torch.float32,
+                 dropout: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
         self.dtype = dtype
+        self.dropout, self.dropout_impl = dropout, dropout_impl
         for i, cin in ((1, in_channels), (2, filter_size)):
             self.add_module(f"conv1d_{i}", Conv1d(
                 cin, filter_size, kernel_size, impl=conv_impl, activation="relu", dtype=dtype,
@@ -33,10 +36,12 @@ class VariancePredictor(nn.Module):
         self.film = FiLM() if film else None
         self.linear_layer = nn.Linear(filter_size, 1)
 
-    def forward(self, x, pad_mask, gammas=None, betas=None):
+    def forward(self, x, pad_mask, gammas=None, betas=None, deterministic: bool = True,
+                rng=None):
         for i in (1, 2):
             x = getattr(self, f"conv1d_{i}")(x)
             x = layer_norm(getattr(self, f"layer_norm_{i}"), x, self.dtype)
+            x = maybe_dropout(x, self.dropout, deterministic, rng, self.dropout_impl)
         if self.film is not None and gammas is not None and betas is not None:
             x = self.film(x, gammas, betas)
         out = linear(self.linear_layer, x, self.dtype)[..., 0]
@@ -50,12 +55,14 @@ class VarianceAdaptor(nn.Module):
                  pitch_feature_level: str = "phoneme_level",
                  energy_feature_level: str = "phoneme_level", d_model: int = 256,
                  filter_size: int = 256, kernel_size: int = 3, film: bool = True,
-                 conv_impl: str = "xla", dtype=torch.float32):
+                 conv_impl: str = "xla", dtype=torch.float32, dropout: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         self.dtype = dtype
         self.pitch_level, self.energy_level = pitch_feature_level, energy_feature_level
         mk = lambda with_film: VariancePredictor(
-            d_model, filter_size, kernel_size, film=with_film, conv_impl=conv_impl, dtype=dtype
+            d_model, filter_size, kernel_size, film=with_film, conv_impl=conv_impl, dtype=dtype,
+            dropout=dropout, dropout_impl=dropout_impl,
         )
         self.duration_predictor = mk(film)
         self.pitch_predictor = mk(False)
@@ -67,8 +74,8 @@ class VarianceAdaptor(nn.Module):
             bins = make_bins(stats[0], stats[1], n_bins, q)
             self.register_buffer(name, torch.from_numpy(bins), persistent=False)
 
-    def _variance(self, kind, x, mask, target, control):
-        pred = getattr(self, f"{kind}_predictor")(x, mask)
+    def _variance(self, kind, x, mask, target, control, deterministic, rng):
+        pred = getattr(self, f"{kind}_predictor")(x, mask, None, None, deterministic, rng)
         if target is None:
             pred = pred * control
             target = pred
@@ -77,14 +84,17 @@ class VarianceAdaptor(nn.Module):
 
     def forward(self, x, src_pad_mask, max_mel_len: Optional[int] = None,
                 pitch_target=None, energy_target=None, duration_target=None,
-                p_control=1.0, e_control=1.0, d_control=1.0, gammas=None, betas=None):
-        log_d_pred = self.duration_predictor(x, src_pad_mask, gammas, betas)
+                p_control=1.0, e_control=1.0, d_control=1.0, gammas=None, betas=None,
+                deterministic: bool = True, rng=None):
+        log_d_pred = self.duration_predictor(x, src_pad_mask, gammas, betas, deterministic, rng)
         p_pred = e_pred = None
+        dr = (deterministic, rng)
         if self.pitch_level == "phoneme_level":
-            p_pred, p_emb = self._variance("pitch", x, src_pad_mask, pitch_target, p_control)
+            p_pred, p_emb = self._variance("pitch", x, src_pad_mask, pitch_target, p_control, *dr)
             x = x + p_emb
         if self.energy_level == "phoneme_level":
-            e_pred, e_emb = self._variance("energy", x, src_pad_mask, energy_target, e_control)
+            e_pred, e_emb = self._variance("energy", x, src_pad_mask, energy_target, e_control,
+                                           *dr)
             x = x + e_emb
         if duration_target is not None:
             durations = duration_target
@@ -92,10 +102,11 @@ class VarianceAdaptor(nn.Module):
             durations = predicted_durations(log_d_pred, src_pad_mask, d_control)
         x, mel_lens, mel_pad_mask = length_regulate(x, durations, max_mel_len)
         if self.pitch_level == "frame_level":
-            p_pred, p_emb = self._variance("pitch", x, mel_pad_mask, pitch_target, p_control)
+            p_pred, p_emb = self._variance("pitch", x, mel_pad_mask, pitch_target, p_control, *dr)
             x = x + p_emb
         if self.energy_level == "frame_level":
-            e_pred, e_emb = self._variance("energy", x, mel_pad_mask, energy_target, e_control)
+            e_pred, e_emb = self._variance("energy", x, mel_pad_mask, energy_target, e_control,
+                                           *dr)
             x = x + e_emb
         return {
             "features": x,

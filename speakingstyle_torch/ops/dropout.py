@@ -1,0 +1,106 @@
+"""Inverted dropout with the three mask impls of ``ModelConfig.dropout_impl``
+(JAX counterpart: speakingstyle_tpu/ops/dropout.py).
+
+The math is the JAX package's: ``where(keep, x / (1 - rate), 0)`` with
+P(keep) = 1 - rate, and ``rate >= 1`` drops everything exactly. Only the
+mask's bits differ by impl:
+
+* ``"hash"``: the murmur3 finalizer ``fmix32`` of the flat element index,
+  salted per call; bit for bit the JAX package's mask given the same salt
+  (32-bit arithmetic carried in int64 and masked to 32 bits). The salt is
+  drawn from a CPU ``torch.Generator``, so drawing one never waits on the
+  card.
+* ``"bits16"``: 16 random bits per element against an integer threshold;
+* ``"bernoulli"``: uniform floats against 1 - rate.
+
+The last two draw from a ``torch.Generator`` on the tensor's device and
+cannot give JAX's bits: their tests compare statistics.
+"""
+
+from typing import Optional
+
+import torch
+
+DROPOUT_IMPLS = ("bernoulli", "bits16", "hash")
+_M32 = 0xFFFFFFFF
+
+
+class DropoutRNG:
+    """Where a training step's dropout masks come from: a CPU generator for
+    the hash salts and one on ``device`` for the random bits, both seeded
+    from ``seed``."""
+
+    def __init__(self, seed: int, device=None):
+        device = torch.device("cpu" if device is None else device)
+        self.cpu = torch.Generator().manual_seed(seed)
+        self.device = torch.Generator(device=device).manual_seed(seed)
+
+    def salt(self) -> int:
+        """A fresh uint32 salt, drawn on the host."""
+        return int(torch.randint(0, 1 << 32, (1,), generator=self.cpu, dtype=torch.int64)[0])
+
+
+def _mul32(h, c: int):
+    """(h * c) mod 2^32 for 0 <= h < 2^32, without overflowing int64."""
+    return ((h & 0xFFFF) * c + ((((h >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """murmur3 32-bit finalizer (``ops/dropout.py:40-47`` of the JAX package)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def keep_mask(rate: float, shape, impl: str = "bernoulli",
+              rng: Optional[DropoutRNG] = None, device=None,
+              salt: Optional[int] = None):
+    """Boolean keep mask with P(True) = 1 - rate. ``"hash"`` takes ``salt``
+    or draws one from ``rng``; the other impls draw bits from
+    ``rng.device``."""
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, got {impl!r}")
+    shape = tuple(shape)
+    if rate >= 1.0:
+        # drop everything, exactly: the thresholds below clamp and would
+        # keep a 2^-16 / 2^-32 sliver
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    n = 1
+    for d in shape:
+        n *= d
+    if impl == "hash":
+        if salt is None:
+            salt = rng.salt()
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+        bits = _fmix32(_mul32(idx, 0x9E3779B9) ^ (salt & _M32))
+        return (bits >= min(_M32, int(round(rate * 2 ** 32)))).reshape(shape)
+    gen = rng.device
+    if impl == "bits16":
+        thresh = min(0xFFFF, int(round(rate * 65536)))
+        bits = torch.randint(0, 1 << 16, shape, generator=gen, device=device, dtype=torch.int32)
+        return bits >= thresh
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def dropout(x, rate: float, rng: Optional[DropoutRNG], impl: str = "bernoulli"):
+    """Inverted dropout: zero with probability ``rate``, survivors scaled by
+    1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if rng is None:
+        raise ValueError("dropout with rate > 0 needs a DropoutRNG")
+    mask = keep_mask(rate, x.shape, impl, rng, x.device)
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def maybe_dropout(x, rate: float, deterministic: bool, rng: Optional[DropoutRNG],
+                  impl: str):
+    """Flax ``Dropout(rate)(x, deterministic=...)``: the identity when
+    deterministic."""
+    if deterministic or rate == 0.0:
+        return x
+    return dropout(x, rate, rng, impl)

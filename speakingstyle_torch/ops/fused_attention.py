@@ -1,16 +1,20 @@
-"""Fused masked self-attention: the wrapper of the Hopper kernel and its
-plain PyTorch version.
+"""Fused masked self-attention: the wrappers of the Hopper kernels, their
+plain PyTorch versions, and the autograd Function that joins them.
 
-The kernel (``csrc/fused_attention.cu``) replaces the TPU kernel
-``speakingstyle_tpu/ops/pallas_attention.py::_fwd_kernel`` (reached there
-through ``fused_mha``). What bounds it on the H100, and what its design does
-about that, is written at the top of the CUDA source: the TPU kernel's whole
-T x T score tile does not fit in shared memory, so the port streams key
-tiles with an online softmax.
+The kernels (``csrc/fused_attention.cu``) replace the TPU kernels
+``speakingstyle_tpu/ops/pallas_attention.py::_fwd_kernel`` and
+``::_bwd_kernel`` (reached there through ``fused_mha`` and its
+``custom_vjp``). What bounds them on the H100, and what their design does
+about that, is written at the top of the CUDA source: the TPU kernel's
+whole T x T score tile does not fit in shared memory, so the forward
+streams key tiles with an online softmax and the backward runs two tiled
+passes (dK/dV, then dQ) that recompute P from the forward's row lse.
 
-``fused_mha`` is the entry point the model calls. A CPU tensor goes to
-``fused_mha_plain``; a CUDA tensor goes to the kernel, or the call raises.
-``fused_mha.launches`` counts kernel launches.
+``fused_mha`` is the entry point the model calls; it is differentiable. A
+CPU tensor runs ``fused_mha_plain`` forward and ``fused_mha_bwd_plain``
+backward (the JAX package's ``_bwd_kernel`` math, not torch autograd's); a
+CUDA tensor runs the kernels, or the call raises. ``fused_mha.launches``
+and ``fused_mha_bwd.launches`` count kernel launches.
 """
 
 import ctypes
@@ -21,39 +25,61 @@ import torch
 
 from speakingstyle_torch.ops import kernels
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {
-    "fused_attention_fwd": (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    )
+    "fused_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
+    "fused_attention_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _P),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+_NEG = torch.finfo(torch.float32).min / 2  # the key-padding bias
+
+
+def _scores(q, k, pad_mask, sm_scale):
+    """f32 scores with the key-padding bias (every padded key's score is
+    the bias exactly: |q.k| * scale is far below its ulp)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    return scores.masked_fill(pad_mask[:, None, None, :], _NEG)
 
 
 def fused_mha_plain(q, k, v, pad_mask, sm_scale: Optional[float] = None,
                     softmax_dtype=torch.float32):
-    """The kernel's function in plain tensor ops (the einsum math of the
-    JAX package's ``_reference_mha``): f32 scores, additive key-padding
+    """The forward kernel's function in plain tensor ops (the einsum math of
+    the JAX package's ``_reference_mha``): f32 scores, additive key-padding
     bias ``finfo(f32).min / 2``, softmax in ``softmax_dtype``,
     probabilities rounded to v's dtype, f32 accumulation of P.V.
 
     q/k/v: [B, L, H, D]; pad_mask: [B, L] True at padding. -> [B, L, H, D].
     """
-    D = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    neg = torch.finfo(torch.float32).min / 2
-    scores = scores.masked_fill(pad_mask[:, None, None, :], neg)
-    p = torch.softmax(scores.to(softmax_dtype), dim=-1)
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(_scores(q, k, pad_mask, sm_scale).to(softmax_dtype), dim=-1)
     p = p.to(v.dtype).float()
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def fused_mha_bwd_plain(q, k, v, pad_mask, dout, sm_scale: Optional[float] = None,
+                        softmax_dtype=torch.float32):
+    """The backward kernel's function in plain tensor ops: the JAX
+    package's ``_bwd_kernel`` (``pallas_attention.py:92-122``) with its
+    rounding points. P recomputed in f32 (softmax in ``softmax_dtype``);
+    dV = dO^T P with P in v's dtype; dP = dO V^T; dS = P (dP - rowsum(dP o
+    P)) sm_scale, rounded to q's dtype; dQ = dS K, dK = dS^T Q; f32 sums.
+    Returns (dq, dk, dv), each [B, L, H, D] in q's dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(_scores(q, k, pad_mask, sm_scale).to(softmax_dtype), dim=-1).float()
+    g = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * sm_scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def check_inputs(q, k, v, pad_mask, softmax_dtype=torch.float32) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernels do not take."""
     B, L, H, D = q.shape
     if softmax_dtype != torch.float32:
         raise NotImplementedError(
@@ -80,36 +106,108 @@ def check_inputs(q, k, v, pad_mask, softmax_dtype=torch.float32) -> None:
             raise ValueError(f"fused_mha: {name} must be contiguous")
 
 
-def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
-              softmax_dtype=torch.float32):
-    """Masked self-attention. q/k/v: [B, L, H, D]; pad_mask: [B, L] bool,
-    True at padding. Returns [B, L, H, D] in q's dtype.
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    CPU tensors run ``fused_mha_plain``. CUDA tensors launch the kernel,
-    which takes float32 or bfloat16, head dims that are multiples of 8 up
-    to 128, and a float32 softmax; anything else raises.
-    """
+
+def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
+    """Launch the forward kernel on CUDA tensors: (out, lse or None), lse
+    the f32 row log-sum-exp [B, H, L] the backward kernel reads."""
+    check_inputs(q, k, v, pad_mask)
     B, L, H, D = q.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        return fused_mha_plain(q, k, v, pad_mask, sm_scale, softmax_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_mha: unsupported device {q.device}")
-    check_inputs(q, k, v, pad_mask, softmax_dtype)
-    mask = pad_mask.view(torch.uint8)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if want_lse else None
     if B == 0 or L == 0 or H == 0:
-        return out
+        return out, lse
     lib = kernels.load("fused_attention", _SIGNATURE)
     err = lib.fused_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, L, H, D, float(sm_scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.view(torch.uint8).data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        B, L, H, D, float(sm_scale), _DTYPES[q.dtype], _stream(q),
     )
     kernels.check(err, "fused_attention_fwd")
     fused_mha.launches += 1
-    return out
+    return out, lse
+
+
+def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float):
+    """Launch the backward kernel on CUDA tensors: (dq, dk, dv). ``out`` and
+    ``lse`` are the forward kernel's; ``dout`` is out's cotangent."""
+    check_inputs(q, k, v, pad_mask)
+    B, L, H, D = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"fused_mha_bwd: {name} must be a contiguous twin of q")
+    if lse is None or tuple(lse.shape) != (B, H, L) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"fused_mha_bwd: lse must be contiguous float32 [{B}, {H}, {L}]")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if B == 0 or L == 0 or H == 0:
+        return dq, dk, dv
+    lib = kernels.load("fused_attention", _SIGNATURE)
+    err = lib.fused_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.view(torch.uint8).data_ptr(),
+        out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, L, H, D, float(sm_scale), _DTYPES[q.dtype], _stream(q),
+    )
+    kernels.check(err, "fused_attention_bwd")
+    fused_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_mha_bwd.launches = 0
+
+
+class _FusedMHA(torch.autograd.Function):
+    """Forward and backward both by kernel on CUDA, both by plain version
+    on the CPU. The forward saves q, k, v, the mask, and on CUDA the output
+    and the row lse the backward kernel reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, sm_scale, softmax_dtype):
+        ctx.sm_scale, ctx.softmax_dtype = sm_scale, softmax_dtype
+        grad = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            out = fused_mha_plain(q, k, v, pad_mask, sm_scale, softmax_dtype)
+            if grad:
+                ctx.save_for_backward(q, k, v, pad_mask)
+            return out
+        out, lse = fused_mha_fwd(q, k, v, pad_mask, sm_scale, want_lse=grad)
+        if grad:
+            ctx.save_for_backward(q, k, v, pad_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        q, k, v, pad_mask = saved[:4]
+        if q.device.type == "cpu":
+            grads = fused_mha_bwd_plain(q, k, v, pad_mask, dout, ctx.sm_scale,
+                                        ctx.softmax_dtype)
+        else:
+            grads = fused_mha_bwd(q, k, v, pad_mask, saved[4], saved[5],
+                                  dout.contiguous(), ctx.sm_scale)
+        return (*grads, None, None, None)
+
+
+def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
+              softmax_dtype=torch.float32):
+    """Masked self-attention. q/k/v: [B, L, H, D]; pad_mask: [B, L] bool,
+    True at padding. Returns [B, L, H, D] in q's dtype; differentiable in
+    q, k and v.
+
+    CPU tensors run the plain versions. CUDA tensors launch the kernels,
+    which take float32 or bfloat16, head dims that are multiples of 8 up
+    to 128, and a float32 softmax; anything else raises.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mha: unsupported device {q.device}")
+    if q.device.type == "cuda":
+        check_inputs(q, k, v, pad_mask, softmax_dtype)
+    return _FusedMHA.apply(q, k, v, pad_mask, float(sm_scale), softmax_dtype)
 
 
 fused_mha.launches = 0

@@ -1,16 +1,25 @@
-"""Fused conv1d (+bias +ReLU +LayerNorm): the wrapper of the Hopper kernel
-and its plain PyTorch version.
+"""Fused conv1d (+bias +ReLU +LayerNorm): the wrapper of the Hopper kernel,
+its plain PyTorch version, and the analytic backward around both.
 
 The kernel (``csrc/fused_conv.cu``) replaces the TPU kernel
 ``speakingstyle_tpu/ops/pallas_conv.py::_kernel`` (reached there through
 ``fused_conv1d`` and ``fused_conv_relu_ln``). It is an implicit GEMM with
 the epilogue in the same kernel; what bounds it on the H100 and what its
-design does about that is written at the top of the CUDA source.
+design does about that is written at the top of the CUDA source. With
+LayerNorm it also writes ``act``, the post-ReLU, pre-LN activation rounded
+to the storage dtype, for the backward.
+
+Both entry points are differentiable. The backward is the JAX package's
+"analytic" ``_fused_bwd`` (``pallas_conv.py:295-360``) in torch ops, on
+the card and on the CPU alike: the LN backward from ``act`` with the
+statistics recomputed, the ReLU mask ``act >= finfo(dtype).tiny``, then db
+and the vjp of the linear conv (``torch.nn.grad``'s convolution
+backward, as the JAX package leaves it to XLA). Without LN the residual
+is the output itself.
 
 A CPU tensor goes to ``fused_conv_plain``; a CUDA tensor goes to the kernel,
 or the call raises. ``fused_conv1d.launches`` counts kernel launches of both
-entry points. Forward only: the post-ReLU ``act`` output and the backward
-belong to the training path.
+entry points, ``fused_conv1d.act_launches`` those that wrote ``act``.
 """
 
 import ctypes
@@ -26,7 +35,8 @@ MAX_LN_CHANNELS = 1024  # the LN variant's block owns whole Cout rows
 _SIGNATURE = {
     "fused_conv1d_fwd": (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     )
@@ -54,27 +64,75 @@ def conv1d_unfold(x, kernel, bias=None, dilation: int = 1):
     return y
 
 
-def fused_conv_plain(x, kernel, bias=None, ln_scale=None, ln_bias=None,
-                     dilation: int = 1, relu: bool = False):
+def fused_conv_plain_parts(x, kernel, bias=None, ln_scale=None, ln_bias=None,
+                           dilation: int = 1, relu: bool = False):
     """The kernel's function in plain tensor ops (the JAX package's
     ``_reference_fused_parts``): the conv and bias in f32, optional ReLU,
-    then the result in x's dtype; with LayerNorm, the stats are taken over
-    that rounded activation in f32 and the affine applied before the final
-    cast."""
+    then the result in x's dtype (``act``); with LayerNorm, the stats are
+    taken over that rounded activation in f32 and the affine applied
+    before the final cast. Returns (y, act); act is y without LayerNorm."""
     dtype = x.dtype
     y = conv1d_unfold(
         x.float(), kernel.float(), None if bias is None else bias.float(), dilation
     )
     if relu:
         y = torch.clamp(y, min=0.0)
-    y = y.to(dtype)
+    act = y = y.to(dtype)
     if ln_scale is not None:
         yf = y.float()
         mean = yf.mean(dim=-1, keepdim=True)
         var = ((yf - mean) ** 2).mean(dim=-1, keepdim=True)
         yf = (yf - mean) * torch.rsqrt(var + LN_EPS)
         y = (yf * ln_scale.float() + ln_bias.float()).to(dtype)
-    return y
+    return y, act
+
+
+def fused_conv_plain(x, kernel, bias=None, ln_scale=None, ln_bias=None,
+                     dilation: int = 1, relu: bool = False):
+    """The forward kernel's output (``fused_conv_plain_parts``' y)."""
+    return fused_conv_plain_parts(x, kernel, bias, ln_scale, ln_bias, dilation, relu)[0]
+
+
+def fused_conv_bwd(g, x, kernel, bias, ln_scale, ln_bias, act, dilation: int, relu: bool):
+    """The analytic backward (``pallas_conv.py:309-360``): grads of x,
+    kernel, bias, ln_scale and ln_bias (None where the input is None).
+    ``act`` is the post-ReLU, pre-LN activation in x's dtype (the output
+    itself without LN; unused without ReLU and LN)."""
+    import torch.nn.functional as F
+
+    gf = g.float()
+    d_scale = d_lnbias = None
+    if ln_scale is not None:
+        af = act.float()
+        mean = af.mean(dim=-1, keepdim=True)
+        var = ((af - mean) ** 2).mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + LN_EPS)
+        norm = (af - mean) * rstd
+        d_scale = (gf * norm).sum(dim=(0, 1)).to(ln_scale.dtype)
+        d_lnbias = gf.sum(dim=(0, 1)).to(ln_bias.dtype)
+        dnorm = gf * ln_scale.float()
+        da = (dnorm - dnorm.mean(dim=-1, keepdim=True)
+              - norm * (dnorm * norm).mean(dim=-1, keepdim=True)) * rstd
+    else:
+        da = gf
+    if relu:
+        # the stored activation's smallest normal, not 0: a value that
+        # rounded to a stored 0 or subnormal passes no gradient
+        da = da * (act.float() >= torch.finfo(act.dtype).tiny)
+    dz = da.to(x.dtype)
+    db = None if bias is None else da.sum(dim=(0, 1)).to(bias.dtype)
+    # the vjp of the linear SAME conv, channels-first, on the explicitly
+    # padded input (an even span pads one more step on the right)
+    K, T = kernel.shape[0], x.shape[1]
+    span = (K - 1) * dilation + 1
+    lo = (span - 1) // 2
+    xp = F.pad(x.transpose(1, 2), (lo, span - 1 - lo))
+    w = kernel.permute(2, 1, 0)
+    dzt = dz.transpose(1, 2)
+    dx = torch.nn.grad.conv1d_input(xp.shape, w, dzt, dilation=dilation)
+    dw = torch.nn.grad.conv1d_weight(xp, w.shape, dzt, dilation=dilation)
+    dx = dx[:, :, lo: lo + T].transpose(1, 2)
+    return dx, dw.permute(2, 1, 0), db, d_scale, d_lnbias
 
 
 def check_inputs(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation=1) -> None:
@@ -109,31 +167,66 @@ def check_inputs(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation=1) 
             raise ValueError(f"fused_conv: {name} must be contiguous")
 
 
-def _launch(x, kernel, bias, ln_scale, ln_bias, dilation, relu):
+def fused_conv_fwd(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation: int = 1,
+                   relu: bool = False, want_act: bool = False):
+    """Launch the kernel on CUDA tensors: (y, act or None). ``want_act``
+    (LayerNorm only) also writes the post-ReLU, pre-LN activation."""
     check_inputs(x, kernel, bias, ln_scale, ln_bias, dilation)
+    if want_act and ln_scale is None:
+        raise ValueError("fused_conv: act is written only by the LayerNorm variant")
     B, T, cin = x.shape
     K, _, cout = kernel.shape
     out = torch.empty((B, T, cout), dtype=x.dtype, device=x.device)
+    act = torch.empty_like(out) if want_act else None
     if B == 0 or T == 0 or cout == 0:
-        return out
+        return out, act
     lib = kernels.load("fused_conv", _SIGNATURE)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.fused_conv1d_fwd(
         x.data_ptr(), kernel.data_ptr(), ptr(bias), ptr(ln_scale), ptr(ln_bias),
-        out.data_ptr(), B, T, cin, cout, K, dilation, int(relu), _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), ptr(act), B, T, cin, cout, K, dilation, int(relu),
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(err, "fused_conv1d_fwd")
     fused_conv1d.launches += 1
-    return out
+    fused_conv1d.act_launches += int(want_act)
+    return out, act
+
+
+class _FusedConv(torch.autograd.Function):
+    """The kernel (CUDA) or the plain version (CPU) forward; the analytic
+    backward in torch ops on both. Saves x, the weights and, where the
+    backward reads it, ``act``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, ln_scale, ln_bias, dilation, relu):
+        ctx.dilation, ctx.relu = dilation, relu
+        grad = any(ctx.needs_input_grad[:5])
+        ln = ln_scale is not None
+        if x.device.type == "cpu":
+            y, act = fused_conv_plain_parts(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
+        else:
+            y, act = fused_conv_fwd(x, kernel, bias, ln_scale, ln_bias, dilation, relu,
+                                    want_act=grad and ln)
+            if not ln:
+                act = y
+        if grad:
+            ctx.save_for_backward(x, kernel, bias, ln_scale, ln_bias,
+                                  act if (ln or relu) else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, bias, ln_scale, ln_bias, act = ctx.saved_tensors
+        grads = fused_conv_bwd(g, x, kernel, bias, ln_scale, ln_bias, act,
+                               ctx.dilation, ctx.relu)
+        return (*grads, None, None)
 
 
 def _dispatch(x, kernel, bias, ln_scale, ln_bias, dilation, relu):
-    if x.device.type == "cpu":
-        return fused_conv_plain(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv: unsupported device {x.device}")
-    return _launch(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
+    return _FusedConv.apply(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
 
 
 def fused_conv1d(x, kernel, bias: Optional[torch.Tensor] = None, *,
@@ -150,3 +243,4 @@ def fused_conv_relu_ln(x, kernel, bias, ln_scale, ln_bias, *, dilation: int = 1)
 
 
 fused_conv1d.launches = 0
+fused_conv1d.act_launches = 0

@@ -112,10 +112,10 @@ def load(name: str, signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDL
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_lib_path(name))
-            for fn, argtypes in (signatures or {}).items():
-                getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+        for fn, argtypes in (signatures or {}).items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

@@ -26,3 +26,10 @@ def attention_bias(pad_mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 def mask_fill(x: torch.Tensor, pad_mask: torch.Tensor, value: float = 0.0) -> torch.Tensor:
     """Zero (or fill) padded time steps. x: [B, L, H], pad_mask: [B, L]."""
     return x.masked_fill(pad_mask[..., None], value)
+
+
+def masked_mean(values: torch.Tensor, keep_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``values`` over the positions where ``keep_mask`` is True (the
+    reference's ``masked_select(...).mean()``); 0 when none is."""
+    keep = keep_mask.to(values.dtype)
+    return (values * keep).sum() / torch.clamp(keep.sum(), min=1.0)

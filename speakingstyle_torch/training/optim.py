@@ -1,0 +1,134 @@
+"""Optimizer: grad clip -> (L2) -> Adam -> -lr, with the ramp-then-step
+schedule and gradient accumulation (JAX counterpart:
+speakingstyle_tpu/training/optim.py).
+
+The update is the JAX package's optax chain, step for step:
+
+* ``clip_by_global_norm(grad_clip_thresh)``: the gradients are scaled by
+  clip / norm only when the global norm is at least clip. (Not
+  ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm and
+  scales whenever the norm exceeds clip.) The scale is applied as one
+  factor, where optax divides by the norm and multiplies by clip: the two
+  differ by an f32 rounding.
+* ``add_decayed_weights(weight_decay)`` when it is set: L2 into the
+  gradient, before the moments (torch Adam's semantics, not AdamW's).
+* ``scale_by_adam(b1, b2, eps)``: moments in f32, bias correction with
+  the incremented count, ``mu_hat / (sqrt(nu_hat) + eps)``.
+* ``scale_by_learning_rate(schedule)``: the lr is read at the count
+  before the increment, and the update is ``-lr`` times the Adam step.
+* ``grad_acc_step = k > 1`` is ``optax.MultiSteps``: the running mean of k
+  micro-batch gradients (``acc + (g - acc) / (n + 1)``), then one update;
+  the other k - 1 calls leave the parameters as they are.
+
+``train.fused_optimizer`` names three layouts of this one update in the
+JAX package (the per-leaf optax chain, a flat raveled vector, per-leaf
+fused expressions) whose updates are identical; the port serves all four
+values with this one implementation, which runs ``torch._foreach_*`` ops
+over the parameter list.
+
+The schedule and the counts live on the host: no step reads anything back
+from the card.
+"""
+
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from speakingstyle_torch.configs.config import TrainConfig
+
+
+def make_lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
+    """The lr of optimizer step ``step`` (``optim.py:34-49`` of the JAX
+    package, in its float32 arithmetic): with ``current = step + 1``, a
+    linear ramp init_lr -> anneal_lr over ``loss.anneal_steps`` steps, then
+    anneal_lr times anneal_rate per milestone of ``optimizer.anneal_steps``
+    passed."""
+    opt = train_cfg.optimizer
+    f32 = np.float32
+    ramp_steps = train_cfg.loss.anneal_steps
+    init_lr, anneal_lr = opt.init_lr, opt.anneal_lr
+    milestones = np.asarray(opt.anneal_steps, np.float32)
+
+    def schedule(step: int) -> float:
+        current = f32(step) + f32(1.0)
+        if current > f32(ramp_steps):
+            n_passed = int(np.sum(current > milestones))
+            return float(f32(anneal_lr) * np.power(f32(opt.anneal_rate), f32(n_passed)))
+        return float(f32(init_lr) + (current / f32(ramp_steps)) * f32(anneal_lr - init_lr))
+
+    return schedule
+
+
+class Optimizer:
+    """clip -> (L2) -> Adam -> -lr over ``params`` (a fixed, ordered list),
+    with k-step gradient accumulation. ``update(grads)`` applies one call's
+    gradients in place and returns whether the parameters moved."""
+
+    def __init__(self, params: Sequence[torch.Tensor], train_cfg: TrainConfig):
+        opt = train_cfg.optimizer
+        self.params: List[torch.Tensor] = list(params)
+        self.schedule = make_lr_schedule(train_cfg)
+        self.b1, self.b2 = opt.betas
+        self.eps, self.clip, self.wd = opt.eps, opt.grad_clip_thresh, opt.weight_decay
+        self.k = opt.grad_acc_step
+        zeros = lambda: [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.mu, self.nu = zeros(), zeros()
+        self.acc = zeros() if self.k > 1 else None
+        self.count = 0      # inner (Adam) updates taken
+        self.mini_step = 0  # micro-batches accumulated toward the next update
+
+    def lr(self) -> float:
+        """The lr the next update applies."""
+        return self.schedule(self.count)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        grads = [g.float() for g in grads]
+        if self.k > 1:
+            n = self.mini_step
+            # optax.MultiSteps: Welford running mean of the micro-batch grads
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(n + 1))
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step = (n + 1) % self.k
+            if self.mini_step != 0:
+                return False
+            grads, self.acc = self.acc, [torch.zeros_like(a) for a in self.acc]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
+        grads = torch._foreach_mul(grads, scale)
+        if self.wd:
+            torch._foreach_add_(grads, [p.float() for p in self.params], alpha=self.wd)
+        self.count += 1
+        lr = self.schedule(self.count - 1)
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(self.mu, c1)
+        torch._foreach_div_(step, denom)
+        torch._foreach_mul_(step, -lr)
+        torch._foreach_add_(self.params, step)
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": [t.clone() for t in self.mu], "nu": [t.clone() for t in self.nu],
+                "acc": None if self.acc is None else [t.clone() for t in self.acc]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        for dst, key in ((self.mu, "mu"), (self.nu, "nu"), (self.acc, "acc")):
+            if dst is None:
+                continue
+            src = state[key]
+            if len(src) != len(dst):
+                raise ValueError(f"optimizer state {key}: {len(src)} tensors, want {len(dst)}")
+            for d, s in zip(dst, src):
+                d.copy_(s)

@@ -1,5 +1,5 @@
 """PyTorch port, the hand-written CUDA kernels: their build and, on a
-card, each kernel against its plain version.
+card, each kernel (forward and backward) against its plain version.
 
 This file imports no JAX, so it also runs where JAX is not installed.
 On a machine with a card, skip the JAX-side ``tests/conftest.py``:
@@ -145,3 +145,79 @@ def test_conv_kernel_without_bias_or_relu_on_card(cuda_device, dtype):
     want = t_conv.fused_conv_plain(x, w, dilation=3)
     tol = dict(TOL[dtype], atol=1e-4) if dtype == torch.float32 else TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# the backward's tolerance, relative to each gradient's max |value| (and
+# to each element): float32 sums in another order and takes the row term
+# as dO.O instead of rowsum(dP o P); bfloat16 also flips roundings of P and
+# dS (<= 2^-8 relative each) inside sums over L terms, a small share of
+# the max, where a dropped tile errs by a whole tile's probability mass
+BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -7)}
+
+
+def assert_close_to_max(got, want, dtype):
+    rel_max, rtol = BWD_TOL[dtype]
+    got, want = got.float(), want.float()
+    bound = rel_max * want.abs().max() + rtol * want.abs()
+    assert bool(((got - want).abs() <= bound).all()), (got - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 130, 2, 32), (2, 77, 2, 128), (2, 33, 3, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_matches_plain_on_card(cuda_device, shape, dtype):
+    """Grads through fused_mha on the card (the forward kernel saving its
+    lse, the backward kernel) against the plain backward, with unequal
+    lengths, a fully padded batch row, and a cotangent that is not zero at
+    padded queries."""
+    B, L, H, D = shape
+    g = torch.Generator().manual_seed(7 * L + D)
+    q, k, v, dout = (torch.randn(shape, generator=g).to(cuda_device, dtype) for _ in range(4))
+    mask = torch.from_numpy(_lengths_mask(np.random.default_rng(L), B, L)).to(cuda_device)
+    mask[-1] = True
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = t_attn.fused_mha_bwd.launches
+    out = t_attn.fused_mha(*leaves, mask)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    assert t_attn.fused_mha_bwd.launches == before + 1
+    want = t_attn.fused_mha_bwd_plain(q, k, v, mask, dout)
+    for got, w in zip(leaves, want):
+        assert got.grad.dtype == dtype
+        assert_close_to_max(got.grad, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_act_output_and_grads_on_card(cuda_device, dtype):
+    """The LN variant's act output against the plain version's, and grads
+    through both entry points on the card (kernel forward, analytic
+    backward) against torch autograd through the plain version."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 45, 80), generator=g).to(cuda_device, dtype)
+    w = (torch.randn((3, 80, 256), generator=g) / np.sqrt(240)).to(cuda_device, dtype)
+    b, s, sb = (torch.randn(256, generator=g).to(cuda_device, dtype) for _ in range(3))
+    before = t_conv.fused_conv1d.act_launches
+    y, act = t_conv.fused_conv_fwd(x, w, b, s, sb, relu=True, want_act=True)
+    assert t_conv.fused_conv1d.act_launches == before + 1
+    _, want_act = t_conv.fused_conv_plain_parts(x, w, b, s, sb, 1, True)
+    torch.testing.assert_close(act.float(), want_act.float(),
+                               **(dict(atol=1e-4, rtol=0) if dtype == torch.float32 else TOL[dtype]))
+    if dtype != torch.float32:
+        return
+    cot = torch.randn((2, 45, 256), generator=g).to(cuda_device)
+    for ln in (True, False):
+        args = [x, w, b] + ([s, sb] if ln else [])
+        leaves = [t.clone().requires_grad_() for t in args]
+        ref = [t.clone().requires_grad_() for t in args]
+        if ln:
+            out = t_conv.fused_conv_relu_ln(*leaves)
+            want = t_conv.fused_conv_plain(*ref, 1, True)
+        else:
+            out = t_conv.fused_conv1d(*leaves, relu=True)
+            want = t_conv.fused_conv_plain(*ref, None, None, 1, True)
+        assert out.grad_fn is not None
+        out.backward(cot)
+        want.backward(cot)
+        for a, r in zip(leaves, ref):
+            assert_close_to_max(a.grad, r.grad, torch.float32)

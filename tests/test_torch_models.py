@@ -345,3 +345,24 @@ def test_carrier_raises_on_missing_extra_or_misshapen_leaf(acoustic_pair, tmp_pa
     wrong["batch_stats"]["postnet"]["bn_0"]["mean"] = np.zeros((17,), np.float32)
     with pytest.raises(ValueError, match="batch_stats/postnet/bn_0/mean"):
         load_flax_variables(model, wrong)
+
+
+def test_to_flax_tree_round_trip_is_bit_identical(acoustic_pair, tmp_path):
+    """Flax variables -> the port (load_flax_variables) -> Flax layout
+    (to_flax_tree) gives back every leaf bit for bit, and flax_param_names
+    names every parameter and statistic by its Flax path."""
+    from speakingstyle_torch.compat.from_jax import flax_param_names, to_flax_tree
+    from speakingstyle_torch.models.fastspeech2 import FastSpeech2 as TFS2
+
+    _, tcfg = load_both(tmp_path)
+    model = load_flax_variables(TFS2(tcfg), acoustic_pair)
+    back = to_flax_tree(model)
+    want = jax.tree_util.tree_flatten_with_path(jax.device_get(acoustic_pair))[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(got[path], np.asarray(leaf, np.float32))
+    names = flax_param_names(model)
+    assert names["encoder.src_word_emb.weight"] == "encoder/src_word_emb/embedding"
+    assert names["postnet.bn_0.mean"] == "postnet/bn_0/mean"
+    assert len(names) == len(want)

@@ -2,9 +2,11 @@
 JAX counterpart on identical numpy inputs.
 
 The two kernels' plain versions (the path a CPU tensor takes) are held
-against the JAX package's Pallas kernels in interpret mode at atol 1e-5;
-tests/test_torch_kernels.py holds the hand-written kernels against those
-plain versions on the card.
+against the JAX package's Pallas kernels in interpret mode at atol 1e-5,
+and their backward passes (the port's own backward math through the
+``torch.autograd.Function``s the card uses) against JAX's gradients at
+1e-4 (attention) and 2e-4 (conv); tests/test_torch_kernels.py holds the
+hand-written kernels against those plain versions on the card.
 """
 
 import os
@@ -83,6 +85,129 @@ def test_plain_conv_matches_pallas_interpret(K, dilation, ln):
         got = t_conv.fused_conv1d(tx, tw, tb, dilation=dilation, relu=True)
     assert t_conv.fused_conv1d.launches == before
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("L,H,D", [(23, 4, 16), (130, 2, 8)])
+def test_attention_grads_match_pallas_interpret(L, H, D):
+    """q/k/v grads through fused_mha on CPU tensors (plain forward, plain
+    backward) against the JAX fused-MHA kernel's custom_vjp in interpret
+    mode, with unequal lengths and a batch row of length 0; the cotangent
+    is masked at padded queries, as tests/test_ops.py does."""
+    import jax
+
+    from speakingstyle_tpu.ops.pallas_attention import fused_mha
+
+    rng = np.random.default_rng(L + H + D)
+    B = 3
+    q, k, v = (rng.standard_normal((B, L, H, D)).astype(np.float32) for _ in range(3))
+    lens = np.array([L, rng.integers(L // 2, L), 0])
+    mask = np.arange(L)[None] >= lens[:, None]
+    real = (~mask)[:, :, None, None].astype(np.float32)
+
+    def j_loss(q_, k_, v_):
+        return jnp.sum(jnp.square(fused_mha(q_, k_, v_, jnp.asarray(mask), interpret=True) * real))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = t_attn.fused_mha(*leaves, torch.from_numpy(mask))
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(real)).square().sum().backward()
+    for got, w in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=1e-4)
+
+
+@pytest.mark.parametrize("ln", [True, False])
+def test_conv_grads_match_jax_analytic_backward(ln):
+    """Grads of x, w, b (and the LN scale and bias) through
+    fused_conv_relu_ln / fused_conv1d(relu=True) on CPU tensors against
+    the JAX package's analytic backward, at Cout 128 (the lane width where
+    its interpreted kernel, not its reference fallback, runs)."""
+    import jax
+
+    from speakingstyle_tpu.ops.pallas_conv import fused_conv1d, fused_conv_relu_ln
+
+    rng = np.random.default_rng(11 + ln)
+    x = rng.standard_normal((2, 24, 48)).astype(np.float32)
+    w = (rng.standard_normal((3, 48, 128)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(128) * 0.1).astype(np.float32)
+    s = rng.standard_normal(128).astype(np.float32)
+    sb = rng.standard_normal(128).astype(np.float32)
+    args = (x, w, b, s, sb) if ln else (x, w, b)
+    if ln:
+        j_fn = lambda a: fused_conv_relu_ln(*a, interpret=True)
+        t_fn = lambda a: t_conv.fused_conv_relu_ln(*a)
+    else:
+        j_fn = lambda a: fused_conv1d(*a, relu=True, interpret=True)
+        t_fn = lambda a: t_conv.fused_conv1d(*a, relu=True)
+    want = jax.grad(lambda a: jnp.sum(j_fn(a) ** 2))(tuple(jnp.asarray(t) for t in args))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    (t_fn(leaves) ** 2).sum().backward()
+    for got, wnt in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(wnt), rtol=2e-4, atol=2e-4)
+
+
+def test_conv_backward_relu_mask_in_bf16_matches_jax():
+    """The analytic backward on the same bf16 residuals as the JAX
+    package's ``_fused_bwd``: the ReLU mask passes act >= finfo.tiny only,
+    so stored zeros and subnormals pass no gradient."""
+    import jax
+
+    from speakingstyle_tpu.ops import pallas_conv
+
+    rng = np.random.default_rng(21)
+    bf = jnp.bfloat16
+    x = jnp.asarray(rng.standard_normal((2, 9, 16)), bf)
+    w = jnp.asarray(rng.standard_normal((3, 16, 32)) * 0.2, bf)
+    b = jnp.asarray(rng.standard_normal(32) * 0.1, bf)
+    act = np.abs(rng.standard_normal((2, 9, 32))).astype(np.float32)
+    act[0, :, :4] = 0.0
+    act[0, :, 4:8] = 1e-39  # a bf16 subnormal
+    act[1, :, :4] = float(np.finfo(np.float32).tiny)
+    act = jnp.asarray(act, bf)
+    g = jnp.asarray(rng.standard_normal((2, 9, 32)), bf)
+    want = pallas_conv._fused_bwd(1, True, 16, True, "analytic",
+                                  (x, w, b, None, None, act), g)
+    t = lambda a: torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))).to(torch.bfloat16)
+    got = t_conv.fused_conv_bwd(t(g), t(x), t(w), t(b), None, None, t(act), 1, True)
+    assert got[3] is None and got[4] is None
+    db = got[2].float().numpy()
+    assert np.all(db == np.asarray(want[2], np.float32))
+    for gt, wt in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(gt.float().numpy(), np.asarray(wt, np.float32),
+                                   rtol=2 ** -7, atol=2e-2)
+
+
+def test_hash_dropout_mask_is_bit_identical_to_jax():
+    """Given JAX's salt (``jax.random.bits(rng, (), uint32)``), the hash
+    impl's mask is JAX's, bit for bit, at several rates and shapes."""
+    import jax
+
+    from speakingstyle_tpu.ops.dropout import keep_mask as j_keep
+    from speakingstyle_torch.ops.dropout import keep_mask as t_keep
+
+    for i, (rate, shape) in enumerate([(0.1, (7, 13)), (0.5, (3, 5, 64)), (0.2, (2, 333))]):
+        rng = jax.random.PRNGKey(i)
+        # the same key on purpose: keep_mask draws its salt from it this way
+        salt = int(jax.random.bits(rng, (), jnp.uint32))
+        want = np.asarray(j_keep(rng, rate, shape, "hash"))  # jaxlint: disable=JL006
+        np.testing.assert_array_equal(t_keep(rate, shape, "hash", salt=salt).numpy(), want)
+
+
+@pytest.mark.parametrize("impl", ["hash", "bits16", "bernoulli"])
+def test_dropout_statistics_scaling_and_determinism(impl):
+    from speakingstyle_torch.ops.dropout import DropoutRNG, dropout
+
+    x = torch.ones((64, 1000))
+    for rate in (0.1, 0.5):
+        y = dropout(x, rate, DropoutRNG(3), impl)
+        kept = y != 0
+        assert abs(kept.float().mean() - (1 - rate)) < 0.01
+        torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / (1 - rate)))
+        assert torch.equal(y, dropout(x, rate, DropoutRNG(3), impl))
+        assert not torch.equal(y, dropout(x, rate, DropoutRNG(4), impl))
+    assert torch.equal(dropout(x, 1.0, DropoutRNG(3), impl), torch.zeros_like(x))
+    assert not dropout(x, 1.5, None, impl).any()
+    assert dropout(x, 0.0, None, impl) is x
 
 
 def test_plain_conv_without_relu_or_bias_matches_lax_conv():
@@ -244,7 +369,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every submodule really imported
+    assert int(out.stdout.strip()) >= 56  # every submodule really imported
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
