@@ -32,16 +32,19 @@ printing one JSON line:
    idle share within the traced window.
 6. ``train``: FastSpeech2 training at the full width of the LJSpeech_paper
    preset (batch 48, bf16, hash dropout) on a synthetic corpus written from
-   ``--seed``, through ``training/trainer.py``'s step, on the kernel path
-   (``fused`` + ``pallas``) and the library path (``einsum`` + ``xla``):
-   every kernel count set to 0 just before the measured steps and read
-   just after (per step: 14 attention forwards and backwards, 42 conv
-   forwards of which the 3 LayerNorm ones write ``act``), finite losses,
-   the median step wall time, mel frames/s, peak memory, and one traced
-   step's idle share and kernel ms. Then the backward kernel against its
-   plain version at the first batch's shapes and lengths, the LN conv's
-   ``act`` output against the plain one, and one step's per-leaf
-   gradients, kernel path against library path, in float32 and bfloat16.
+   ``--seed``, through ``run_training`` (the ``train`` command's entry), on
+   the kernel path (``fused`` + ``pallas``) and the library path
+   (``einsum`` + ``xla``): 12 steps with a log line each, validation and
+   checkpoints inside them, every kernel count set to 0 just before and
+   read just after (per step: 14 attention forwards and backwards, 42 conv
+   forwards of which the 3 LayerNorm ones write ``act``; per val batch the
+   forwards), finite losses, the log's step times and frames/s, peak
+   memory, the checkpoints and their manifests; then a resume from the
+   last checkpoint for 2 steps under the profiler, and the last step's
+   idle share and kernel ms. Then the backward kernel against its plain
+   version at the first batch's shapes and lengths, the LN conv's ``act``
+   output against the plain one, and one step's per-leaf gradients, kernel
+   path against library path, in float32 and bfloat16.
 
 Then a summary line of every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -677,8 +680,12 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
 
 # ---------------------------------------------------------------- phase 6: training
 
-TRAIN_WARMUP = 2    # steps before the measured ones (cuDNN plans, allocator)
-TRAIN_STEPS = 10    # measured steps on each path
+TRAIN_STEPS = 12   # run_training's steps on each path
+TRAIN_WARMUP = 2   # its first steps, left out of the medians (cuDNN plans, allocator)
+# a log line every step (its one synchronisation), validation at steps 6
+# and 12, checkpoints at 5 and 10 and the final flush at 12
+TRAIN_STEP_CFG = {"log_step": 1, "val_step": 6, "save_step": 5}
+TRAIN_TRACED = 2   # steps of the traced resume; the last one is read
 # the corpus: ~100 phonemes x ~6 frames, so T_mel buckets up to 896
 CORPUS_UTTS, CORPUS_VAL = 288, 48
 # (tag, model overrides) of the two training paths
@@ -710,12 +717,17 @@ F32_LOSS_RTOL = 1e-5
 # inequality the ratio is <= 1 + (the kernel path's error over the library
 # path's): 3 lets it be up to twice the library's (as BF16_ACOUSTIC_RATIO)
 BF16_GRAD_RATIO = 3.0
-# parameters whose gradient is zero in exact arithmetic, hence rounding
-# noise on both paths: the key projection's bias (the softmax cancels a
-# shift of a row's scores) and a postnet conv's bias (the train-mode
-# BatchNorm after it cancels it); they must stay below this share of the
-# largest gradient instead
-ZERO_GRAD = re.compile(r"slf_attn\.w_ks\.bias$|^postnet\.conv_\d+\.bias$")
+# a gradient that is zero in exact arithmetic comes out of float32 sums as
+# rounding noise (the key projection's bias: the softmax cancels a shift
+# of a row's scores; a postnet conv's bias: the train-mode BatchNorm after
+# it cancels it). A leaf whose float32 library-path max |grad| is at most
+# NOISE_SHARE of the step's largest is told so; the rule and the constant
+# are those of tests/test_torch_training.py. Such leaves measured <= 7.9e-10
+# of the largest here (H100, the first batch) and <= 3e-8 in the test's
+# tiny config, every other leaf >= 2.3e-6 here and >= 3.5e-4 there.
+# Relative to its own max such a leaf would compare noise with noise, so
+# on every path it is held below ZERO_GRAD_SHARE of the largest instead
+NOISE_SHARE = 3e-7
 ZERO_GRAD_SHARE = 1e-3
 
 
@@ -725,81 +737,115 @@ def train_config(corpus, out, seed, **model):
     cfg = load_config(preset="LJSpeech_paper")
     rep = dataclasses.replace
     pre = rep(cfg.preprocess, path=rep(cfg.preprocess.path, preprocessed_path=corpus))
-    train = rep(cfg.train, seed=seed, path=rep(
+    train = rep(cfg.train, seed=seed, step=rep(cfg.train.step, **TRAIN_STEP_CFG), path=rep(
         cfg.train.path, ckpt_path=os.path.join(out, "ckpt"), log_path=os.path.join(out, "log")))
     return rep(cfg, preprocess=pre, train=train, model=rep(cfg.model, **model))
 
 
-def train_batches(cfg, n):
-    """The first ``n`` training batches (host numpy), as run_training cuts them."""
-    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+def read_log(path):
+    """{"train" | "val": {step: {key: value}}} of a trainer's log.txt."""
+    rows = {"train": {}, "val": {}}
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            m = re.match(r"\[(\w+)\] Step (\d+), (.*)$", line.strip())
+            if m:
+                rows.setdefault(m[1], {})[int(m[2])] = {
+                    k: float(v) for k, v in (kv.split(": ") for kv in m[3].split(", "))}
+    return rows
 
-    max_len = cfg.model.max_seq_len
-    stream = iter(BucketedBatcher(SpeechDataset("train.txt", cfg, sort=True, drop_last=True),
-                                  max_src=max_len, max_mel=max_len, seed=cfg.train.seed))
-    return [next(stream) for _ in range(n)]
 
-
-def train_run(tag, cfg, batches, dev, want_per_step):
-    """Warm-up steps, then ``TRAIN_STEPS`` steps of ``make_train_step``, one
-    synchronisation each, with every kernel count set to 0 just before and
-    read just after; one more step traced. Returns the counts."""
-    import torch
+def trace_last_step(what, events):
+    """Device time of the last ``train.step`` range of a trace: the window
+    from its first device operation to its last, busy ms, idle share, our
+    kernels' ms and the busiest kernels."""
     from torch.autograd import DeviceType
+
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range for e in on_device
+                    if e.is_user_annotation and e.name == "train.step"), key=lambda r: r.start)
+    if len(spans) != TRAIN_TRACED:
+        fail(f"{what}: {len(spans)} train.step ranges on the device, want {TRAIN_TRACED}")
+    r = spans[-1]
+    kernels = [e for e in on_device
+               if not e.is_user_annotation and r.start <= e.time_range.start < r.end]
+    window, busy, by_name, ours = device_time(what, kernels)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    return {"trace_window_ms": window, "device_busy_ms": busy, "idle_share": 1.0 - busy / window,
+            "device_ops": len(kernels), "port_kernel_ms": ours,
+            "top_kernels": [{"name": k[:100], "ms": ms, "calls": c} for k, (ms, c) in top]}
+
+
+def train_run(tag, cfg, dev, want, n_val):
+    """``run_training`` for TRAIN_STEPS steps, every kernel count set to 0
+    just before and read just after: the counts (``want``: {kernel: (per
+    train step, per val batch)}, ``n_val`` val batches a pass), finite
+    losses, the log's step times and frames/s, the checkpoints and their
+    manifests. Then a resume from the last checkpoint for TRAIN_TRACED
+    steps under the profiler. Returns the counts."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from speakingstyle_torch.training.trainer import build_state, make_train_step, to_device
+    from speakingstyle_torch.training.checkpoint import MANIFEST_NAME, CheckpointManager
+    from speakingstyle_torch.training.trainer import run_training
 
-    state = build_state(cfg, dev)
-    step = make_train_step(cfg)
-    for b in batches[:TRAIN_WARMUP]:
-        step(state, to_device(b.arrays(), dev))
+    steps, paths = cfg.train.step, cfg.train.path
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    measured = batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]
-    walls, losses = [], []
     reset_counts()
-    for b in measured:
-        t0 = time.perf_counter()
-        out, _ = step(state, to_device(b.arrays(), dev))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        losses.append(out["total_loss"])
+    state = run_training(cfg, device=dev, max_steps=TRAIN_STEPS)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    total = [float(v) for v in torch.stack(losses).cpu()]
-    frames = sum(int(b.mel_lens.sum()) for b in measured)
-    traced = batches[TRAIN_WARMUP + TRAIN_STEPS]
+    del state
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, to_device(traced.arrays(), dev))
+        resumed = run_training(cfg, device=dev, restore_step=-1,
+                               max_steps=TRAIN_STEPS + TRAIN_TRACED).step
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    window, busy, by_name, ours = device_time(f"train profile of {tag}", kernels)
-    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
-    n = len(measured)
-    emit("train", path=tag, attention_kernel=cfg.model.attention_kernel,
-         conv_impl=cfg.model.conv_impl, compute_dtype=cfg.model.compute_dtype,
-         batch=cfg.train.optimizer.batch_size,
-         shapes=[{"l_src": int(b.texts.shape[1]), "t_mel": int(b.mels.shape[1])}
-                 for b in measured],
-         steps=n, total_loss=total, step_wall_ms=walls,
-         step_wall_ms_median=statistics.median(walls),
-         mel_frames_per_s=frames / (sum(walls) / 1e3),
-         max_memory_allocated_bytes=peak, launches=counts,
-         want_launches_per_step=want_per_step,
-         traced_step={"shape": {"l_src": int(traced.texts.shape[1]),
-                                "t_mel": int(traced.mels.shape[1])},
-                      "trace_window_ms": window, "device_busy_ms": busy,
-                      "idle_share": 1.0 - busy / window, "device_ops": len(kernels),
-                      "port_kernel_ms": ours,
-                      "top_kernels": [{"name": k[:100], "ms": ms, "calls": c}
-                                      for k, (ms, c) in top]})
-    if not all(math.isfinite(v) for v in total):
-        fail(f"train {tag}: non-finite total loss {total}")
-    for name, per in want_per_step.items():
-        if counts[name] != per * n or (per > 0 and counts[name] == 0):
-            fail(f"train {tag}: {name} launched {counts[name]} times, want {per} x {n}")
+    traced = trace_last_step(f"train profile of {tag}", prof.events())
+
+    log = read_log(os.path.join(paths.log_path, "log.txt"))
+    train_rows, val_rows = log["train"], log["val"]
+    measured = [train_rows.get(s, {}) for s in range(TRAIN_WARMUP + 1, TRAIN_STEPS + 1)]
+    walls = [r.get("train_step_seconds", math.nan) * 1e3 for r in measured]
+    rates = [r.get("mel_frames_per_sec", math.nan) for r in measured]
+    waits = [r.get("train_data_wait_seconds", math.nan) * 1e3 for r in measured]
+    total = {s: r["total_loss"] for s, r in sorted(train_rows.items())}
+    val = {s: r["total_loss"] for s, r in sorted(val_rows.items())}
+    last = TRAIN_STEPS + TRAIN_TRACED
+    saves = set(range(steps.save_step, TRAIN_STEPS + 1, steps.save_step)) | {TRAIN_STEPS}
+    want_saved = sorted(saves | {last})[-cfg.train.resilience.max_to_keep:]
+    saved = CheckpointManager(paths.ckpt_path).all_steps()
+    with open(os.path.join(paths.ckpt_path, str(last), MANIFEST_NAME), encoding="utf-8") as fh:
+        manifest = json.load(fh)
+    n_vals = last // steps.val_step  # val passes over both runs
+    want_counts = {k: per_step * TRAIN_STEPS + per_val * n_val * (TRAIN_STEPS // steps.val_step)
+                   for k, (per_step, per_val) in want.items()}
+    emit("train", path=tag, entry="training.trainer.run_training",
+         attention_kernel=cfg.model.attention_kernel, conv_impl=cfg.model.conv_impl,
+         compute_dtype=cfg.model.compute_dtype, batch=cfg.train.optimizer.batch_size,
+         steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, step_cfg=TRAIN_STEP_CFG,
+         total_loss=list(total.values()), val_total_loss=val,
+         step_wall_ms=walls, step_wall_ms_median=statistics.median(walls),
+         mel_frames_per_s=rates, mel_frames_per_s_median=statistics.median(rates),
+         data_wait_ms=waits, data_wait_ms_median=statistics.median(waits),
+         max_memory_allocated_bytes=peak, launches=counts, want_launches=want_counts,
+         val_batches=n_val, checkpoints=saved, manifest_leaves=len(manifest["leaves"]),
+         resumed_to=resumed, traced_step=traced)
+    if sorted(train_rows) != list(range(1, last + 1)):
+        fail(f"train {tag}: log.txt holds train steps {sorted(train_rows)}, want 1..{last}")
+    if len(val) != n_vals:
+        fail(f"train {tag}: log.txt holds val steps {sorted(val)}, want {n_vals}")
+    if not all(math.isfinite(v) for v in list(total.values()) + list(val.values())):
+        fail(f"train {tag}: non-finite loss: train {total}, val {val}")
+    if not all(math.isfinite(v) and v > 0 for v in walls + rates):
+        fail(f"train {tag}: log.txt step times or frames/s missing: {walls} {rates}")
+    if saved != want_saved or manifest["step"] != last or not manifest["weights_digest"]:
+        fail(f"train {tag}: checkpoints {saved} (want {want_saved}), manifest step "
+             f"{manifest['step']}, digest {manifest['weights_digest']}")
+    if resumed != last:
+        fail(f"train {tag}: the resume ended at step {resumed}, want {last}")
+    for name, n in want_counts.items():
+        if counts[name] != n or (want[name][0] > 0 and counts[name] == 0):
+            fail(f"train {tag}: {name} launched {counts[name]} times, want {n}")
     return counts
 
 
@@ -925,14 +971,17 @@ def grad_parity(cfg, batch, dev, seed):
             loss[f"{dtype}_{tag}"] = float(losses["total_loss"].detach())
             del model, gs, losses
     ref = grads["float32_library"]
-    top = max(g.abs().max().item() for g in ref.values())
+    share = {name: g.abs().max().item() for name, g in ref.items()}
+    top = max(share.values())
+    share = {name: v / top for name, v in share.items()}
+    zero = {name for name, v in share.items() if v <= NOISE_SHARE}
     rows, bad = {}, []
     loss_err = abs(loss["float32_kernels"] - loss["float32_library"]) / abs(loss["float32_library"])
     if not loss_err <= F32_LOSS_RTOL:
         bad.append(f"float32 total loss {loss['float32_kernels']} vs {loss['float32_library']}")
     for name, want in ref.items():
         scale = want.abs().max().item()
-        if ZERO_GRAD.search(name):
+        if name in zero:
             worst = max(grads[k][name].abs().max().item() for k in grads)
             if worst > ZERO_GRAD_SHARE * top:
                 bad.append(f"{name}: |grad| {worst} with zero exact gradient")
@@ -947,8 +996,12 @@ def grad_parity(cfg, batch, dev, seed):
     err = max(r[1] for r in rows.values())
     noise = max(r[2] for r in rows.values())
     ratio = err / noise if noise > 0 else math.inf
-    emit("train_grad_parity", leaves=len(ref), zero_gradient_leaves=len(ref) - len(rows),
-         max_abs_grad=top, total_loss=loss,
+    emit("train_grad_parity", leaves=len(ref), max_abs_grad=top, total_loss=loss,
+         noise_leaves=sorted(zero), noise_share=NOISE_SHARE,
+         noise_leaves_max_share=max((share[n] for n in zero), default=None),
+         other_leaves_min_share=min(share[n] for n in rows),
+         smallest_leaves=[[n, share[n], rows[n][0] if n in rows else None]
+                          for n in sorted(share, key=share.get)[:30]],
          float32={"worst_leaf": f32_worst[0], "worst_rel_err": f32_worst[1][0],
                   "median_rel_err": statistics.median(r[0] for r in rows.values()),
                   "rtol": F32_GRAD_RTOL, "loss_rel_err": loss_err},
@@ -963,26 +1016,33 @@ def train_phase(cfg_of, dev, seed):
     """Phase 6 on a synthetic corpus in a temporary directory; returns
     (the kernel path's counts, the kernel cases)."""
     from speakingstyle_torch.data.synthetic import generate_corpus
+    from speakingstyle_torch.training.trainer import batch_streams
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         corpus = generate_corpus(os.path.join(tmp, "corpus"), n_utts=CORPUS_UTTS,
                                  val_utts=CORPUS_VAL, seed=seed)
-        runs = {tag: cfg_of(corpus, tmp, seed, **kw) for tag, kw in TRAIN_PATHS}
+        runs = {tag: cfg_of(corpus, os.path.join(tmp, tag), seed, **kw)
+                for tag, kw in TRAIN_PATHS}
         cfg = runs["kernels"]
-        batches = train_batches(cfg, TRAIN_WARMUP + TRAIN_STEPS + 1)
+        # run_training's own batches: its first, and the val pass's count
+        stream, val = batch_streams(cfg)
+        first = next(stream)
+        n_val = sum(1 for _ in val.epoch(shuffle=False))
         tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
         attn = re_.encoder_layer + tr.encoder_layer + tr.decoder_layer
         convs = sum(c[-1] for c in conv_cases(cfg))
-        want = {"fused_attention_fwd": attn, "fused_attention_bwd": attn,
-                "fused_conv1d_fwd": convs, "fused_conv1d_fwd_act": re_.conv_layer}
-        counts = train_run("kernels", cfg, batches, dev, want)
-        train_run("library", runs["library"], batches, dev, {k: 0 for k in want})
+        # (per train step, per val batch): the val pass runs the forwards
+        # only, and without grad the LN convs write no act
+        want = {"fused_attention_fwd": (attn, attn), "fused_attention_bwd": (attn, 0),
+                "fused_conv1d_fwd": (convs, convs), "fused_conv1d_fwd_act": (re_.conv_layer, 0)}
+        counts = train_run("kernels", cfg, dev, want, n_val)
+        train_run("library", runs["library"], dev, {k: (0, 0) for k in want}, n_val)
         with strict_float32():
-            cases = train_kernel_cases(cfg, batches[0], dev, seed)
+            cases = train_kernel_cases(cfg, first, dev, seed)
         bad = [c["case"] for c in cases.values() if not c["ok"]]
         if bad:
             fail(f"train kernels disagree with their plain versions: {bad}")
-        bad = grad_parity(cfg, batches[0], dev, seed)
+        bad = grad_parity(cfg, first, dev, seed)
         if bad:
             fail(f"train gradient parity: {bad}")
     return counts, cases

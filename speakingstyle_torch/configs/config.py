@@ -21,10 +21,14 @@ JAX package's compiler or runtime have no meaning here and are accepted as
 they are: ``fast_prng`` (the PRNG behind dropout bits), ``fused_optimizer``
 (three layouts of one update, which the port computes one way),
 ``obs.compilation_cache_dir`` / ``obs.program_card``, and the
-``resilience`` knobs of the sentinel, async saves and loader retries.
-What asks for a path not ported yet raises ``NotImplementedError`` when
-training starts (``check_train_supported``): a mesh other than one device,
-``sharding.remat: true``, or fault injection (``SPEAKINGSTYLE_FAULTS``).
+``resilience`` knobs of the rollbacks and loader retries. What asks for a
+path not ported yet raises ``NotImplementedError`` when training starts
+(``check_train_supported``): a mesh other than one device,
+``sharding.remat: true``, fault injection (``SPEAKINGSTYLE_FAULTS``), or
+``resilience.nan_sentinel`` / ``keep_best`` / ``async_checkpointing``.
+Those three default to false here (true in the JAX package), so a
+``train.yaml`` that leaves them out loads and trains, and one that asks
+for them raises.
 """
 
 from __future__ import annotations
@@ -325,10 +329,11 @@ class ParallelConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    async_checkpointing: bool = True
+    # not ported yet, so false by default (check_train_supported raises on true)
+    async_checkpointing: bool = False
     max_to_keep: int = 5  # newest N step checkpoints; 0 keeps everything
-    keep_best: bool = True
-    nan_sentinel: bool = True
+    keep_best: bool = False
+    nan_sentinel: bool = False
     max_rollbacks: int = 3
     loader_retries: int = 3
     loader_backoff: float = 0.05
@@ -387,9 +392,9 @@ FAULTS_ENV = "SPEAKINGSTYLE_FAULTS"
 
 def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
     """Raise ``NotImplementedError`` for a training setting whose path is
-    not ported yet (ROADMAP.md queue A): more than one device, remat, or
-    fault injection. ``n_devices`` is what ``sharding.data_axis = -1``
-    resolves to."""
+    not ported yet (ROADMAP.md queue A): more than one device, remat, fault
+    injection, the NaN sentinel, keep-best retention or async saves.
+    ``n_devices`` is what ``sharding.data_axis = -1`` resolves to."""
     par, sh = train.parallel, train.sharding
     dp = n_devices if sh.data_axis == -1 else sh.data_axis
     if not par.is_single() or sh.model_axis != 1 or dp != 1:
@@ -406,6 +411,14 @@ def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
         raise NotImplementedError(
             f"{FAULTS_ENV} is set: fault injection and the resilience drills are "
             "not ported yet (ROADMAP.md queue A item 6)"
+        )
+    asked = [k for k in ("nan_sentinel", "keep_best", "async_checkpointing")
+             if getattr(train.resilience, k)]
+    if asked:
+        raise NotImplementedError(
+            f"train.resilience {', '.join(asked)}: true is not ported yet (the port "
+            "saves synchronously, keeps the newest max_to_keep steps and has no NaN "
+            "rollback; ROADMAP.md queue A item 6)"
         )
 
 

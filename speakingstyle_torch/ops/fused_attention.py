@@ -78,13 +78,17 @@ def fused_mha_bwd_plain(q, k, v, pad_mask, dout, sm_scale: Optional[float] = Non
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def check_inputs(q, k, v, pad_mask, softmax_dtype=torch.float32) -> None:
-    """Raise on anything the CUDA kernels do not take."""
-    B, L, H, D = q.shape
+def _check_softmax(softmax_dtype) -> None:
     if softmax_dtype != torch.float32:
         raise NotImplementedError(
             "fused_mha: the CUDA kernel computes the softmax in float32 only"
         )
+
+
+def check_inputs(q, k, v, pad_mask, softmax_dtype=torch.float32) -> None:
+    """Raise on anything the CUDA kernels do not take."""
+    B, L, H, D = q.shape
+    _check_softmax(softmax_dtype)
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(
@@ -161,13 +165,14 @@ fused_mha_bwd.launches = 0
 
 class _FusedMHA(torch.autograd.Function):
     """Forward and backward both by kernel on CUDA, both by plain version
-    on the CPU. The forward saves q, k, v, the mask, and on CUDA the output
-    and the row lse the backward kernel reads."""
+    on the CPU. Where a backward can follow (grad mode on and an input that
+    requires grad), the forward saves q, k, v, the mask, and on CUDA the
+    output and the row lse the backward kernel reads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad_mask, sm_scale, softmax_dtype):
+    def forward(ctx, q, k, v, pad_mask, sm_scale, softmax_dtype, grad_enabled):
         ctx.sm_scale, ctx.softmax_dtype = sm_scale, softmax_dtype
-        grad = any(ctx.needs_input_grad[:3])
+        grad = grad_enabled and any(ctx.needs_input_grad[:3])
         if q.device.type == "cpu":
             out = fused_mha_plain(q, k, v, pad_mask, sm_scale, softmax_dtype)
             if grad:
@@ -188,7 +193,7 @@ class _FusedMHA(torch.autograd.Function):
         else:
             grads = fused_mha_bwd(q, k, v, pad_mask, saved[4], saved[5],
                                   dout.contiguous(), ctx.sm_scale)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
@@ -199,15 +204,17 @@ def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels,
     which take float32 or bfloat16, head dims that are multiples of 8 up
-    to 128, and a float32 softmax; anything else raises.
+    to 128, and a float32 softmax; anything else raises (the shapes, types
+    and layout in ``fused_mha_fwd`` / ``fused_mha_bwd``).
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mha: unsupported device {q.device}")
     if q.device.type == "cuda":
-        check_inputs(q, k, v, pad_mask, softmax_dtype)
-    return _FusedMHA.apply(q, k, v, pad_mask, float(sm_scale), softmax_dtype)
+        _check_softmax(softmax_dtype)
+    return _FusedMHA.apply(q, k, v, pad_mask, float(sm_scale), softmax_dtype,
+                           torch.is_grad_enabled())
 
 
 fused_mha.launches = 0

@@ -195,13 +195,14 @@ def fused_conv_fwd(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation: 
 
 class _FusedConv(torch.autograd.Function):
     """The kernel (CUDA) or the plain version (CPU) forward; the analytic
-    backward in torch ops on both. Saves x, the weights and, where the
+    backward in torch ops on both. Where a backward can follow (grad mode on
+    and an input that requires grad), saves x, the weights and, where the
     backward reads it, ``act``."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, ln_scale, ln_bias, dilation, relu):
+    def forward(ctx, x, kernel, bias, ln_scale, ln_bias, dilation, relu, grad_enabled):
         ctx.dilation, ctx.relu = dilation, relu
-        grad = any(ctx.needs_input_grad[:5])
+        grad = grad_enabled and any(ctx.needs_input_grad[:5])
         ln = ln_scale is not None
         if x.device.type == "cpu":
             y, act = fused_conv_plain_parts(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
@@ -220,13 +221,14 @@ class _FusedConv(torch.autograd.Function):
         x, kernel, bias, ln_scale, ln_bias, act = ctx.saved_tensors
         grads = fused_conv_bwd(g, x, kernel, bias, ln_scale, ln_bias, act,
                                ctx.dilation, ctx.relu)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def _dispatch(x, kernel, bias, ln_scale, ln_bias, dilation, relu):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv: unsupported device {x.device}")
-    return _FusedConv.apply(x, kernel, bias, ln_scale, ln_bias, dilation, relu)
+    return _FusedConv.apply(x, kernel, bias, ln_scale, ln_bias, dilation, relu,
+                            torch.is_grad_enabled())
 
 
 def fused_conv1d(x, kernel, bias: Optional[torch.Tensor] = None, *,

@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from speakingstyle_torch.configs.config import Config, check_train_supported
 from speakingstyle_torch.models.loss import fastspeech2_loss
@@ -114,6 +115,20 @@ def evaluate(eval_step, state, batches: Iterator, device) -> Dict[str, float]:
     return {k: float(v) / count for k, v in sums.items()} if count else {}
 
 
+def batch_streams(cfg: Config, start_step: int = 0):
+    """(the endless stream of training batches from ``start_step``, the val
+    batcher): bucketed batches of ``train.txt`` (sorted, last partial batch
+    dropped) and ``val.txt``, cut as the JAX package's loop cuts them."""
+    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+
+    max_len = cfg.model.max_seq_len
+    train = BucketedBatcher(SpeechDataset("train.txt", cfg, sort=True, drop_last=True),
+                            max_src=max_len, max_mel=max_len, seed=cfg.train.seed + start_step)
+    val = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
+                          max_src=max_len, max_mel=max_len, seed=0)
+    return iter(train), val
+
+
 def build_state(cfg: Config, device) -> TrainState:
     """The model from the config and the corpus stats, seeded random
     weights (``train.seed``), on ``device``, and its optimizer."""
@@ -149,8 +164,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                  max_steps: Optional[int] = None, log: bool = True) -> TrainState:
     """The step loop; returns the final TrainState. ``max_steps`` overrides
     ``total_step``; ``restore_step`` -1 (or None after a 0 from the CLI)
-    resumes from the latest checkpoint, N > 0 from step N."""
-    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+    resumes from the latest checkpoint, N > 0 from step N. Each train step
+    runs inside a ``train.step`` profiler range."""
     from speakingstyle_torch.device import resolve_device
     from speakingstyle_torch.training.checkpoint import CheckpointManager
 
@@ -165,13 +180,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
         ckpt.restore(state, step=restore_step if restore_step > 0 else None,
                      ignore_layers=cfg.train.ignore_layers)
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
-    max_len = cfg.model.max_seq_len
     start_step = state.step
-    train_ds = SpeechDataset("train.txt", cfg, sort=True, drop_last=True)
-    stream = iter(BucketedBatcher(train_ds, max_src=max_len, max_mel=max_len,
-                                  seed=cfg.train.seed + start_step))
-    val_batcher = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
-                                  max_src=max_len, max_mel=max_len, seed=0)
+    stream, val_batcher = batch_streams(cfg, start_step)
     logger = TrainLogger(cfg.train.path.log_path) if log else None
     last_saved = None
     window_t0, window_step0, window_frames = time.perf_counter(), state.step, 0
@@ -183,7 +193,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
             arrays = to_device(batch.arrays(), device)
             data_wait = time.perf_counter() - t_iter
             lr = state.optimizer.lr()
-            losses, _ = train_step(state, arrays)
+            with record_function("train.step"):
+                losses, _ = train_step(state, arrays)
             window_wait += data_wait
             window_compute += time.perf_counter() - t_iter - data_wait
             window_frames += int(batch.mel_lens.sum())
