@@ -36,15 +36,20 @@ printing one JSON line:
    the kernel path (``fused`` + ``pallas``) and the library path
    (``einsum`` + ``xla``): 12 steps with a log line each, validation and
    checkpoints inside them, every kernel count set to 0 just before and
-   read just after (per step: 14 attention forwards and backwards, 42 conv
-   forwards of which the 3 LayerNorm ones write ``act``; per val batch the
-   forwards), finite losses, the log's step times and frames/s, peak
-   memory, the checkpoints and their manifests; then a resume from the
-   last checkpoint for 2 steps under the profiler, and the last step's
-   idle share and kernel ms. Then the backward kernel against its plain
-   version at the first batch's shapes and lengths, the LN conv's ``act``
-   output against the plain one, and one step's per-leaf gradients, kernel
-   path against library path, in float32 and bfloat16.
+   read just after (per step: 14 attention forwards, backwards and
+   backward delta pre-passes, 42 conv forwards of which the 3 LayerNorm
+   ones write ``act``; per val batch the forwards), finite losses, the
+   log's step times and frames/s, peak memory, the checkpoints and their
+   manifests; then a resume from the last checkpoint for 2 steps under the
+   profiler, and the last step's idle share and kernel ms. Then the
+   backward kernel and its delta pre-pass against their plain versions at
+   the first batch's shapes and lengths (float32 and bfloat16), every conv
+   of the train step at those shapes (bfloat16, timed beside cuDNN), the LN
+   conv's ``act`` output against the plain one, and one step's per-leaf
+   gradients, kernel path against library path, in float32 and bfloat16.
+
+Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
+``vs_library`` (kernel ms / library ms, null without a library call).
 
 Then a summary line of every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -105,7 +110,8 @@ BF16_ACOUSTIC_RATIO = 3.0
 # the path (the decoder's, at T_mel), in the path's dtype
 SUMMARY_CASES = {"fused_attention_fwd": "attn_decoder_bfloat16",
                  "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16",
-                 "fused_attention_bwd": "attn_bwd_decoder_bfloat16"}
+                 "fused_attention_bwd": "attn_bwd_decoder_bfloat16",
+                 "fused_attention_bwd_delta": "attn_bwd_delta_decoder_bfloat16"}
 
 TEXTS = [
     "Hello world.",
@@ -202,6 +208,16 @@ def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def shares(case: dict) -> dict:
+    """A timed case with its bound share (bound ms / ms) and its factor
+    against the library call (ms / library ms); None where a time is
+    missing (no library call, or a run that does not time)."""
+    ms, lib = case["ms"], case.get("library_ms")
+    case["bound_share"] = case["bound_ms"] / ms if ms else None
+    case["vs_library"] = ms / lib if ms and lib else None
+    return case
 
 
 def compare(got, want, kind: str, dtype: str, ln_parts=None):
@@ -316,7 +332,7 @@ def attention_case(case, lengths, dtype, g, dev):
     # data-dependent work: every query row against its batch row's valid keys
     flops = 4.0 * H * D * L * float(sum(lens))
     bound_ms, bound_by = bound(4 * q.numel() * itemsize + mask.numel(), flops, dname)
-    return {
+    return shares({
         "case": f"attn_{name}_{dname}", "kernel": "fused_attention_fwd",
         "dtype": dname, "shape": list(shape), "lengths": list(lens),
         "launches_per_dispatch": per_dispatch,
@@ -325,10 +341,10 @@ def attention_case(case, lengths, dtype, g, dev):
         "plain_ms": time_ms(lambda: fused_mha_plain(q, k, v, mask)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    })
 
 
-def conv_case(case, lengths, dtype, g, dev):
+def conv_case(case, lengths, dtype, g, dev, prefix="conv"):
     import torch
     import torch.nn.functional as F
 
@@ -360,8 +376,8 @@ def conv_case(case, lengths, dtype, g, dev):
     itemsize = x.element_size()
     nbytes = (x.numel() + w.numel() + got.numel() + (3 if ln else 1) * cout) * itemsize
     bound_ms, bound_by = bound(nbytes, 2.0 * B * T * K * cin * cout, dname)
-    return {
-        "case": f"conv_{name}_{dname}", "kernel": "fused_conv1d_fwd", "dtype": dname,
+    return shares({
+        "case": f"{prefix}_{name}_{dname}", "kernel": "fused_conv1d_fwd", "dtype": dname,
         "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout, "relu": relu, "ln": ln},
         "lengths": list(lens), "launches_per_dispatch": per_dispatch,
         "max_abs_err": err, "tol": tol, "ok": ok,
@@ -369,7 +385,7 @@ def conv_case(case, lengths, dtype, g, dev):
         # the conv alone (cuDNN), without the ReLU / LayerNorm epilogue
         "library_ms": time_ms(lambda: F.conv1d(xt, wt, b, padding="same")),
         "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    })
 
 
 def kernels_phase(cfg, lengths, dev, seed):
@@ -469,19 +485,20 @@ def strict_float32():
 
 
 def reset_counts():
-    from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_bwd
+    from speakingstyle_torch.ops.fused_attention import attention_delta, fused_mha, fused_mha_bwd
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
-    fused_mha.launches = fused_mha_bwd.launches = 0
+    fused_mha.launches = fused_mha_bwd.launches = attention_delta.launches = 0
     fused_conv1d.launches = fused_conv1d.act_launches = 0
 
 
 def read_counts():
-    from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_bwd
+    from speakingstyle_torch.ops.fused_attention import attention_delta, fused_mha, fused_mha_bwd
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
     return {"fused_attention_fwd": fused_mha.launches,
             "fused_attention_bwd": fused_mha_bwd.launches,
+            "fused_attention_bwd_delta": attention_delta.launches,
             "fused_conv1d_fwd": fused_conv1d.launches,
             "fused_conv1d_fwd_act": fused_conv1d.act_launches}
 
@@ -563,11 +580,13 @@ def profile_dispatch(path, engine, requests):
          top_kernels=[{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top])
 
 
-# the port's kernels by symbol (csrc/fused_conv.cu has conv_fwd_kernel and
-# conv_fwd_mma_kernel; the attention backward attn_bwd_dkdv_kernel and
-# attn_bwd_dq_kernel)
+# the port's kernels by symbol prefix (csrc/fused_conv.cu has conv_fwd_kernel
+# and conv_fwd_mma_kernel; the attention backward attn_bwd_delta_kernel,
+# attn_bwd_dkdv_kernel, attn_bwd_dq_kernel and their _mma twins, the delta
+# pre-pass counted both in the backward's time and alone)
 PORT_SYMBOLS = (("fused_attention_fwd", "(anonymous namespace)::attn_fwd"),
                 ("fused_attention_bwd", "(anonymous namespace)::attn_bwd"),
+                ("fused_attention_bwd_delta", "(anonymous namespace)::attn_bwd_delta"),
                 ("fused_conv1d_fwd", "(anonymous namespace)::conv_fwd"))
 
 
@@ -698,6 +717,11 @@ TRAIN_PATHS = (("kernels", {"attention_kernel": "fused", "conv_impl": "pallas"})
 # 2^-8 relative each) inside sums over L terms, a small share of the max,
 # where a dropped tile errs by a whole tile's probability mass
 BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -6, 2 ** -7)}
+# the backward's delta pre-pass against its plain version, per row:
+# |kernel - plain| <= DELTA_RTOL * sum_d |dO_d O_d|. Both sum the same f32
+# products (exact even from bf16 operands) in another order, which moves the
+# sum by at most D * 2^-24 (<= 7.6e-6 at D = 128) of that magnitude
+DELTA_RTOL = 1e-5
 # float32 gradient parity, kernel path against library path, relative to
 # each leaf's max |grad|. Reordered sums alone give ~eps sqrt(n) per
 # reduction (eps 6e-8, n <= B*T = 43k: 1.2e-5) over ~30 layers, ~4e-4. The
@@ -850,13 +874,15 @@ def train_run(tag, cfg, dev, want, n_val):
 
 
 def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
-    """The backward kernel at one training shape and its lengths, against
-    its plain version and SDPA's backward with the same mask."""
+    """The backward kernels at one training shape and its lengths, against
+    their plain versions: (the backward, delta pre-pass included, beside
+    SDPA's backward with the same mask; the delta pre-pass alone)."""
     import torch
     import torch.nn.functional as F
 
     from speakingstyle_torch.ops.fused_attention import (
-        fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
+        attention_delta, attention_delta_plain, fused_mha_bwd, fused_mha_bwd_plain,
+        fused_mha_fwd,
     )
 
     shape = (B, L, H, D)
@@ -885,13 +911,28 @@ def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
     # row's valid keys
     nbytes = 8 * q.numel() * itemsize + lse.numel() * 4 + mask.numel()
     bound_ms, bound_by = bound(nbytes, 10.0 * H * D * L * float(sum(lens)), dname)
-    return {
+    case = shares({
         "case": f"attn_bwd_{name}_{dname}", "kernel": "fused_attention_bwd", "dtype": dname,
         "shape": list(shape), "lengths": list(lens), "launches_per_step": None,
         "max_abs_err": err, "tol": {"rel_max": rel_max, "rtol": rtol}, "ok": ok,
         "ms": time_ms(run), "plain_ms": time_ms(plain, inner=3, outer=3),
         "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    })
+    # the pre-pass alone: reads out and dout once, writes delta; 2 flops an element
+    got, want = attention_delta(out, dout), attention_delta_plain(out, dout)
+    scale = torch.einsum("blhd,blhd->bhl", dout.float().abs(), out.float().abs())
+    diff = (got - want).abs()
+    bound_ms, bound_by = bound(2 * q.numel() * itemsize + want.numel() * 4, 2.0 * q.numel(), dname)
+    delta_case = shares({
+        "case": f"attn_bwd_delta_{name}_{dname}", "kernel": "fused_attention_bwd_delta",
+        "dtype": dname, "shape": list(shape), "max_abs_err": diff.max().item(),
+        "tol": {"rtol_of_abs_sum": DELTA_RTOL},
+        "ok": bool((diff <= DELTA_RTOL * scale).all()),
+        "ms": time_ms(lambda: attention_delta(out, dout)),
+        "plain_ms": time_ms(lambda: attention_delta_plain(out, dout)),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+    })
+    return case, delta_case
 
 
 def act_case(name, B, T, K, cin, cout, lens, dtype, g, dev):
@@ -915,9 +956,11 @@ def act_case(name, B, T, K, cin, cout, lens, dtype, g, dev):
 
 
 def train_kernel_cases(cfg, batch, dev, seed):
-    """The backward kernel at the first batch's shapes and real lengths
-    (reference encoder and decoder over the mel frames, encoder over the
-    phonemes), in float32 and bfloat16, and the LN conv's act output."""
+    """The backward kernel and its delta pre-pass at the first batch's
+    shapes and real lengths (reference encoder and decoder over the mel
+    frames, encoder over the phonemes), in float32 and bfloat16; every conv
+    of the train step at those shapes in bfloat16 (the reference encoder's
+    over the target mel frames); and the LN conv's act output."""
     import torch
 
     g = torch.Generator().manual_seed(seed + 7)
@@ -932,12 +975,19 @@ def train_kernel_cases(cfg, batch, dev, seed):
                 ("ref_encoder", T, re_.encoder_head, re_.encoder_hidden // re_.encoder_head, mel),
                 ("encoder", L_src, tr.encoder_head, tr.encoder_hidden // tr.encoder_head, src),
                 ("decoder", T, tr.decoder_head, tr.decoder_hidden // tr.decoder_head, mel)):
-            cases.append(attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev))
+            cases.extend(attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev))
+            emit("train_kernels", **cases[-2])
             emit("train_kernels", **cases[-1])
         for name, cin in (("ref_conv_in", n_mels), ("ref_conv", re_.conv_filter_size)):
             cases.append(act_case(name, B, T, re_.conv_kernel_size, cin, re_.conv_filter_size,
                                   mel, dtype, g, dev))
             emit("train_kernels", **cases[-1])
+    lengths = {"ref": (B, T, mel), "src": (B, L_src, src), "mel": (B, T, mel)}
+    for case in conv_cases(cfg):
+        c = conv_case(case, lengths, torch.bfloat16, g, dev, prefix="train_conv")
+        c["launches_per_step"] = c.pop("launches_per_dispatch")
+        cases.append(c)
+        emit("train_kernels", **c)
     return {c["case"]: c for c in cases}
 
 
@@ -1034,6 +1084,7 @@ def train_phase(cfg_of, dev, seed):
         # (per train step, per val batch): the val pass runs the forwards
         # only, and without grad the LN convs write no act
         want = {"fused_attention_fwd": (attn, attn), "fused_attention_bwd": (attn, 0),
+                "fused_attention_bwd_delta": (attn, 0),
                 "fused_conv1d_fwd": (convs, convs), "fused_conv1d_fwd_act": (re_.conv_layer, 0)}
         counts = train_run("kernels", cfg, dev, want, n_val)
         train_run("library", runs["library"], dev, {k: (0, 0) for k in want}, n_val)
@@ -1120,6 +1171,10 @@ def main(argv=None) -> int:
         "fused_attention_bwd": ("speakingstyle_torch/csrc/fused_attention.cu",
                                 "speakingstyle_tpu/ops/pallas_attention.py:92",
                                 train_counts["fused_attention_bwd"]),
+        # the backward's delta pre-pass, part of the port of the same TPU kernel
+        "fused_attention_bwd_delta": ("speakingstyle_torch/csrc/fused_attention.cu",
+                                      "speakingstyle_tpu/ops/pallas_attention.py:92",
+                                      train_counts["fused_attention_bwd_delta"]),
     }
     summary = []
     for name, (source, replaces, launches) in sources.items():
@@ -1128,7 +1183,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"], "case": c["case"],
+            "library_ms": c["library_ms"], "bound_share": c["bound_share"],
+            "vs_library": c["vs_library"], "case": c["case"],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

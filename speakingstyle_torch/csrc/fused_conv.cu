@@ -7,50 +7,65 @@
 //   y[t, o] = bias[o] + sum_j sum_c x[t + j*dil - pad_lo, c] * w[j, c, o]
 // accumulated in f32 (x zero outside [0, T)), then ReLU if asked, then, with
 // LayerNorm, the activation rounded to the storage dtype first and mean /
-// variance (eps 1e-5) taken over all Cout channels of each time step before
-// the affine; one write of the result in the storage dtype. With LayerNorm
-// it can also write that rounded post-ReLU, pre-LN activation (`act`, the
-// TPU kernel's second output under want_act), which the analytic backward
-// reads (ops/fused_conv.py).
+// variance (eps 1e-5, the variance about the mean in a second pass) taken
+// over all Cout channels of each time step before the affine; one write of
+// the result in the storage dtype. With LayerNorm it can also write that
+// rounded post-ReLU, pre-LN activation (`act`, the TPU kernel's second
+// output under want_act), which the analytic backward reads
+// (ops/fused_conv.py).
 //
 // Design: an implicit GEMM, M = time steps, N = Cout, reduction over the K
-// taps and Cin. A block owns a tile of time steps of one batch row and a
-// range of output channels. The input halo of its steps,
-// [rows + (K-1)*dil, 32-channel chunk], is staged in shared memory once per
-// channel chunk and read by all K taps from there (tap j reads the halo
-// shifted by j*dil rows), so the im2col matrix is never formed. The
-// LayerNorm variant needs a block to own whole Cout rows (Cout <= 1024), and
-// the mean / variance are block reductions in the epilogue, before the
-// single store.
+// taps and Cin; the im2col matrix is never formed. What bounds it on the
+// H100: at the model's shapes (Cin, Cout up to 1024, K up to 9, B*T in the
+// thousands) a conv does 2*B*T*K*Cin*Cout flops on a few MB, so arithmetic
+// bounds it. Two kernels, chosen by the storage dtype:
 //
-// Bound on the H100: at the model's shapes (Cin, Cout up to 1024, K up to 9,
-// B*T in the thousands) a conv does 2*B*T*K*Cin*Cout flops on a few MB, so it
-// is bound by arithmetic. Two kernels, chosen by the storage dtype:
+// * bfloat16 (the model's compute dtype), conv_fwd_mma_kernel: the products
+//   run on the tensor cores, mma.sync m16n8k16 bf16 -> f32. A block of 8
+//   warps (2 along steps x 4 along channels) owns BM time steps (128, or 64
+//   / 32 where 128-step tiles would leave SMs idle) x 128 output channels
+//   of one batch row. The reduction walks (Cin chunk of 64, tap) pairs
+//   through a ring of 3 shared-memory stages filled by cp.async (16 bytes a
+//   thread, zero-filled at the edges), so two pairs of loads are in flight
+//   behind the products. A chunk's input rows, the block's steps and their
+//   (K-1)*dil-step halo, are staged once, with its first tap, and all K
+//   taps read them shifted by j*dil rows; each pair brings its tap's
+//   [64 Cin x 128 Cout] weight tile, row-major as it lies in w. A fragments
+//   come by ldmatrix, B fragments by ldmatrix.trans straight from the
+//   row-major weight tile; rows are padded to 72 / 136 elements, which
+//   makes both conflict-free. Where Cin or Cout is not a multiple of 8 (or
+//   a pointer is not 16-byte aligned) that operand is staged by plain loads
+//   instead. At 64 input channels a stage each warp does 64 mma between two
+//   barriers (32 channels measured ~20 % slower on the H100).
+//   LayerNorm needs each time step's statistics over all of Cout, so the
+//   LN variant splits Cout across a thread-block cluster of
+//   ceil(Cout / 128) <= 8 blocks (8 x 128 at Cout = 1024), launched with
+//   cudaLaunchKernelEx and a cluster-dimension attribute: each block owns
+//   BM steps and 1/8 of the weights, and the per-step partial sums of both
+//   passes (the mean, then the variance about it) are exchanged through
+//   distributed shared memory (map_shared_rank), summed in rank order so
+//   that every block of the cluster gets the same bits. (One block owning
+//   16 steps x all of Cout would re-read the whole 6 MB weight per 16
+//   steps.)
+// * float32, conv_fwd_kernel: f32 FMA on the CUDA cores, which keeps full
+//   f32 products (the tensor cores would round the inputs to TF32) for the
+//   float32 parity checks. A block owns 16 steps and 256 * CPT channels,
+//   one thread per channel, 16 x CPT accumulators each.
 //
-// * bfloat16 (the model's compute dtype): the products run on the tensor
-//   cores, mma.sync m16n8k16 with f32 accumulators in registers. Each tap's
-//   [32 Cin x block Cout] weight tile is staged in shared memory transposed
-//   (Cout-major, Cin contiguous) so that every A and B fragment is a 32-bit
-//   shared-memory load; row strides are padded to 40 elements, which makes
-//   those loads free of bank conflicts. Without LayerNorm a block is
-//   64 steps x 128 channels (8 warps, 32 x 32 each), or 32 x 128 where
-//   64-step tiles would leave SMs idle; with LayerNorm it is 16 steps x all
-//   Cout channels (8 warps side by side along Cout). Halo and weights are
-//   staged with 16-byte loads where Cin (halo) or Cout (weights) is a
-//   multiple of 8.
-// * float32: f32 FMA on the CUDA cores, which keeps full f32 products (the
-//   tensor cores would round the inputs to TF32). A block owns 16 steps and
-//   256 * CPT channels, one thread per channel, 16 x CPT accumulators each.
-//
-// Neither pipelines its loads (cp.async / TMA) nor uses wgmma yet: those are
-// the next steps for speed.
+// Left for later: wgmma and TMA (warpgroup products from shared memory fed
+// by one producer warp), larger tiles (each weight tile is read once per
+// 128 steps, each input chunk once per 128 channels), and 16-byte output
+// stores.
 //
 // C interface (loaded with ctypes): returns the cudaError_t of the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -259,34 +274,41 @@ cudaError_t dispatch_cpt(const void* x, const void* w, const void* bias,
 
 // ---------------------------------------------------------------- bfloat16, tensor cores
 
-using bf16 = __nv_bfloat16;
-constexpr int MMA_BK = 32;            // input channels per staged chunk: two k16 steps
-constexpr int MMA_LD = MMA_BK + 8;    // padded row stride (elements) of both smem tiles
-constexpr int MMA_WARPS = 8;
+namespace cg = cooperative_groups;
+constexpr int CONV_BK = 64;        // input channels a stage: four k16 steps
+constexpr int CONV_BN = 128;       // output channels a block
+constexpr int CONV_STAGES = 3;     // cp.async ring
+constexpr int CONV_WM = 2, CONV_WN = 4;  // warps along steps, along channels
+constexpr int CONV_NTH = CONV_WM * CONV_WN * 32;
+constexpr int CONV_NT8 = CONV_BN / CONV_WN / 8;  // 8-channel mma tiles a warp
+constexpr int A_LD = CONV_BK + 8;  // 144-byte rows: ldmatrix conflict-free
+constexpr int B_LD = CONV_BN + 8;  // 272-byte rows
+constexpr int MAX_CLUSTER = 8;     // LayerNorm: Cout <= 8 x 128
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // p[0] in the low half
-}
-
-// c += a (16x16, row-major) * b (16x8, col-major); bf16 inputs, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 8 elements into shared memory, the first n_ok of them from src, the rest
+// zeros: one 16-byte cp.async where vec (then n_ok is 0 or 8, and safe is
+// any readable address for the zero fill), plain loads otherwise
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, const bf16* safe, int n_ok,
+                                      bool vec) {
+  if (vec) {
+    cp_async16(dst, n_ok > 0 ? src : safe, n_ok > 0);
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = e < n_ok ? src[e] : zero;
+  }
 }
 
 // Stores a warp's MT x NT8 mma accumulator tiles, rows t0.. and columns c0..
 // of batch row b: acc[mt][nt][i] is row mt*16 + g + 8*(i >> 1), column
-// nt*8 + 2*q + (i & 1).
+// nt*8 + 2*q + (i & 1). Pairs go out as one 32-bit store where Cout is even.
 template <int MT, int NT8>
 __device__ __forceinline__ void store_mma_tile(bf16* dst, const float (&acc)[MT][NT8][4],
                                                int T_len, int Cout, int b, int t0, int c0,
                                                int g, int q) {
+  const bool pairs = (Cout & 1) == 0;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -295,41 +317,82 @@ __device__ __forceinline__ void store_mma_tile(bf16* dst, const float (&acc)[MT]
       if (t >= T_len) continue;
       bf16* row = dst + ((size_t)b * T_len + t) * Cout;
 #pragma unroll
-      for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = c0 + nt * 8 + 2 * q + e;
-          if (co < Cout) row[co] = __float2bfloat16(acc[mt][nt][2 * h + e]);
+      for (int nt = 0; nt < NT8; ++nt) {
+        const int co = c0 + nt * 8 + 2 * q;
+        if (co >= Cout) continue;
+        if (pairs)
+          *reinterpret_cast<__nv_bfloat162*>(row + co) =
+              __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        else {
+          row[co] = __float2bfloat16(acc[mt][nt][2 * h]);
+          if (co + 1 < Cout) row[co + 1] = __float2bfloat16(acc[mt][nt][2 * h + 1]);
         }
+      }
     }
 }
 
-// The same contract as conv_fwd_kernel, for bfloat16 tensors. Warps form a
-// WM x WN grid; each owns MT 16-row and NT8 8-column mma tiles, so a block
-// covers BM = WM*MT*16 steps and BN = WN*NT8*8 channels. With LN the block
-// must cover all of Cout (gridDim.y == 1).
-template <int WM, int WN, int MT, int NT8, bool LN>
-__global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
+// The same contract as conv_fwd_kernel, for bfloat16 tensors. A block owns
+// BM = CONV_WM * MT * 16 steps (t0 = blockIdx.y * BM of batch row blockIdx.z)
+// and CONV_BN channels from n0 = blockIdx.x * CONV_BN; each warp MT 16-row x
+// CONV_NT8 8-column mma tiles. With LN the launch makes blockIdx.x's axis
+// one cluster (gridDim.x = its size), which together covers Cout.
+template <int MT, bool LN>
+__global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
     const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_shift,
     bf16* __restrict__ out, bf16* __restrict__ act, int T_len, int Cin, int Cout, int K,
     int dil, int pad_lo, int relu, int vec_x, int vec_w) {
-  constexpr int NTH = WM * WN * 32;
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT8 * 8;
+  constexpr int BM = CONV_WM * MT * 16;
+  constexpr int NT8 = CONV_NT8;
+  constexpr int B_ELEMS = CONV_BK * B_LD;
+  const int A_ELEMS = (BM + (K - 1) * dil) * A_LD;  // a chunk's rows: the steps and their halo
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rows = BM + (K - 1) * dil;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [rows][MMA_LD]: the halo chunk
-  bf16* ws = xs + rows * MMA_LD;                  // [BN][MMA_LD]: one tap's weights, Cout-major
-  __shared__ float red[WN][BM];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [CONV_STAGES][rows][A_LD]: x, one chunk
+  bf16* Bs = As + CONV_STAGES * A_ELEMS;          // [CONV_STAGES][CONV_BK][B_LD]: w, row-major
+  __shared__ float red[CONV_WN][BM];
   __shared__ float stat[BM];
+  __shared__ float part[2][BM];  // LN: this block's per-step sums of both passes, read cluster-wide
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
+  const int wm = warp / CONV_WN, wn = warp % CONV_WN;
   const int g = lane >> 2, q = lane & 3;  // the mma fragment's row group / column pair
-  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const int n0 = blockIdx.x * CONV_BN, t0 = blockIdx.y * BM, b = blockIdx.z;
   const bf16* xb = x + (size_t)b * T_len * Cin;
-  const bf16 zero = __float2bfloat16(0.f);
+  const int n_chunks = (Cin + CONV_BK - 1) / CONV_BK;
+  const int n_iter = n_chunks * K;  // (chunk, tap) pairs, taps fastest
+
+  // one cp.async group per pair (empty past the end). The weights go to
+  // slot it % CONV_STAGES; a chunk's input rows, with the chunk's first
+  // tap, to slot chunk % CONV_STAGES, where all K taps read them. That slot
+  // is refilled with pair (chunk + CONV_STAGES) * K, issued at iteration
+  // (chunk + CONV_STAGES) * K - CONV_STAGES + 1: after the chunk's last
+  // reader, iteration chunk * K + K - 1, for every K >= 1.
+  auto issue = [&](int it) {
+    if (it < n_iter) {
+      const int j = it % K, ci0 = (it / K) * CONV_BK;
+      if (j == 0) {
+        // row r of the chunk is x[t0 - pad_lo + r]: tap j of step t0 + m reads row m + j*dil
+        bf16* as = As + ((it / K) % CONV_STAGES) * A_ELEMS;
+        for (int i = tid; i < A_ELEMS / A_LD * (CONV_BK / 8); i += CONV_NTH) {
+          const int r = i / (CONV_BK / 8), c = (i % (CONV_BK / 8)) * 8;
+          const int t = t0 - pad_lo + r;
+          const bool row_ok = t >= 0 && t < T_len;
+          const int n_ok = row_ok ? max(0, min(8, Cin - ci0 - c)) : 0;
+          copy8(as + r * A_LD + c, xb + (size_t)(row_ok ? t : 0) * Cin + ci0 + c, x, n_ok, vec_x);
+        }
+      }
+      bf16* bs = Bs + (it % CONV_STAGES) * B_ELEMS;
+      // tap j's weights, input channels ci0.. x output channels n0.., as in w
+      const int w_rows = min(CONV_BK, Cin - ci0);
+      const bf16* wj = w + ((size_t)j * Cin + ci0) * Cout + n0;
+      for (int i = tid; i < CONV_BK * (CONV_BN / 8); i += CONV_NTH) {
+        const int r = i / (CONV_BN / 8), c = (i % (CONV_BN / 8)) * 8;
+        const int n_ok = r < w_rows ? max(0, min(8, Cout - n0 - c)) : 0;
+        copy8(bs + r * B_LD + c, wj + (size_t)r * Cout + c, w, n_ok, vec_w);
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[MT][NT8][4];
 #pragma unroll
@@ -339,81 +402,35 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += MMA_BK) {
-    __syncthreads();  // the previous chunk's readers are done
-    if (vec_x) {  // 16-byte loads and stores: 8 channels of one step
-      for (int i = tid; i < rows * (MMA_BK / 8); i += NTH) {
-        const int r = i / (MMA_BK / 8), c = (i % (MMA_BK / 8)) * 8;
-        const int t = t0 - pad_lo + r, ci = ci0 + c;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (t >= 0 && t < T_len && ci < Cin)
-          v = *reinterpret_cast<const uint4*>(xb + (size_t)t * Cin + ci);
-        *reinterpret_cast<uint4*>(xs + r * MMA_LD + c) = v;
-      }
-    } else {
-      for (int i = tid; i < rows * MMA_BK; i += NTH) {
-        const int r = i / MMA_BK, c = i % MMA_BK;
-        const int t = t0 - pad_lo + r, ci = ci0 + c;
-        xs[r * MMA_LD + c] = (t >= 0 && t < T_len && ci < Cin) ? xb[(size_t)t * Cin + ci] : zero;
-      }
-    }
-    for (int j = 0; j < K; ++j) {
-      if (j > 0) __syncthreads();  // the previous tap's readers of ws are done
-      const bf16* wj = w + ((size_t)j * Cin + ci0) * Cout + n0;
-      if (vec_w) {
-        // a thread takes input channels (2p, 2p+1) x 8 output channels: two
-        // 16-byte loads, eight 32-bit transposed stores. p runs fastest, so
-        // a warp's stores land in distinct banks (2-way at worst) and each
-        // weight row's 32-byte sector is read whole.
-        for (int i = tid; i < (MMA_BK / 2) * (BN / 8); i += NTH) {
-          const int p = i % (MMA_BK / 2), n = (i / (MMA_BK / 2)) * 8;
-          const int k = 2 * p;
-          uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
-          if (n0 + n < Cout) {
-            if (ci0 + k < Cin) lo = *reinterpret_cast<const uint4*>(wj + (size_t)k * Cout + n);
-            if (ci0 + k + 1 < Cin)
-              hi = *reinterpret_cast<const uint4*>(wj + (size_t)(k + 1) * Cout + n);
-          }
-          const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w}, h[4] = {hi.x, hi.y, hi.z, hi.w};
+  for (int it = 0; it < CONV_STAGES - 1; ++it) issue(it);
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<CONV_STAGES - 2>();
+    __syncthreads();  // pair it has landed; every reader of the slot refilled next is done
+    issue(it + CONV_STAGES - 1);
+    // tap it % K's rows of the chunk it / K
+    const bf16* as = As + ((it / K) % CONV_STAGES) * A_ELEMS + (it % K) * dil * A_LD;
+    const bf16* bs = Bs + (it % CONV_STAGES) * B_ELEMS;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            // channel n+2u from the low halves, n+2u+1 from the high halves
-            *reinterpret_cast<uint32_t*>(ws + (n + 2 * u) * MMA_LD + k) =
-                (l[u] & 0xffffu) | (h[u] << 16);
-            *reinterpret_cast<uint32_t*>(ws + (n + 2 * u + 1) * MMA_LD + k) =
-                (l[u] >> 16) | (h[u] & 0xffff0000u);
-          }
-        }
-      } else {
-        for (int i = tid; i < MMA_BK * BN; i += NTH) {
-          const int k = i / BN, n = i % BN;  // n fastest: coalesced reads along Cout
-          ws[n * MMA_LD + k] =
-              (ci0 + k < Cin && n0 + n < Cout) ? wj[(size_t)k * Cout + n] : zero;
-        }
-      }
-      __syncthreads();
-      const bf16* xa = xs + j * dil * MMA_LD;  // tap j's rows of the halo
+    for (int kk = 0; kk < CONV_BK; kk += 16) {
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int kk = 0; kk < MMA_BK; kk += 16) {
-        uint32_t a[MT][4];
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a[mt], as + (wm * MT * 16 + mt * 16 + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT8 / 2; ++np) {
+        // B[k][n] = w rows: .trans gives b0, b1 of n-tile 2np (regs 0, 1) and 2np + 1 (2, 3)
+        uint32_t bb[4];
+        ldsm_x4_t(bb, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD + wn * NT8 * 8 +
+                          np * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const bf16* pa = xa + (wm * MT * 16 + mt * 16 + g) * MMA_LD + kk + 2 * q;
-          a[mt][0] = ld_pair(pa);
-          a[mt][1] = ld_pair(pa + 8 * MMA_LD);
-          a[mt][2] = ld_pair(pa + 8);
-          a[mt][3] = ld_pair(pa + 8 * MMA_LD + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT8; ++nt) {
-          const bf16* pb = ws + (wn * NT8 * 8 + nt * 8 + g) * MMA_LD + kk + 2 * q;
-          const uint32_t b0 = ld_pair(pb), b1 = ld_pair(pb + 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+          mma_bf16(acc[mt][2 * np], a[mt], bb[0], bb[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
         }
       }
     }
   }
+  cp_async_wait<0>();
 
   // epilogue. acc[mt][nt][i] is row wm*MT*16 + mt*16 + g + 8*(i >> 1),
   // column wn*NT8*8 + nt*8 + 2*q + (i & 1) of the block's tile
@@ -436,8 +453,11 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
   const int r0 = wm * MT * 16, c0 = n0 + wn * NT8 * 8;  // this warp's tile
   if (act != nullptr) store_mma_tile(act, acc, T_len, Cout, b, t0 + r0, c0, g, q);
   if (LN) {
-    // per-row sums over all Cout: in-thread, over the 4 threads of a row
-    // group (shuffles), then over the WN warps along Cout (shared memory)
+    // per-step sums over all Cout: in-thread, over the 4 threads of a row
+    // group (shuffles), over the CONV_WN warps along Cout (shared memory),
+    // then over the cluster's blocks (distributed shared memory)
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ncl = gridDim.x;  // the cluster spans the grid's x axis
     const float inv_n = 1.f / (float)Cout;
     float mean[MT][2], rstd[MT][2];
 #pragma unroll
@@ -451,19 +471,25 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
           for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int co = n0 + wn * NT8 * 8 + nt * 8 + 2 * q + e;
+              const int co = c0 + nt * 8 + 2 * q + e;
               const float v = acc[mt][nt][2 * h + e];
               const float d = pass == 0 ? v : v - mean[mt][h];
               s += co < Cout ? (pass == 0 ? d : d * d) : 0.f;
             }
           s += __shfl_xor_sync(0xffffffffu, s, 1);
           s += __shfl_xor_sync(0xffffffffu, s, 2);
-          if (q == 0) red[wn][wm * MT * 16 + mt * 16 + g + 8 * h] = s;
+          if (q == 0) red[wn][r0 + mt * 16 + g + 8 * h] = s;
         }
       __syncthreads();
       if (tid < BM) {
         float s = 0.f;
-        for (int k = 0; k < WN; ++k) s += red[k][tid];
+        for (int k = 0; k < CONV_WN; ++k) s += red[k][tid];
+        part[pass][tid] = s;
+      }
+      cluster.sync();  // every block's sums of this pass are written
+      if (tid < BM) {
+        float s = 0.f;
+        for (int rank = 0; rank < ncl; ++rank) s += cluster.map_shared_rank(part[pass], rank)[tid];
         stat[tid] = s;
       }
       __syncthreads();
@@ -471,17 +497,18 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float st = stat[wm * MT * 16 + mt * 16 + g + 8 * h] * inv_n;
+          const float st = stat[r0 + mt * 16 + g + 8 * h] * inv_n;
           if (pass == 0) mean[mt][h] = st;
           else rstd[mt][h] = 1.f / sqrtf(st + LN_EPS);
         }
       __syncthreads();  // stat and red are rewritten by the next pass
     }
+    cluster.sync();  // no block exits (freeing its part[]) while another reads it
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int co = n0 + wn * NT8 * 8 + nt * 8 + 2 * q + e;
+        const int co = c0 + nt * 8 + 2 * q + e;
         const float gm = co < Cout ? __bfloat162float(ln_scale[co]) : 0.f;
         const float sh = co < Cout ? __bfloat162float(ln_shift[co]) : 0.f;
 #pragma unroll
@@ -496,69 +523,74 @@ __global__ void __launch_bounds__(WM * WN * 32) conv_fwd_mma_kernel(
   store_mma_tile(out, acc, T_len, Cout, b, t0 + r0, c0, g, q);
 }
 
-template <int WM, int WN, int MT, int NT8, bool LN>
+template <int MT, bool LN>
 cudaError_t launch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
                        const void* ln_shift, void* out, void* act, int B, int T_len, int Cin,
-                       int Cout, int K, int dil, int relu, cudaStream_t stream) {
-  constexpr int BM = WM * MT * 16, BN = WN * NT8 * 8;
+                       int Cout, int K, int dil, int relu, int cluster, cudaStream_t stream) {
+  constexpr int BM = CONV_WM * MT * 16;
   static int configured = 48 * 1024;  // default dynamic shared memory limit
   const int span = (K - 1) * dil + 1;
-  const int smem = (BM + span - 1 + BN) * MMA_LD * (int)sizeof(bf16);
+  const int smem = CONV_STAGES * ((BM + span - 1) * A_LD + CONV_BK * B_LD) * (int)sizeof(bf16);
   if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(conv_fwd_mma_kernel<WM, WN, MT, NT8, LN>,
+    cudaError_t e = cudaFuncSetAttribute(conv_fwd_mma_kernel<MT, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  dim3 grid((T_len + BM - 1) / BM, (Cout + BN - 1) / BN, B);
-  conv_fwd_mma_kernel<WM, WN, MT, NT8, LN><<<grid, WM * WN * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(LN ? cluster : (Cout + CONV_BN - 1) / CONV_BN, (T_len + BM - 1) / BM, B);
+  cfg.blockDim = dim3(CONV_NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = LN ? cluster : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int vec_x = Cin % 8 == 0 && aligned16(x), vec_w = Cout % 8 == 0 && aligned16(w);
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, conv_fwd_mma_kernel<MT, LN>, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(ln_scale), static_cast<const bf16*>(ln_shift),
       static_cast<bf16*>(out), static_cast<bf16*>(act), T_len, Cin, Cout, K, dil,
-      (span - 1) / 2, relu,
-      Cin % 8 == 0 && aligned16(x), Cout % 8 == 0 && aligned16(w));
-  return cudaGetLastError();
+      (span - 1) / 2, relu, vec_x, vec_w);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// bm: the block's time steps (128, 64 or 32); cluster: with LayerNorm, the
+// blocks that share Cout, ceil(Cout / 128). Both are chosen by the caller
+// (ops/fused_conv.py::conv_plan).
 cudaError_t dispatch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
                          const void* ln_shift, void* out, void* act, int B, int T_len,
-                         int Cin, int Cout, int K, int dil, int relu, cudaStream_t s) {
-  if (ln_scale == nullptr) {
-    // 64 steps x 128 channels (2 x 4 warps of 32 x 32); where that leaves
-    // SMs idle, 32 steps x 128 channels (2 x 4 warps of 16 x 32)
-    static int sms = 0;
-    if (sms == 0) {
-      int dev = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e != cudaSuccess) return e;
-    }
-    const long tiles64 = (long)((T_len + 63) / 64) * ((Cout + 127) / 128) * B;
-    if (tiles64 >= sms)
-      return launch_mma<2, 4, 2, 4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
-    return launch_mma<2, 4, 1, 4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+                         int Cin, int Cout, int K, int dil, int relu, int bm, int cluster,
+                         cudaStream_t s) {
+  const bool ln = ln_scale != nullptr;
+  if (ln && (cluster != (Cout + CONV_BN - 1) / CONV_BN || cluster > MAX_CLUSTER))
+    return cudaErrorInvalidValue;
+  switch (bm * 2 + (ln ? 1 : 0)) {
+    case 256: return launch_mma<4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 257: return launch_mma<4, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 128: return launch_mma<2, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 129: return launch_mma<2, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 64: return launch_mma<1, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 65: return launch_mma<1, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    default: return cudaErrorInvalidValue;
   }
-  // LayerNorm: 16 steps x all Cout, the 8 warps side by side along Cout
-  if (Cout <= 128)
-    return launch_mma<1, MMA_WARPS, 1, 2, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
-  if (Cout <= 256)
-    return launch_mma<1, MMA_WARPS, 1, 4, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
-  if (Cout <= 512)
-    return launch_mma<1, MMA_WARPS, 1, 8, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
-  if (Cout <= 1024)
-    return launch_mma<1, MMA_WARPS, 1, 16, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null; ln_scale / ln_shift
 // null means no LayerNorm. act (null unless wanted) takes the rounded
-// post-ReLU, pre-LN activation, and is taken only with LayerNorm.
+// post-ReLU, pre-LN activation, and is taken only with LayerNorm. bm and
+// cluster shape the bfloat16 launch (see dispatch_mma); float32 ignores them.
 extern "C" int fused_conv1d_fwd(const void* x, const void* w, const void* bias,
                                 const void* ln_scale, const void* ln_shift, void* out,
                                 void* act, int B, int T_len, int Cin, int Cout, int K,
-                                int dil, int relu, int dtype, void* stream) {
+                                int dil, int relu, int bm, int cluster, int dtype,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ln = ln_scale != nullptr;
   if (act != nullptr && !ln) return static_cast<int>(cudaErrorInvalidValue);
@@ -567,7 +599,7 @@ extern "C" int fused_conv1d_fwd(const void* x, const void* w, const void* bias,
     e = ln ? dispatch_cpt<true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s)
            : dispatch_cpt<false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
   else if (dtype == 1)
-    e = dispatch_mma(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
+    e = dispatch_mma(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, bm, cluster, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -8,13 +8,16 @@ The kernels (``csrc/fused_attention.cu``) replace the TPU kernels
 about that, is written at the top of the CUDA source: the TPU kernel's
 whole T x T score tile does not fit in shared memory, so the forward
 streams key tiles with an online softmax and the backward runs two tiled
-passes (dK/dV, then dQ) that recompute P from the forward's row lse.
+passes (dK/dV, then dQ, on the tensor cores in bfloat16) that recompute P
+from the forward's row lse, after a pre-pass that writes each row's
+delta = rowsum(dO o O) once.
 
 ``fused_mha`` is the entry point the model calls; it is differentiable. A
 CPU tensor runs ``fused_mha_plain`` forward and ``fused_mha_bwd_plain``
 backward (the JAX package's ``_bwd_kernel`` math, not torch autograd's); a
-CUDA tensor runs the kernels, or the call raises. ``fused_mha.launches``
-and ``fused_mha_bwd.launches`` count kernel launches.
+CUDA tensor runs the kernels, or the call raises. ``fused_mha.launches``,
+``fused_mha_bwd.launches`` and ``attention_delta.launches`` (the
+backward's pre-pass) count kernel launches.
 """
 
 import ctypes
@@ -29,6 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {
     "fused_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
     "fused_attention_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _P),
+    "fused_attention_bwd_delta": (_P,) * 3 + (_I,) * 5 + (_P,),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -76,6 +80,12 @@ def fused_mha_bwd_plain(q, k, v, pad_mask, dout, sm_scale: Optional[float] = Non
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_delta_plain(out, dout):
+    """The backward's row term in plain tensor ops: delta[b, h, l] =
+    sum_d dout[b, l, h, d] out[b, l, h, d] in f32 -> [B, H, L] float32."""
+    return torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
 
 
 def _check_softmax(softmax_dtype) -> None:
@@ -134,25 +144,62 @@ def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
     return out, lse
 
 
+def _check_bwd_rows(like, **tensors) -> None:
+    """Raise unless each tensor is a contiguous twin of ``like`` (shape,
+    dtype, device) that starts on a 16-byte boundary: the backward kernels
+    copy rows in 16-byte pieces."""
+    for name, t in tensors.items():
+        if t.shape != like.shape or t.dtype != like.dtype or t.device != like.device \
+                or not t.is_contiguous():
+            raise ValueError(f"fused_mha backward: {name} must be a contiguous twin of "
+                             f"{tuple(like.shape)} {like.dtype} {like.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_mha backward: {name} must start on a 16-byte boundary "
+                             "(the kernels copy rows in 16-byte pieces)")
+
+
+def attention_delta(out, dout):
+    """Launch the backward's pre-pass kernel on CUDA tensors (contiguous
+    16-byte-aligned twins [B, L, H, D], float32 or bfloat16, D a multiple of
+    8 up to 128): delta [B, H, L] float32, as ``attention_delta_plain``."""
+    B, L, H, D = out.shape
+    if out.dtype not in _DTYPES or D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"attention_delta: {out.dtype} rows of {D} are not taken")
+    _check_bwd_rows(out, out=out, dout=dout)
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=out.device)
+    if B == 0 or L == 0 or H == 0:
+        return delta
+    lib = kernels.load("fused_attention", _SIGNATURE)
+    err = lib.fused_attention_bwd_delta(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, L, H, D, _DTYPES[out.dtype],
+        _stream(out),
+    )
+    kernels.check(err, "fused_attention_bwd_delta")
+    attention_delta.launches += 1
+    return delta
+
+
+attention_delta.launches = 0
+
+
 def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float):
-    """Launch the backward kernel on CUDA tensors: (dq, dk, dv). ``out`` and
-    ``lse`` are the forward kernel's; ``dout`` is out's cotangent."""
+    """Launch the backward kernels on CUDA tensors: the delta pre-pass,
+    then the dK/dV and dQ passes; returns (dq, dk, dv). ``out`` and ``lse``
+    are the forward kernel's; ``dout`` is out's cotangent."""
     check_inputs(q, k, v, pad_mask)
     B, L, H, D = q.shape
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError(f"fused_mha_bwd: {name} must be a contiguous twin of q")
+    _check_bwd_rows(q, q=q, k=k, v=v, out=out, dout=dout)
     if lse is None or tuple(lse.shape) != (B, H, L) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"fused_mha_bwd: lse must be contiguous float32 [{B}, {H}, {L}]")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if B == 0 or L == 0 or H == 0:
         return dq, dk, dv
+    delta = attention_delta(out, dout)
     lib = kernels.load("fused_attention", _SIGNATURE)
     err = lib.fused_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.view(torch.uint8).data_ptr(),
-        out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        delta.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, L, H, D, float(sm_scale), _DTYPES[q.dtype], _stream(q),
     )
     kernels.check(err, "fused_attention_bwd")

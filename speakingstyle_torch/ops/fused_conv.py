@@ -7,7 +7,9 @@ The kernel (``csrc/fused_conv.cu``) replaces the TPU kernel
 the epilogue in the same kernel; what bounds it on the H100 and what its
 design does about that is written at the top of the CUDA source. With
 LayerNorm it also writes ``act``, the post-ReLU, pre-LN activation rounded
-to the storage dtype, for the backward.
+to the storage dtype, for the backward. ``conv_plan`` chooses the bf16
+launch's shape (time steps a block, and the cluster that shares Cout under
+LayerNorm) from the problem and the card's SM count.
 
 Both entry points are differentiable. The backward is the JAX package's
 "analytic" ``_fused_bwd`` (``pallas_conv.py:295-360``) in torch ops, on
@@ -23,25 +25,47 @@ entry points, ``fused_conv1d.act_launches`` those that wrote ``act``.
 """
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from speakingstyle_torch.ops import kernels
 
 LN_EPS = 1e-5
-MAX_LN_CHANNELS = 1024  # the LN variant's block owns whole Cout rows
+CONV_BN = 128          # output channels a block of the bf16 kernel
+CONV_BMS = (128, 64, 32)  # its time steps a block, largest first
+MAX_CLUSTER = 8        # blocks of a cluster (the portable maximum)
+MAX_LN_CHANNELS = CONV_BN * MAX_CLUSTER  # LN: one cluster covers Cout
 
-_SIGNATURE = {
-    "fused_conv1d_fwd": (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    )
-}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, w, bias, ln_scale, ln_shift, out, act; B, T, Cin, Cout, K, dilation,
+# relu, bm, cluster, dtype; stream
+_SIGNATURE = {"fused_conv1d_fwd": (_P,) * 7 + (_I,) * 10 + (_P,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS: Dict[int, int] = {}  # device index -> SM count
+
+
+def conv_plan(B: int, T: int, cout: int, ln: bool, sms: int) -> Tuple[int, int]:
+    """(time steps a block, blocks a cluster) of the bf16 kernel's launch.
+    A block owns ``bm`` steps of one batch row x 128 output channels: the
+    largest of 128, 64, 32 steps whose grid still gives every one of the
+    card's ``sms`` SMs a block (32 where none does). With LayerNorm the
+    ceil(Cout / 128) blocks of one row tile form a cluster (at most 8),
+    which exchanges the per-step LN sums; without it the cluster is 1."""
+    n_tiles = -(-cout // CONV_BN)
+    if ln and n_tiles > MAX_CLUSTER:
+        raise ValueError(
+            f"fused_conv: the LayerNorm variant takes Cout <= {MAX_LN_CHANNELS}, got {cout}"
+        )
+    bm = next((m for m in CONV_BMS if B * -(-T // m) * n_tiles >= sms), CONV_BMS[-1])
+    return bm, (n_tiles if ln else 1)
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def conv1d_unfold(x, kernel, bias=None, dilation: int = 1):
@@ -180,11 +204,12 @@ def fused_conv_fwd(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation: 
     act = torch.empty_like(out) if want_act else None
     if B == 0 or T == 0 or cout == 0:
         return out, act
+    bm, cluster = conv_plan(B, T, cout, ln_scale is not None, _sm_count(x.device))
     lib = kernels.load("fused_conv", _SIGNATURE)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.fused_conv1d_fwd(
         x.data_ptr(), kernel.data_ptr(), ptr(bias), ptr(ln_scale), ptr(ln_bias),
-        out.data_ptr(), ptr(act), B, T, cin, cout, K, dilation, int(relu),
+        out.data_ptr(), ptr(act), B, T, cin, cout, K, dilation, int(relu), bm, cluster,
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(err, "fused_conv1d_fwd")

@@ -8,12 +8,14 @@ and ``build_all()`` builds every source at once, one ``nvcc`` process per
 file, all started together.
 
 Libraries land in ``speakingstyle_torch/build/`` (listed in .gitignore),
-named by a hash of their source and flags, so an edited source rebuilds
-and a stale library is never loaded. ``nvcc`` is looked up on ``PATH``,
+named by a hash of their source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and a stale library is
+never loaded. ``nvcc`` is looked up on ``PATH``,
 then under ``$CUDA_HOME`` and ``/usr/local/cuda``.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -49,8 +51,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

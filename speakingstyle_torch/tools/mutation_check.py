@@ -30,17 +30,18 @@ from speakingstyle_torch.ops.kernels import BUILD_DIR, CSRC_DIR
 # occurs once, in conv_fwd_mma_kernel
 MUTANTS = {
     "none": None,
-    # the last tap of every conv is dropped
-    "tap": ("    for (int j = 0; j < K; ++j) {\n      if (j > 0) __syncthreads();",
-            "    for (int j = 0; j < K - 1; ++j) {\n      if (j > 0) __syncthreads();"),
+    # the last tap of every conv is dropped (its weight tiles staged as zeros)
+    "tap": ("const int w_rows = min(CONV_BK, Cin - ci0);",
+            "const int w_rows = j == K - 1 ? 0 : min(CONV_BK, Cin - ci0);"),
     # the last 32-channel chunk of the input is dropped
-    "chunk": ("for (int ci0 = 0; ci0 < Cin; ci0 += MMA_BK)",
-              "for (int ci0 = 0; ci0 + MMA_BK < Cin; ci0 += MMA_BK)"),
+    "chunk": ("const int n_chunks = (Cin + CONV_BK - 1) / CONV_BK;",
+              "const int n_chunks = (Cin - 1) / CONV_BK;"),
     # the LayerNorm variance is taken about 0, not about the mean
     "ln_var": ("const float d = pass == 0 ? v : v - mean[mt][h];", "const float d = v;"),
-    # the halo is staged one time step late (16-byte path)
-    "halo": ("const int t = t0 - pad_lo + r, ci = ci0 + c;\n        uint4",
-             "const int t = t0 - pad_lo + r + 1, ci = ci0 + c;\n        uint4"),
+    # the input halo is staged one time step late
+    "halo": ("const int t = t0 - pad_lo + r;", "const int t = t0 - pad_lo + r + 1;"),
+    # the LayerNorm sums are taken from the cluster's first block only
+    "cluster": ("for (int rank = 0; rank < ncl; ++rank)", "for (int rank = 0; rank < 1; ++rank)"),
 }
 
 # run inside a variant's copy: chip_smoke's kernel cases and acoustic

@@ -28,9 +28,10 @@ def _lengths_mask(rng, B, L):
 
 
 def test_build_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
-    """A library's file name hashes its source and the nvcc flags, so an
-    edited source or a new flag builds anew instead of loading a stale
-    library; every source of csrc/ is one the builder knows."""
+    """A library's file name hashes its source, the shared headers and the
+    nvcc flags, so an edited source or header or a new flag builds anew
+    instead of loading a stale library; every source of csrc/ is one the
+    builder knows."""
     assert sorted(kernels.SOURCES) == sorted(
         f[:-3] for f in os.listdir(kernels.CSRC_DIR) if f.endswith(".cu"))
     path = kernels._lib_path("fused_conv")
@@ -41,7 +42,10 @@ def test_build_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
     src = tmp_path / "fused_conv.cu"
     src.write_text("// edited\n")
     monkeypatch.setattr(kernels, "CSRC_DIR", str(tmp_path))
-    assert kernels._lib_path("fused_conv") != path
+    edited = kernels._lib_path("fused_conv")
+    assert edited != path
+    (tmp_path / "tensor_core.cuh").write_text("// a header\n")
+    assert kernels._lib_path("fused_conv") != edited
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -67,6 +71,16 @@ def test_mutation_check_variants_apply_to_the_source(variant):
     if variant != "none":
         with pytest.raises(ValueError, match="occurs 0 times"):
             mutation_check.mutate(mutated, variant)
+
+def test_kernel_ab_child_is_valid_python():
+    """The A/B timing tool's child program (run only on a card) parses,
+    with the cases the tool passes it."""
+    from speakingstyle_torch.tools import kernel_ab
+
+    code = f"ATTENTION = {kernel_ab.ATTENTION!r}\nCONV = {kernel_ab.CONV!r}\n" + kernel_ab._CHILD
+    compile(code, "kernel_ab_child", "exec")
+    assert all(len(c) == 7 for c in kernel_ab.CONV)
+
 
 @pytest.fixture
 def cuda_device():
@@ -112,24 +126,73 @@ def test_conv_kernel_matches_plain_on_card(cuda_device, K, cin, cout, dil, ln, d
     x = torch.randn((2, 45, cin), generator=g).to(cuda_device, dtype)
     w = (torch.randn((K, cin, cout), generator=g) / np.sqrt(K * cin)).to(cuda_device, dtype)
     b, s, sb = (torch.randn(cout, generator=g).to(cuda_device, dtype) for _ in range(3))
-    tol = dict(TOL[dtype], atol=1e-4) if dtype == torch.float32 else TOL[dtype]
+    tol = _conv_tol(dtype)
     if not ln:
         got = t_conv.fused_conv1d(x, w, b, dilation=dil, relu=True)
         want = t_conv.fused_conv_plain(x, w, b, None, None, dil, True)
         torch.testing.assert_close(got.float(), want.float(), **tol)
         return
-    got = t_conv.fused_conv_relu_ln(x, w, b, s, sb, dilation=dil).float()
+    got = t_conv.fused_conv_relu_ln(x, w, b, s, sb, dilation=dil)
+    _assert_ln_close(got, x, w, b, s, sb, dil, dtype)
+
+
+def _conv_tol(dtype):
+    return dict(TOL[dtype], atol=1e-4) if dtype == torch.float32 else TOL[dtype]
+
+
+def _assert_ln_close(got, x, w, b, s, sb, dil, dtype):
+    """The LN conv's output against the plain version's. The activation is
+    rounded to the storage dtype before the LN stats: where the kernel's and
+    the plain version's f32 sums round it to neighbouring bf16 values
+    (<= 2^-7 |act| apart), the output moves by that step times |gamma| /
+    sigma of its row (as chip_smoke.py states)."""
+    tol = _conv_tol(dtype)
+    got = got.float()
     want = t_conv.fused_conv_plain(x, w, b, s, sb, dil, True).float()
-    # the activation is rounded to the storage dtype before the LN stats:
-    # where the kernel's and the plain version's f32 sums round it to
-    # neighbouring bf16 values (<= 2^-7 |act| apart), the output moves by
-    # that step times |gamma| / sigma of its row (as chip_smoke.py states)
     act = t_conv.fused_conv_plain(x, w, b, None, None, dil, True).float()
     step = 2 ** -7 if dtype == torch.bfloat16 else 0.0
     sigma = act.std(dim=-1, unbiased=False, keepdim=True)
     bound = (tol["atol"] + tol["rtol"] * want.abs()
              + step * act.abs() * s.float().abs() / (sigma + 1e-5))
     assert bool(((got - want).abs() <= bound).all()), (got - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3, 5, 9])
+@pytest.mark.parametrize("ln", [False, True])
+def test_conv_cin80_dilation2_on_card(cuda_device, K, ln):
+    """Cin = 80 (the first reference conv and the postnet): a last input
+    chunk of 16 of 32 channels; dilation 2: each tap's rows shifted past
+    both ends of the sequence, with an even span too (K = 1 has none)."""
+    g = torch.Generator().manual_seed(80 + K)
+    x = torch.randn((3, 71, 80), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((K, 80, 256), generator=g) / np.sqrt(K * 80)).to(cuda_device, torch.bfloat16)
+    b, s, sb = (torch.randn(256, generator=g).to(cuda_device, torch.bfloat16) for _ in range(3))
+    if ln:
+        _assert_ln_close(t_conv.fused_conv_relu_ln(x, w, b, s, sb, dilation=2),
+                         x, w, b, s, sb, 2, torch.bfloat16)
+        return
+    got = t_conv.fused_conv1d(x, w, b, dilation=2, relu=True)
+    want = t_conv.fused_conv_plain(x, w, b, None, None, 2, True)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [128, 256, 1024])
+@pytest.mark.parametrize("T", [45, 300])
+def test_conv_ln_cluster_sizes_on_card(cuda_device, cout, T):
+    """The bf16 LN conv at the cluster sizes 1, 2 and 8 (128 channels a
+    block), at a few blocks and at 32-step tiles: the output and act."""
+    g = torch.Generator().manual_seed(cout + T)
+    x = torch.randn((2, T, 1024), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((3, 1024, cout), generator=g) / np.sqrt(3 * 1024)).to(
+        cuda_device, torch.bfloat16)
+    b, s, sb = (torch.randn(cout, generator=g).to(cuda_device, torch.bfloat16) for _ in range(3))
+    assert t_conv.conv_plan(2, T, cout, True, t_conv._sm_count(x.device))[1] == -(-cout // 128)
+    y, act = t_conv.fused_conv_fwd(x, w, b, s, sb, relu=True, want_act=True)
+    _assert_ln_close(y, x, w, b, s, sb, 1, torch.bfloat16)
+    _, want_act = t_conv.fused_conv_plain_parts(x, w, b, s, sb, 1, True)
+    torch.testing.assert_close(act.float(), want_act.float(), **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -221,3 +284,62 @@ def test_conv_act_output_and_grads_on_card(cuda_device, dtype):
         want.backward(cot)
         for a, r in zip(leaves, ref):
             assert_close_to_max(a.grad, r.grad, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 63, 65, 129, 1000])
+@pytest.mark.parametrize("H,D", [(8, 32), (2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_tile_edges_on_card(cuda_device, L, H, D, dtype):
+    """The backward at lengths around its 32- and 64-row tiles, with a row
+    of unequal length and a fully padded row, against the plain backward;
+    and two runs of it bit-identical (no atomics)."""
+    B = 3
+    g = torch.Generator().manual_seed(L * D)
+    q, k, v, dout = (torch.randn((B, L, H, D), generator=g).to(cuda_device, dtype)
+                     for _ in range(4))
+    lens = torch.tensor([L, L // 2 + 1, 0])
+    mask = (torch.arange(L)[None] >= lens[:, None]).to(cuda_device)
+    scale = D ** -0.5
+    out, lse = t_attn.fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+    got = t_attn.fused_mha_bwd(q, k, v, mask, out, lse, dout, scale)
+    again = t_attn.fused_mha_bwd(q, k, v, mask, out, lse, dout, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = t_attn.fused_mha_bwd_plain(q, k, v, mask, dout, scale)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+    if L > 1:
+        for a, w in zip(got, want):
+            assert_close_to_max(a, w, dtype)
+        return
+    # L = 1: P = 1, so dV = dO and dS = dP - delta = dO.V - dO.O is zero in
+    # exact arithmetic (the plain version's dP - rowsum(dP o P) cancels
+    # exactly). The kernels take delta from O by another sum, so dQ = dS K
+    # and dK = dS Q are that sum's rounding: two f32 sums of D products
+    # (<= D 2^-24 of sum |dO V| each), and in bfloat16 O itself rounded
+    # (2^-8), times sm_scale, times |K| or |Q|; doubled for the rounding of
+    # dS and of the output
+    assert_close_to_max(got[2], want[2], dtype)
+    u = 2 * D * 2 ** -24 + (2 ** -8 if dtype == torch.bfloat16 else 0.0)
+    ds = u * scale * (dout.float().abs() * v.float().abs()).sum(-1, keepdim=True)
+    for a, other in ((got[0], k), (got[1], q)):
+        assert bool((a.float().abs() <= 2 * ds * other.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [24, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_delta_matches_plain_on_card(cuda_device, D, dtype):
+    """The backward's pre-pass: delta = rowsum(dO o O) per (b, h, row), in
+    f32, against its plain version (the same products summed in another
+    order: <= D 2^-24 of the sum of their magnitudes)."""
+    g = torch.Generator().manual_seed(D)
+    out, dout = (torch.randn((2, 77, 3, D), generator=g).to(cuda_device, dtype) for _ in range(2))
+    before = t_attn.attention_delta.launches
+    got = t_attn.attention_delta(out, dout)
+    assert t_attn.attention_delta.launches == before + 1
+    want = t_attn.attention_delta_plain(out, dout)
+    scale = torch.einsum("blhd,blhd->bhl", dout.float().abs(), out.float().abs())
+    assert got.shape == (2, 3, 77) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())

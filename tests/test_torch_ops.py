@@ -88,6 +88,31 @@ def test_plain_conv_matches_pallas_interpret(K, dilation, ln):
 
 
 @pytest.mark.parametrize("L,H,D", [(23, 4, 16), (130, 2, 8)])
+def test_attention_delta_equals_the_tpu_kernels_row_term(L, H, D):
+    """The backward's pre-pass takes delta = rowsum(dO o O) from the
+    forward's output, where the JAX package's _bwd_kernel
+    (pallas_attention.py:92) takes rowsum(dP o P) over all keys: the same
+    sum reordered, since O = P V. The plain pre-pass on O against
+    rowsum(dP o P) in float64, with unequal lengths and a batch row of
+    length 0 (uniform P, as the port's forward gives it)."""
+    rng = np.random.default_rng(L * D)
+    B = 3
+    q, k, v, dout = (rng.standard_normal((B, L, H, D)) for _ in range(4))
+    lens = np.array([L, L // 2, 0])
+    mask = np.arange(L)[None] >= lens[:, None]
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(D)
+    scores = np.where(mask[:, None, None, :], np.finfo(np.float32).min / 2, scores)
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("bhqk,bkhd->bqhd", p, v)
+    want = (np.einsum("bqhd,bkhd->bhqk", dout, v) * p).sum(-1)  # [B, H, L]
+    got = t_attn.attention_delta_plain(torch.from_numpy(out).float(),
+                                       torch.from_numpy(dout).float())
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, L)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("L,H,D", [(23, 4, 16), (130, 2, 8)])
 def test_attention_grads_match_pallas_interpret(L, H, D):
     """q/k/v grads through fused_mha on CPU tensors (plain forward, plain
     backward) against the JAX fused-MHA kernel's custom_vjp in interpret
@@ -417,8 +442,53 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(err):
             t_conv.check_inputs(*args)
 
+    # the backward kernels copy rows in 16-byte pieces: a tensor that does
+    # not start on a 16-byte boundary is refused before any launch
+    flat = torch.zeros(1 * 4 * 2 * 16 + 1)
+    shifted = flat[1:].view(1, 4, 2, 16)
+    lse = torch.zeros((1, 2, 4))
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        t_attn.fused_mha_bwd(shifted, q, q, mask, q, lse, q, 0.25)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        t_attn.attention_delta(q, shifted)
+    with pytest.raises(ValueError, match="contiguous twin"):
+        t_attn.attention_delta(q, q[:, :3])
+    with pytest.raises(ValueError, match="not taken"):
+        t_attn.attention_delta(q.double(), q.double())
+
     meta = torch.empty((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         t_attn.fused_mha(meta, meta, meta, mask.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         t_conv.fused_conv1d(x.to("meta"), w.to("meta"))
+
+
+@pytest.mark.parametrize("B,T,cout,ln,want", [
+    (4, 1000, 1024, True, (128, 8)),   # serve: the reference encoder's LN convs
+    (48, 768, 1024, True, (128, 8)),   # train batch: the same
+    (4, 1000, 1000, True, (128, 8)),   # a last block of 104 channels
+    (4, 1000, 512, True, (64, 4)),     # 128-step tiles: 128 blocks < 132 SMs
+    (2, 45, 256, True, (32, 2)),
+    (2, 300, 128, True, (32, 1)),      # one block a cluster
+    (4, 1000, 1024, False, (128, 1)),  # serve: the decoder FFN
+    (4, 128, 1024, False, (32, 1)),    # serve: the encoder FFN, no size fills the SMs
+    (48, 128, 256, False, (64, 1)),    # train: the encoder's second FFN conv
+])
+def test_conv_plan_matches_the_kernels_tiles(B, T, cout, ln, want):
+    """The bf16 conv's launch shape, chosen on the host: the largest of 128,
+    64, 32 steps a block whose grid gives each of the H100's 132 SMs a
+    block, and with LayerNorm a cluster of ceil(Cout / 128) blocks (the
+    kernel refuses any other cluster)."""
+    bm, cluster = t_conv.conv_plan(B, T, cout, ln, 132)
+    assert (bm, cluster) == want
+    n_blocks = B * -(-T // bm) * -(-cout // 128)
+    assert n_blocks >= 132 or bm == 32
+    assert bm == 128 or B * -(-T // (2 * bm)) * -(-cout // 128) < 132
+
+
+def test_conv_plan_refuses_a_layernorm_wider_than_a_cluster():
+    assert t_conv.conv_plan(4, 100, 1024, True, 132)[1] == t_conv.MAX_CLUSTER
+    assert t_conv.conv_plan(4, 100, 4096, False, 132)[1] == 1
+    with pytest.raises(ValueError, match="Cout <= 1024"):
+        t_conv.conv_plan(4, 100, 1025, True, 132)
