@@ -22,7 +22,9 @@ printing one JSON line:
    at every shape the main path gives it (phase 2's serve and style
    buckets) with the padding masks of the requests' real lengths, in
    float32 and bfloat16: the max abs error against the stated tolerance,
-   and the kernel / plain / library times (CUDA events, warm, median).
+   and the kernel / plain / library times (CUDA events, warm, median). The
+   attention forward is also held to its row lse and, with the last batch
+   row fully padded, to the plain version and to V's mean over the row.
 4. ``synthesize_pallas_conv``: phase 2 under ``conv_impl="pallas"``; the
    conv kernel must have run 42 times per dispatch. Then the acoustic
    model, teacher-forced on phase 2's durations, pitch and energy, with
@@ -42,8 +44,9 @@ printing one JSON line:
    log's step times and frames/s, peak memory, the checkpoints and their
    manifests; then a resume from the last checkpoint for 2 steps under the
    profiler, and the last step's idle share and kernel ms. Then the
-   backward kernel and its delta pre-pass against their plain versions at
-   the first batch's shapes and lengths (float32 and bfloat16), every conv
+   forward kernel (as in phase 3, timed writing its lse), the backward
+   kernel and its delta pre-pass against their plain versions at the
+   first batch's shapes and lengths (float32 and bfloat16), every conv
    of the train step at those shapes (bfloat16, timed beside cuDNN), the LN
    conv's ``act`` output against the plain one, and one step's per-leaf
    gradients, kernel path against library path, in float32 and bfloat16.
@@ -93,6 +96,23 @@ TOL = {
 # step times |gamma| / sigma of its row, which the elementwise bound above
 # does not cover; compare() adds it for the LayerNorm cases
 ACT_STEP = {"float32": 0.0, "bfloat16": 2 ** -7}
+# the forward's row lse against logsumexp of the plain version's f32
+# scores: |kernel - plain| <= LSE_ATOL + LSE_RTOL |plain|. Both sum the exp
+# terms of a row in another order (<= L 2^-24 relative in the sum, so in
+# its log: 6e-5 at L = 1000) from scores whose D-term sums also differ in
+# order (<= D 2^-24 sm_scale sum |q_d k_d|, ~6e-5 at D = 128); a fully
+# padded row's lse is the bias (-1.7e38) in both, up to a few roundings of
+# that size in the kernel's log2 units (LSE_RTOL)
+LSE_ATOL, LSE_RTOL = 2e-4, 2 ** -20
+# a batch row whose keys are all padded (a bucket with fewer requests than
+# rows) attends uniformly over its L keys, so its output is the mean of V's
+# L rows: an f32 sum of L terms (<= 2^-23 of sum |v| in the mean, with the
+# tensor cores' truncating f32 adds; PAD_ROW_SUM_TOL doubles it), scaled by
+# 1 / L and rounded to the output dtype (PAD_ROW_RTOL of |mean|). A kernel
+# that also counted the tail of its last key tile past L would miss by
+# (Lp - L) / Lp of the mean (2.3 % at L = 1000), several times this bound
+PAD_ROW_RTOL = {"float32": 2 ** -22, "bfloat16": 2 ** -8 + 2 ** -22}
+PAD_ROW_SUM_TOL = 2 ** -22
 # relative bound (to max |mel|) of the float32 teacher-forced acoustic
 # comparisons of phase 4: ten FFT blocks and a postnet of f32 sums in
 # different orders
@@ -107,8 +127,9 @@ ACOUSTIC_RTOL = 1e-4
 BF16_ACOUSTIC_RATIO = 3.0
 
 # the cases the summary line reports per kernel: the largest of each on
-# the path (the decoder's, at T_mel), in the path's dtype
-SUMMARY_CASES = {"fused_attention_fwd": "attn_decoder_bfloat16",
+# the path (the decoder's, at T_mel), in the path's dtype; the attention
+# forward's at the train step's shape, where it is operations-bound
+SUMMARY_CASES = {"fused_attention_fwd": "train_attn_decoder_bfloat16",
                  "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16",
                  "fused_attention_bwd": "attn_bwd_decoder_bfloat16",
                  "fused_attention_bwd_delta": "attn_bwd_delta_decoder_bfloat16"}
@@ -244,6 +265,12 @@ def pad_mask(lens, L: int):
     return torch.arange(L)[None, :] >= torch.tensor(lens)[:, None]
 
 
+def attended_keys(lens, L: int) -> int:
+    """Keys the attention needs over all batch rows: each row's valid keys,
+    or all L keys for a fully padded row (it attends uniformly)."""
+    return sum(n if n else L for n in lens)
+
+
 # ---------------------------------------------------------------- phase 2
 
 
@@ -310,35 +337,68 @@ def path_lengths(engine, requests, results):
     }
 
 
-def attention_case(case, lengths, dtype, g, dev):
+def attention_case(case, lengths, dtype, g, dev, train=False):
+    """The forward kernel at one shape of the path and its valid lengths,
+    against its plain versions: out and the row lse on the path's mask, and
+    out again with the last batch row fully padded (also against V's mean
+    over its L rows). Timed as the path calls it: ``fused_mha`` when
+    serving, ``fused_mha_fwd`` writing its lse when training (``train``)."""
     import torch
     import torch.nn.functional as F
 
-    from speakingstyle_torch.ops.fused_attention import fused_mha, fused_mha_plain
+    from speakingstyle_torch.ops.fused_attention import (
+        attention_lse_plain, fused_mha, fused_mha_fwd, fused_mha_plain,
+    )
 
     name, axis, H, D, per_dispatch = case
     B, L, lens = lengths[axis]
     shape = (B, L, H, D)
     q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(3))
     mask = pad_mask(lens, L).to(dev)
+    scale = D ** -0.5
     dname = str(dtype).split(".")[-1]
-    got = fused_mha(q, k, v, mask)
-    want = fused_mha_plain(q, k, v, mask)
+    got, lse = fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+    want, lse_want = fused_mha_plain(q, k, v, mask), attention_lse_plain(q, k, mask, scale)
+    padded = mask.clone()
+    padded[-1] = True
+    got_pad, want_pad = fused_mha(q, k, v, padded), fused_mha_plain(q, k, v, padded)
     torch.cuda.synchronize()
     err, tol, ok = compare(got, want, "attention", dname)
+    pad_err, _, pad_ok = compare(got_pad, want_pad, "attention", dname)
+    lse_diff = (lse - lse_want).abs()
+    lse_ok = bool((lse_diff <= LSE_ATOL + LSE_RTOL * lse_want.abs()).all())
+    v_row = v[-1].float()
+    mean = v_row.mean(dim=0)
+    mean_diff = (got_pad[-1].float() - mean).abs()
+    mean_ok = bool((mean_diff <= PAD_ROW_RTOL[dname] * mean.abs()
+                    + PAD_ROW_SUM_TOL * v_row.abs().sum(dim=0)).all())
+    tol.update(lse={"atol": LSE_ATOL, "rtol": LSE_RTOL},
+               padded_row_vs_mean={"rtol": PAD_ROW_RTOL[dname], "sum_tol": PAD_ROW_SUM_TOL})
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     keep = ~mask[:, None, None, :]
     itemsize = q.element_size()
-    # data-dependent work: every query row against its batch row's valid keys
-    flops = 4.0 * H * D * L * float(sum(lens))
-    bound_ms, bound_by = bound(4 * q.numel() * itemsize + mask.numel(), flops, dname)
+    # reads q and the mask once and k, v at the attended keys only, writes
+    # out (and lse when training); every query row against those keys
+    keys = attended_keys(lens, L)
+    nbytes = (2 * q.numel() + 2 * keys * H * D) * itemsize + mask.numel() \
+        + (lse.numel() * 4 if train else 0)
+    bound_ms, bound_by = bound(nbytes, 4.0 * H * D * L * keys, dname)
+    if train:
+        run = lambda: fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+        plain_ms = time_ms(lambda: fused_mha_plain(q, k, v, mask), inner=3, outer=3)
+    else:
+        run = lambda: fused_mha(q, k, v, mask)
+        plain_ms = time_ms(lambda: fused_mha_plain(q, k, v, mask))
     return shares({
-        "case": f"attn_{name}_{dname}", "kernel": "fused_attention_fwd",
+        "case": f"{'train_attn' if train else 'attn'}_{name}_{dname}",
+        "kernel": "fused_attention_fwd",
         "dtype": dname, "shape": list(shape), "lengths": list(lens),
         "launches_per_dispatch": per_dispatch,
-        "max_abs_err": err, "tol": tol, "ok": ok,
-        "ms": time_ms(lambda: fused_mha(q, k, v, mask)),
-        "plain_ms": time_ms(lambda: fused_mha_plain(q, k, v, mask)),
+        "max_abs_err": err, "lse_max_abs_err": lse_diff.max().item(),
+        "padded_row_max_abs_err": pad_err, "padded_row_vs_mean_max_abs_err":
+            mean_diff.max().item(),
+        "tol": tol, "ok": ok and lse_ok and pad_ok and mean_ok,
+        "ms": time_ms(run), "plain_ms": plain_ms,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     })
@@ -906,11 +966,12 @@ def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
     dot = dout.transpose(1, 2)
     library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
     itemsize = q.element_size()
-    # reads q, k, v, out, dout, lse and the mask once, writes dq, dk, dv;
-    # five products (S, dP, dV, dQ, dK) over every query row and its batch
-    # row's valid keys
-    nbytes = 8 * q.numel() * itemsize + lse.numel() * 4 + mask.numel()
-    bound_ms, bound_by = bound(nbytes, 10.0 * H * D * L * float(sum(lens)), dname)
+    # reads q, out, dout, lse and the mask once and k, v at the attended keys
+    # only, writes dq, dk, dv in full; five products (S, dP, dV, dQ, dK) over
+    # every query row and those keys
+    keys = attended_keys(lens, L)
+    nbytes = (6 * q.numel() + 2 * keys * H * D) * itemsize + lse.numel() * 4 + mask.numel()
+    bound_ms, bound_by = bound(nbytes, 10.0 * H * D * L * keys, dname)
     case = shares({
         "case": f"attn_bwd_{name}_{dname}", "kernel": "fused_attention_bwd", "dtype": dname,
         "shape": list(shape), "lengths": list(lens), "launches_per_step": None,
@@ -923,6 +984,17 @@ def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
     scale = torch.einsum("blhd,blhd->bhl", dout.float().abs(), out.float().abs())
     diff = (got - want).abs()
     bound_ms, bound_by = bound(2 * q.numel() * itemsize + want.numel() * 4, 2.0 * q.numel(), dname)
+    # the library's one call for f32 row sums of a bf16 product: a batched
+    # 1 x D by D x 1 product with an f32 output, its rows in [B, L, H] order
+    do_rows, o_cols = dout.view(-1, 1, D), out.view(-1, D, 1)
+    rows = lambda: torch.bmm(do_rows, o_cols, out_dtype=torch.float32)
+    try:
+        got_rows = rows()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        lib_err, library_ms, library_error = None, None, f"{type(e).__name__}: {e}"[:300]
+    else:
+        lib_err = (got_rows.view(B, L, H).transpose(1, 2) - want).abs().max().item()
+        library_ms, library_error = time_ms(rows), None
     delta_case = shares({
         "case": f"attn_bwd_delta_{name}_{dname}", "kernel": "fused_attention_bwd_delta",
         "dtype": dname, "shape": list(shape), "max_abs_err": diff.max().item(),
@@ -930,7 +1002,8 @@ def attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
         "ok": bool((diff <= DELTA_RTOL * scale).all()),
         "ms": time_ms(lambda: attention_delta(out, dout)),
         "plain_ms": time_ms(lambda: attention_delta_plain(out, dout)),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_max_abs_err": lib_err,
+        "library_error": library_error, "bound_ms": bound_ms, "bound_by": bound_by,
     })
     return case, delta_case
 
@@ -956,11 +1029,12 @@ def act_case(name, B, T, K, cin, cout, lens, dtype, g, dev):
 
 
 def train_kernel_cases(cfg, batch, dev, seed):
-    """The backward kernel and its delta pre-pass at the first batch's
-    shapes and real lengths (reference encoder and decoder over the mel
-    frames, encoder over the phonemes), in float32 and bfloat16; every conv
-    of the train step at those shapes in bfloat16 (the reference encoder's
-    over the target mel frames); and the LN conv's act output."""
+    """The forward kernel, the backward kernel and its delta pre-pass at
+    the first batch's shapes and real lengths (reference encoder and
+    decoder over the mel frames, encoder over the phonemes), in float32 and
+    bfloat16; every conv of the train step at those shapes in bfloat16 (the
+    reference encoder's over the target mel frames); and the LN conv's act
+    output."""
     import torch
 
     g = torch.Generator().manual_seed(seed + 7)
@@ -969,8 +1043,14 @@ def train_kernel_cases(cfg, batch, dev, seed):
     src, mel = [int(x) for x in batch.src_lens], [int(x) for x in batch.mel_lens]
     tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
     n_mels = cfg.preprocess.preprocessing.mel.n_mel_channels
+    lengths = {"ref": (B, T, mel), "src": (B, L_src, src), "mel": (B, T, mel)}
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
+        for case in attention_cases(cfg):
+            c = attention_case(case, lengths, dtype, g, dev, train=True)
+            c["launches_per_step"] = c.pop("launches_per_dispatch")
+            cases.append(c)
+            emit("train_kernels", **c)
         for name, L, H, D, lens in (
                 ("ref_encoder", T, re_.encoder_head, re_.encoder_hidden // re_.encoder_head, mel),
                 ("encoder", L_src, tr.encoder_head, tr.encoder_hidden // tr.encoder_head, src),
@@ -982,7 +1062,6 @@ def train_kernel_cases(cfg, batch, dev, seed):
             cases.append(act_case(name, B, T, re_.conv_kernel_size, cin, re_.conv_filter_size,
                                   mel, dtype, g, dev))
             emit("train_kernels", **cases[-1])
-    lengths = {"ref": (B, T, mel), "src": (B, L_src, src), "mel": (B, T, mel)}
     for case in conv_cases(cfg):
         c = conv_case(case, lengths, torch.bfloat16, g, dev, prefix="train_conv")
         c["launches_per_step"] = c.pop("launches_per_dispatch")
@@ -1137,7 +1216,7 @@ def main(argv=None) -> int:
     # launches per dispatch of each kernel: 14 attentions, 42 convs
     attn_per = sum(c[-1] for c in attention_cases(cfg))
     conv_per = sum(c[-1] for c in conv_cases(cfg))
-    xla_engine, results, attn_counts = synthesize_phase(
+    xla_engine, results, _ = synthesize_phase(
         "synthesize", cfg, requests, args.seed, dev,
         {"fused_attention_fwd": attn_per, "fused_conv1d_fwd": 0})
 
@@ -1164,7 +1243,7 @@ def main(argv=None) -> int:
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
                                 "speakingstyle_tpu/ops/pallas_attention.py:75",
-                                attn_counts["fused_attention_fwd"]),
+                                train_counts["fused_attention_fwd"]),
         "fused_conv1d_fwd": ("speakingstyle_torch/csrc/fused_conv.cu",
                              "speakingstyle_tpu/ops/pallas_conv.py:91",
                              conv_counts["fused_conv1d_fwd"]),

@@ -68,16 +68,48 @@
 //
 // Forward design. The TPU kernel keeps a whole f32 T x T score tile in VMEM; at
 // T = 1024 that is 4 MB, far past an SM's 227 KB of shared memory. Here one
-// block owns (b, h, 64 query rows) and streams 64-key tiles of K and V
+// block owns (b, h, a tile of query rows) and streams 64-key tiles of K and V
 // through shared memory with an online softmax (running max, running sum,
 // rescaled accumulator), so no score ever reaches device memory and shared
 // memory use is independent of T. Key tiles past the row's last unpadded
 // key are skipped: padding sits at the end, a row with any valid key has
 // one in its first tile, and exp(min/2 - m) is exactly 0 in f32, so the
-// skip changes no bit of the result. It does its products with FMA on the
-// CUDA cores (4 x 4 register tiles fed from padded, transposed
-// shared-memory tiles, conflict-free); moving them to the tensor cores is
-// the next step for speed.
+// skip changes no bit of the result.
+//
+// What bounds the forward on the H100: it does 4 D flops per query row and
+// valid key against 4 L D elements of traffic per (b, h). At the train
+// shapes (L >= 768, H D = 256, ~660 valid keys a row) that is ~2.5e10 flops
+// over 75 MB, so operations bound it, on the tensor cores in bfloat16; at
+// the serve shapes (a batch of 4, mostly short rows) it is bytes, and below
+// ~0.05 ms the wrapper's host time. The bfloat16 kernel
+// (attn_fwd_mma_kernel) therefore does both products as mma.sync m16n8k16
+// bf16 -> f32, each warp owning 16 query rows, 4 warps a block at D = 128
+// (three blocks an SM) and 8 at D <= 64:
+// * Q is staged once (rows padded to D + 8 elements, conflict-free
+//   ldmatrix) in the ring's last stage and kept in registers as A fragments
+//   for the whole key loop;
+// * 64-key K and V tiles stream through a ring of two cp.async stages (16
+//   bytes a thread, rows past L zero-filled), so the next tile's loads
+//   overlap this tile's products; one barrier a tile;
+// * the online softmax runs in registers: scores in log2 units (sm_scale
+//   and the bias times log2 e, 2^x on the special-function unit), the row
+//   max reduced across the quad that holds a row, the row sum kept per
+//   thread and added across the quad once at the end; the unnormalised
+//   P = 2^(s - m) is rounded to bf16 (l sums it unrounded) and leaves the
+//   S accumulators straight in the A fragment layout of O += P V, whose B
+//   fragments come by ldmatrix.trans from the row-major V tile;
+// * the epilogue normalises by 1 / l, stages O through the warp's own rows
+//   of shared memory for 16-byte stores, and writes lse = m + log(l) in
+//   natural-log units, which the backward passes convert to log2
+//   themselves.
+// Measured on the H100 (PERF.md) it still sits well above both bounds:
+// its warps wait on the chain of each tile (products, quad shuffles, 2^x,
+// products), with 12-16 warps an SM to hide it. Left for later: wgmma with
+// a producer warp, and 128-row blocks with two m16 tiles a warp.
+// The float32 forward (attn_fwd_kernel) serves the float32 parity checks:
+// FMA on the CUDA cores (4 x 4 register tiles fed from padded, transposed
+// shared-memory tiles), since the tensor cores would round its inputs to
+// TF32.
 //
 // C interface (loaded with ctypes): every entry point returns the
 // cudaError_t of its launch; 0 means launched.
@@ -100,11 +132,6 @@ constexpr int PS = BK + 1;   // padded row stride of the score tile
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The valid key length of a batch row: one past its last unpadded key (0:
 // every key padded). Padding sits at the end of a row. Block-wide; every
@@ -121,11 +148,12 @@ __device__ __forceinline__ int block_kv_len(const uint8_t* mb, int L, int* slot)
   return *slot;
 }
 
-// q, k, v, out: [B, L, H, D] contiguous; mask: [B, L] bytes, nonzero at padding.
-template <typename T, int DMAX>
+// float32: q, k, v, out: [B, L, H, D] contiguous; mask: [B, L] bytes,
+// nonzero at padding.
+template <int DMAX>
 __global__ void __launch_bounds__(NT) attn_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse, int L,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int L,
     int H, int D, float sm_scale) {
   constexpr int DC = DMAX / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -152,7 +180,7 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i - r * D;
     const int qi = q0 + r;
-    Qt[d * TS + r] = qi < L ? to_f(q[base + (size_t)qi * rs + d]) : 0.f;
+    Qt[d * TS + r] = qi < L ? q[base + (size_t)qi * rs + d] : 0.f;
   }
   if (tid < BQ) {
     row_m[tid] = -INFINITY;
@@ -174,8 +202,8 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
       const int c = i / D, d = i - c * D;
       const int kj = k0 + c;
       const bool ok = kj < L;
-      Kt[d * TS + c] = ok ? to_f(k[base + (size_t)kj * rs + d]) : 0.f;
-      Vs[c * D + d] = ok ? to_f(v[base + (size_t)kj * rs + d]) : 0.f;
+      Kt[d * TS + c] = ok ? k[base + (size_t)kj * rs + d] : 0.f;
+      Vs[c * D + d] = ok ? v[base + (size_t)kj * rs + d] : 0.f;
     }
     __syncthreads();
 
@@ -223,7 +251,7 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
       for (int c = 0; c < 16; ++c) {
         const float p = expf(pr[c] - m_new);
         sum += p;
-        pr[c] = to_f(from_f<T>(p));  // P in v's dtype for the PV product
+        pr[c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -267,7 +295,7 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) out[base + (size_t)qi * rs + d] = from_f<T>(acc[i][c] * inv);
+      if (d < D) out[base + (size_t)qi * rs + d] = acc[i][c] * inv;
     }
   }
   if (lse != nullptr && tid < BQ && q0 + tid < L)
@@ -617,13 +645,13 @@ __device__ __forceinline__ void ldsm_b_kmajor(uint32_t (&b)[4], const bf16* t, i
 }
 
 // Rows [r0, r0 + n) of one (b, h) slice (row stride rs elements) into
-// dst[n][DMAX + 8] by cp.async, zeros past L. Columns D .. DMAX stay at the
-// zeros the kernel wrote first.
-template <int DMAX>
+// dst[n][DMAX + 8] by cp.async, zeros past L, by a block of NT threads.
+// Columns D .. DMAX stay at the zeros the kernel wrote first.
+template <int DMAX, int NT = MNT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t base,
                                           size_t rs, int r0, int n, int L, int D) {
   const int cpr = D / 8;  // 16-byte pieces a row
-  for (int i = threadIdx.x; i < n * cpr; i += MNT) {
+  for (int i = threadIdx.x; i < n * cpr; i += NT) {
     const int r = i / cpr, c = (i - r * cpr) * 8;
     const bool ok = r0 + r < L;
     cp_async16(dst + r * (DMAX + 8) + c, src + base + (size_t)(ok ? r0 + r : 0) * rs + c, ok);
@@ -639,8 +667,9 @@ __device__ __forceinline__ void load_row_vals(float* dst, const float* __restric
   }
 }
 
+template <int NT = MNT>
 __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
-  for (int i = threadIdx.x; i < bytes / 16; i += MNT)
+  for (int i = threadIdx.x; i < bytes / 16; i += NT)
     reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
@@ -976,6 +1005,212 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_kernel(
   store_rows<DN>(dq, dq_acc, base, rs, q0 + qr, L, D, g, tq);
 }
 
+// ---------------------------------------------------------------- forward, bfloat16, tensor cores
+
+constexpr int F_NS = 64, F_STAGES = 2;  // forward: keys a stage, stages
+constexpr float LN2 = 0.6931471805599453f;
+
+// warps a forward block, 16 query rows each: 8 where the head dim is small
+// (a block's fixed costs weigh most there), else 4, so that three blocks
+// fit on an SM (168 registers a thread, 70 KB of shared memory at D = 128)
+constexpr int fwd_warps(int dmax) { return dmax <= 64 ? 8 : 4; }
+
+// 2^x by the special-function unit alone: a few f32 ulps of error, far
+// below the bf16 rounding of P; flushes results below 2^-126 to 0, weights
+// that no row sum of at least 1 can feel
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bfloat16: out (and lse) of one (b, h, tile of 16 NW queries), streaming
+// the key tiles of F_NS keys up to the last valid key (all L keys for a
+// fully padded row). Warp w owns queries q0 + 16 w .. + 15; its Q fragments
+// stay in registers, and P goes from the S accumulators into the A
+// fragments of O += P V without a trip through shared memory. Q is staged
+// in the ring's last stage, which the first tiles leave free.
+template <int DMAX, int NW = fwd_warps(DMAX)>
+__global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1) attn_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int L,
+    int H, int D, float sm_scale) {
+  constexpr int F_MR = NW * 16;  // query rows a block
+  constexpr int F_NT = NW * 32;  // threads a block
+  constexpr int LDS = DMAX + 8;
+  constexpr int KT = DMAX / 16;  // k16 steps over the head dim
+  constexpr int DN = DMAX / 8;   // 8-column n-tiles over the head dim
+  constexpr int SN = F_NS / 8;   // 8-column n-tiles over a stage's keys
+  constexpr int TILE = F_NS * LDS;
+  constexpr int SMEM = 2 * F_STAGES * TILE * 2;
+  static_assert(F_MR <= 2 * F_NS, "Q fits in one stage");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [F_STAGES][2][F_NS][LDS]: K, V
+  bf16* Qs = Ks + (F_STAGES - 1) * 2 * TILE;     // Q in the last stage, O on the way out
+  __shared__ int kv_len_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * F_MR;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * L * rs + (size_t)h * D;
+  const uint8_t* mb = mask + (size_t)b * L;
+  const int kv_len = block_kv_len(mb, L, &kv_len_s);
+  const int k_end = kv_len > 0 ? kv_len : L;
+
+  if (D < DMAX) {  // head dims past D stay zero in every tile
+    zero_smem<F_NT>(smem_raw, SMEM);
+    __syncthreads();
+  }
+  load_rows<DMAX, F_NT>(Qs, q, base, rs, q0, F_MR, L, D);
+  const int n_tiles = (k_end + F_NS - 1) / F_NS;
+  auto issue = [&](int t) {  // one cp.async group a tile (empty past the end)
+    if (t < n_tiles) {
+      const int s = t % F_STAGES, k0 = t * F_NS;
+      load_rows<DMAX, F_NT>(Ks + s * 2 * TILE, k, base, rs, k0, F_NS, L, D);
+      load_rows<DMAX, F_NT>(Ks + s * 2 * TILE + TILE, v, base, rs, k0, F_NS, L, D);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < F_STAGES - 1; ++t) issue(t);  // Q rides in the first group
+
+  const int qr = warp * 16;  // this warp's rows of the query tile
+  cp_async_wait<F_STAGES - 2>();
+  __syncthreads();
+  uint32_t aq[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) ldsm_a(aq[kk], Qs, LDS, qr, kk * 16, lane);
+
+  // rows g (hh = 0) and g + 8 (hh = 1) of the warp's 16: the running max in
+  // log2 units, and this thread's share of the running sum (its quad's four
+  // shares are added at the end)
+  const float scale2 = sm_scale * LOG2E;
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DN][4];
+#pragma unroll
+  for (int nt = 0; nt < DN; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // tile t has landed; every reader of the slot refilled next is done
+    issue(t + F_STAGES - 1);
+    const int s = t % F_STAGES, k0 = t * F_NS;
+    const bf16* Kt = Ks + s * 2 * TILE;
+    const bf16* Vt = Kt + TILE;
+
+    // S = Q K^T: this warp's 16 queries x F_NS keys
+    float sc[SN][4];
+#pragma unroll
+    for (int nt = 0; nt < SN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int np = 0; np < SN / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_b_nmajor(bk, Kt, LDS, np * 16, kk * 16, lane);
+        mma_bf16(sc[2 * np], aq[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], aq[kk], bk[2], bk[3]);
+      }
+
+    // scores in log2 units with the key-padding bias; keys past L do not
+    // exist (weight 0); each row's tile max across its quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < SN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + nt * 8 + 2 * tq + e;
+        const float bias = kj >= L ? -INFINITY : (mb[kj] ? NEG2 : 0.f);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float x = fmaf(sc[nt][2 * hh + e], scale2, bias);
+          sc[nt][2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+      }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      m_new[hh] = fmaxf(m2[hh], mx[hh]);  // finite: key k0 is < L
+      alpha[hh] = ex2(m2[hh] - m_new[hh]);
+      m2[hh] = m_new[hh];
+      l[hh] *= alpha[hh];
+    }
+
+    // P = 2^(s - m) in f32 for the row sums, rounded to bf16 for P V,
+    // packed straight into A fragments: k16 step j over the keys takes
+    // n-tiles 2j (regs 0, 1) and 2j + 1 (regs 2, 3)
+    uint32_t pa[F_NS / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < SN; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = ex2(sc[nt][i] - m_new[i >> 1]);
+        l[i >> 1] += p[i];
+      }
+      const int j = nt >> 1, o2 = (nt & 1) * 2;
+      pa[j][o2] = pack_bf16(p[0], p[1]);
+      pa[j][o2 + 1] = pack_bf16(p[2], p[3]);
+    }
+
+    // O = O alpha + P V
+#pragma unroll
+    for (int nt = 0; nt < DN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nt][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int j = 0; j < F_NS / 16; ++j)
+#pragma unroll
+      for (int np = 0; np < DN / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_b_kmajor(bv, Vt, LDS, j * 16, np * 16, lane);
+        mma_bf16(o[2 * np], pa[j], bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], pa[j], bv[2], bv[3]);
+      }
+  }
+  cp_async_wait<0>();
+
+  // O / l, through this warp's own rows of Qs, out in 16-byte pieces; lse
+  // in natural-log units (the backward passes convert it themselves)
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    inv[hh] = 1.f / l[hh];
+  }
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int nt = 0; nt < DN; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<__nv_bfloat162*>(Qs + (qr + g + 8 * hh) * LDS + nt * 8 + 2 * tq) =
+          __floats2bfloat162_rn(o[nt][2 * hh] * inv[hh], o[nt][2 * hh + 1] * inv[hh]);
+  __syncwarp();
+  const int cpr = D / 8;  // 16-byte pieces a row
+  for (int i = lane; i < 16 * cpr; i += 32) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    const int qi = q0 + qr + r;
+    if (qi < L)
+      *reinterpret_cast<uint4*>(out + base + (size_t)qi * rs + c) =
+          *reinterpret_cast<const uint4*>(Qs + (qr + r) * LDS + c);
+  }
+  if (lse != nullptr && tq == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = q0 + qr + g + 8 * hh;
+      if (qi < L) lse[((size_t)b * H + h) * L + qi] = m2[hh] * LN2 + logf(l[hh]);
+    }
+}
+
 // ---------------------------------------------------------------- launch
 
 struct Args {
@@ -994,17 +1229,32 @@ cudaError_t opt_in_smem(K kernel, int smem, int& configured) {
   return e;
 }
 
-template <typename T, int DMAX>
-cudaError_t launch_fwd(const Args& a) {
+template <int DMAX>
+cudaError_t launch_fwd_f32(const Args& a) {
   static int configured = 0;  // dynamic shared memory opted into so far
   const int smem = (2 * a.D * TS + BK * a.D + BQ * PS + 3 * BQ) * (int)sizeof(float);
-  cudaError_t e = opt_in_smem(attn_fwd_kernel<T, DMAX>, smem, configured);
+  cudaError_t e = opt_in_smem(attn_fwd_kernel<DMAX>, smem, configured);
   if (e != cudaSuccess) return e;
   dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
-  attn_fwd_kernel<T, DMAX><<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<T*>(a.dst),
-      static_cast<float*>(a.lse), a.L, a.H, a.D, a.sm_scale);
+  attn_fwd_kernel<DMAX><<<grid, NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+      static_cast<float*>(a.dst), static_cast<float*>(a.lse), a.L, a.H, a.D, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_fwd_mma(const Args& a) {
+  constexpr int smem = 2 * F_STAGES * F_NS * (DMAX + 8) * 2;
+  static int configured = 0;
+  cudaError_t e = opt_in_smem(attn_fwd_mma_kernel<DMAX>, smem, configured);
+  if (e != cudaSuccess) return e;
+  constexpr int F_MR = fwd_warps(DMAX) * 16;
+  dim3 grid((a.L + F_MR - 1) / F_MR, a.H, a.B);
+  attn_fwd_mma_kernel<DMAX><<<grid, fwd_warps(DMAX) * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const uint8_t*>(a.mask),
+      static_cast<bf16*>(a.dst), static_cast<float*>(a.lse), a.L, a.H, a.D, a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -1069,12 +1319,12 @@ cudaError_t launch_delta(const void* out, const void* dout, void* delta, int B, 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_fwd(const Args& a) {
-  if (a.D <= 32) return launch_fwd<T, 32>(a);
-  if (a.D <= 64) return launch_fwd<T, 64>(a);
-  if (a.D <= 128) return launch_fwd<T, 128>(a);
-  return cudaErrorInvalidValue;
+// float32 on the CUDA cores, bfloat16 on the tensor cores
+cudaError_t dispatch_fwd(const Args& a, int dtype) {
+  if (a.D > 128 || a.D % 8 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (a.D <= 32) return dtype == 0 ? launch_fwd_f32<32>(a) : launch_fwd_mma<32>(a);
+  if (a.D <= 64) return dtype == 0 ? launch_fwd_f32<64>(a) : launch_fwd_mma<64>(a);
+  return dtype == 0 ? launch_fwd_f32<128>(a) : launch_fwd_mma<128>(a);
 }
 
 // float32 on the CUDA cores, bfloat16 on the tensor cores
@@ -1093,14 +1343,7 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v,
                                    int H, int D, float sm_scale, int dtype, void* stream) {
   Args a{q, k, v, mask, nullptr, nullptr, out, lse, nullptr, nullptr, nullptr,
          B, L, H, D, sm_scale, static_cast<cudaStream_t>(stream)};
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch_fwd<float>(a);
-  else if (dtype == 1)
-    e = dispatch_fwd<__nv_bfloat16>(a);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return static_cast<int>(dispatch_fwd(a, dtype));
 }
 
 // delta[b, h, l] = sum_d dout[b, l, h, d] out[b, l, h, d] in f32; out and

@@ -7,10 +7,11 @@ The kernels (``csrc/fused_attention.cu``) replace the TPU kernels
 ``custom_vjp``). What bounds them on the H100, and what their design does
 about that, is written at the top of the CUDA source: the TPU kernel's
 whole T x T score tile does not fit in shared memory, so the forward
-streams key tiles with an online softmax and the backward runs two tiled
-passes (dK/dV, then dQ, on the tensor cores in bfloat16) that recompute P
-from the forward's row lse, after a pre-pass that writes each row's
-delta = rowsum(dO o O) once.
+streams key tiles through a cp.async ring with an online softmax in
+registers, and the backward runs two tiled passes (dK/dV, then dQ) that
+recompute P from the forward's row lse, after a pre-pass that writes each
+row's delta = rowsum(dO o O) once. In bfloat16 every product runs on the
+tensor cores; float32 stays on the CUDA cores.
 
 ``fused_mha`` is the entry point the model calls; it is differentiable. A
 CPU tensor runs ``fused_mha_plain`` forward and ``fused_mha_bwd_plain``
@@ -60,6 +61,12 @@ def fused_mha_plain(q, k, v, pad_mask, sm_scale: Optional[float] = None,
     p = torch.softmax(_scores(q, k, pad_mask, sm_scale).to(softmax_dtype), dim=-1)
     p = p.to(v.dtype).float()
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def attention_lse_plain(q, k, pad_mask, sm_scale: float):
+    """The forward kernel's second output in plain tensor ops: each query
+    row's f32 log-sum-exp (natural log) of its biased scores -> [B, H, L]."""
+    return torch.logsumexp(_scores(q, k, pad_mask, sm_scale), dim=-1)
 
 
 def fused_mha_bwd_plain(q, k, v, pad_mask, dout, sm_scale: Optional[float] = None,
@@ -126,8 +133,10 @@ def _stream(t):
 
 def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
     """Launch the forward kernel on CUDA tensors: (out, lse or None), lse
-    the f32 row log-sum-exp [B, H, L] the backward kernel reads."""
+    the f32 row log-sum-exp [B, H, L] (natural log) the backward kernel
+    reads. q, k and v must start on a 16-byte boundary."""
     check_inputs(q, k, v, pad_mask)
+    _check_aligned("fused_mha", q=q, k=k, v=v)
     B, L, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if want_lse else None
@@ -144,17 +153,23 @@ def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
     return out, lse
 
 
-def _check_bwd_rows(like, **tensors) -> None:
+def _check_rows(who, like, **tensors) -> None:
     """Raise unless each tensor is a contiguous twin of ``like`` (shape,
-    dtype, device) that starts on a 16-byte boundary: the backward kernels
-    copy rows in 16-byte pieces."""
+    dtype, device) that starts on a 16-byte boundary: the kernels copy rows
+    in 16-byte pieces."""
     for name, t in tensors.items():
         if t.shape != like.shape or t.dtype != like.dtype or t.device != like.device \
                 or not t.is_contiguous():
-            raise ValueError(f"fused_mha backward: {name} must be a contiguous twin of "
+            raise ValueError(f"{who}: {name} must be a contiguous twin of "
                              f"{tuple(like.shape)} {like.dtype} {like.device}")
+    _check_aligned(who, **tensors)
+
+
+def _check_aligned(who, **tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary."""
+    for name, t in tensors.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_mha backward: {name} must start on a 16-byte boundary "
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary "
                              "(the kernels copy rows in 16-byte pieces)")
 
 
@@ -165,7 +180,7 @@ def attention_delta(out, dout):
     B, L, H, D = out.shape
     if out.dtype not in _DTYPES or D % 8 or D > MAX_HEAD_DIM:
         raise ValueError(f"attention_delta: {out.dtype} rows of {D} are not taken")
-    _check_bwd_rows(out, out=out, dout=dout)
+    _check_rows("attention_delta", out, out=out, dout=dout)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=out.device)
     if B == 0 or L == 0 or H == 0:
         return delta
@@ -188,7 +203,7 @@ def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float):
     are the forward kernel's; ``dout`` is out's cotangent."""
     check_inputs(q, k, v, pad_mask)
     B, L, H, D = q.shape
-    _check_bwd_rows(q, q=q, k=k, v=v, out=out, dout=dout)
+    _check_rows("fused_mha backward", q, q=q, k=k, v=v, out=out, dout=dout)
     if lse is None or tuple(lse.shape) != (B, H, L) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"fused_mha_bwd: lse must be contiguous float32 [{B}, {H}, {L}]")

@@ -1,5 +1,5 @@
-"""Times the bf16 attention backward and conv kernels of one or more copies
-of the package, in turns, on one CUDA card.
+"""Times the bf16 attention forward, attention backward and conv kernels of
+one or more copies of the package, in turns, on one CUDA card.
 
     python3 -m speakingstyle_torch.tools.kernel_ab [DIR ...] [--rounds 2] [--profile]
 
@@ -24,6 +24,11 @@ from speakingstyle_torch.ops.kernels import CSRC_DIR
 # (B, L, H, D) of the attention backward: the train step's decoder,
 # reference encoder and encoder
 ATTENTION = [(48, 768, 2, 128), (48, 768, 8, 32), (48, 128, 2, 128)]
+# (B, L, H, D, lse, valid lengths) of the attention forward: the train
+# step's three (writing the lse the backward reads; lengths drawn from
+# 0.8 L .. L), and the serve decoder at phase 2's mel lengths
+ATTENTION_FWD = [(48, 768, 2, 128, True, None), (48, 768, 8, 32, True, None),
+                 (48, 128, 2, 128, True, None), (4, 1000, 2, 128, False, [42, 156, 229, 331])]
 # (B, T, K, Cin, Cout, relu, ln) of the conv: the serve and train LN convs,
 # and the train step's other heavy ones
 CONV = [(4, 1000, 3, 1024, 1024, True, True), (48, 768, 3, 1024, 1024, True, True),
@@ -41,6 +46,12 @@ assert os.path.realpath(A.__file__).startswith(os.path.realpath(os.getcwd())), A
 dev = torch.device("cuda")
 g = torch.Generator().manual_seed(0)
 res, prof = {}, {}
+for (B, L, H, D, want_lse, lens) in ATTENTION_FWD:
+    q, k, v = (torch.randn((B, L, H, D), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    lens = torch.randint(L * 8 // 10, L + 1, (B,), generator=g) if lens is None else torch.tensor(lens)
+    mask = (torch.arange(L)[None] >= lens[:, None]).to(dev)
+    res[f"fwd_{B}_{L}_{H}_{D}"] = cs.time_ms(
+        lambda: A.fused_mha_fwd(q, k, v, mask, D ** -0.5, want_lse=want_lse))
 for (B, L, H, D) in ATTENTION:
     q, k, v, do = (torch.randn((B, L, H, D), generator=g).to(dev, torch.bfloat16) for _ in range(4))
     lens = torch.randint(L * 8 // 10, L + 1, (B,), generator=g)
@@ -72,9 +83,14 @@ print(json.dumps({"dir": TAG, "ms": res, **({"profile_ms": prof} if PROFILE else
 """
 
 
+def child_code(path: str, profile: bool) -> str:
+    """The program one run executes in ``path``: the cases, then _CHILD."""
+    return (f"ATTENTION = {ATTENTION!r}\nATTENTION_FWD = {ATTENTION_FWD!r}\nCONV = {CONV!r}\n"
+            f"PROFILE = {profile!r}\nTAG = {path!r}\n" + _CHILD)
+
+
 def run_dir(path: str, profile: bool) -> str:
-    code = (f"ATTENTION = {ATTENTION!r}\nCONV = {CONV!r}\nPROFILE = {profile!r}\n"
-            f"TAG = {path!r}\n" + _CHILD)
+    code = child_code(path, profile)
     env = dict(os.environ, PYTHONPATH=path)
     out = subprocess.run([sys.executable, "-c", code], cwd=path, env=env,
                          capture_output=True, text=True, timeout=900)

@@ -1,21 +1,27 @@
-"""Mutation check of the checks that hold the bf16 conv kernel on the card.
+"""Mutation check of the checks that hold the bf16 tensor-core kernels on
+the card: the conv (``conv_fwd_mma_kernel`` in ``csrc/fused_conv.cu``) and
+the attention forward (``attn_fwd_mma_kernel`` in
+``csrc/fused_attention.cu``).
 
     python3 -m speakingstyle_torch.tools.mutation_check
 
 Run from the root of a checkout, on a machine with a CUDA card (as
 ``chip_smoke.py``). For the sound source and for each deliberately broken
-variant of the tensor-core conv kernel (``conv_fwd_mma_kernel`` in
-``csrc/fused_conv.cu``), it copies ``chip_smoke.py`` and the package into
-``speakingstyle_torch/build/mutants/<variant>/``, applies the change there,
-and runs in that copy what ``chip_smoke.py`` holds the kernel to: every
-kernel case of the main path (untimed) and the teacher-forced acoustic
-comparison. One JSON line per variant gives the kernel cases that fail and
-the bf16 acoustic ratio (kernel-conv vs cuDNN-conv distance over cuDNN-conv
-vs float32 distance); the smallest broken variant's ratio against the sound
-one is the margin of ``chip_smoke.BF16_ACOUSTIC_RATIO``.
+variant of one of those kernels, it copies ``chip_smoke.py`` and the
+package into ``speakingstyle_torch/build/mutants/<variant>/``, applies the
+change there, and runs in that copy what ``chip_smoke.py`` holds the
+kernels to: every kernel case of the serve path (untimed), the attention
+backward at the same shapes (it reads the forward's lse), and the
+teacher-forced acoustic comparison. One JSON line per variant gives the
+kernel cases that fail and the bf16 acoustic ratio (kernel-conv vs
+cuDNN-conv distance over cuDNN-conv vs float32 distance); the smallest
+broken conv variant's ratio against the sound one is the margin of
+``chip_smoke.BF16_ACOUSTIC_RATIO``.
 
 Exits 0 only if the sound source passes every check and each broken
-variant fails both the kernel cases and the bf16 acoustic comparison.
+variant fails the kernel cases, a conv variant the bf16 acoustic
+comparison too (both sides of that comparison run the same attention
+kernels, so it cannot see an attention variant).
 """
 
 import json
@@ -26,26 +32,41 @@ import sys
 
 from speakingstyle_torch.ops.kernels import BUILD_DIR, CSRC_DIR
 
-# variant -> (text of csrc/fused_conv.cu, its replacement); each text
-# occurs once, in conv_fwd_mma_kernel
+CONV, ATTENTION = "fused_conv.cu", "fused_attention.cu"
+SOURCES = (CONV, ATTENTION)
+# variant -> (source in csrc/, a text of it, its replacement); each text
+# occurs once in its source (in conv_fwd_mma_kernel or attn_fwd_mma_kernel)
+# and nowhere in the other
 MUTANTS = {
     "none": None,
     # the last tap of every conv is dropped (its weight tiles staged as zeros)
-    "tap": ("const int w_rows = min(CONV_BK, Cin - ci0);",
+    "tap": (CONV, "const int w_rows = min(CONV_BK, Cin - ci0);",
             "const int w_rows = j == K - 1 ? 0 : min(CONV_BK, Cin - ci0);"),
-    # the last 32-channel chunk of the input is dropped
-    "chunk": ("const int n_chunks = (Cin + CONV_BK - 1) / CONV_BK;",
+    # the last 64-channel chunk of the input is dropped
+    "chunk": (CONV, "const int n_chunks = (Cin + CONV_BK - 1) / CONV_BK;",
               "const int n_chunks = (Cin - 1) / CONV_BK;"),
     # the LayerNorm variance is taken about 0, not about the mean
-    "ln_var": ("const float d = pass == 0 ? v : v - mean[mt][h];", "const float d = v;"),
+    "ln_var": (CONV, "const float d = pass == 0 ? v : v - mean[mt][h];", "const float d = v;"),
     # the input halo is staged one time step late
-    "halo": ("const int t = t0 - pad_lo + r;", "const int t = t0 - pad_lo + r + 1;"),
+    "halo": (CONV, "const int t = t0 - pad_lo + r;", "const int t = t0 - pad_lo + r + 1;"),
     # the LayerNorm sums are taken from the cluster's first block only
-    "cluster": ("for (int rank = 0; rank < ncl; ++rank)", "for (int rank = 0; rank < 1; ++rank)"),
+    "cluster": (CONV, "for (int rank = 0; rank < ncl; ++rank)",
+                "for (int rank = 0; rank < 1; ++rank)"),
+    # the forward's O accumulator is not rescaled when a row's max moves
+    "fwd_rescale": (ATTENTION, "o[nt][i] *= alpha[i >> 1];", "o[nt][i] *= 1.f;"),
+    # the forward skips its last key tile
+    "fwd_last_tile": (ATTENTION, "const int n_tiles = (k_end + F_NS - 1) / F_NS;",
+                      "const int n_tiles = (k_end - 1) / F_NS;"),
+    # the forward writes lse without log(l)
+    "fwd_lse": (ATTENTION, "m2[hh] * LN2 + logf(l[hh]);", "m2[hh] * LN2;"),
+    # keys past L in the last tile get the padding bias instead of -inf, so
+    # a fully padded row also attends over the tile's zero-filled tail
+    "fwd_tail_bias": (ATTENTION, "kj >= L ? -INFINITY :", "kj >= L ? NEG2 :"),
 }
 
-# run inside a variant's copy: chip_smoke's kernel cases and acoustic
-# comparison, on phase 2's engine and requests
+# run inside a variant's copy: chip_smoke's kernel cases, the attention
+# backward at the same shapes, and the acoustic comparison, on phase 2's
+# engine and requests
 _CHILD = """
 import json
 import torch
@@ -58,8 +79,14 @@ cfg = load_config(preset="LJSpeech")
 requests = cs.make_requests(cfg, 0)
 engine = cs.build_engine(cfg, 0, dev)
 results = engine.run(requests)
+lengths = cs.path_lengths(engine, requests, results)
 with cs.strict_float32():
-    cases = cs.kernels_phase(cfg, cs.path_lengths(engine, requests, results), dev, 0)
+    cases = cs.kernels_phase(cfg, lengths, dev, 0)
+    g = torch.Generator().manual_seed(1)
+    for name, axis, H, D, _ in cs.attention_cases(cfg):
+        B, L, lens = lengths[axis]
+        for c in cs.attention_bwd_case(name, B, L, H, D, lens, torch.bfloat16, g, dev):
+            cases[c["case"]] = c
     parity = cs.teacher_forced_parity(cfg, engine, requests, results, dev)
 print(json.dumps({"kernel_cases_failed": [c["case"] for c in cases.values() if not c["ok"]],
                   "parity_failed": parity}))
@@ -72,7 +99,7 @@ def mutate(source: str, variant: str) -> str:
     change = MUTANTS[variant]
     if change is None:
         return source
-    old, new = change
+    _, old, new = change
     if source.count(old) != 1:
         raise ValueError(f"variant {variant!r}: its text occurs {source.count(old)} times")
     return source.replace(old, new)
@@ -84,11 +111,12 @@ def run_variant(repo: str, variant: str) -> dict:
     shutil.copytree(os.path.dirname(CSRC_DIR), os.path.join(dst, "speakingstyle_torch"),
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(os.path.join(repo, "chip_smoke.py"), dst)
-    src = os.path.join(dst, "speakingstyle_torch", "csrc", "fused_conv.cu")
-    with open(src) as f:
-        text = mutate(f.read(), variant)
-    with open(src, "w") as f:
-        f.write(text)
+    if MUTANTS[variant] is not None:
+        src = os.path.join(dst, "speakingstyle_torch", "csrc", MUTANTS[variant][0])
+        with open(src) as f:
+            text = mutate(f.read(), variant)
+        with open(src, "w") as f:
+            f.write(text)
     env = dict(os.environ, PYTHONPATH=dst)
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=dst, env=env,
                          capture_output=True, text=True, timeout=900)
@@ -110,11 +138,14 @@ def main() -> int:
         print("mutation_check: needs a CUDA card", file=sys.stderr)
         return 1
     ok = True
-    for variant in MUTANTS:
+    for variant, change in MUTANTS.items():
         row = run_variant(repo, variant)
         failed = (bool(row["kernel_cases_failed"]), bool(row["parity_failed"]))
-        row["caught"] = all(failed)
-        ok &= not any(failed) if variant == "none" else all(failed)
+        if change is None:
+            ok &= not any(failed)
+        else:
+            row["caught"] = failed[0] and (failed[1] or change[0] != CONV)
+            ok &= row["caught"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1
 

@@ -61,25 +61,34 @@ def test_missing_nvcc_raises(monkeypatch):
 
 @pytest.mark.parametrize("variant", sorted(mutation_check.MUTANTS))
 def test_mutation_check_variants_apply_to_the_source(variant):
-    """Each broken variant of the mutation check changes the tensor-core
-    conv kernel at exactly one place of the current source ("none" at
-    none), so the check cannot go stale silently as the kernel is edited."""
-    with open(os.path.join(kernels.CSRC_DIR, "fused_conv.cu")) as f:
-        source = f.read()
-    mutated = mutation_check.mutate(source, variant)
-    assert (mutated == source) == (variant == "none")
-    if variant != "none":
-        with pytest.raises(ValueError, match="occurs 0 times"):
-            mutation_check.mutate(mutated, variant)
+    """Each broken variant of the mutation check changes its tensor-core
+    kernel (the conv's or the attention forward's) at exactly one place of
+    its current source and matches nowhere in the other sources ("none"
+    changes none), so the check cannot go stale silently as a kernel is
+    edited."""
+    change = mutation_check.MUTANTS[variant]
+    for name in mutation_check.SOURCES:
+        with open(os.path.join(kernels.CSRC_DIR, name)) as f:
+            source = f.read()
+        if change is None:
+            assert mutation_check.mutate(source, variant) == source
+        elif change[0] == name:
+            mutated = mutation_check.mutate(source, variant)
+            assert mutated != source
+            with pytest.raises(ValueError, match="occurs 0 times"):
+                mutation_check.mutate(mutated, variant)
+        else:
+            with pytest.raises(ValueError, match="occurs 0 times"):
+                mutation_check.mutate(source, variant)
 
 def test_kernel_ab_child_is_valid_python():
     """The A/B timing tool's child program (run only on a card) parses,
     with the cases the tool passes it."""
     from speakingstyle_torch.tools import kernel_ab
 
-    code = f"ATTENTION = {kernel_ab.ATTENTION!r}\nCONV = {kernel_ab.CONV!r}\n" + kernel_ab._CHILD
-    compile(code, "kernel_ab_child", "exec")
+    compile(kernel_ab.child_code("checkout", False), "kernel_ab_child", "exec")
     assert all(len(c) == 7 for c in kernel_ab.CONV)
+    assert all(len(c) == 6 for c in kernel_ab.ATTENTION_FWD)
 
 
 @pytest.fixture
@@ -113,6 +122,76 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     assert t_attn.fused_mha.launches == before + 1
     want = t_attn.fused_mha_plain(q, k, v, mask)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# the forward's row lse against logsumexp of the plain version's f32
+# scores: reordered sums of L exp terms and of the scores' D products
+# (<= ~1.2e-4 at L = 1000, D = 128), and a fully padded row's lse, the bias
+# -1.7e38, to a few roundings of its size (as chip_smoke.py states them)
+LSE_TOL = dict(atol=2e-4, rtol=2 ** -20)
+# a fully padded row's output is V's mean over its L rows: rounded to the
+# output dtype (rtol of |mean|) after an f32 sum (sum_tol of sum |v|)
+PAD_ROW_TOL = {torch.float32: (2 ** -22, 2 ** -22), torch.bfloat16: (2 ** -8 + 2 ** -22, 2 ** -22)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("H,D", [(3, 24), (8, 32), (2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forward_tile_edges_on_card(cuda_device, L, H, D, dtype):
+    """The forward (bf16: the tensor-core kernel) around its 64-key tiles,
+    at a head dim that is not a multiple of 16 and at the path's two, with
+    a row of unequal length, a fully padded row and a row whose only valid
+    key is key 0: out against the plain version, lse against logsumexp of
+    the plain scores, the padded row against V's mean over its L rows, and
+    two runs bit-identical."""
+    B = 4
+    g = torch.Generator().manual_seed(L * D + 1)
+    q, k, v = (torch.randn((B, L, H, D), generator=g).to(cuda_device, dtype) for _ in range(3))
+    lens = torch.tensor([L, L // 2 + 1, 0, 1])
+    mask = (torch.arange(L)[None] >= lens[:, None]).to(cuda_device)
+    scale = D ** -0.5
+    before = t_attn.fused_mha.launches
+    out, lse = t_attn.fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+    assert t_attn.fused_mha.launches == before + 1
+    again, _ = t_attn.fused_mha_fwd(q, k, v, mask, scale)
+    assert torch.equal(out, again)
+    want = t_attn.fused_mha_plain(q, k, v, mask, scale)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, t_attn.attention_lse_plain(q, k, mask, scale), **LSE_TOL)
+    rtol, sum_tol = PAD_ROW_TOL[dtype]
+    v_row = v[2].float()
+    mean = v_row.mean(dim=0)
+    bound = rtol * mean.abs() + sum_tol * v_row.abs().sum(dim=0)
+    assert bool(((out[2].float() - mean).abs() <= bound).all())
+    # the row whose only valid key is key 0 returns that key's value
+    torch.testing.assert_close(out[3].float(), v[3, :1].float().expand(L, H, D), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_forward_refuses_a_misaligned_view_on_card(cuda_device):
+    """The forward copies rows in 16-byte pieces: a view that does not
+    start on a 16-byte boundary is refused before any launch."""
+    _assert_forward_refuses_a_misaligned_view(cuda_device)
+
+
+def test_attention_forward_refuses_a_misaligned_view():
+    """The same refusal on CPU stand-ins: the check comes before the kernel
+    library is built or loaded."""
+    _assert_forward_refuses_a_misaligned_view(torch.device("cpu"))
+
+
+def _assert_forward_refuses_a_misaligned_view(dev):
+    flat = torch.zeros(2 * 33 * 2 * 32 + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(2, 33, 2, 32)
+    q = torch.zeros((2, 33, 2, 32), dtype=torch.bfloat16, device=dev)
+    mask = torch.zeros((2, 33), dtype=torch.bool, device=dev)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = t_attn.fused_mha.launches
+    for args in ((shifted, q, q), (q, shifted, q), (q, q, shifted)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            t_attn.fused_mha_fwd(*args, mask, 0.25)
+    assert t_attn.fused_mha.launches == before
 
 
 @pytest.mark.cuda
