@@ -132,7 +132,9 @@ BF16_ACOUSTIC_RATIO = 3.0
 SUMMARY_CASES = {"fused_attention_fwd": "train_attn_decoder_bfloat16",
                  "fused_conv1d_fwd": "conv_dec_ffn_w1_bfloat16",
                  "fused_attention_bwd": "attn_bwd_decoder_bfloat16",
-                 "fused_attention_bwd_delta": "attn_bwd_delta_decoder_bfloat16"}
+                 "fused_attention_bwd_delta": "attn_bwd_delta_decoder_bfloat16",
+                 "fused_attention_fwd_bf16sm": "sm16_train_attn_decoder_bfloat16",
+                 "fused_attention_bwd_bf16sm": "sm16_attn_bwd_decoder_bfloat16"}
 
 TEXTS = [
     "Hello world.",
@@ -549,6 +551,7 @@ def reset_counts():
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
     fused_mha.launches = fused_mha_bwd.launches = attention_delta.launches = 0
+    fused_mha.launches_bf16sm = fused_mha_bwd.launches_bf16sm = 0
     fused_conv1d.launches = fused_conv1d.act_launches = 0
 
 
@@ -557,7 +560,9 @@ def read_counts():
     from speakingstyle_torch.ops.fused_conv import fused_conv1d
 
     return {"fused_attention_fwd": fused_mha.launches,
+            "fused_attention_fwd_bf16sm": fused_mha.launches_bf16sm,
             "fused_attention_bwd": fused_mha_bwd.launches,
+            "fused_attention_bwd_bf16sm": fused_mha_bwd.launches_bf16sm,
             "fused_attention_bwd_delta": attention_delta.launches,
             "fused_conv1d_fwd": fused_conv1d.launches,
             "fused_conv1d_fwd_act": fused_conv1d.act_launches}
@@ -757,6 +762,346 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
     return bad
 
 
+# ---------------------------------------------------------------- trained weights
+
+# the folded vocoder's float wav against the seeded generator's on the same
+# mel, float32 (TF32 off): weight norm folds each kernel back to the seeded
+# one up to a few f32 roundings (g v / |v|, ~1e-7 relative), which ~30
+# convs carry to ~1e-5 of the [-1, 1] output; a wrong fold moves it by O(1)
+VOCODER_FOLD_ATOL = 1e-4
+
+
+def smoke_configs(tmp, cfg_model=None):
+    """YAML files of the LJSpeech preset for the synthesize and convert
+    commands: the preset's preprocess.yaml with LEXICON as its lexicon (and
+    a preprocessed dir holding speakers.json, for batch mode), its
+    model.yaml with ``cfg_model``'s overrides, and its train.yaml with
+    checkpoint and result paths under ``tmp``. Returns the command's
+    config arguments."""
+    import yaml
+
+    from speakingstyle_torch.configs.config import PRESET_DIR
+
+    def preset(name):
+        with open(os.path.join(PRESET_DIR, "LJSpeech", name)) as f:
+            return yaml.safe_load(f)
+
+    pre, model, train = preset("preprocess.yaml"), preset("model.yaml"), preset("train.yaml")
+    with open(os.path.join(tmp, "lexicon.txt"), "w") as f:
+        f.write(LEXICON.strip() + "\n")
+    pre["path"]["lexicon_path"] = os.path.join(tmp, "lexicon.txt")
+    root = os.path.join(tmp, "preprocessed")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "speakers.json"), "w") as f:
+        json.dump({"LJSpeech": 0}, f)
+    pre["path"]["preprocessed_path"] = root
+    model.update(cfg_model or {})
+    train["path"].update(ckpt_path=os.path.join(tmp, "ckpt"),
+                         result_path=os.path.join(tmp, "result"))
+    args = ["--preset", "LJSpeech"]
+    for flag, name, data in (("-p", "preprocess", pre), ("-m", "model", model),
+                             ("-t", "train", train)):
+        path = os.path.join(tmp, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(data, f)
+        args += [flag, path]
+    return args
+
+
+def write_smoke_inputs(tmp, cfg, seed):
+    """The smoke requests' reference wavs (float32 files, so that they load
+    as the requests' own samples) and a metadata file of their texts in
+    train.txt's format (phones from LEXICON); returns (wav paths, the
+    metadata path)."""
+    import scipy.io.wavfile
+
+    lexicon = dict((w, ps) for w, *ps in (l.split() for l in LEXICON.strip().splitlines()))
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    wavs, lines = [], []
+    for i, (text, seconds) in enumerate(zip(TEXTS, REF_SECONDS)):
+        path = os.path.join(tmp, f"ref{i}.wav")
+        scipy.io.wavfile.write(path, sr, reference_wav(seed + i, sr, seconds))
+        wavs.append(path)
+        words = re.findall(r"[a-z]+", text.lower())
+        lines.append(f"r{i}|LJSpeech|{{{' '.join(p for w in words for p in lexicon[w])}}}|{text}")
+    source = os.path.join(tmp, "smoke.txt")
+    with open(source, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return wavs, source
+
+
+def run_cli(argv, want):
+    """``python -m speakingstyle_torch`` in this process, every kernel
+    count set to 0 just before and read just after; fails unless each
+    kernel of ``want`` launched its count. Returns (the command's return
+    value, the counts)."""
+    from speakingstyle_torch.__main__ import main as cli
+
+    reset_counts()
+    out = cli(argv)
+    counts = read_counts()
+    for name, n in want.items():
+        if counts[name] != n or (n > 0 and counts[name] == 0):
+            fail(f"{argv[0]} {argv[-1]}: {name} launched {counts[name]} times, want {n}")
+    return out, counts
+
+
+def check_wavs(phase, results, hop):
+    """Finite, non-silent wavs of mel_len * hop samples."""
+    import numpy as np
+
+    rows = []
+    for r in results:
+        rms = float(np.sqrt(np.mean(r.wav.astype(np.float64) ** 2))) if len(r.wav) else 0.0
+        rows.append({"id": r.id, "mel_len": r.mel_len, "wav_samples": int(len(r.wav)),
+                     "wav_finite": r.wav_finite, "wav_rms": rms})
+        if not (r.mel_len > 0 and len(r.wav) == r.mel_len * hop and r.wav_finite
+                and bool(np.isfinite(r.mel).all()) and rms > 1.0):
+            fail(f"{phase}: request {rows[-1]} is empty, silent, non-finite or mis-sized")
+    return rows
+
+
+def restored_phase(cfg, seed, dev, attn_per):
+    """``synthesize --restore_step`` from the port's own checkpoint: the
+    seeded LJSpeech engine's model saved with ``CheckpointManager``, then
+    the command in single mode (each smoke request with its own reference)
+    and in batch mode (a metadata file of the 4 smoke requests, one shared
+    ``--ref_audio`` encoded once). Durations, mel lengths and mels must
+    equal the in-memory engine's on the command's own requests, bit for
+    bit: both run the same kernels at the same shapes on the same weights."""
+    import numpy as np
+
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    step = 4242
+    engine = build_engine(cfg, seed, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as tmp:
+        args = smoke_configs(tmp)
+        CheckpointManager(os.path.join(tmp, "ckpt")).save(step, TrainState(
+            step=step, model=engine.model,
+            optimizer=Optimizer(trainable(engine.model), cfg.train)))
+        wavs, source = write_smoke_inputs(tmp, cfg, seed)
+        common = ["synthesize", *args, "--device", dev.type, "--restore_step", str(step),
+                  "--seed", str(seed)]
+        want = {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+                "fused_conv1d_fwd": 0}
+        runs = []
+        for i, text in enumerate(TEXTS):
+            ns, counts = run_cli(common + ["--mode", "single", "--text", text,
+                                           "--ref_audio", wavs[i]], want)
+            runs.append(("single", ns, counts))
+        ns, counts = run_cli(common + ["--mode", "batch", "--source", source,
+                                       "--ref_audio", wavs[0]], want)
+        runs.append(("batch", ns, counts))
+        rows, bad = [], []
+        for mode, ns, counts in runs:
+            got = ns.results
+            mine = engine.run(ns.requests)
+            for g, m in zip(got, mine):
+                same = (g.mel_len == m.mel_len and np.array_equal(g.durations, m.durations)
+                        and np.array_equal(g.mel, m.mel))
+                diff = float(np.abs(g.mel - m.mel).max()) if g.mel_len == m.mel_len else None
+                rows.append({"mode": mode, "id": g.id, "mel_len": g.mel_len,
+                             "mel_max_abs_diff": diff, "equal": same,
+                             "wav_files": os.path.isfile(os.path.join(
+                                 tmp, "result", str(step), f"{g.id}.wav"))})
+                if not same or not rows[-1]["wav_files"]:
+                    bad.append(rows[-1])
+            check_wavs(f"synthesize_restored {mode}", got, engine.vocoder.hop_factor)
+            if ns.info["step"] != step:
+                bad.append({"restored_step": ns.info["step"]})
+        batch_engine = runs[-1][1].engine
+        emit("synthesize_restored", entry="cli.synthesize.main", restore_step=step,
+             results=rows, batch_style_encodes=batch_engine.style_encodes,
+             batch_dispatches=batch_engine.dispatches,
+             launches={mode: counts for mode, _, counts in runs})
+        if bad:
+            fail(f"synthesize_restored: results differ from the in-memory engine's: {bad}")
+        if batch_engine.style_encodes != 1:
+            fail(f"synthesize_restored: batch mode ran the style encoder "
+                 f"{batch_engine.style_encodes} times, want 1")
+
+
+def reference_state_dict(cfg, seed):
+    """A FastSpeech2 state dict in the reference's key naming (the port's
+    copy of tests/test_convert.py's generator), at ``cfg``'s widths, from
+    ``seed``: normal weights over sqrt(fan_in), LayerNorm scales near 1,
+    and the duration predictor's output layer at 0.1 of that with its bias
+    at ln(1 + FRAMES_PER_PHONEME), as ``build_engine`` sets it."""
+    import numpy as np
+
+    from speakingstyle_torch.text.symbols import VOCAB_SIZE
+
+    rng = np.random.default_rng(seed)
+    m = cfg.model
+    tr, re_, vp = m.transformer, m.reference_encoder, m.variance_predictor
+    n_mels = cfg.preprocess.preprocessing.mel.n_mel_channels
+    H, bins = tr.encoder_hidden, m.variance_embedding.n_bins
+    sd = {}
+
+    def w(name, *shape):
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        sd[name] = (rng.standard_normal(shape) / math.sqrt(fan_in)).astype(np.float32)
+
+    def b(name, n, scale=0.1, base=0.0):
+        sd[name] = (base + scale * rng.standard_normal(n)).astype(np.float32)
+
+    def dense(p, d_in, d_out, bias=True):
+        w(p + ".weight", d_out, d_in)
+        if bias:
+            b(p + ".bias", d_out)
+
+    def conv(p, cin, cout, k):
+        w(p + ".weight", cout, cin, k)
+        b(p + ".bias", cout)
+
+    def ln(p, d):
+        b(p + ".weight", d, base=1.0)
+        b(p + ".bias", d)
+
+    def fft_block(p, d, d_inner, kernels, film):
+        for name in ("w_qs", "w_ks", "w_vs", "fc"):
+            dense(f"{p}.slf_attn.{name}", d, d)
+        ln(f"{p}.slf_attn.layer_norm", d)
+        conv(f"{p}.pos_ffn.w_1", d, d_inner, kernels[0])
+        conv(f"{p}.pos_ffn.w_2", d_inner, d, kernels[1])
+        ln(f"{p}.pos_ffn.layer_norm", d)
+        if film:
+            b(f"{p}.film.s_gamma", 1, base=1.0)
+            b(f"{p}.film.s_beta", 1, base=1.0)
+
+    sd["encoder.src_word_emb.weight"] = rng.standard_normal((VOCAB_SIZE, H)).astype(np.float32)
+    for i in range(tr.encoder_layer):
+        fft_block(f"encoder.layer_stack.{i}", H, tr.conv_filter_size, tr.conv_kernel_size, True)
+    for i in range(tr.decoder_layer):
+        fft_block(f"decoder.layer_stack.{i}", tr.decoder_hidden, tr.conv_filter_size,
+                  tr.conv_kernel_size, True)
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        p = f"variance_adaptor.{name}"
+        conv(f"{p}.conv_layer.conv1d_1.conv", H, vp.filter_size, vp.kernel_size)
+        ln(f"{p}.conv_layer.layer_norm_1", vp.filter_size)
+        conv(f"{p}.conv_layer.conv1d_2.conv", vp.filter_size, vp.filter_size, vp.kernel_size)
+        ln(f"{p}.conv_layer.layer_norm_2", vp.filter_size)
+        b(f"{p}.film.s_gamma", 1, base=1.0)
+        b(f"{p}.film.s_beta", 1, base=1.0)
+        dense(f"{p}.linear_layer", vp.filter_size, 1)
+    sd["variance_adaptor.duration_predictor.linear_layer.weight"] *= 0.1
+    sd["variance_adaptor.duration_predictor.linear_layer.bias"] = np.full(
+        (1,), math.log(1.0 + FRAMES_PER_PHONEME), np.float32)
+    for name in ("pitch", "energy"):
+        sd[f"variance_adaptor.{name}_bins"] = np.zeros(bins - 1, np.float32)  # skipped
+        sd[f"variance_adaptor.{name}_embedding.weight"] = rng.standard_normal(
+            (bins, H)).astype(np.float32)
+    for i in range(re_.conv_layer):
+        conv(f"reference_encoder.layer_stack.{i}.0.conv", n_mels if i == 0 else
+             re_.conv_filter_size, re_.conv_filter_size, re_.conv_kernel_size)
+        ln(f"reference_encoder.layer_stack.{i}.2", re_.conv_filter_size)
+    dense("reference_encoder.fftb_linear.linear", re_.conv_filter_size, re_.encoder_hidden,
+          bias=False)
+    for i in range(re_.encoder_layer):
+        fft_block(f"reference_encoder.fftb_stack.{i}", re_.encoder_hidden,
+                  re_.conv_filter_size, (re_.conv_kernel_size,) * 2, False)
+    dense("reference_encoder.feature_wise_affine.linear", re_.encoder_hidden,
+          2 * re_.encoder_hidden, bias=False)
+    dense("mel_linear", tr.decoder_hidden, n_mels)
+    for i in range(m.postnet_layers):
+        cin = n_mels if i == 0 else m.postnet_embedding_dim
+        cout = n_mels if i == m.postnet_layers - 1 else m.postnet_embedding_dim
+        conv(f"postnet.convolutions.{i}.0.conv", cin, cout, m.postnet_kernel_size)
+        ln(f"postnet.convolutions.{i}.1", cout)
+        b(f"postnet.convolutions.{i}.1.running_mean", cout)
+        b(f"postnet.convolutions.{i}.1.running_var", cout, base=1.0)
+        sd[f"postnet.convolutions.{i}.1.num_batches_tracked"] = np.zeros((), np.int64)
+    return sd
+
+
+def hifigan_reference_state_dict(gen):
+    """The port's HiFi-GAN ``gen`` as a reference ``generator_*.pth.tar``
+    state dict: the reference's module names, every conv weight-normed
+    (weight_v a per-row positive multiple of the weight, weight_g the norm
+    of the weight over all but dim 0), so that folding gives ``gen``'s
+    weights back."""
+    import numpy as np
+
+    g = np.random.default_rng(0)
+    sd = {}
+    for name, t in gen.state_dict().items():
+        name = re.sub(r"(ups|resblocks|convs1|convs2|convs)_(\d+)", r"\1.\2", name)
+        name = name.replace(".conv.", ".").replace(".kernel", ".weight")
+        a = t.detach().cpu().numpy()
+        if name.endswith(".weight"):
+            row = g.uniform(0.5, 2.0, (a.shape[0],) + (1,) * (a.ndim - 1)).astype(np.float32)
+            sd[name[:-len("weight")] + "weight_v"] = a * row
+            sd[name[:-len("weight")] + "weight_g"] = np.sqrt(
+                (a.astype(np.float64) ** 2).sum(axis=tuple(range(1, a.ndim)), keepdims=True)
+            ).astype(np.float32)
+        else:
+            sd[name] = a
+    return sd
+
+
+def convert_phase(cfg, seed, dev, attn_per, conv_per):
+    """``convert`` then ``synthesize --vocoder_ckpt``: a full-width
+    reference-format FastSpeech2 ``<step>.pth.tar`` and a weight-normed
+    HiFi-GAN ``generator_*.pth.tar`` folding back to the seeded generator,
+    written from ``seed``; ``convert --kind fastspeech2`` and ``--kind
+    hifigan``; then single mode with the .pth.tar vocoder and batch mode
+    with the .msgpack one, under ``conv_impl: pallas`` (the kernel counts
+    of ``synthesize_pallas_conv``). The wavs must be finite, non-silent and
+    mel_len x 256 samples; the folded vocoder within VOCODER_FOLD_ATOL of
+    the seeded one on the same mel; the .msgpack vocoder bit for bit the
+    .pth.tar one."""
+    import torch
+
+    from speakingstyle_torch.models.factory import init_weights
+    from speakingstyle_torch.models.hifigan import DEFAULT_HIFIGAN_CONFIG, generator_from_config
+
+    step = 900000
+    seeded = init_weights(generator_from_config(DEFAULT_HIFIGAN_CONFIG), seed + 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        args = smoke_configs(tmp, {"conv_impl": "pallas"})
+        pth = os.path.join(tmp, f"{step}.pth.tar")
+        sd = reference_state_dict(cfg, seed + 3)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        gen_pth = os.path.join(tmp, "generator_smoke.pth.tar")
+        torch.save({"generator": {k: torch.from_numpy(v) for k, v in
+                                  hifigan_reference_state_dict(seeded).items()}}, gen_pth)
+        t0 = time.perf_counter()
+        step_dir, _ = run_cli(["convert", *args, "--ckpt", pth], {})
+        msgpack, _ = run_cli(["convert", "--kind", "hifigan", "--ckpt", gen_pth], {})
+        convert_s = time.perf_counter() - t0
+        wavs, source = write_smoke_inputs(tmp, cfg, seed)
+        common = ["synthesize", *args, "--device", dev.type, "--restore_step", str(step)]
+        want = {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+                "fused_conv1d_fwd": conv_per}
+        single, c1 = run_cli(common + ["--mode", "single", "--text", TEXTS[2], "--ref_audio",
+                                       wavs[2], "--vocoder_ckpt", gen_pth], want)
+        batch, c2 = run_cli(common + ["--mode", "batch", "--source", source, "--ref_audio",
+                                      wavs[0], "--vocoder_ckpt", msgpack], want)
+        hop = seeded.hop_factor
+        rows = check_wavs("convert_reference single", single.results, hop) \
+            + check_wavs("convert_reference batch", batch.results, hop)
+        folded = single.engine.vocoder
+        same_msgpack = all(torch.equal(a, b) for a, b in zip(
+            folded.state_dict().values(), batch.engine.vocoder.state_dict().values()))
+        mel = torch.from_numpy(single.results[0].mel[None]).to(dev)
+        with strict_float32(), torch.inference_mode():
+            fold_err = (folded(mel) - seeded.to(dev).eval()(mel)).abs().max().item()
+        emit("convert_reference", entry="cli.convert.main, cli.synthesize.main",
+             checkpoint=os.path.basename(step_dir), restored_step=single.info["step"],
+             convert_s=convert_s, leaves=len(sd), results=rows,
+             vocoder_fold_max_abs_err=fold_err, vocoder_fold_atol=VOCODER_FOLD_ATOL,
+             msgpack_vocoder_equals_pth_tar=same_msgpack,
+             launches={"single": c1, "batch": c2})
+        if single.info["step"] != step or not fold_err <= VOCODER_FOLD_ATOL \
+                or not same_msgpack:
+            fail(f"convert_reference: step {single.info['step']}, vocoder fold error "
+                 f"{fold_err}, msgpack equal {same_msgpack}")
+
+
 # ---------------------------------------------------------------- phase 6: training
 
 TRAIN_STEPS = 12   # run_training's steps on each path
@@ -765,6 +1110,7 @@ TRAIN_WARMUP = 2   # its first steps, left out of the medians (cuDNN plans, allo
 # and 12, checkpoints at 5 and 10 and the final flush at 12
 TRAIN_STEP_CFG = {"log_step": 1, "val_step": 6, "save_step": 5}
 TRAIN_TRACED = 2   # steps of the traced resume; the last one is read
+SM16_TRAIN_STEPS = 2  # steps of the kernel path under the bf16 softmax
 # the corpus: ~100 phonemes x ~6 frames, so T_mel buckets up to 896
 CORPUS_UTTS, CORPUS_VAL = 288, 48
 # (tag, model overrides) of the two training paths
@@ -1062,6 +1408,18 @@ def train_kernel_cases(cfg, batch, dev, seed):
             cases.append(act_case(name, B, T, re_.conv_kernel_size, cin, re_.conv_filter_size,
                                   mel, dtype, g, dev))
             emit("train_kernels", **cases[-1])
+        # the bf16-softmax specialisation at the same shapes
+        for case in attention_cases(cfg):
+            c = sm16_fwd_case(case, lengths, dtype, g, dev, train=True)
+            c["launches_per_step"] = c.pop("launches_per_dispatch")
+            cases.append(c)
+            emit("bf16_softmax", **c)
+        for name, L, H, D, lens in (
+                ("ref_encoder", T, re_.encoder_head, re_.encoder_hidden // re_.encoder_head, mel),
+                ("encoder", L_src, tr.encoder_head, tr.encoder_hidden // tr.encoder_head, src),
+                ("decoder", T, tr.decoder_head, tr.decoder_hidden // tr.decoder_head, mel)):
+            cases.append(sm16_bwd_case(name, B, L, H, D, lens, dtype, g, dev))
+            emit("bf16_softmax", **cases[-1])
     for case in conv_cases(cfg):
         c = conv_case(case, lengths, torch.bfloat16, g, dev, prefix="train_conv")
         c["launches_per_step"] = c.pop("launches_per_dispatch")
@@ -1141,9 +1499,39 @@ def grad_parity(cfg, batch, dev, seed):
     return bad
 
 
+def train_sm16_run(cfg, dev, attn):
+    """``run_training`` for SM16_TRAIN_STEPS steps of the kernel path under
+    ``attention_softmax_dtype: bfloat16``, every kernel count set to 0 just
+    before and read just after: each step launches the bf16-softmax forward,
+    backward and delta pre-pass once per attention layer and the
+    float32-softmax kernels never; finite losses. Returns the counts."""
+    from speakingstyle_torch.training.trainer import run_training
+
+    reset_counts()
+    run_training(cfg, device=dev, max_steps=SM16_TRAIN_STEPS)
+    counts = read_counts()
+    total = {s: r["total_loss"] for s, r in
+             sorted(read_log(os.path.join(cfg.train.path.log_path, "log.txt"))["train"].items())}
+    n = attn * SM16_TRAIN_STEPS
+    want = {"fused_attention_fwd_bf16sm": n, "fused_attention_bwd_bf16sm": n,
+            "fused_attention_bwd_delta": n, "fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    emit("train_bf16_softmax", entry="training.trainer.run_training",
+         attention_softmax_dtype=cfg.model.attention_softmax_dtype, steps=SM16_TRAIN_STEPS,
+         total_loss=list(total.values()), launches=counts, want_launches=want)
+    if sorted(total) != list(range(1, SM16_TRAIN_STEPS + 1)) \
+            or not all(math.isfinite(v) for v in total.values()):
+        fail(f"train under the bf16 softmax: losses {total}")
+    for name, want_n in want.items():
+        if counts[name] != want_n:
+            fail(f"train under the bf16 softmax: {name} launched {counts[name]} times, "
+                 f"want {want_n}")
+    return counts
+
+
 def train_phase(cfg_of, dev, seed):
     """Phase 6 on a synthetic corpus in a temporary directory; returns
-    (the kernel path's counts, the kernel cases)."""
+    (the kernel path's counts, those of its run under the bf16 softmax, the
+    kernel cases)."""
     from speakingstyle_torch.data.synthetic import generate_corpus
     from speakingstyle_torch.training.trainer import batch_streams
 
@@ -1167,6 +1555,9 @@ def train_phase(cfg_of, dev, seed):
                 "fused_conv1d_fwd": (convs, convs), "fused_conv1d_fwd_act": (re_.conv_layer, 0)}
         counts = train_run("kernels", cfg, dev, want, n_val)
         train_run("library", runs["library"], dev, {k: (0, 0) for k in want}, n_val)
+        sm16_counts = train_sm16_run(
+            cfg_of(corpus, os.path.join(tmp, "bf16_softmax"), seed, **dict(
+                TRAIN_PATHS)["kernels"], attention_softmax_dtype="bfloat16"), dev, attn)
         with strict_float32():
             cases = train_kernel_cases(cfg, first, dev, seed)
         bad = [c["case"] for c in cases.values() if not c["ok"]]
@@ -1175,8 +1566,217 @@ def train_phase(cfg_of, dev, seed):
         bad = grad_parity(cfg, first, dev, seed)
         if bad:
             fail(f"train gradient parity: {bad}")
-    return counts, cases
+    return counts, sm16_counts, cases
 
+
+
+# ---------------------------------------------------------------- the bf16 softmax
+
+# The bf16-softmax specialisation (attention_softmax_dtype: bfloat16) of the
+# forward and backward kernels against their plain versions at the same
+# softmax dtype. Its inputs put q and k on a grid of quarter steps (|q|, |k|
+# < 16: exact in bf16), so every f32 sum of their products is exact in any
+# order (multiples of 2^-4 below 2^14) and each score is that exact sum
+# times sm_scale, rounded once to f32, on both sides: both round the same
+# f32 score to bf16 and no rounding of S can flip. A kernel that rounds
+# another number (an unrounded score, or the score in log2 units) then
+# differs at every score, by up to half a bf16 ulp, 2^-8 |s|: at a score
+# spread of SM16_SCORE_STD that moves the lse by ~1e-2, against LSE_ATOL.
+# v and dout are normal.
+SM16_SCORE_STD = 2.5
+# the float32 forward kernel does not round P (an online softmax normalises
+# at the end), where the plain version rounds the normalised P to bf16:
+# <= half a bf16 ulp, 2^-8 of each p, so <= SM16_P_ROUND * sum_j p_j |v_j|
+# per output on top of TOL. The bf16 kernel rounds P before the
+# normalisation, as it does under the float32 softmax: TOL covers it
+SM16_P_ROUND = 2 ** -8
+# the backward: both sides round P to bf16 from f32 values that differ by
+# f32 noise (exp against exp2 of the lse), so a P may land one bf16 ulp
+# (2^-7 of it) apart; and the kernels take delta = dO.O from the forward
+# kernel's O, which rounds P at another point (each within 2^-8 of p) and
+# its output to the dtype (2^-8 |O|), where the plain version sums dP o P:
+# |d delta| <= 2^-7 sum_d |dO_d| ((P |V|)_d + |O_d|). Per gradient, on top
+# of BWD_TOL: dV 2^-7 (P^T |dO|), dQ (A |K|), dK (A^T |Q|) with
+# A = P (2^-7 |dP - delta| + |d delta|) sm_scale
+SM16_P_FLIP = 2 ** -7
+
+
+def exact_score_qk(shape, dtype, g, dev):
+    """q and k for the bf16-softmax cases: quarter steps of a normal draw
+    scaled so that the scores' spread is about SM16_SCORE_STD."""
+    import torch
+
+    sigma = SM16_SCORE_STD ** 0.5
+    q, k = ((torch.randn(shape, generator=g) * sigma * 4).round().clamp(-63, 63) / 4
+            for _ in range(2))
+    return q.to(dev, dtype), k.to(dev, dtype)
+
+
+def sm16_probs(q, k, mask, scale):
+    """(the plain version's bf16 P in f32, [B, H, L, L]; whether its f32
+    scores are the exact sums times the f32 sm_scale rounded once, the
+    premise of the bounds above)."""
+    import numpy as np
+    import torch
+
+    from speakingstyle_torch.ops.fused_attention import _scores
+
+    scores = _scores(q, k, mask, scale)
+    exact = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * float(np.float32(scale))
+    keep = ~mask[:, None, None, :].expand_as(scores)
+    premise = bool(torch.equal(scores[keep], exact.float()[keep]))
+    del exact
+    return torch.softmax(scores.to(torch.bfloat16), dim=-1).float(), premise
+
+
+def sm16_bwd_allowance(q, k, v, dout, p, out, scale):
+    """(dq, dk, dv) allowances of the bf16-softmax backward, as stated at
+    SM16_P_FLIP, from the plain version's P and output ``out``."""
+    import torch
+
+    g32 = dout.float()
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+    d_delta = SM16_P_FLIP * torch.einsum("bqhd,bqhd->bhq", g32.abs(), pv + out.float().abs())
+    del pv
+    dp = torch.einsum("bqhd,bkhd->bhqk", g32, v.float())
+    a = p * (SM16_P_FLIP * (dp - (p * dp).sum(dim=-1, keepdim=True)).abs()
+             + d_delta[..., None]) * scale
+    del dp
+    return (torch.einsum("bhqk,bkhd->bqhd", a, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", a, q.float().abs()),
+            SM16_P_FLIP * torch.einsum("bhqk,bqhd->bkhd", p, g32.abs()))
+
+
+def sm16_fwd_case(case, lengths, dtype, g, dev, train=False):
+    """The forward kernel's bf16-softmax specialisation at one shape of the
+    path and its valid lengths against the plain version at the same
+    softmax: out and lse on the path's mask, and out again with the last
+    batch row fully padded (also against V's mean over its L rows)."""
+    import torch
+
+    from speakingstyle_torch.ops.fused_attention import (
+        attention_lse_plain, fused_mha_fwd, fused_mha_plain,
+    )
+
+    name, axis, H, D, per_dispatch = case
+    B, L, lens = lengths[axis]
+    shape = (B, L, H, D)
+    bf16 = torch.bfloat16
+    q, k = exact_score_qk(shape, dtype, g, dev)
+    v = torch.randn(shape, generator=g).to(dev, dtype)
+    mask = pad_mask(lens, L).to(dev)
+    scale = D ** -0.5
+    dname = str(dtype).split(".")[-1]
+    run = lambda: fused_mha_fwd(q, k, v, mask, scale, want_lse=True, softmax_dtype=bf16)
+    plain = lambda: fused_mha_plain(q, k, v, mask, scale, bf16)
+    (got, lse), want = run(), plain()
+    lse_want = attention_lse_plain(q, k, mask, scale, bf16)
+    padded = mask.clone()
+    padded[-1] = True
+    got_pad = fused_mha_fwd(q, k, v, padded, scale, softmax_dtype=bf16)[0]
+    want_pad = fused_mha_plain(q, k, v, padded, scale, bf16)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[("attention", dname)]
+    extra = SM16_P_ROUND if dtype == torch.float32 else 0.0
+    ok, errs = True, {}
+    for tag, m, a, w in (("", mask, got, want), ("padded_row_", padded, got_pad, want_pad)):
+        p, premise = sm16_probs(q, k, m, scale)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+        del p
+        diff = (a.float() - w.float()).abs()
+        ok &= premise and bool((diff <= atol + rtol * w.float().abs() + extra * pv).all())
+        errs[f"{tag}max_abs_err"] = diff.max().item()
+        errs[f"{tag}scores_premise"] = premise
+    lse_diff = (lse - lse_want).abs()
+    ok &= bool((lse_diff <= LSE_ATOL + LSE_RTOL * lse_want.abs()).all())
+    v_row = v[-1].float()
+    mean = v_row.mean(dim=0)
+    mean_diff = (got_pad[-1].float() - mean).abs()
+    ok &= bool((mean_diff <= PAD_ROW_RTOL[dname] * mean.abs()
+                + PAD_ROW_SUM_TOL * v_row.abs().sum(dim=0)).all())
+    keys = attended_keys(lens, L)
+    nbytes = (2 * q.numel() + 2 * keys * H * D) * q.element_size() + mask.numel() \
+        + lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4.0 * H * D * L * keys, dname)
+    return shares({
+        "case": f"sm16_{'train_attn' if train else 'attn'}_{name}_{dname}",
+        "kernel": "fused_attention_fwd_bf16sm", "dtype": dname, "shape": list(shape),
+        "lengths": list(lens), "launches_per_dispatch": per_dispatch, **errs,
+        "lse_max_abs_err": lse_diff.max().item(),
+        "padded_row_vs_mean_max_abs_err": mean_diff.max().item(),
+        "tol": {"atol": atol, "rtol": rtol, "p_round_of_sum_p_abs_v": extra,
+                "lse": {"atol": LSE_ATOL, "rtol": LSE_RTOL},
+                "padded_row_vs_mean": {"rtol": PAD_ROW_RTOL[dname],
+                                       "sum_tol": PAD_ROW_SUM_TOL},
+                "score_std": SM16_SCORE_STD},
+        "ok": ok, "ms": time_ms(run),
+        "plain_ms": time_ms(plain, inner=3, outer=3) if train else time_ms(plain),
+        # no library call rounds the scores to bf16 before the softmax
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+    })
+
+
+def sm16_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
+    """The backward kernels' bf16-softmax specialisation (from the forward
+    kernel's out and lse of the same softmax) against the plain backward."""
+    import torch
+
+    from speakingstyle_torch.ops.fused_attention import (
+        fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain,
+    )
+
+    shape = (B, L, H, D)
+    bf16 = torch.bfloat16
+    q, k = exact_score_qk(shape, dtype, g, dev)
+    v, dout = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
+    mask = pad_mask(lens, L).to(dev)
+    scale = D ** -0.5
+    out, lse = fused_mha_fwd(q, k, v, mask, scale, want_lse=True, softmax_dtype=bf16)
+    run = lambda: fused_mha_bwd(q, k, v, mask, out, lse, dout, scale, bf16)
+    plain = lambda: fused_mha_bwd_plain(q, k, v, mask, dout, scale, bf16)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    p, premise = sm16_probs(q, k, mask, scale)
+    allow = sm16_bwd_allowance(q, k, v, dout, p, fused_mha_plain(q, k, v, mask, scale, bf16),
+                               scale)
+    del p
+    dname = str(dtype).split(".")[-1]
+    rel_max, rtol = BWD_TOL[dname]
+    err, ok = 0.0, premise
+    for x, w, extra in zip(got, want, allow):
+        diff = (x.float() - w.float()).abs()
+        ok &= bool((diff <= rel_max * w.float().abs().max() + rtol * w.float().abs()
+                    + extra).all())
+        err = max(err, diff.max().item())
+    del allow
+    keys = attended_keys(lens, L)
+    nbytes = (6 * q.numel() + 2 * keys * H * D) * q.element_size() + lse.numel() * 4 \
+        + mask.numel()
+    bound_ms, bound_by = bound(nbytes, 10.0 * H * D * L * keys, dname)
+    return shares({
+        "case": f"sm16_attn_bwd_{name}_{dname}", "kernel": "fused_attention_bwd_bf16sm",
+        "dtype": dname, "shape": list(shape), "lengths": list(lens),
+        "max_abs_err": err, "scores_premise": premise,
+        "tol": {"rel_max": rel_max, "rtol": rtol, "p_flip": SM16_P_FLIP,
+                "score_std": SM16_SCORE_STD},
+        "ok": ok, "ms": time_ms(run), "plain_ms": time_ms(plain, inner=3, outer=3),
+        # no library call rounds the scores to bf16 before the softmax
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+    })
+
+
+def sm16_serve_cases(cfg, lengths, dev, seed):
+    """The bf16-softmax forward at every attention shape of the serve path
+    (shapes and valid lengths from ``path_lengths``), float32 and bfloat16."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 16)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in attention_cases(cfg):
+            cases.append(sm16_fwd_case(case, lengths, dtype, g, dev))
+            emit("bf16_softmax", **cases[-1])
+    return {c["case"]: c for c in cases}
 
 
 # ---------------------------------------------------------------- main
@@ -1218,18 +1818,29 @@ def main(argv=None) -> int:
     conv_per = sum(c[-1] for c in conv_cases(cfg))
     xla_engine, results, _ = synthesize_phase(
         "synthesize", cfg, requests, args.seed, dev,
-        {"fused_attention_fwd": attn_per, "fused_conv1d_fwd": 0})
+        {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+         "fused_conv1d_fwd": 0})
 
+    lengths = path_lengths(xla_engine, requests, results)
     with strict_float32():
-        cases = kernels_phase(cfg, path_lengths(xla_engine, requests, results), dev, args.seed)
+        cases = kernels_phase(cfg, lengths, dev, args.seed)
+        cases.update(sm16_serve_cases(cfg, lengths, dev, args.seed))
     bad = [c["case"] for c in cases.values() if not c["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    # the LJSpeech config under attention_softmax_dtype: bfloat16
+    sm16_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, attention_softmax_dtype="bfloat16"))
+    _, _, sm16_counts = synthesize_phase(
+        "synthesize_bf16_softmax", sm16_cfg, requests, args.seed, dev,
+        {"fused_attention_fwd": 0, "fused_attention_fwd_bf16sm": attn_per,
+         "fused_conv1d_fwd": 0})
 
     pallas_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, conv_impl="pallas"))
     engine, _, conv_counts = synthesize_phase(
         "synthesize_pallas_conv", pallas_cfg, requests, args.seed, dev,
-        {"fused_attention_fwd": attn_per, "fused_conv1d_fwd": conv_per})
+        {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+         "fused_conv1d_fwd": conv_per})
     with strict_float32():
         bad = teacher_forced_parity(cfg, engine, requests, results, dev)
     if bad:
@@ -1237,7 +1848,9 @@ def main(argv=None) -> int:
     profile_dispatch("xla", xla_engine, requests)
     profile_dispatch("pallas", engine, requests)
     del xla_engine, engine
-    train_counts, train_cases = train_phase(train_config, dev, args.seed)
+    restored_phase(cfg, args.seed, dev, attn_per)
+    convert_phase(cfg, args.seed, dev, attn_per, conv_per)
+    train_counts, train_sm16_counts, train_cases = train_phase(train_config, dev, args.seed)
     cases.update(train_cases)
 
     sources = {
@@ -1254,6 +1867,14 @@ def main(argv=None) -> int:
         "fused_attention_bwd_delta": ("speakingstyle_torch/csrc/fused_attention.cu",
                                       "speakingstyle_tpu/ops/pallas_attention.py:92",
                                       train_counts["fused_attention_bwd_delta"]),
+        # the bf16-softmax specialisations (sm_dtype = bfloat16 in the TPU
+        # kernels): the synthesis run's forwards, the train run's backwards
+        "fused_attention_fwd_bf16sm": ("speakingstyle_torch/csrc/fused_attention.cu",
+                                       "speakingstyle_tpu/ops/pallas_attention.py:75",
+                                       sm16_counts["fused_attention_fwd_bf16sm"]),
+        "fused_attention_bwd_bf16sm": ("speakingstyle_torch/csrc/fused_attention.cu",
+                                       "speakingstyle_tpu/ops/pallas_attention.py:92",
+                                       train_sm16_counts["fused_attention_bwd_bf16sm"]),
     }
     summary = []
     for name, (source, replaces, launches) in sources.items():

@@ -4,7 +4,7 @@ import argparse
 import importlib
 import sys
 
-COMMANDS = ("synthesize", "train")
+COMMANDS = ("synthesize", "train", "convert")
 
 
 def main(argv=None):

@@ -3,8 +3,9 @@ port's modules, both ways.
 
 ``load_flax_variables(module, variables)`` takes a Flax variable tree
 (``{"params": ..., "batch_stats": ...}``) as nested dicts of numpy arrays
-(``jax.device_get`` of the tree, or a restored checkpoint) and fills the
-module in place. It imports no JAX. The port's submodules carry the Flax
+or tensors (``jax.device_get`` of the tree, a Flax msgpack file read by
+``compat/flax_msgpack.py``, or a reference PyTorch checkpoint converted by
+``compat/torch_convert.py``) and fills the module in place. It imports no JAX. The port's submodules carry the Flax
 tree's names, so each leaf's path is its module path plus a leaf rule:
 
 * ``nn.Linear``: ``kernel`` [in, out] -> ``weight`` [out, in], ``bias``;
@@ -61,6 +62,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
             out.update(_flatten(value, path))
+        elif isinstance(value, torch.Tensor):  # e.g. a bf16 leaf of a msgpack file
+            out[path] = value.detach().float().cpu().numpy()
         else:
             out[path] = np.asarray(value)
     return out

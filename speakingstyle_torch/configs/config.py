@@ -204,8 +204,8 @@ class ModelConfig:
     # "xla" = F.conv1d, "unfold" = im2col matmul, "pallas" = the fused
     # conv(+bias+ReLU(+LayerNorm)) kernel of ops/fused_conv.py
     conv_impl: str = "xla"
-    # "float32" is the only value the attention kernel takes; "bfloat16"
-    # runs only through the plain version on the CPU
+    # the attention softmax's dtype: "bfloat16" rounds the scores to bf16
+    # before the softmax, in the kernels as in the plain version
     attention_softmax_dtype: str = "float32"
     use_reference_encoder: bool = True
     # "fused" = the attention kernel of ops/fused_attention.py,

@@ -111,6 +111,20 @@
 // shared-memory tiles), since the tensor cores would round its inputs to
 // TF32.
 //
+// The bf16 softmax. Both TPU kernels take the softmax dtype as a parameter
+// (_softmax_rows, pallas_attention.py:63): with bfloat16 the scores, scaled
+// and biased in f32, are rounded to bf16 before the max, the exp and the
+// row sum, and P leaves the softmax in bf16. Every kernel above takes it as
+// the template flag SM16 (round_bf16): the forward rounds each score in
+// natural-log units before it goes to log2 units (rounding s log2(e)
+// would round another number); the backward passes round the same scores
+// before they subtract the forward's lse, which came from those rounded
+// scores, and round P to bf16 before dS as well as before dV. The delta
+// pre-pass reads O and dO only and takes no flag. A fully padded row's
+// scores are the bias rounded, -2^127, finite, so its P stays uniform.
+// SM16 adds one f32 -> bf16 -> f32 round trip per score (and per P in the
+// backward) and no memory traffic.
+//
 // C interface (loaded with ctypes): every entry point returns the
 // cudaError_t of its launch; 0 means launched.
 
@@ -132,6 +146,16 @@ constexpr int PS = BK + 1;   // padded row stride of the score tile
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+constexpr float NEG = -1.70141173319264429e+38f;  // the key-padding bias, finfo(f32).min / 2
+
+// The bf16 softmax (SM16 = true) of the TPU kernel's _softmax_rows: a
+// score, scaled and biased in f32 in natural-log units, rounded to bf16;
+// the max, the exp and the row sum all come from the rounded scores.
+// Finite at the bias (-2^127 in bf16), so a fully padded row stays uniform.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 
 // The valid key length of a batch row: one past its last unpadded key (0:
 // every key padded). Padding sits at the end of a row. Block-wide; every
@@ -150,7 +174,7 @@ __device__ __forceinline__ int block_kv_len(const uint8_t* mb, int L, int* slot)
 
 // float32: q, k, v, out: [B, L, H, D] contiguous; mask: [B, L] bytes,
 // nonzero at padding.
-template <int DMAX>
+template <int DMAX, bool SM16>
 __global__ void __launch_bounds__(NT) attn_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int L,
@@ -173,7 +197,6 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
   const size_t rs = (size_t)H * D;  // stride between sequence positions
   const size_t base = (size_t)b * L * rs + (size_t)h * D;
   const uint8_t* mb = mask + (size_t)b * L;
-  const float neg = -1.70141173319264429e+38f;  // finfo(float32).min / 2
 
   const int kv_len = block_kv_len(mb, L, &kv_len_s);
 
@@ -228,10 +251,13 @@ __global__ void __launch_bounds__(NT) attn_fwd_kernel(
     for (int j = 0; j < 4; ++j) {
       const int kj = k0 + tx + 16 * j;
       const bool ok = kj < L;  // keys past L do not exist: -inf, weight 0
-      const float bias = ok && mb[kj] ? neg : 0.f;
+      const float bias = ok && mb[kj] ? NEG : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = ok ? s[i][j] * sm_scale + bias : -INFINITY;
+      for (int i = 0; i < 4; ++i) {
+        float x = s[i][j] * sm_scale + bias;
+        if constexpr (SM16) x = round_bf16(x);
+        Ps[(ty + 16 * i) * PS + tx + 16 * j] = ok ? x : -INFINITY;
+      }
     }
     __syncthreads();
 
@@ -383,32 +409,38 @@ __device__ __forceinline__ void row_stats(float* row_lse, float* row_dl,
 }
 
 // P of the thread's 4 x 4 (query ty + 16 i, key tx + 16 j) entries of the
-// tile at (q0, k0), recomputed in f32 from the scores s and the row lse.
+// tile at (q0, k0), recomputed in f32 from the scores s and the row lse;
+// with the bf16 softmax from the rounded scores, and rounded to bf16 itself
+// as the TPU kernel's softmax output is.
+template <bool SM16>
 __device__ __forceinline__ void tile_probs(float (&p)[4][4], const float (&s)[4][4],
                                            const float* row_lse, const uint8_t* mb, int q0,
                                            int k0, int L, int kv_len, float sm_scale, int tx,
                                            int ty) {
-  const float neg = -1.70141173319264429e+38f;  // finfo(float32).min / 2
   const float unif = 1.f / (float)L;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int kj = k0 + tx + 16 * j;
-    const float bias = kj < L && mb[kj] ? neg : 0.f;
+    const float bias = kj < L && mb[kj] ? NEG : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty + 16 * i;
-      if (qi >= L || kj >= L)
+      if (qi >= L || kj >= L) {
         p[i][j] = 0.f;
-      else if (kv_len == 0)
+      } else if (kv_len == 0) {
         p[i][j] = unif;  // every key padded: uniform, as in the forward
-      else
+      } else if constexpr (SM16) {
+        p[i][j] = expf(round_bf16(s[i][j] * sm_scale + bias) - row_lse[ty + 16 * i]);
+      } else {
         p[i][j] = expf(s[i][j] * sm_scale + bias - row_lse[ty + 16 * i]);
+      }
+      if constexpr (SM16) p[i][j] = round_bf16(p[i][j]);
     }
   }
 }
 
 // float32: dK and dV of one (b, h, 64-key tile), looping over every query tile.
-template <int DMAX>
+template <int DMAX, bool SM16>
 __global__ void __launch_bounds__(NT) attn_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const uint8_t* __restrict__ mask,
@@ -457,7 +489,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_dkdv_kernel(
       // P and dP at (query ty + 16 i, key tx + 16 j)
       float s[4][4], p[4][4], dp[4][4];
       tile_products(s, Qt, Kt, D, tx, ty);
-      tile_probs(p, s, row_lse, mb, q0, k0, L, kv_len, sm_scale, tx, ty);
+      tile_probs<SM16>(p, s, row_lse, mb, q0, k0, L, kv_len, sm_scale, tx, ty);
       tile_products(dp, Gt, Vt, D, tx, ty);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -522,7 +554,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_dkdv_kernel(
 
 // float32: dQ of one (b, h, 64-query tile), looping over the key tiles up
 // to the last valid key (all L keys for a fully padded row).
-template <int DMAX>
+template <int DMAX, bool SM16>
 __global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const uint8_t* __restrict__ mask,
@@ -569,7 +601,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(
 
     float s[4][4], p[4][4], dp[4][4];
     tile_products(s, Qt, Kt, D, tx, ty);
-    tile_probs(p, s, row_lse, mb, q0, k0, L, kv_len, sm_scale, tx, ty);
+    tile_probs<SM16>(p, s, row_lse, mb, q0, k0, L, kv_len, sm_scale, tx, ty);
     tile_products(dp, Gt, Vt, D, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -616,7 +648,7 @@ constexpr int KV_NS = 64, KV_STAGES = 2;  // dK/dV pass: queries a stage, stages
 constexpr int KV_SUB = 32;                // dK/dV pass: queries a product step
 constexpr int Q_NS = 64, Q_STAGES = 2;    // dQ pass: keys a stage, stages
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG2 = -1.70141173319264429e+38f * LOG2E;  // the key-padding bias, in log2 units
+constexpr float NEG2 = NEG * LOG2E;  // the key-padding bias, in log2 units
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
@@ -695,7 +727,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 
 // bfloat16: dK and dV of one (b, h, 64-key tile), streaming every query tile
 // of KV_NS rows. Warp w owns keys k0 + 16 w .. + 15.
-template <int DMAX>
+template <int DMAX, bool SM16>
 __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const uint8_t* __restrict__ mask,
@@ -760,12 +792,13 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(
   const float unif = 1.f / (float)L;
   const float scale2 = sm_scale * LOG2E;  // P = 2^(s scale2 + bias2 - lse2)
   bool key_ok[2];
-  float key_bias2[2];
+  float key_bias[2], key_bias2[2];  // natural-log and log2 units
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kj = k0 + kr + g + 8 * hh;
     key_ok[hh] = kj < L;
-    key_bias2[hh] = kj < L && mb[kj] ? NEG2 : 0.f;
+    key_bias[hh] = kj < L && mb[kj] ? NEG : 0.f;
+    key_bias2[hh] = key_bias[hh] * LOG2E;
   }
 
   float dk_acc[DN][4], dv_acc[DN][4];
@@ -831,12 +864,17 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(
           const int hh = i >> 1;
           const float lse_c = (i & 1) ? lq.y : lq.x, dl_c = (i & 1) ? dq2.y : dq2.x;
           float pv;
-          if (qh0 + c0 + (i & 1) >= L || !key_ok[hh])
+          if (qh0 + c0 + (i & 1) >= L || !key_ok[hh]) {
             pv = 0.f;
-          else if (kv_len == 0)
+          } else if (kv_len == 0) {
             pv = unif;  // every key padded: uniform, as in the forward
-          else
+          } else if constexpr (SM16) {
+            pv = exp2f(round_bf16(fmaf(st[nt][i], sm_scale, key_bias[hh])) * LOG2E -
+                       lse_c * LOG2E);
+          } else {
             pv = exp2f(fmaf(st[nt][i], scale2, key_bias2[hh] - lse_c * LOG2E));
+          }
+          if constexpr (SM16) pv = round_bf16(pv);  // dS from the bf16 P too
           p[i] = pv;
           ds[i] = pv * (dpt[nt][i] - dl_c) * sm_scale;
         }
@@ -871,7 +909,7 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(
 // bfloat16: dQ of one (b, h, 64-query tile), streaming the key tiles of
 // Q_NS keys up to the last valid key (all L keys for a fully padded row).
 // Warp w owns queries q0 + 16 w .. + 15.
-template <int DMAX>
+template <int DMAX, bool SM16>
 __global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const uint8_t* __restrict__ mask,
@@ -976,12 +1014,17 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_kernel(
         const int kj = kt0 + nt * 8 + 2 * tq + (i & 1);
         const int hh = i >> 1;
         float pv;
-        if (!q_ok[hh] || kj >= L)
+        if (!q_ok[hh] || kj >= L) {
           pv = 0.f;
-        else if (kv_len == 0)
+        } else if (kv_len == 0) {
           pv = unif;
-        else
+        } else if constexpr (SM16) {
+          pv = exp2f(round_bf16(fmaf(sc[nt][i], sm_scale, mb[kj] ? NEG : 0.f)) * LOG2E -
+                     row_lse2[hh]);
+        } else {
           pv = exp2f(fmaf(sc[nt][i], scale2, (mb[kj] ? NEG2 : 0.f) - row_lse2[hh]));
+        }
+        if constexpr (SM16) pv = round_bf16(pv);
         ds[i] = pv * (dp[nt][i] - row_dl[hh]) * sm_scale;
       }
       const int j = nt >> 1, o = (nt & 1) * 2;
@@ -1030,7 +1073,7 @@ __device__ __forceinline__ float ex2(float x) {
 // stay in registers, and P goes from the S accumulators into the A
 // fragments of O += P V without a trip through shared memory. Q is staged
 // in the ring's last stage, which the first tiles leave free.
-template <int DMAX, int NW = fwd_warps(DMAX)>
+template <int DMAX, bool SM16, int NW = fwd_warps(DMAX)>
 __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1) attn_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int L,
@@ -1117,7 +1160,8 @@ __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1) attn_fwd_mma_kernel(
         mma_bf16(sc[2 * np + 1], aq[kk], bk[2], bk[3]);
       }
 
-    // scores in log2 units with the key-padding bias; keys past L do not
+    // scores in log2 units with the key-padding bias (with the bf16
+    // softmax, rounded in natural-log units first); keys past L do not
     // exist (weight 0); each row's tile max across its quad
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -1126,9 +1170,14 @@ __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1) attn_fwd_mma_kernel(
       for (int e = 0; e < 2; ++e) {
         const int kj = k0 + nt * 8 + 2 * tq + e;
         const float bias = kj >= L ? -INFINITY : (mb[kj] ? NEG2 : 0.f);
+        const float bias_e = kj < L ? (mb[kj] ? NEG : 0.f) : -INFINITY;  // natural log
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const float x = fmaf(sc[nt][2 * hh + e], scale2, bias);
+          float x;
+          if constexpr (SM16)
+            x = round_bf16(fmaf(sc[nt][2 * hh + e], sm_scale, bias_e)) * LOG2E;
+          else
+            x = fmaf(sc[nt][2 * hh + e], scale2, bias);
           sc[nt][2 * hh + e] = x;
           mx[hh] = fmaxf(mx[hh], x);
         }
@@ -1229,77 +1278,77 @@ cudaError_t opt_in_smem(K kernel, int smem, int& configured) {
   return e;
 }
 
-template <int DMAX>
+template <int DMAX, bool SM16>
 cudaError_t launch_fwd_f32(const Args& a) {
   static int configured = 0;  // dynamic shared memory opted into so far
   const int smem = (2 * a.D * TS + BK * a.D + BQ * PS + 3 * BQ) * (int)sizeof(float);
-  cudaError_t e = opt_in_smem(attn_fwd_kernel<DMAX>, smem, configured);
+  cudaError_t e = opt_in_smem(attn_fwd_kernel<DMAX, SM16>, smem, configured);
   if (e != cudaSuccess) return e;
   dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
-  attn_fwd_kernel<DMAX><<<grid, NT, smem, a.stream>>>(
+  attn_fwd_kernel<DMAX, SM16><<<grid, NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<float*>(a.dst), static_cast<float*>(a.lse), a.L, a.H, a.D, a.sm_scale);
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool SM16>
 cudaError_t launch_fwd_mma(const Args& a) {
   constexpr int smem = 2 * F_STAGES * F_NS * (DMAX + 8) * 2;
   static int configured = 0;
-  cudaError_t e = opt_in_smem(attn_fwd_mma_kernel<DMAX>, smem, configured);
+  cudaError_t e = opt_in_smem(attn_fwd_mma_kernel<DMAX, SM16>, smem, configured);
   if (e != cudaSuccess) return e;
   constexpr int F_MR = fwd_warps(DMAX) * 16;
   dim3 grid((a.L + F_MR - 1) / F_MR, a.H, a.B);
-  attn_fwd_mma_kernel<DMAX><<<grid, fwd_warps(DMAX) * 32, smem, a.stream>>>(
+  attn_fwd_mma_kernel<DMAX, SM16><<<grid, fwd_warps(DMAX) * 32, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<bf16*>(a.dst), static_cast<float*>(a.lse), a.L, a.H, a.D, a.sm_scale);
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool SM16>
 cudaError_t launch_bwd_f32(const Args& a) {
   static int conf_kv = 0, conf_q = 0;
   const int smem = (4 * a.D * TS + BQ * PS + 2 * BQ) * (int)sizeof(float);
-  cudaError_t e = opt_in_smem(attn_bwd_dkdv_kernel<DMAX>, smem, conf_kv);
-  if (e == cudaSuccess) e = opt_in_smem(attn_bwd_dq_kernel<DMAX>, smem, conf_q);
+  cudaError_t e = opt_in_smem(attn_bwd_dkdv_kernel<DMAX, SM16>, smem, conf_kv);
+  if (e == cudaSuccess) e = opt_in_smem(attn_bwd_dq_kernel<DMAX, SM16>, smem, conf_q);
   if (e != cudaSuccess) return e;
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout),
               *lse = static_cast<const float*>(a.lse), *delta = static_cast<const float*>(a.delta);
   const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
   dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);  // BQ == BK: key tiles, then query tiles
-  attn_bwd_dkdv_kernel<DMAX><<<grid, NT, smem, a.stream>>>(
+  attn_bwd_dkdv_kernel<DMAX, SM16><<<grid, NT, smem, a.stream>>>(
       q, k, v, dout, mask, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.L, a.H, a.D, a.sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<DMAX><<<grid, NT, smem, a.stream>>>(
+  attn_bwd_dq_kernel<DMAX, SM16><<<grid, NT, smem, a.stream>>>(
       q, k, v, dout, mask, lse, delta, static_cast<float*>(a.dq), a.L, a.H, a.D, a.sm_scale);
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DMAX, bool SM16>
 cudaError_t launch_bwd_mma(const Args& a) {
   constexpr int LDS = DMAX + 8;
   constexpr int smem_kv = (2 * MR * LDS + 2 * KV_STAGES * KV_NS * LDS) * 2 + 2 * KV_STAGES * KV_NS * 4;
   constexpr int smem_q = (2 * MR * LDS + 2 * Q_STAGES * Q_NS * LDS) * 2;
   static int conf_kv = 0, conf_q = 0;
-  cudaError_t e = opt_in_smem(attn_bwd_dkdv_mma_kernel<DMAX>, smem_kv, conf_kv);
-  if (e == cudaSuccess) e = opt_in_smem(attn_bwd_dq_mma_kernel<DMAX>, smem_q, conf_q);
+  cudaError_t e = opt_in_smem(attn_bwd_dkdv_mma_kernel<DMAX, SM16>, smem_kv, conf_kv);
+  if (e == cudaSuccess) e = opt_in_smem(attn_bwd_dq_mma_kernel<DMAX, SM16>, smem_q, conf_q);
   if (e != cudaSuccess) return e;
   const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
   const float *lse = static_cast<const float*>(a.lse), *delta = static_cast<const float*>(a.delta);
   const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
   dim3 grid((a.L + MR - 1) / MR, a.H, a.B);
-  attn_bwd_dkdv_mma_kernel<DMAX><<<grid, MNT, smem_kv, a.stream>>>(
+  attn_bwd_dkdv_mma_kernel<DMAX, SM16><<<grid, MNT, smem_kv, a.stream>>>(
       q, k, v, dout, mask, lse, delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.L,
       a.H, a.D, a.sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dq_mma_kernel<DMAX><<<grid, MNT, smem_q, a.stream>>>(
+  attn_bwd_dq_mma_kernel<DMAX, SM16><<<grid, MNT, smem_q, a.stream>>>(
       q, k, v, dout, mask, lse, delta, static_cast<bf16*>(a.dq), a.L, a.H, a.D, a.sm_scale);
   return cudaGetLastError();
 }
@@ -1320,30 +1369,35 @@ cudaError_t launch_delta(const void* out, const void* dout, void* delta, int B, 
 }
 
 // float32 on the CUDA cores, bfloat16 on the tensor cores
+template <bool SM16>
 cudaError_t dispatch_fwd(const Args& a, int dtype) {
   if (a.D > 128 || a.D % 8 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  if (a.D <= 32) return dtype == 0 ? launch_fwd_f32<32>(a) : launch_fwd_mma<32>(a);
-  if (a.D <= 64) return dtype == 0 ? launch_fwd_f32<64>(a) : launch_fwd_mma<64>(a);
-  return dtype == 0 ? launch_fwd_f32<128>(a) : launch_fwd_mma<128>(a);
+  if (a.D <= 32) return dtype == 0 ? launch_fwd_f32<32, SM16>(a) : launch_fwd_mma<32, SM16>(a);
+  if (a.D <= 64) return dtype == 0 ? launch_fwd_f32<64, SM16>(a) : launch_fwd_mma<64, SM16>(a);
+  return dtype == 0 ? launch_fwd_f32<128, SM16>(a) : launch_fwd_mma<128, SM16>(a);
 }
 
 // float32 on the CUDA cores, bfloat16 on the tensor cores
+template <bool SM16>
 cudaError_t dispatch_bwd(const Args& a, int dtype) {
   if (a.D > 128 || a.D % 8 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  if (a.D <= 32) return dtype == 0 ? launch_bwd_f32<32>(a) : launch_bwd_mma<32>(a);
-  if (a.D <= 64) return dtype == 0 ? launch_bwd_f32<64>(a) : launch_bwd_mma<64>(a);
-  return dtype == 0 ? launch_bwd_f32<128>(a) : launch_bwd_mma<128>(a);
+  if (a.D <= 32) return dtype == 0 ? launch_bwd_f32<32, SM16>(a) : launch_bwd_mma<32, SM16>(a);
+  if (a.D <= 64) return dtype == 0 ? launch_bwd_f32<64, SM16>(a) : launch_bwd_mma<64, SM16>(a);
+  return dtype == 0 ? launch_bwd_f32<128, SM16>(a) : launch_bwd_mma<128, SM16>(a);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse ([B, H, L] float32) may be null.
+// dtype: 0 = float32, 1 = bfloat16; softmax_bf16: 1 = the bf16 softmax.
+// lse ([B, H, L] float32) may be null.
 extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse, int B, int L,
-                                   int H, int D, float sm_scale, int dtype, void* stream) {
+                                   int H, int D, float sm_scale, int dtype, int softmax_bf16,
+                                   void* stream) {
   Args a{q, k, v, mask, nullptr, nullptr, out, lse, nullptr, nullptr, nullptr,
          B, L, H, D, sm_scale, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch_fwd(a, dtype));
+  return static_cast<int>(softmax_bf16 ? dispatch_fwd<true>(a, dtype)
+                                       : dispatch_fwd<false>(a, dtype));
 }
 
 // delta[b, h, l] = sum_d dout[b, l, h, d] out[b, l, h, d] in f32; out and
@@ -1363,14 +1417,16 @@ extern "C" int fused_attention_bwd_delta(const void* out, const void* dout, void
   return static_cast<int>(e);
 }
 
-// lse is the forward's, delta the pre-pass's; dout is the cotangent of out.
-// Writes dq, dk, dv (all [B, L, H, D] in the dtype of q).
+// lse is the forward's (of the same softmax_bf16), delta the pre-pass's;
+// dout is the cotangent of out. Writes dq, dk, dv (all [B, L, H, D] in the
+// dtype of q).
 extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* mask, const void* delta, const void* lse,
                                    const void* dout, void* dq, void* dk, void* dv, int B,
                                    int L, int H, int D, float sm_scale, int dtype,
-                                   void* stream) {
+                                   int softmax_bf16, void* stream) {
   Args a{q, k, v, mask, delta, dout, nullptr, const_cast<void*>(lse), dq, dk, dv,
          B, L, H, D, sm_scale, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch_bwd(a, dtype));
+  return static_cast<int>(softmax_bf16 ? dispatch_bwd<true>(a, dtype)
+                                       : dispatch_bwd<false>(a, dtype));
 }

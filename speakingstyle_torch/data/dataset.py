@@ -229,3 +229,34 @@ class BucketedBatcher:
         """Infinite stream of batches (the reference's while-True epoch loop)."""
         while True:
             yield from self.epoch()
+
+
+class TextBatcher:
+    """Inference-time dataset (batch synthesis's source; reference:
+    dataset.py:149-218): a metadata file's texts without targets, each
+    speaker's id from ``speakers.json``, and each item's reference mel for
+    the style encoder (the preprocessed ``mel/<speaker>-mel-<basename>.npy``,
+    else None)."""
+
+    def __init__(self, filename: str, config: Config):
+        pp = config.preprocess
+        self.root = pp.path.preprocessed_path
+        self.cleaners = pp.preprocessing.text.text_cleaners
+        self.entries = parse_metadata(filename)
+        with open(os.path.join(self.root, "speakers.json")) as f:
+            self.speaker_map = json.load(f)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        basename, speaker, text, raw = self.entries[idx]
+        item = {
+            "id": basename,
+            "speaker": self.speaker_map.get(speaker, 0),
+            "raw_text": raw,
+            "text": np.asarray(text_to_sequence(text, self.cleaners), np.int32),
+        }
+        path = os.path.join(self.root, "mel", f"{speaker}-mel-{basename}.npy")
+        item["mel"] = np.load(path).astype(np.float32) if os.path.exists(path) else None
+        return item

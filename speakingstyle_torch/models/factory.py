@@ -2,9 +2,11 @@
 stats, and seeded random initialisation (JAX counterpart:
 speakingstyle_tpu/models/factory.py).
 
-No trained weights are in the repository, so ``init_weights`` fills a
-model from a seed with ``torch.Generator``; weights trained by the JAX
-package load through ``compat/from_jax.py``.
+``init_weights`` fills a model from a seed with ``torch.Generator`` (no
+trained weights are in the repository); trained weights come from the
+port's checkpoints (``training/checkpoint.py``) or, as Flax-named trees,
+through ``compat/from_jax.py`` (the JAX package's variables, a reference
+PyTorch checkpoint converted by ``compat/torch_convert.py``).
 """
 
 import json

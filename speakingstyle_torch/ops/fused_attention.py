@@ -13,12 +13,19 @@ recompute P from the forward's row lse, after a pre-pass that writes each
 row's delta = rowsum(dO o O) once. In bfloat16 every product runs on the
 tensor cores; float32 stays on the CUDA cores.
 
+The softmax runs in float32 or, as the TPU kernels' ``sm_dtype`` allows,
+in bfloat16: the kernels then round each f32 score to bf16 (in
+natural-log units) before the max, the exp and the row sum, and the
+backward rounds P to bf16 too, a template specialisation of every kernel.
+
 ``fused_mha`` is the entry point the model calls; it is differentiable. A
 CPU tensor runs ``fused_mha_plain`` forward and ``fused_mha_bwd_plain``
 backward (the JAX package's ``_bwd_kernel`` math, not torch autograd's); a
 CUDA tensor runs the kernels, or the call raises. ``fused_mha.launches``,
 ``fused_mha_bwd.launches`` and ``attention_delta.launches`` (the
-backward's pre-pass) count kernel launches.
+backward's pre-pass) count kernel launches of the float32 softmax,
+``fused_mha.launches_bf16sm`` and ``fused_mha_bwd.launches_bf16sm`` those
+of the bf16 softmax.
 """
 
 import ctypes
@@ -31,8 +38,8 @@ from speakingstyle_torch.ops import kernels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {
-    "fused_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
-    "fused_attention_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _P),
+    "fused_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _I, _I, _P),
+    "fused_attention_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _I, _I, _P),
     "fused_attention_bwd_delta": (_P,) * 3 + (_I,) * 5 + (_P,),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,10 +70,12 @@ def fused_mha_plain(q, k, v, pad_mask, sm_scale: Optional[float] = None,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def attention_lse_plain(q, k, pad_mask, sm_scale: float):
+def attention_lse_plain(q, k, pad_mask, sm_scale: float, softmax_dtype=torch.float32):
     """The forward kernel's second output in plain tensor ops: each query
-    row's f32 log-sum-exp (natural log) of its biased scores -> [B, H, L]."""
-    return torch.logsumexp(_scores(q, k, pad_mask, sm_scale), dim=-1)
+    row's f32 log-sum-exp (natural log) of its biased scores, rounded to
+    ``softmax_dtype`` first -> [B, H, L]."""
+    scores = _scores(q, k, pad_mask, sm_scale).to(softmax_dtype).float()
+    return torch.logsumexp(scores, dim=-1)
 
 
 def fused_mha_bwd_plain(q, k, v, pad_mask, dout, sm_scale: Optional[float] = None,
@@ -96,9 +105,9 @@ def attention_delta_plain(out, dout):
 
 
 def _check_softmax(softmax_dtype) -> None:
-    if softmax_dtype != torch.float32:
-        raise NotImplementedError(
-            "fused_mha: the CUDA kernel computes the softmax in float32 only"
+    if softmax_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"fused_mha: softmax dtype {softmax_dtype} is not float32 or bfloat16"
         )
 
 
@@ -131,11 +140,13 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
+def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False,
+                  softmax_dtype=torch.float32):
     """Launch the forward kernel on CUDA tensors: (out, lse or None), lse
-    the f32 row log-sum-exp [B, H, L] (natural log) the backward kernel
-    reads. q, k and v must start on a 16-byte boundary."""
-    check_inputs(q, k, v, pad_mask)
+    the f32 row log-sum-exp [B, H, L] (natural log) of the scores the
+    softmax saw (rounded to bf16 under the bf16 softmax), which the backward
+    kernel reads. q, k and v must start on a 16-byte boundary."""
+    check_inputs(q, k, v, pad_mask, softmax_dtype)
     _check_aligned("fused_mha", q=q, k=k, v=v)
     B, L, H, D = q.shape
     out = torch.empty_like(q)
@@ -146,10 +157,14 @@ def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False):
     err = lib.fused_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.view(torch.uint8).data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, L, H, D, float(sm_scale), _DTYPES[q.dtype], _stream(q),
+        B, L, H, D, float(sm_scale), _DTYPES[q.dtype], int(softmax_dtype == torch.bfloat16),
+        _stream(q),
     )
     kernels.check(err, "fused_attention_fwd")
-    fused_mha.launches += 1
+    if softmax_dtype == torch.bfloat16:
+        fused_mha.launches_bf16sm += 1
+    else:
+        fused_mha.launches += 1
     return out, lse
 
 
@@ -197,11 +212,13 @@ def attention_delta(out, dout):
 attention_delta.launches = 0
 
 
-def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float):
+def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float,
+                  softmax_dtype=torch.float32):
     """Launch the backward kernels on CUDA tensors: the delta pre-pass,
     then the dK/dV and dQ passes; returns (dq, dk, dv). ``out`` and ``lse``
-    are the forward kernel's; ``dout`` is out's cotangent."""
-    check_inputs(q, k, v, pad_mask)
+    are the forward kernel's, of the same ``softmax_dtype``; ``dout`` is
+    out's cotangent."""
+    check_inputs(q, k, v, pad_mask, softmax_dtype)
     B, L, H, D = q.shape
     _check_rows("fused_mha backward", q, q=q, k=k, v=v, out=out, dout=dout)
     if lse is None or tuple(lse.shape) != (B, H, L) or lse.dtype != torch.float32 \
@@ -215,14 +232,18 @@ def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float):
     err = lib.fused_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_mask.view(torch.uint8).data_ptr(),
         delta.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, L, H, D, float(sm_scale), _DTYPES[q.dtype], _stream(q),
+        dv.data_ptr(), B, L, H, D, float(sm_scale), _DTYPES[q.dtype],
+        int(softmax_dtype == torch.bfloat16), _stream(q),
     )
     kernels.check(err, "fused_attention_bwd")
-    fused_mha_bwd.launches += 1
+    if softmax_dtype == torch.bfloat16:
+        fused_mha_bwd.launches_bf16sm += 1
+    else:
+        fused_mha_bwd.launches += 1
     return dq, dk, dv
 
 
-fused_mha_bwd.launches = 0
+fused_mha_bwd.launches = fused_mha_bwd.launches_bf16sm = 0
 
 
 class _FusedMHA(torch.autograd.Function):
@@ -240,7 +261,8 @@ class _FusedMHA(torch.autograd.Function):
             if grad:
                 ctx.save_for_backward(q, k, v, pad_mask)
             return out
-        out, lse = fused_mha_fwd(q, k, v, pad_mask, sm_scale, want_lse=grad)
+        out, lse = fused_mha_fwd(q, k, v, pad_mask, sm_scale, want_lse=grad,
+                                 softmax_dtype=softmax_dtype)
         if grad:
             ctx.save_for_backward(q, k, v, pad_mask, out, lse)
         return out
@@ -254,7 +276,7 @@ class _FusedMHA(torch.autograd.Function):
                                         ctx.softmax_dtype)
         else:
             grads = fused_mha_bwd(q, k, v, pad_mask, saved[4], saved[5],
-                                  dout.contiguous(), ctx.sm_scale)
+                                  dout.contiguous(), ctx.sm_scale, ctx.softmax_dtype)
         return (*grads, None, None, None, None)
 
 
@@ -266,17 +288,16 @@ def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels,
     which take float32 or bfloat16, head dims that are multiples of 8 up
-    to 128, and a float32 softmax; anything else raises (the shapes, types
-    and layout in ``fused_mha_fwd`` / ``fused_mha_bwd``).
+    to 128, and a float32 or bfloat16 softmax; anything else raises (the
+    shapes, types and layout in ``fused_mha_fwd`` / ``fused_mha_bwd``).
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mha: unsupported device {q.device}")
-    if q.device.type == "cuda":
-        _check_softmax(softmax_dtype)
+    _check_softmax(softmax_dtype)
     return _FusedMHA.apply(q, k, v, pad_mask, float(sm_scale), softmax_dtype,
                            torch.is_grad_enabled())
 
 
-fused_mha.launches = 0
+fused_mha.launches = fused_mha.launches_bf16sm = 0

@@ -13,7 +13,9 @@ JAX engine's ``run``:
 4. the vocoder turns the postnet mel into audio, cut per request to
    ``mel_len * hop`` int16 samples.
 
-PyTorch runs eagerly, so there is no per-bucket compile. The three stages
+``load_engine`` builds one over a checkpoint and a vocoder (the
+``synthesize`` command's). PyTorch runs eagerly, so there is no
+per-bucket compile. The three stages
 run under ``record_function`` ranges (``synthesis.style``, ``.acoustic``,
 ``.vocoder``) that a ``torch.profiler`` trace attributes device time to;
 they cost a few microseconds when no profiler is on. Not ported yet
@@ -123,6 +125,7 @@ class SynthesisEngine:
             "e": "src" if pp.energy.feature == "phoneme_level" else "mel",
         }
         self.dispatches = 0
+        self.style_encodes = 0  # reference-encoder passes (encode_styles calls)
 
     def required_mel(self, req: SynthesisRequest) -> int:
         """The T_mel a request needs: its phoneme count times
@@ -168,6 +171,7 @@ class SynthesisEngine:
         gammas, betas = self.model.reference_encoder(
             torch.from_numpy(padded).to(self.device), length_to_mask(lens_t, r)
         )
+        self.style_encodes += 1
         return torch.cat([gammas, betas], dim=1)[: len(mels)].float()
 
     @torch.inference_mode()
@@ -249,3 +253,28 @@ class SynthesisEngine:
                 wav_finite=bool(finite[i]),
             ))
         return results
+
+
+def load_engine(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = None,
+                griffin_lim: bool = False, device=None, vocoder_seed: int = 1):
+    """An engine over trained weights (JAX counterpart: ``load_engine`` of
+    speakingstyle_tpu/cli/serve.py): the model built at the lattices'
+    n_position, its weights restored from ``cfg.train.path.ckpt_path`` at
+    ``restore_step`` (<= 0: the latest) after the manifest check, with
+    ``train.ignore_layers`` keeping their values drawn from
+    ``train.seed``; the vocoder from ``vocoder_ckpt`` (a ``.pth.tar`` or a
+    Flax ``.msgpack``; weights from ``vocoder_seed`` without one), or none
+    under ``griffin_lim``. Returns (engine, {"step", "weights_digest"})."""
+    from speakingstyle_torch.synthesis import get_vocoder
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+
+    lattice = BucketLattice.from_config(cfg.serve)
+    n_position = max(lattice.max_mel, lattice.max_src,
+                     StyleLattice.from_config(cfg.serve).max_ref, cfg.model.max_seq_len) + 1
+    model = init_weights(build_model(cfg, n_position=n_position), cfg.train.seed)
+    info = CheckpointManager(cfg.train.path.ckpt_path).restore_weights(
+        model, step=restore_step if restore_step > 0 else None,
+        ignore_layers=cfg.train.ignore_layers)
+    vocoder = None if griffin_lim else get_vocoder(cfg, vocoder_ckpt, seed=vocoder_seed)
+    engine = SynthesisEngine(cfg, model=model, vocoder=vocoder, lattice=lattice, device=device)
+    return engine, info

@@ -1,7 +1,7 @@
 """Mutation check of the checks that hold the bf16 tensor-core kernels on
-the card: the conv (``conv_fwd_mma_kernel`` in ``csrc/fused_conv.cu``) and
-the attention forward (``attn_fwd_mma_kernel`` in
-``csrc/fused_attention.cu``).
+the card: the conv (``conv_fwd_mma_kernel`` in ``csrc/fused_conv.cu``), the
+attention forward (``attn_fwd_mma_kernel`` in ``csrc/fused_attention.cu``)
+and the rounding point of the attention kernels' bf16 softmax.
 
     python3 -m speakingstyle_torch.tools.mutation_check
 
@@ -10,8 +10,9 @@ Run from the root of a checkout, on a machine with a CUDA card (as
 variant of one of those kernels, it copies ``chip_smoke.py`` and the
 package into ``speakingstyle_torch/build/mutants/<variant>/``, applies the
 change there, and runs in that copy what ``chip_smoke.py`` holds the
-kernels to: every kernel case of the serve path (untimed), the attention
-backward at the same shapes (it reads the forward's lse), and the
+kernels to: every kernel case of the serve path (untimed), the
+bf16-softmax forward cases at the same shapes, the attention backward at
+those shapes (it reads the forward's lse) under either softmax, and the
 teacher-forced acoustic comparison. One JSON line per variant gives the
 kernel cases that fail and the bf16 acoustic ratio (kernel-conv vs
 cuDNN-conv distance over cuDNN-conv vs float32 distance); the smallest
@@ -35,8 +36,8 @@ from speakingstyle_torch.ops.kernels import BUILD_DIR, CSRC_DIR
 CONV, ATTENTION = "fused_conv.cu", "fused_attention.cu"
 SOURCES = (CONV, ATTENTION)
 # variant -> (source in csrc/, a text of it, its replacement); each text
-# occurs once in its source (in conv_fwd_mma_kernel or attn_fwd_mma_kernel)
-# and nowhere in the other
+# occurs once in its source (in conv_fwd_mma_kernel, attn_fwd_mma_kernel or
+# the bf16 softmax's rounding) and nowhere in the other
 MUTANTS = {
     "none": None,
     # the last tap of every conv is dropped (its weight tiles staged as zeros)
@@ -62,6 +63,13 @@ MUTANTS = {
     # keys past L in the last tile get the padding bias instead of -inf, so
     # a fully padded row also attends over the tile's zero-filled tail
     "fwd_tail_bias": (ATTENTION, "kj >= L ? -INFINITY :", "kj >= L ? NEG2 :"),
+    # the bf16 softmax does not round the scores (nor, in the backward, P)
+    "sm16_no_round": (ATTENTION, "return __bfloat162float(__float2bfloat16_rn(x));",
+                      "return x;"),
+    # the bf16 forward rounds each score in log2 units, after the log2(e)
+    "sm16_log2": (ATTENTION,
+                  "x = round_bf16(fmaf(sc[nt][2 * hh + e], sm_scale, bias_e)) * LOG2E;",
+                  "x = round_bf16(fmaf(sc[nt][2 * hh + e], scale2, bias));"),
 }
 
 # run inside a variant's copy: chip_smoke's kernel cases, the attention
@@ -82,11 +90,14 @@ results = engine.run(requests)
 lengths = cs.path_lengths(engine, requests, results)
 with cs.strict_float32():
     cases = cs.kernels_phase(cfg, lengths, dev, 0)
+    cases.update(cs.sm16_serve_cases(cfg, lengths, dev, 0))
     g = torch.Generator().manual_seed(1)
     for name, axis, H, D, _ in cs.attention_cases(cfg):
         B, L, lens = lengths[axis]
         for c in cs.attention_bwd_case(name, B, L, H, D, lens, torch.bfloat16, g, dev):
             cases[c["case"]] = c
+        c = cs.sm16_bwd_case(name, B, L, H, D, lens, torch.bfloat16, g, dev)
+        cases[c["case"]] = c
     parity = cs.teacher_forced_parity(cfg, engine, requests, results, dev)
 print(json.dumps({"kernel_cases_failed": [c["case"] for c in cases.values() if not c["ok"]],
                   "parity_failed": parity}))

@@ -10,7 +10,11 @@ is written under a temporary name and renamed into place, so a step
 directory exists only once it is complete. ``max_to_keep`` prunes the
 oldest steps after each save. ``restore`` checks every leaf against the
 manifest before it fills the state and raises ``CheckpointCorruptError``
-on a mismatch.
+on a mismatch; ``restore_weights`` does the same for inference, filling a
+model's parameters and BatchNorm statistics without an optimizer. A step
+directory of the JAX package (an Orbax checkpoint: no ``state.pt``) is
+refused with ``ForeignCheckpointError``, which names the ``convert``
+route.
 
 Not ported yet (ROADMAP.md): async saves, keep-best retention, and the
 newest-first walk past a corrupt step.
@@ -28,6 +32,19 @@ import torch
 MANIFEST_NAME = "manifest.json"
 STATE_NAME = "state.pt"
 MANIFEST_FORMAT = 1
+
+
+class ForeignCheckpointError(RuntimeError):
+    """A step directory that is not the port's: the JAX package's Orbax
+    checkpoints, which the port does not read."""
+
+    def __init__(self, path: str):
+        super().__init__(
+            f"{path} holds no {STATE_NAME}: it is not a checkpoint of this package (an "
+            "Orbax checkpoint of the JAX package?). The port reads its own checkpoints "
+            "and, through `python -m speakingstyle_torch convert --kind fastspeech2 "
+            "--ckpt <step>.pth.tar`, the reference PyTorch checkpoints"
+        )
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -119,10 +136,11 @@ class CheckpointManager:
         return final
 
     def all_steps(self) -> List[int]:
+        """The steps saved by this package (a manifest and a state.pt)."""
         steps = []
         for name in os.listdir(self.directory):
-            if name.isdigit() and os.path.isfile(
-                    os.path.join(self.directory, name, MANIFEST_NAME)):
+            if name.isdigit() and all(os.path.isfile(os.path.join(self.directory, name, f))
+                                      for f in (MANIFEST_NAME, STATE_NAME)):
                 steps.append(int(name))
         return sorted(steps)
 
@@ -136,19 +154,29 @@ class CheckpointManager:
         for step in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(step), ignore_errors=True)
 
-    def restore(self, state, step: Optional[int] = None, ignore_layers: Sequence[str] = ()):
-        """Fill ``state`` from ``step`` (the latest if None), after checking
-        every leaf against the manifest. ``ignore_layers``: regexes matched
-        against the parameters' '/'-joined Flax paths (as the JAX package
-        names them); a matching parameter keeps its fresh value and the
-        optimizer starts anew, as in the JAX package."""
+    def _resolve(self, step: Optional[int]) -> int:
+        """``step``, or the latest of this package's steps if None; raises
+        FileNotFoundError where there is none, ForeignCheckpointError where
+        the step directory is not one of this package's."""
         if step is None:
             step = self.latest_step()
             if step is None:
+                foreign = sorted((n for n in os.listdir(self.directory) if n.isdigit()), key=int)
+                if foreign:
+                    raise ForeignCheckpointError(self._step_dir(int(foreign[-1])))
                 raise FileNotFoundError(f"no checkpoint under {self.directory}")
         path = self._step_dir(step)
         if not os.path.isdir(path):
             raise FileNotFoundError(f"no checkpoint step {step} under {self.directory}")
+        if not os.path.isfile(os.path.join(path, STATE_NAME)):
+            raise ForeignCheckpointError(path)
+        return step
+
+    def load_verified(self, step: Optional[int] = None):
+        """(step, the saved state dict on the host, its manifest), every
+        leaf checked against the manifest; ``step`` None is the latest."""
+        step = self._resolve(step)
+        path = self._step_dir(step)
         mpath = os.path.join(path, MANIFEST_NAME)
         if not os.path.isfile(mpath):
             raise CheckpointCorruptError(step, "manifest_missing")
@@ -167,17 +195,44 @@ class CheckpointManager:
         for name, t in leaves.items():
             if tensor_sha256(t) != want[name]["sha256"]:
                 raise CheckpointCorruptError(step, "leaf_hash_mismatch", name)
-        if ignore_layers:
-            from speakingstyle_torch.compat.from_jax import flax_param_names
+        return step, loaded, manifest
 
-            patterns = [re.compile(p) for p in ignore_layers]
-            fresh = state.model.state_dict()
-            names = flax_param_names(state.model)
-            for key in list(loaded["model"]):
-                if any(p.search(names[key]) for p in patterns):
-                    loaded["model"][key] = fresh[key]
-            state.model.load_state_dict(loaded["model"])
+    def restore(self, state, step: Optional[int] = None, ignore_layers: Sequence[str] = ()):
+        """Fill ``state`` from ``step`` (the latest if None), after checking
+        every leaf against the manifest. ``ignore_layers``: regexes matched
+        against the parameters' '/'-joined Flax paths (as the JAX package
+        names them); a matching parameter keeps its fresh value and the
+        optimizer starts anew, as in the JAX package."""
+        _, loaded, _ = self.load_verified(step)
+        if ignore_layers:
+            _fill_model(state.model, loaded["model"], ignore_layers)
             state.step = int(loaded["step"])
         else:
             state.load_state_dict(loaded)
         return state
+
+    def restore_weights(self, model, step: Optional[int] = None,
+                        ignore_layers: Sequence[str] = ()):
+        """Inference restore: fill ``model``'s parameters and BatchNorm
+        statistics from ``step`` (the latest if None) after the manifest
+        check, without building an optimizer; ``ignore_layers`` as in
+        ``restore``. Returns {"step", "weights_digest"} of the checkpoint."""
+        step, loaded, manifest = self.load_verified(step)
+        _fill_model(model, loaded["model"], ignore_layers)
+        return {"step": step, "weights_digest": manifest.get("weights_digest")}
+
+
+def _fill_model(model, saved: Dict, ignore_layers: Sequence[str]) -> None:
+    """Load ``saved`` (a model state dict) into ``model``; a parameter whose
+    Flax path matches one of the ``ignore_layers`` regexes keeps its value."""
+    if ignore_layers:
+        from speakingstyle_torch.compat.from_jax import flax_param_names
+
+        patterns = [re.compile(p) for p in ignore_layers]
+        fresh = model.state_dict()
+        names = flax_param_names(model)
+        saved = dict(saved)
+        for key in list(saved):
+            if any(p.search(names[key]) for p in patterns):
+                saved[key] = fresh[key]
+    model.load_state_dict(saved)

@@ -422,3 +422,79 @@ def test_attention_delta_matches_plain_on_card(cuda_device, D, dtype):
     scale = torch.einsum("blhd,blhd->bhl", dout.float().abs(), out.float().abs())
     assert got.shape == (2, 3, 77) and got.dtype == torch.float32
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 63, 65, 1000])
+@pytest.mark.parametrize("H,D", [(3, 24), (8, 32), (2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bf16_softmax_on_card(cuda_device, L, H, D, dtype):
+    """The bf16-softmax specialisation through ``fused_mha`` (forward
+    kernel writing lse, then the backward kernels) against the plain
+    versions at the same softmax, with a row of unequal length, a fully
+    padded row and a row whose only valid key is key 0; inputs and bounds
+    as chip_smoke.py states them (q and k on a quarter-step grid, so both
+    sides round the same f32 scores to bf16). Only the bf16-softmax counts
+    move."""
+    import chip_smoke as cs
+
+    B, bf16 = 4, torch.bfloat16
+    g = torch.Generator().manual_seed(L * D + 5)
+    q, k = cs.exact_score_qk((B, L, H, D), dtype, g, cuda_device)
+    v, dout = (torch.randn((B, L, H, D), generator=g).to(cuda_device, dtype) for _ in range(2))
+    lens = torch.tensor([L, L // 2 + 1, 0, 1])
+    mask = (torch.arange(L)[None] >= lens[:, None]).to(cuda_device)
+    scale = D ** -0.5
+    counts = lambda: (t_attn.fused_mha.launches, t_attn.fused_mha.launches_bf16sm,
+                      t_attn.fused_mha_bwd.launches, t_attn.fused_mha_bwd.launches_bf16sm)
+    before = counts()
+    out, lse = t_attn.fused_mha_fwd(q, k, v, mask, scale, want_lse=True, softmax_dtype=bf16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    again = t_attn.fused_mha(*leaves, mask, scale, softmax_dtype=bf16)
+    again.backward(dout)
+    assert torch.equal(out, again.detach())
+    assert counts() == (before[0], before[1] + 2, before[2], before[3] + 1)
+
+    p, premise = cs.sm16_probs(q, k, mask, scale)
+    assert premise
+    want = t_attn.fused_mha_plain(q, k, v, mask, scale, bf16).float()
+    atol, rtol = TOL[dtype]["atol"], TOL[dtype]["rtol"]
+    atol = 2e-5 if dtype == torch.float32 else atol  # chip_smoke's attention float32 bound
+    extra = cs.SM16_P_ROUND if dtype == torch.float32 else 0.0
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+    diff = (out.float() - want).abs()
+    assert bool((diff <= atol + rtol * want.abs() + extra * pv).all()), diff.max()
+    lse_want = t_attn.attention_lse_plain(q, k, mask, scale, bf16)
+    torch.testing.assert_close(lse, lse_want, **LSE_TOL)
+    rtol_pad, sum_tol = PAD_ROW_TOL[dtype]
+    v_row = v[2].float()
+    mean = v_row.mean(dim=0)
+    assert bool(((out[2].float() - mean).abs()
+                 <= rtol_pad * mean.abs() + sum_tol * v_row.abs().sum(dim=0)).all())
+
+    grads = t_attn.fused_mha_bwd_plain(q, k, v, mask, dout, scale, bf16)
+    allow = cs.sm16_bwd_allowance(q, k, v, dout, p, want, scale)
+    rel_max, rtol_b = BWD_TOL[dtype]
+    for leaf, w, extra_b in zip(leaves, grads, allow):
+        got, w = leaf.grad.float(), w.float()
+        bound = rel_max * w.abs().max() + rtol_b * w.abs() + extra_b
+        assert bool(((got - w).abs() <= bound).all()), (got - w).abs().max()
+
+
+def test_bf16_softmax_inputs_make_exact_scores():
+    """The premise of the bf16-softmax bounds, on the CPU: the quarter-step
+    q and k are exact in bf16 and the plain version's f32 scores are their
+    exact sums times the f32 sm_scale, rounded once."""
+    import chip_smoke as cs
+
+    g = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k = cs.exact_score_qk((2, 40, 2, 128), dtype, g, torch.device("cpu"))
+        assert torch.equal(q.to(torch.bfloat16).float(), q.float())
+        assert float(q.float().abs().max()) < 16
+        mask = torch.arange(40)[None] >= torch.tensor([40, 17])[:, None]
+        p, premise = cs.sm16_probs(q, k, mask, 128 ** -0.5)
+        assert premise and p.shape == (2, 2, 40, 40)
+        torch.testing.assert_close(p.sum(-1), torch.ones(2, 2, 40), atol=2e-2, rtol=0)
+        spread = float(t_attn._scores(q, k, mask, 128 ** -0.5)[0].std())
+        assert 0.5 * cs.SM16_SCORE_STD < spread < 2 * cs.SM16_SCORE_STD

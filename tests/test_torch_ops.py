@@ -141,6 +141,81 @@ def test_attention_grads_match_pallas_interpret(L, H, D):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=1e-4)
 
 
+def _bf16_softmax_p_error(q, k, mask, scale):
+    """(|p_jax - p_plain| bound [B, H, L, L], the plain version's p), float64.
+
+    Both round the f32 scores to bf16 (one flipped by another f32 sum
+    order moves by a bf16 ulp, <= 2^-7 |s|); the JAX package's
+    ``_softmax_rows`` then rounds s - m, its exp, the row sum and the
+    quotient to bf16 (<= 2^-8 relative each, s - m's rounding moving p by
+    2^-8 |s - m|), the plain version the quotient only: to first order
+    |dp| <= 2^-8 (|s - m| + 4 + 2 |s|) p."""
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) * scale
+    sc = np.where(mask[:, None, None, :], np.finfo(np.float32).min / 2, sc)
+    sb = torch.from_numpy(sc).float().to(torch.bfloat16).double().numpy()
+    m = sb.max(-1, keepdims=True)
+    p = np.exp(sb - m)
+    p /= p.sum(-1, keepdims=True)
+    return 2.0 ** -8 * (np.abs(sb - m) + 4 + 2 * np.abs(sb)) * p, p
+
+
+@pytest.mark.parametrize("L,D", [(23, 16), (130, 32)])
+def test_bf16_softmax_plain_matches_pallas_interpret(L, D):
+    """The plain versions at ``softmax_dtype=bfloat16`` (the oracle of the
+    kernels' bf16-softmax specialisation) against the JAX fused-MHA kernel
+    with ``softmax_dtype=bfloat16`` in interpret mode and its VJP, scores
+    spread to ~N(0, 4), rows of unequal length and one fully padded row
+    (forward compared on rows with a valid key: the Pallas kernel attends
+    over its 128-lane padding there, ROADMAP.md queue C item 3). Bound per
+    element: the P error of ``_bf16_softmax_p_error`` carried through each
+    product (dV = P^T dO; dS = P (dP - delta) sm_scale with delta's error
+    sum_j |dp_j| |dP_j|; dQ = dS K, dK = dS^T Q), plus 1e-5 for the f32
+    sums."""
+    import jax
+
+    from speakingstyle_tpu.ops.pallas_attention import fused_mha
+
+    rng = np.random.default_rng(L + D)
+    B, H = 3, 2
+    q, k, v, g = (rng.standard_normal((B, L, H, D)).astype(np.float32) for _ in range(4))
+    q *= 2.0
+    lens = np.array([L, L // 2, 0])
+    mask = np.arange(L)[None] >= lens[:, None]
+    real = (~mask)[:, :, None, None].astype(np.float32)
+    scale = D ** -0.5
+    dp_bound, p = _bf16_softmax_p_error(q, k, mask, scale)
+
+    bf16 = jnp.bfloat16
+    want = np.asarray(fused_mha(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                                softmax_dtype=bf16, interpret=True))
+    got = t_attn.fused_mha_plain(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                 softmax_dtype=torch.bfloat16).numpy()
+    bound = 1e-5 + np.einsum("bhqk,bkhd->bqhd", dp_bound, np.abs(v))
+    rows = lens > 0
+    assert np.all(np.abs(got - want)[rows] <= bound[rows])
+    f32 = t_attn.fused_mha_plain(*(torch.from_numpy(a) for a in (q, k, v, mask))).numpy()
+    assert np.abs(f32 - want)[rows].max() > np.abs(got - want)[rows].max()
+
+    def j_loss(q_, k_, v_):
+        out = fused_mha(q_, k_, v_, jnp.asarray(mask), softmax_dtype=bf16, interpret=True)
+        return jnp.sum(out * g * real)
+
+    wq, wk, wv = (np.asarray(w) for w in jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = t_attn.fused_mha(*leaves, torch.from_numpy(mask), softmax_dtype=torch.bfloat16)
+    (out * torch.from_numpy(g * real)).sum().backward()
+    gr = (g * real).astype(np.float64)
+    dp = np.einsum("bqhd,bkhd->bhqk", gr, v)
+    delta = (dp * p).sum(-1, keepdims=True)
+    d_delta = (dp_bound * np.abs(dp)).sum(-1, keepdims=True)
+    ds = (dp_bound * np.abs(dp - delta) + p * d_delta) * scale
+    bounds = (np.einsum("bhqk,bkhd->bqhd", ds, np.abs(k)),
+              np.einsum("bhqk,bqhd->bkhd", ds, np.abs(q)),
+              np.einsum("bhqk,bqhd->bkhd", dp_bound, np.abs(gr)))
+    for leaf, w, b in zip(leaves, (wq, wk, wv), bounds):
+        assert np.all(np.abs(leaf.grad.numpy() - w) <= 1e-5 + b)
+
+
 @pytest.mark.parametrize("ln", [True, False])
 def test_conv_grads_match_jax_analytic_backward(ln):
     """Grads of x, w, b (and the LN scale and bias) through
@@ -377,16 +452,17 @@ def test_mel_from_wav_array_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """``import speakingstyle_torch`` and every submodule leaves jax and the
-    JAX package out of sys.modules (a subprocess: this test process
-    already imported jax through tests/conftest.py)."""
+    """``import speakingstyle_torch`` and every submodule leaves jax, flax,
+    orbax and the JAX package out of sys.modules, and msgpack and
+    matplotlib too, which the card's machine lacks (a subprocess: this test
+    process already imported jax through tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import speakingstyle_torch\n"
         "for m in pkgutil.walk_packages(speakingstyle_torch.__path__, 'speakingstyle_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'speakingstyle_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'msgpack', 'matplotlib', 'speakingstyle_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('speakingstyle_torch')]))\n"
         "assert not bad, bad\n"
     )
@@ -415,7 +491,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     mask = torch.zeros((1, 4), dtype=torch.bool)
     t_attn.check_inputs(q, q, q, mask)
     bad = [
-        ((q, q, q, mask, torch.bfloat16), NotImplementedError),  # bf16 softmax
+        ((q, q, q, mask, torch.float16), ValueError),             # f16 softmax
         ((q, q[:, :3], q, mask), ValueError),                     # k shape
         ((q.double(), q.double(), q.double(), mask), TypeError),
         ((torch.zeros((1, 4, 2, 12)),) * 3 + (mask,), ValueError),  # D % 8

@@ -173,27 +173,39 @@ def test_engine_precomputed_style_equals_reference_mel_path(jax_weights, tmp_pat
 
 
 def test_synthesize_cli_on_cpu(monkeypatch, tmp_path):
-    """``python -m speakingstyle_torch synthesize --device cpu``: G2P, the
-    reference wav -> mel, the engine, a wav file of mel_len * hop samples
-    (with a tiny HiFi-GAN in place of the LJSpeech V1 generator)."""
+    """``python -m speakingstyle_torch synthesize --device cpu``: a saved
+    checkpoint restored, G2P, the reference wav -> mel, the engine, a wav
+    file of mel_len * hop samples under <result_path>/<step>/ (with a tiny
+    HiFi-GAN from ``--seed`` in place of the LJSpeech V1 generator)."""
     from scipy.io import wavfile
 
+    from speakingstyle_torch import synthesis
     from speakingstyle_torch.__main__ import main
-    from speakingstyle_torch.models import hifigan as th
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.trainer import build_state
 
     model_yaml, train_yaml = write_configs(tmp_path)
+    with open(train_yaml, "a") as f:
+        f.write(yaml.safe_dump({"path": {"ckpt_path": str(tmp_path / "ckpt"),
+                                         "result_path": str(tmp_path / "out")}}))
+    cfg = load_config(model=model_yaml, train=train_yaml)
+    CheckpointManager(cfg.train.path.ckpt_path).save(4, build_state(cfg, "cpu"))
     ref = tmp_path / "ref.wav"
     tt = np.arange(22050 // 4) / 22050.0
     wavfile.write(str(ref), 22050, (8000 * np.sin(2 * np.pi * 220 * tt)).astype(np.int16))
-    monkeypatch.setattr(th, "DEFAULT_HIFIGAN_CONFIG", {
+    monkeypatch.setattr(synthesis, "DEFAULT_HIFIGAN_CONFIG", {
         "resblock": "1", "upsample_rates": [2, 2], "upsample_kernel_sizes": [4, 4],
         "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
         "resblock_dilation_sizes": [[1]],
     })
-    path = main([
+    ns = main([
         "synthesize", "-m", model_yaml, "-t", train_yaml, "--device", "cpu",
-        "--text", "Hello world", "--ref_audio", str(ref), "--out_dir", str(tmp_path / "out"),
+        "--restore_step", "4", "--mode", "single",
+        "--text", "Hello world", "--ref_audio", str(ref),
     ])
+    path = ns.paths[0]
+    assert path.startswith(str(tmp_path / "out" / "4"))
     sr, wav = wavfile.read(path)
     assert sr == 22050 and wav.dtype == np.int16 and len(wav) % 4 == 0
 
@@ -210,4 +222,5 @@ def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SynthesisEngine(load_config(model=model_yaml, train=train_yaml))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["synthesize", "-m", model_yaml, "--text", "hi", "--ref_audio", "x.wav"])
+        main(["synthesize", "-m", model_yaml, "--restore_step", "1", "--mode", "single",
+              "--text", "hi", "--ref_audio", "x.wav"])
