@@ -21,6 +21,7 @@ import torch
 from scipy.io import wavfile
 
 from test_torch_training import corpus, write_configs  # noqa: F401 (a fixture)
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
 
 
 def _ref_wav(path, seconds=0.4, f0=220.0):

@@ -29,6 +29,7 @@ import yaml
 
 from test_convert import make_reference_state_dict
 from test_hifigan import SMALL, TorchGenerator, _torch_melgan
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
 
 
 def _flat(tree, prefix=()):

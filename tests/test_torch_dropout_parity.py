@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from test_torch_training import MODEL_YAML, load_both, write_configs
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
 
 DROPOUT_MODEL = dict(
     MODEL_YAML, attention_kernel="einsum", conv_impl="xla",

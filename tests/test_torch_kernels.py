@@ -20,6 +20,8 @@ from speakingstyle_torch.ops import fused_conv as t_conv
 from speakingstyle_torch.ops import kernels
 from speakingstyle_torch.tools import mutation_check
 
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+
 
 def _lengths_mask(rng, B, L):
     lens = rng.integers(L // 2, L + 1, B)

@@ -86,6 +86,24 @@ def interpret_kernels():
         pallas_attention.FORCE_INTERPRET = False
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """torch and the BLAS under numpy on one thread for the module. The
+    suite runs in parallel workers on one CPU, and a pool of a thread per
+    core in each of them oversubscribes it: at the tests' tiny widths the
+    extra threads only spin, and slow the other workers' tests. Each port
+    test module imports this fixture."""
+    from threadpoolctl import threadpool_limits
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _inputs(seed, B=3, L=9, T=20, d=16):
     rng = np.random.default_rng(seed)
     lens = np.array([L, L - 3, L - 1][:B], np.int32)

@@ -21,6 +21,8 @@ import torch
 from speakingstyle_torch.ops import fused_attention as t_attn
 from speakingstyle_torch.ops import fused_conv as t_conv
 
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

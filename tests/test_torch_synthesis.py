@@ -15,7 +15,8 @@ import pytest
 import torch
 import yaml
 
-from test_torch_models import MODEL_YAML, interpret_kernels, numpy_variables  # noqa: F401
+from test_torch_models import (  # noqa: F401 (fixtures)
+    MODEL_YAML, interpret_kernels, numpy_variables, one_cpu_thread)
 
 SERVE = {
     "batch_buckets": [1, 2, 4], "src_buckets": [16], "mel_buckets": [48],

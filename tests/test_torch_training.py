@@ -24,6 +24,8 @@ import yaml
 
 from speakingstyle_torch.compat.from_jax import load_flax_variables, to_flax_tree
 
+from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+
 MODEL_YAML = {
     "transformer": {
         "encoder_layer": 1, "decoder_layer": 2, "encoder_hidden": 16,
