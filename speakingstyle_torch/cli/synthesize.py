@@ -188,7 +188,7 @@ def main(args):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     paths = []
     for result in results:
-        paths.append(render_result(result, cfg, result_dir, plot=args.plot))
+        paths.append(render_result(result, cfg, result_dir, plot=args.plot, device=device))
         print(f"wrote {paths[-1]}: {result.mel_len} frames on {device} ({name}), "
               f"checkpoint step {info['step']}")
     return SimpleNamespace(paths=paths, requests=requests, results=results, engine=engine,

@@ -171,10 +171,10 @@ def plot_mel(data, stats, titles=None):
     return fig
 
 
-def _griffin_lim_wav(cfg: Config, mel: np.ndarray) -> np.ndarray:
+def _griffin_lim_wav(cfg: Config, mel: np.ndarray, device=None) -> np.ndarray:
     """[T, n_mels] normalised log-mel -> int16 wav by Griffin-Lim over the
-    mel filterbank's pseudo-inverse, its initial phase drawn from a
-    generator seeded 0."""
+    mel filterbank's pseudo-inverse, its iterations on ``device`` (default
+    the CPU), its initial phase drawn from a CPU generator seeded 0."""
     from speakingstyle_torch.audio.mel import mel_filterbank
     from speakingstyle_torch.audio.tools import griffin_lim
 
@@ -182,28 +182,29 @@ def _griffin_lim_wav(cfg: Config, mel: np.ndarray) -> np.ndarray:
     fb = mel_filterbank(pp.audio.sampling_rate, pp.stft.filter_length,
                         pp.mel.n_mel_channels, pp.mel.mel_fmin, pp.mel.mel_fmax)
     mag = np.maximum(np.linalg.pinv(fb) @ np.exp(np.asarray(mel)).T, 1e-8)
-    wav = griffin_lim(torch.from_numpy(mag[None].astype(np.float32)), pp.stft.filter_length,
-                      pp.stft.hop_length, pp.stft.win_length,
-                      generator=torch.Generator().manual_seed(0))[0].numpy()
+    mag = torch.from_numpy(mag[None].astype(np.float32)).to(device or "cpu")
+    wav = griffin_lim(mag, pp.stft.filter_length, pp.stft.hop_length, pp.stft.win_length,
+                      generator=torch.Generator().manual_seed(0))[0].cpu().numpy()
     return (np.clip(wav, -1, 1) * (pp.audio.max_wav_value - 1)).astype(np.int16)
 
 
-def render_result(result, cfg: Config, path: str, plot: bool = False) -> str:
+def render_result(result, cfg: Config, path: str, plot: bool = False, device=None) -> str:
     """Write one ``SynthesisResult`` (serving/engine.py) to disk:
     ``<path>/<id>.wav`` (and ``<id>.png`` with ``plot``). Returns the wav
     path.
 
     A result of an engine with a vocoder arrives with ``result.wav``
     rendered (int16, trimmed); one without (``--griffin_lim``) arrives
-    with ``wav=None`` and is inverted here by Griffin-Lim. A prediction of
-    0 or 1 frames is below Griffin-Lim's minimum (it reflect-pads one hop)
-    and is written as an empty, valid wav."""
+    with ``wav=None`` and is inverted here by Griffin-Lim, on ``device``
+    (the engine's; default the CPU). A prediction of 0 or 1 frames is
+    below Griffin-Lim's minimum (it reflect-pads one hop) and is written as
+    an empty, valid wav."""
     os.makedirs(path, exist_ok=True)
     pp = cfg.preprocess.preprocessing
     wav = result.wav
     if wav is None:
         wav = (np.zeros(0, np.int16) if result.mel_len < 2 else
-               _griffin_lim_wav(cfg, result.mel))
+               _griffin_lim_wav(cfg, result.mel, device))
 
     if plot and result.mel_len > 0:
         pitch = _frame_level_overlay(

@@ -1,9 +1,10 @@
 """Mutation check of the checks that hold the bf16 tensor-core kernels on
 the card: the conv (``conv_fwd_mma_kernel`` in ``csrc/fused_conv.cu``), the
 attention forward (``attn_fwd_mma_kernel`` in ``csrc/fused_attention.cu``)
-and the rounding point of the attention kernels' bf16 softmax.
+and the rounding points of the attention kernels' bf16 softmax, forward
+and backward.
 
-    python3 -m speakingstyle_torch.tools.mutation_check
+    python3 -m speakingstyle_torch.tools.mutation_check [variant ...]
 
 Run from the root of a checkout, on a machine with a CUDA card (as
 ``chip_smoke.py``). For the sound source and for each deliberately broken
@@ -12,10 +13,12 @@ package into ``speakingstyle_torch/build/mutants/<variant>/``, applies the
 change there, and runs in that copy what ``chip_smoke.py`` holds the
 kernels to: every kernel case of the serve path (untimed), the
 bf16-softmax forward cases at the same shapes, the attention backward at
-those shapes (it reads the forward's lse) under either softmax, and the
-teacher-forced acoustic comparison. One JSON line per variant gives the
-kernel cases that fail and the bf16 acoustic ratio (kernel-conv vs
-cuDNN-conv distance over cuDNN-conv vs float32 distance); the smallest
+those shapes (it reads the forward's lse) in bfloat16 under either
+softmax and in float32 under the bf16 softmax, and the teacher-forced
+acoustic comparison. One JSON line per variant gives the kernel cases
+that fail, each bf16-softmax backward case's error over its bound, and the
+bf16 acoustic ratio (kernel-conv vs cuDNN-conv distance over cuDNN-conv
+vs float32 distance); the smallest
 broken conv variant's ratio against the sound one is the margin of
 ``chip_smoke.BF16_ACOUSTIC_RATIO``.
 
@@ -70,6 +73,24 @@ MUTANTS = {
     "sm16_log2": (ATTENTION,
                   "x = round_bf16(fmaf(sc[nt][2 * hh + e], sm_scale, bias_e)) * LOG2E;",
                   "x = round_bf16(fmaf(sc[nt][2 * hh + e], scale2, bias));"),
+    # the backward alone, bf16 (tensor-core) passes: the dK/dV pass does not
+    # round S, the dQ pass does not round S, the dK/dV pass takes dS from
+    # the unrounded P (its dV still rounds P for the product)
+    "sm16_bwd_dkdv_s": (ATTENTION,
+                        "round_bf16(fmaf(st[nt][i], sm_scale, key_bias[hh])) * LOG2E",
+                        "fmaf(st[nt][i], sm_scale, key_bias[hh]) * LOG2E"),
+    "sm16_bwd_dq_s": (ATTENTION,
+                      "round_bf16(fmaf(sc[nt][i], sm_scale, mb[kj] ? NEG : 0.f)) * LOG2E",
+                      "fmaf(sc[nt][i], sm_scale, mb[kj] ? NEG : 0.f) * LOG2E"),
+    "sm16_bwd_p_ds": (ATTENTION, "pv = round_bf16(pv);  // dS from the bf16 P too",
+                      "pv = pv;  // dS from the bf16 P too"),
+    # the backward alone, float32 (CUDA-core) passes, which share one P
+    # tile: S not rounded; P not rounded (dV and dS)
+    "sm16_bwd_f32_s": (ATTENTION,
+                       "p[i][j] = expf(round_bf16(s[i][j] * sm_scale + bias) - row_lse[ty + 16 * i]);",
+                       "p[i][j] = expf(s[i][j] * sm_scale + bias - row_lse[ty + 16 * i]);"),
+    "sm16_bwd_f32_p": (ATTENTION, "if constexpr (SM16) p[i][j] = round_bf16(p[i][j]);",
+                       "if constexpr (SM16) p[i][j] = p[i][j];"),
 }
 
 # run inside a variant's copy: chip_smoke's kernel cases, the attention
@@ -94,12 +115,14 @@ with cs.strict_float32():
     g = torch.Generator().manual_seed(1)
     for name, axis, H, D, _ in cs.attention_cases(cfg):
         B, L, lens = lengths[axis]
-        for c in cs.attention_bwd_case(name, B, L, H, D, lens, torch.bfloat16, g, dev):
-            cases[c["case"]] = c
-        c = cs.sm16_bwd_case(name, B, L, H, D, lens, torch.bfloat16, g, dev)
-        cases[c["case"]] = c
+        for dtype, softmax in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+                               (torch.bfloat16, torch.bfloat16)):
+            for c in cs.attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev, softmax):
+                cases[c["case"]] = c
     parity = cs.teacher_forced_parity(cfg, engine, requests, results, dev)
 print(json.dumps({"kernel_cases_failed": [c["case"] for c in cases.values() if not c["ok"]],
+                  "sm16_bwd_err_over_bound": {c["case"]: max(c["err_over_bound"])
+                                              for c in cases.values() if "err_over_bound" in c},
                   "parity_failed": parity}))
 """
 
@@ -141,15 +164,25 @@ def run_variant(repo: str, variant: str) -> dict:
             **lines[-1]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every variant, or those named in ``argv`` (the sound source always
+    runs first)."""
     import torch
 
+    names = sys.argv[1:] if argv is None else argv
+    unknown = sorted(set(names) - set(MUTANTS))
+    if unknown:
+        print(f"mutation_check: unknown variants {unknown}; known: {list(MUTANTS)}",
+              file=sys.stderr)
+        return 2
+    names = ["none"] + [n for n in (names or MUTANTS) if n != "none"]
     repo = os.path.dirname(os.path.dirname(CSRC_DIR))
     if not torch.cuda.is_available():
         print("mutation_check: needs a CUDA card", file=sys.stderr)
         return 1
     ok = True
-    for variant, change in MUTANTS.items():
+    for variant in names:
+        change = MUTANTS[variant]
         row = run_variant(repo, variant)
         failed = (bool(row["kernel_cases_failed"]), bool(row["parity_failed"]))
         if change is None:

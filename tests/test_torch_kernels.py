@@ -20,7 +20,7 @@ from speakingstyle_torch.ops import fused_conv as t_conv
 from speakingstyle_torch.ops import kernels
 from speakingstyle_torch.tools import mutation_check
 
-from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import one_cpu_thread  # noqa: F401 (an autouse fixture)
 
 
 def _lengths_mask(rng, B, L):
@@ -436,8 +436,9 @@ def test_attention_bf16_softmax_on_card(cuda_device, L, H, D, dtype):
     versions at the same softmax, with a row of unequal length, a fully
     padded row and a row whose only valid key is key 0; inputs and bounds
     as chip_smoke.py states them (q and k on a quarter-step grid, so both
-    sides round the same f32 scores to bf16). Only the bf16-softmax counts
-    move."""
+    sides round the same f32 scores to bf16; the backward held to
+    ``sm16_bwd_bound``, which the float32-softmax kernels must fail). Only
+    the bf16-softmax counts move."""
     import chip_smoke as cs
 
     B, bf16 = 4, torch.bfloat16
@@ -475,12 +476,15 @@ def test_attention_bf16_softmax_on_card(cuda_device, L, H, D, dtype):
                  <= rtol_pad * mean.abs() + sum_tol * v_row.abs().sum(dim=0)).all())
 
     grads = t_attn.fused_mha_bwd_plain(q, k, v, mask, dout, scale, bf16)
-    allow = cs.sm16_bwd_allowance(q, k, v, dout, p, want, scale)
-    rel_max, rtol_b = BWD_TOL[dtype]
-    for leaf, w, extra_b in zip(leaves, grads, allow):
-        got, w = leaf.grad.float(), w.float()
-        bound = rel_max * w.abs().max() + rtol_b * w.abs() + extra_b
-        assert bool(((got - w).abs() <= bound).all()), (got - w).abs().max()
+    allowed, premise = cs.sm16_bwd_bound(q, k, v, dout, out, lse, mask, scale, grads)
+    assert premise
+    got = [leaf.grad for leaf in leaves]
+    assert max(cs.over_bound(got, grads, allowed)) <= 1.0, cs.over_bound(got, grads, allowed)
+    # the control: the float32-softmax kernels from the same inputs fail the
+    # bound (at L = 1 every P is 1 under either softmax, the same function)
+    out32, lse32 = t_attn.fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+    control = t_attn.fused_mha_bwd(q, k, v, mask, out32, lse32, dout, scale)
+    assert (max(cs.over_bound(control, grads, allowed)) > 1.0) == (L > 1)
 
 
 def test_bf16_softmax_inputs_make_exact_scores():
@@ -500,3 +504,93 @@ def test_bf16_softmax_inputs_make_exact_scores():
         torch.testing.assert_close(p.sum(-1), torch.ones(2, 2, 40), atol=2e-2, rtol=0)
         spread = float(t_attn._scores(q, k, mask, 128 ** -0.5)[0].std())
         assert 0.5 * cs.SM16_SCORE_STD < spread < 2 * cs.SM16_SCORE_STD
+
+
+# ---------------------------------------------------------------- the bf16-softmax backward bound
+
+
+def _emulated_forward(q, k, v, mask, scale, dtype, sm16=True):
+    """(out, lse) as the forward kernels compute them: the scores rounded
+    to bf16 (``sm16``), P unnormalised in f32, rounded to bf16 for P V in
+    a bfloat16 kernel, the row sum from the f32 P."""
+    s = t_attn._scores(q, k, mask, scale)
+    s = s.to(torch.bfloat16).float() if sm16 else s
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if dtype == torch.bfloat16 else p
+    out = torch.einsum("bhqk,bkhd->bqhd", pv / l, v.float()).to(dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def _emulated_backward(q, k, v, mask, out, lse, dout, scale, dtype, broken=None):
+    """(dq, dk, dv) as the bf16-softmax backward kernels compute them from
+    the forward's out and lse: P = bf16(exp(bf16(S) - lse)) (1 / L in a
+    fully padded row), delta = dO.O, dS = P (dP - delta) sm_scale, rounded
+    to bf16 in a bfloat16 kernel. ``broken`` leaves out roundings: of S
+    (``s_all``), of S in the dK/dV pass (``s_dkdv``) or the dQ pass
+    (``s_dq``), of P (``p_all``), of P before dS in the dK/dV pass
+    (``p_ds``), of S and P (``float32_softmax``, the float32 softmax)."""
+    rb = lambda x: x.to(torch.bfloat16).float()
+    s = t_attn._scores(q, k, mask, scale)
+
+    def probs(round_s, round_p):
+        p = torch.exp((rb(s) if round_s else s) - lse[..., None])
+        p[mask.all(dim=-1)] = 1.0 / mask.shape[1]
+        return rb(p) if round_p else p
+
+    s_all = ("s_all", "float32_softmax")
+    round_p = broken not in ("p_all", "float32_softmax")
+    p_dkdv = probs(broken not in (*s_all, "s_dkdv"), round_p)
+    p_ds = probs(True, False) if broken == "p_ds" else p_dkdv
+    p_dq = probs(broken not in (*s_all, "s_dq"), round_p)
+    g = dout.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
+    delta = torch.einsum("blhd,blhd->bhl", g, out.float())[..., None]
+
+    def ds_of(p):
+        ds = p * (dp - delta) * scale
+        return rb(ds) if dtype == torch.bfloat16 else ds
+
+    dv = torch.einsum("bhqk,bqhd->bkhd", rb(p_dkdv) if dtype == torch.bfloat16 else p_dkdv, g)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_of(p_dq), k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_of(p_ds), q.float())
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _sm16_bound_inputs(dtype):
+    import chip_smoke as cs
+
+    B, L, H, D = 3, 96, 2, 64
+    g = torch.Generator().manual_seed(11)
+    q, k = cs.exact_score_qk((B, L, H, D), dtype, g, torch.device("cpu"))
+    v, dout = (torch.randn((B, L, H, D), generator=g).to(dtype) for _ in range(2))
+    mask = torch.arange(L)[None] >= torch.tensor([L, 41, 0])[:, None]
+    return q, k, v, dout, mask, D ** -0.5
+
+
+@pytest.mark.parametrize("broken", [None, "s_all", "s_dkdv", "s_dq", "p_all", "p_ds",
+                                    "float32_softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sm16_backward_bound_tells_the_rounding_points_apart(dtype, broken):
+    """``chip_smoke.sm16_bwd_bound`` on the CPU, against an emulation of the
+    bf16-softmax kernels' arithmetic (with a row of unequal length and a
+    fully padded row): the sound emulation lies within it, each emulation
+    that leaves out one rounding of S or P, and the float32 softmax, fails
+    it by more than 4 times."""
+    import chip_smoke as cs
+
+    q, k, v, dout, mask, scale = _sm16_bound_inputs(dtype)
+    bf16 = torch.bfloat16
+    out, lse = _emulated_forward(q, k, v, mask, scale, dtype)
+    want = t_attn.fused_mha_bwd_plain(q, k, v, mask, dout, scale, bf16)
+    allowed, premise = cs.sm16_bwd_bound(q, k, v, dout, out, lse, mask, scale, want, rows=2)
+    assert premise
+    if broken == "float32_softmax":
+        out, lse = _emulated_forward(q, k, v, mask, scale, dtype, sm16=False)
+    got = _emulated_backward(q, k, v, mask, out, lse, dout, scale, dtype, broken)
+    ratios = cs.over_bound(got, want, allowed)
+    if broken is None:
+        assert max(ratios) <= 1.0, ratios
+    else:
+        assert max(ratios) > 4.0, ratios

@@ -19,6 +19,8 @@ import yaml
 
 from speakingstyle_torch.compat.from_jax import expected_leaves, load_flax_variables
 
+from torch_threads import one_cpu_thread  # noqa: F401 (an autouse fixture)
+
 MODEL_YAML = {
     "transformer": {
         "encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 16,
@@ -84,24 +86,6 @@ def interpret_kernels():
         yield
     finally:
         pallas_attention.FORCE_INTERPRET = False
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    """torch and the BLAS under numpy on one thread for the module. The
-    suite runs in parallel workers on one CPU, and a pool of a thread per
-    core in each of them oversubscribes it: at the tests' tiny widths the
-    extra threads only spin, and slow the other workers' tests. Each port
-    test module imports this fixture."""
-    from threadpoolctl import threadpool_limits
-
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(limits=1):
-            yield
-    finally:
-        torch.set_num_threads(before)
 
 
 def _inputs(seed, B=3, L=9, T=20, d=16):
