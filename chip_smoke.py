@@ -51,6 +51,28 @@ printing one JSON line:
    conv's ``act`` output against the plain one, and one step's per-leaf
    gradients, kernel path against library path, in float32 and bfloat16.
 
+7. ``kernels_nonfinite`` (run after phase 3): each kernel against its plain
+   version on inputs with one NaN and one +inf planted at valid positions,
+   at the LJSpeech_paper train widths, float32 and bfloat16: the attention
+   forward and backward with the plant in q, k or v, the conv plain, with
+   ReLU and with ReLU + LayerNorm + ``act``. The non-finite output
+   positions must be the same. Then ``all_finite`` on the card.
+8. ``train_resilience`` (in phase 6's corpus): the ``train`` command in
+   subprocesses with the preset's resilience defaults (NaN sentinel,
+   keep-best, async saves): ``--faults nan_grads@7,loader_ioerror@3`` over
+   12 steps (one rollback to step 5, the loader error retried, the kernels'
+   launches per step unchanged, the best checkpoint kept), then
+   ``--faults sigterm@8`` (a flushed step-8 checkpoint) and
+   ``--restore_step -1`` to step 12, held to two runs that stop at step 8
+   without the signal and resume.
+9. ``train_remat``: 4 steps with ``sharding.remat`` off and on (the
+   checkpointed blocks' forwards launched twice), peak memory, step time,
+   and one step's gradients with dropout on, remat against no remat.
+10. ``train_costs``: the NaN sentinel on vs off and the prefetcher vs the
+   inline copy (12-step runs in turns: step time, data wait, iteration),
+   the sentinel's own device operations and ms, the save stall sync vs
+   async, the checkpoint's bytes.
+
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 
@@ -583,16 +605,9 @@ def reset_counts():
 
 
 def read_counts():
-    from speakingstyle_torch.ops.fused_attention import attention_delta, fused_mha, fused_mha_bwd
-    from speakingstyle_torch.ops.fused_conv import fused_conv1d
+    from speakingstyle_torch.training.trainer import kernel_launches
 
-    return {"fused_attention_fwd": fused_mha.launches,
-            "fused_attention_fwd_bf16sm": fused_mha.launches_bf16sm,
-            "fused_attention_bwd": fused_mha_bwd.launches,
-            "fused_attention_bwd_bf16sm": fused_mha_bwd.launches_bf16sm,
-            "fused_attention_bwd_delta": attention_delta.launches,
-            "fused_conv1d_fwd": fused_conv1d.launches,
-            "fused_conv1d_fwd_act": fused_conv1d.act_launches}
+    return kernel_launches()
 
 
 def synthesize_phase(phase, cfg, requests, seed, dev, want_per_dispatch):
@@ -1277,9 +1292,9 @@ def train_run(tag, cfg, dev, want, n_val):
     log = read_log(os.path.join(paths.log_path, "log.txt"))
     train_rows, val_rows = log["train"], log["val"]
     measured = [train_rows.get(s, {}) for s in range(TRAIN_WARMUP + 1, TRAIN_STEPS + 1)]
-    walls = [r.get("train_step_seconds", math.nan) * 1e3 for r in measured]
+    walls = [r.get("step_time_s", math.nan) * 1e3 for r in measured]
     rates = [r.get("mel_frames_per_sec", math.nan) for r in measured]
-    waits = [r.get("train_data_wait_seconds", math.nan) * 1e3 for r in measured]
+    waits = [r.get("data_wait_s", math.nan) * 1e3 for r in measured]
     total = {s: r["total_loss"] for s, r in sorted(train_rows.items())}
     val = {s: r["total_loss"] for s, r in sorted(val_rows.items())}
     last = TRAIN_STEPS + TRAIN_TRACED
@@ -1620,6 +1635,10 @@ def train_phase(cfg_of, dev, seed):
                 "fused_conv1d_fwd": (convs, convs), "fused_conv1d_fwd_act": (re_.conv_layer, 0)}
         counts = train_run("kernels", cfg, dev, want, n_val)
         train_run("library", runs["library"], dev, {k: (0, 0) for k in want}, n_val)
+        resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val)
+        remat_phase(cfg_of(corpus, os.path.join(tmp, "remat"), seed,
+                           **dict(TRAIN_PATHS)["kernels"]), first, dev)
+        costs_phase(cfg_of, corpus, tmp, seed, dev, first)
         sm16_counts = train_sm16_run(
             cfg_of(corpus, os.path.join(tmp, "bf16_softmax"), seed, **dict(
                 TRAIN_PATHS)["kernels"], attention_softmax_dtype="bfloat16"), dev, attn)
@@ -1633,6 +1652,583 @@ def train_phase(cfg_of, dev, seed):
             fail(f"train gradient parity: {bad}")
     return counts, sm16_counts, cases
 
+
+
+# ---------------------------------------------------------------- phase 7: non-finite inputs
+
+# the batch rows' valid lengths of the non-finite cases (T = 768 at the
+# train shapes, 128 for the phoneme axis): a NaN is planted at a valid
+# position of row 0 and a +inf at one of row 1
+NF_MEL_LENS, NF_SRC_LENS = (768, 700, 650, 600), (128, 120, 110, 100)
+
+
+def plant_nonfinite(t, L_axis_pos=(5, 17)):
+    """t with a NaN at [0, 5, 0, ..., 3 % last] and a +inf at [1, 17, -1, ...,
+    7 % last] (valid positions of both rows)."""
+    t = t.clone()
+    last = t.shape[-1]
+    t[(0, L_axis_pos[0]) + (0,) * (t.dim() - 3) + (3 % last,)] = float("nan")
+    t[(1, L_axis_pos[1]) + (-1,) * (t.dim() - 3) + (7 % last,)] = float("inf")
+    return t
+
+
+def nonfinite_equal(got, want, valid):
+    """(the non-finite positions of got and want agree where ``valid``,
+    got's count of them there, want's)."""
+    import torch
+
+    a, b = ~torch.isfinite(got) & valid, ~torch.isfinite(want) & valid
+    return bool((a == b).all()), int(a.sum()), int(b.sum())
+
+
+def nonfinite_cases(cfg, dev, seed):
+    """Each kernel against its plain version on inputs with one NaN and
+    one +inf planted at valid positions, at the LJSpeech_paper train widths
+    with 4 batch rows: the attention forward (out, lse) and backward (dq,
+    dk, dv, from the forward kernel's out and lse) with the plant in q, k
+    or v; the conv plain, with ReLU, and with ReLU + LayerNorm + act. The
+    non-finite positions of every output must be the same over the valid
+    (unpadded) positions: past a row's length the plain backward sums 0 x
+    NaN over padded keys, which the kernels skip. Then ``all_finite`` on
+    the card against one NaN leaf, one inf leaf and a finite 1e30 leaf."""
+    import torch
+
+    from speakingstyle_torch.ops.fused_attention import (
+        attention_lse_plain, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
+        fused_mha_plain,
+    )
+    from speakingstyle_torch.ops.fused_conv import fused_conv_fwd, fused_conv_plain_parts
+
+    g = torch.Generator().manual_seed(seed + 13)
+    tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+    cases = []
+    shapes = (("ref_encoder", NF_MEL_LENS, re_.encoder_head, re_.encoder_hidden // re_.encoder_head),
+              ("encoder", NF_SRC_LENS, tr.encoder_head, tr.encoder_hidden // tr.encoder_head),
+              ("decoder", NF_MEL_LENS, tr.decoder_head, tr.decoder_hidden // tr.decoder_head))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for name, lens, H, D in shapes:
+            L = lens[0]
+            mask = pad_mask(lens, L).to(dev)
+            rows = ~mask[:, :, None, None]
+            for target in ("q", "k", "v"):
+                t = {n: torch.randn((len(lens), L, H, D), generator=g).to(dev, dtype)
+                     for n in ("q", "k", "v", "dout")}
+                t[target] = plant_nonfinite(t[target])
+                q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
+                scale = D ** -0.5
+                out, lse = fused_mha_fwd(q, k, v, mask, scale, want_lse=True)
+                grads = fused_mha_bwd(q, k, v, mask, out, lse, dout, scale)
+                want = (fused_mha_plain(q, k, v, mask, scale),
+                        attention_lse_plain(q, k, mask, scale),
+                        *fused_mha_bwd_plain(q, k, v, mask, dout, scale))
+                torch.cuda.synchronize()
+                outs = {}
+                for key, a, w in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), want):
+                    valid = ~mask[:, None, :] if key == "lse" else rows
+                    outs[key] = nonfinite_equal(a, w, valid)
+                cases.append({"case": f"nonfinite_attn_{name}_{target}_{dname}",
+                              "kernel": "fused_attention_fwd / _bwd", "shape": [len(lens), L, H, D],
+                              "planted_in": target, "nonfinite_kernel_plain": outs,
+                              "ok": all(v[0] for v in outs.values()) and outs["out"][2] > 0})
+        convs = (("ref_conv_relu_ln", re_.conv_kernel_size, re_.conv_filter_size,
+                  re_.conv_filter_size, True),
+                 ("ffn_w1_relu", tr.conv_kernel_size[0], tr.decoder_hidden, tr.conv_filter_size,
+                  False),
+                 ("ffn_w2", tr.conv_kernel_size[1], tr.conv_filter_size, tr.decoder_hidden, None))
+        for name, K, cin, cout, ln in convs:
+            B, T = len(NF_MEL_LENS), NF_MEL_LENS[0]
+            x = plant_nonfinite(torch.randn((B, T, cin), generator=g)).to(dev, dtype)
+            w = (torch.randn((K, cin, cout), generator=g) / (K * cin) ** 0.5).to(dev, dtype)
+            b, sc, sh = (torch.randn(cout, generator=g).to(dev, dtype) for _ in range(3))
+            relu, lnp = ln is not None, (sc, sh) if ln else (None, None)
+            y, act = fused_conv_fwd(x, w, b, *lnp, relu=relu, want_act=bool(ln))
+            wy, wact = fused_conv_plain_parts(x, w, b, *lnp, 1, relu)
+            torch.cuda.synchronize()
+            every = torch.ones_like(y, dtype=torch.bool)
+            outs = {"out": nonfinite_equal(y, wy, every)}
+            if ln:
+                outs["act"] = nonfinite_equal(act, wact, every)
+            cases.append({"case": f"nonfinite_conv_{name}_{dname}", "kernel": "fused_conv1d_fwd",
+                          "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout},
+                          "relu": relu, "layer_norm": bool(ln), "nonfinite_kernel_plain": outs,
+                          "ok": all(v[0] and v[2] > 0 for v in outs.values())})
+    return cases
+
+
+def all_finite_case(dev):
+    """``training.resilience.all_finite`` on card tensors: one NaN leaf, one
+    +inf leaf (float32 and bfloat16), one finite 1e30 leaf among others."""
+    import torch
+
+    from speakingstyle_torch.training.resilience import all_finite
+
+    ok_leaves = [torch.randn(1000, device=dev), torch.randn(64, 64, device=dev).bfloat16(),
+                 torch.tensor(2.0, device=dev)]
+    spots = {}
+    for name, value, dtype in (("nan", float("nan"), torch.float32),
+                               ("inf", float("inf"), torch.float32),
+                               ("inf_bf16", float("inf"), torch.bfloat16),
+                               ("finite_1e30", 1e30, torch.float32)):
+        leaf = torch.zeros(4096, device=dev, dtype=dtype)
+        leaf[1234] = value
+        flag = all_finite({"losses": ok_leaves[2]}, ok_leaves[:2] + [leaf])
+        spots[name] = {"on_device": flag.device.type == "cuda", "finite": bool(flag)}
+    ok = (not spots["nan"]["finite"] and not spots["inf"]["finite"]
+          and not spots["inf_bf16"]["finite"] and spots["finite_1e30"]["finite"]
+          and all(v["on_device"] for v in spots.values()))
+    return {"case": "all_finite", "verdicts": spots, "ok": ok}
+
+
+def nonfinite_phase(cfg, dev, seed):
+    """Phase 7: ``nonfinite_cases`` and ``all_finite_case``, one
+    ``kernels_nonfinite`` line each."""
+    cases = nonfinite_cases(cfg, dev, seed) + [all_finite_case(dev)]
+    for c in cases:
+        emit("kernels_nonfinite", **c)
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        fail(f"non-finite inputs: kernels and plain versions disagree: {bad}")
+
+
+# ---------------------------------------------------------------- phase 8: resilience drills
+
+DRILL_STEPS = 12
+# the train command's drills, each on the kernel path with the preset's
+# resilience defaults (NaN sentinel, keep-best, async saves on)
+DRILL_NAN = "nan_grads@7,loader_ioerror@3"
+DRILL_SIGTERM = "sigterm@8"
+# the SIGTERM'd and resumed run's losses (steps 1-12, deterministic
+# algorithms) against a run that stops at step 8 without the signal and
+# resumes: within the largest difference of two such runs plus 2^-20
+# relative (an f32 rounding, should a process pick another algorithm)
+RESUME_RTOL = 2 ** -20
+
+
+def config_yamls(cfg, out):
+    """The -p / -m / -t arguments of a config written as YAML under out."""
+    import yaml
+
+    def plain(x):
+        if dataclasses.is_dataclass(x):
+            return {f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+        return [plain(v) for v in x] if isinstance(x, (list, tuple)) else x
+
+    os.makedirs(out, exist_ok=True)
+    args = []
+    for flag, name, doc in (("-p", "preprocess", plain(cfg.preprocess)),
+                            ("-m", "model", plain(cfg.model)),
+                            ("-t", "train", dict(plain(cfg.train), serve=plain(cfg.serve)))):
+        path = os.path.join(out, f"{name}.yaml")
+        with open(path, "w", encoding="utf-8") as fh:
+            yaml.safe_dump(doc, fh)
+        args += [flag, path]
+    return args
+
+
+def train_cli(what, args, dev):
+    """``python -m speakingstyle_torch train`` in a subprocess from the
+    checkout's root: (stdout, seconds); a non-zero exit fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "speakingstyle_torch", "train", *args,
+                          "--device", dev.type], cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        fail(f"{what}: train exited {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def runs_of(log_path):
+    """The event records of each run (split at ``train_start``)."""
+    from speakingstyle_torch.obs import read_events
+
+    runs = []
+    for e in read_events(log_path):
+        if e["event"] == "train_start":
+            runs.append([])
+        runs[-1].append(e)
+    return runs
+
+
+def of(events, kind):
+    return [e for e in events if e["event"] == kind]
+
+
+def losses_of(events):
+    return {e["step"]: e["total_loss"] for e in of(events, "train_step")}
+
+
+def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
+    """Phase 8: the train command's drills, in subprocesses. (a) DRILL_NAN
+    over DRILL_STEPS steps with max_to_keep 1: one rollback at step 7 to
+    step 5, the loader error retried, 2 faults fired, finite losses at the
+    end, the kernels launched per step (and per val batch) as without the
+    drill, and (c) the best step by val loss still on disk beside the
+    newest. (b) DRILL_SIGTERM: exit 0 after a flushed step-8 checkpoint and
+    a preempt_flush event, then ``--restore_step -1`` resumes at step 9 and
+    reaches 12, its losses against two runs that stop at 8 without the
+    signal and resume, all with ``--deterministic``."""
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.trainer import run_training
+
+    kernels = dict(TRAIN_PATHS)["kernels"]
+    rep = dataclasses.replace
+    cfg = cfg_of(corpus, os.path.join(tmp, "drill_a"), seed, **kernels)
+    cfg = rep(cfg, train=rep(cfg.train, resilience=rep(cfg.train.resilience, max_to_keep=1)))
+    res = cfg.train.resilience
+    stdout, secs_a = train_cli("train_resilience (a)", config_yamls(cfg, os.path.join(
+        tmp, "drill_a", "yaml")) + ["--max_steps", str(DRILL_STEPS), "--faults", DRILL_NAN], dev)
+    (events,) = runs_of(cfg.train.path.log_path)
+    end = of(events, "train_end")[-1]
+    counters, launches = end["counters"], end["kernel_launches"]
+    n_steps, n_vals = int(counters.get("train_steps_total", 0)), len(of(events, "val"))
+    want_launches = {k: per_step * n_steps + per_val * n_val * n_vals
+                     for k, (per_step, per_val) in want.items()}
+    last = of(events, "train_step")[-1]
+    finite = last["step"] == DRILL_STEPS and all(
+        math.isfinite(v) for k, v in last.items() if k.endswith("_loss"))
+    rollbacks = [(e["step"], e["restore_step"]) for e in of(events, "rollback")]
+    retried = "injected loader_ioerror@3" in stdout and "retry 1/3" in stdout
+    val = None
+    saved = {}
+    for e in events:  # each save carries the val loss logged before it
+        if e["event"] == "val":
+            val = e["total_loss"]
+        elif e["event"] == "checkpoint_save":
+            saved[e["step"]] = val
+    scored = {s: v for s, v in saved.items() if v is not None}
+    best = min(scored, key=scored.get) if scored else None
+    on_disk = CheckpointManager(cfg.train.path.ckpt_path).all_steps()
+    want_disk = sorted({max(saved)} | ({best} if best is not None else set()))
+    emit("train_resilience", drill="a", entry="python -m speakingstyle_torch train",
+         faults=DRILL_NAN, steps=DRILL_STEPS, seconds=secs_a,
+         resilience=dataclasses.asdict(res), rollbacks=rollbacks, loader_retried=retried,
+         counters=counters, steps_run=n_steps, val_passes=n_vals,
+         train_steps_logged=[e["step"] for e in of(events, "train_step")],
+         final_losses={k: v for k, v in last.items() if k.endswith("_loss")},
+         launches=launches, want_launches=want_launches,
+         keep_best={"saves_with_val": saved, "best": best, "on_disk": on_disk,
+                    "want_on_disk": want_disk})
+    if rollbacks != [(7, 5)] or not retried or not finite:
+        fail(f"train_resilience (a): rollbacks {rollbacks}, loader retried {retried}, "
+             f"finite at step {DRILL_STEPS} {finite}")
+    if counters.get("faults_fired_total") != 2 or counters.get("train_rollbacks_total") != 1 \
+            or n_steps != DRILL_STEPS + 2:
+        fail(f"train_resilience (a): counters {counters}")
+    if any(launches[k] != n or (want[k][0] and not n) for k, n in want_launches.items()):
+        fail(f"train_resilience (a): launches {launches}, want {want_launches}")
+    if on_disk != want_disk:
+        fail(f"train_resilience (c): checkpoints {on_disk}, want {want_disk} (best {best})")
+
+    # (b): every run of the train command with --deterministic, so that two
+    # uninterrupted runs repeat bit for bit (the default backward sums with
+    # atomics: two runs' losses part by ~1e-2 within 9 steps)
+    det = ["--deterministic", "--max_steps", str(DRILL_STEPS)]
+    cfg = cfg_of(corpus, os.path.join(tmp, "drill_b"), seed, **kernels)
+    args = config_yamls(cfg, os.path.join(tmp, "drill_b", "yaml")) + det
+    stdout, secs_b = train_cli("train_resilience (b)", args + ["--faults", DRILL_SIGTERM], dev)
+    flushed = "SIGTERM: checkpoint flushed at step 8" in stdout
+    _, secs_r = train_cli("train_resilience (b) resume", args + ["--restore_step", "-1"], dev)
+    stopped, resumed = runs_of(cfg.train.path.log_path)
+    flush = [(e["signal"], e["step"]) for e in of(stopped, "preempt_flush")]
+    ckpt8 = 8 in CheckpointManager(cfg.train.path.ckpt_path).all_steps()
+    base = []
+    for i in range(2):  # stop at 8 without a signal, then resume: the same batches
+        c = cfg_of(corpus, os.path.join(tmp, f"drill_b_uninterrupted_{i}"), seed, **kernels)
+        a = config_yamls(c, os.path.join(tmp, f"drill_b_uninterrupted_{i}", "yaml")) + det
+        train_cli("train_resilience (b) uninterrupted", a[:-1] + ["8"], dev)
+        train_cli("train_resilience (b) uninterrupted", a + ["--restore_step", "-1"], dev)
+        base.append({k: v for run in runs_of(c.train.path.log_path)
+                     for k, v in losses_of(run).items()})
+    got = {**losses_of(stopped), **losses_of(resumed)}
+    steps = range(1, DRILL_STEPS + 1)
+    spread = max(abs(base[0][s] - base[1][s]) for s in steps)
+    err = max(abs(got.get(s, math.nan) - base[0][s]) for s in steps)
+    allowed = spread + RESUME_RTOL * max(abs(base[0][s]) for s in steps)
+    emit("train_resilience", drill="b", entry="python -m speakingstyle_torch train",
+         faults=DRILL_SIGTERM, deterministic=True,
+         seconds={"stopped": secs_b, "resumed": secs_r}, flushed=flushed,
+         preempt_flush=flush, checkpoint_8_on_disk=ckpt8,
+         stopped_steps=sorted(losses_of(stopped)), resumed_steps=sorted(losses_of(resumed)),
+         resumed_from=of(resumed, "train_start")[0].get("checkpoint_step"),
+         losses={s: got.get(s) for s in steps},
+         uninterrupted_losses=[{s: b[s] for s in steps} for b in base],
+         uninterrupted_spread=spread, max_abs_err=err, allowed=allowed,
+         tol={"spread_plus_rtol": RESUME_RTOL})
+    if not (flushed and flush == [("SIGTERM", 8)] and ckpt8
+            and sorted(losses_of(stopped)) == list(range(1, 9))
+            and sorted(losses_of(resumed)) == list(range(9, DRILL_STEPS + 1))):
+        fail(f"train_resilience (b): flushed {flushed} {flush}, step 8 on disk {ckpt8}, "
+             f"steps {sorted(losses_of(stopped))} then {sorted(losses_of(resumed))}")
+    if not err <= allowed:
+        fail(f"train_resilience (b): losses {err} from the uninterrupted runs', allowed "
+             f"{allowed} (their spread {spread})")
+
+
+# ---------------------------------------------------------------- phase 9: remat
+
+REMAT_STEPS = 4
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for a comparison (``device.use_deterministic``),
+    restored after."""
+    import torch
+
+    from speakingstyle_torch.device import use_deterministic
+
+    saved = torch.are_deterministic_algorithms_enabled()
+    use_deterministic(True)
+    try:
+        yield
+    finally:
+        use_deterministic(saved)
+
+
+def step_ms(cfg, arrays, dev, reps=5):
+    """Median wall ms of ``reps`` train steps on one batch (after two),
+    synchronised around each."""
+    import torch
+
+    from speakingstyle_torch.training.trainer import build_state, make_train_step
+
+    state, step = build_state(cfg, dev), make_train_step(cfg)
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, arrays)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
+
+
+def remat_phase(cfg, batch, dev):
+    """Phase 9: ``run_training`` for REMAT_STEPS steps with
+    ``sharding.remat`` off and on, every kernel count set to 0 just before
+    and read just after each: under remat the encoder's and decoder's FFT
+    blocks run their forwards twice (the recompute), the reference
+    encoder's once; the peak memory of both. The step time of both on the
+    first batch, in turns (off, on, on, off). Then one step's per-leaf
+    gradients on the first batch, dropout on, deterministic algorithms:
+    remat against two runs without it, within their difference (bit for
+    bit where they repeat); and how far two runs under PyTorch's default
+    algorithms part."""
+    import torch
+
+    from speakingstyle_torch.training.trainer import (
+        build_state, make_train_step, run_training, to_device,
+    )
+
+    rep = dataclasses.replace
+    tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+    blocks = tr.encoder_layer + tr.decoder_layer
+    attn = re_.encoder_layer + blocks
+    convs = sum(c[-1] for c in conv_cases(cfg))
+    with_remat = lambda c, on: rep(c, train=rep(c.train, sharding=rep(c.train.sharding,
+                                                                       remat=on)))
+    runs = {}
+    for remat in (False, True):
+        c = with_remat(cfg, remat)
+        c = rep(c, train=rep(c.train, path=rep(c.train.path,
+                                               ckpt_path=c.train.path.ckpt_path + f"_{remat}",
+                                               log_path=c.train.path.log_path + f"_{remat}")))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run_training(c, device=dev, max_steps=REMAT_STEPS)
+        counts = read_counts()
+        runs[remat] = {"launches": counts, "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated(), "step_ms": []}
+    arrays = to_device(batch.arrays(), dev)
+    for remat in (False, True, True, False):
+        runs[remat]["step_ms"].append(step_ms(with_remat(cfg, remat), arrays, dev))
+    per_step = {"fused_attention_fwd": attn + blocks, "fused_attention_bwd": attn,
+                "fused_attention_bwd_delta": attn, "fused_conv1d_fwd": convs + 2 * blocks,
+                "fused_conv1d_fwd_act": re_.conv_layer}
+    want = {k: n * REMAT_STEPS for k, n in per_step.items()}
+    def one_step(remat):
+        c = with_remat(cfg, remat)
+        return [x.float() for x in make_train_step(c)(build_state(c, dev), arrays)[1]]
+
+    with deterministic():
+        grads = [one_step(False), one_step(False), one_step(True)]
+    default = [one_step(False), one_step(False)]  # PyTorch's default algorithms
+    scale = [x.abs().max().clamp_min(1e-30) for x in grads[0]]
+    rel = lambda a, b: max(((x - y).abs().max() / s).item() for x, y, s in zip(a, b, scale))
+    spread, err = rel(grads[0], grads[1]), rel(grads[2], grads[0])
+    default_differ = sum(not torch.equal(a, b) for a, b in zip(*default))
+    emit("train_remat", entry="training.trainer.run_training", steps=REMAT_STEPS,
+         checkpointed_blocks=blocks, remat=runs[True], no_remat=runs[False],
+         want_launches=want, peak_ratio=runs[True]["max_memory_allocated_bytes"]
+         / runs[False]["max_memory_allocated_bytes"],
+         step_ms_ratio=statistics.median(runs[True]["step_ms"])
+         / statistics.median(runs[False]["step_ms"]),
+         grads={"leaves": len(grads[0]), "deterministic": True,
+                "remat_vs_no_remat_max_rel": err, "no_remat_spread_max_rel": spread,
+                "default_algorithms_leaves_differing": default_differ,
+                "default_algorithms_spread_max_rel": rel(default[0], default[1]),
+                "dropout": [tr.encoder_dropout, tr.decoder_dropout, re_.dropout]})
+    if any(runs[True]["launches"][k] != n for k, n in want.items()):
+        fail(f"train_remat: launches {runs[True]['launches']}, want {want}")
+    if not err <= spread:
+        fail(f"train_remat: remat gradients {err} from the plain ones, spread {spread}")
+
+
+# ---------------------------------------------------------------- phase 10: costs
+
+SAVE_REPEATS = 3
+# the runs of the costs phase, each configuration twice, in turns (the
+# host's share of a step moves between runs more than these costs)
+COST_STEPS = 12
+COST_ORDER = ("prefetcher", "no_sentinel", "inline_copy", "inline_copy", "no_sentinel",
+              "prefetcher")
+
+
+class InlineCopy:
+    """The loop's data path before the prefetcher: each batch loaded,
+    collated and copied in the step loop's own thread (``to_device``)."""
+
+    def __init__(self, batches, device, **_):
+        self.batches, self.device = batches, device
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from speakingstyle_torch.training.trainer import to_device
+
+        batch = next(self.batches)
+        return batch, to_device(batch.arrays(), self.device)
+
+    def stop(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def save_costs(cfg, dev, tmp):
+    """The step loop's stall at a save step (the time ``save()`` holds
+    it) with synchronous and with async saves, the checkpoint's bytes, and
+    the async write's seconds after the stall, median of SAVE_REPEATS."""
+    import torch
+
+    from speakingstyle_torch.training.checkpoint import STATE_NAME, CheckpointManager
+    from speakingstyle_torch.training.trainer import build_state
+
+    state = build_state(cfg, dev)
+    out = {}
+    for mode in ("sync", "async"):
+        ckpt = CheckpointManager(os.path.join(tmp, f"save_{mode}"), max_to_keep=1,
+                                 async_save=mode == "async")
+        stalls, writes = [], []
+        for i in range(SAVE_REPEATS + 1):  # the first allocates the pinned buffers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save(i + 1, state)
+            t1 = time.perf_counter()
+            ckpt.wait()
+            if i:
+                stalls.append((t1 - t0) * 1e3)
+                writes.append(time.perf_counter() - t1)
+        out[mode] = {"stall_ms": stalls, "stall_ms_median": statistics.median(stalls),
+                     "write_s_after_stall_median": statistics.median(writes),
+                     "checkpoint_bytes": os.path.getsize(os.path.join(path, STATE_NAME))}
+    return out
+
+
+def timed_run(cfg, dev):
+    """``run_training`` for COST_STEPS steps: per step from step 3 on, the
+    step time and data wait of its log line and the whole iteration
+    (1 / steps_per_sec), in ms."""
+    from speakingstyle_torch.training.trainer import run_training
+
+    run_training(cfg, device=dev, max_steps=COST_STEPS)
+    rows = read_log(os.path.join(cfg.train.path.log_path, "log.txt"))["train"]
+    rows = [rows[s] for s in range(TRAIN_WARMUP + 1, COST_STEPS + 1)]
+    return {"step_ms": [r["step_time_s"] * 1e3 for r in rows],
+            "data_wait_ms": [r["data_wait_s"] * 1e3 for r in rows],
+            "iteration_ms": [1e3 / r["steps_per_sec"] for r in rows]}
+
+
+def sentinel_cost(cfg, batch, dev):
+    """What the NaN sentinel adds to a step: ``all_finite`` over one step's
+    losses and gradients, traced: its device operations, their launches
+    and device ms; and its host ms a call (launches only, no sync)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.training.resilience import all_finite
+    from speakingstyle_torch.training.trainer import build_state, make_train_step, to_device
+
+    state = build_state(cfg, dev)
+    losses, grads = make_train_step(cfg)(state, to_device(batch.arrays(), dev))
+    losses.pop("_finite", None)
+    run = lambda: all_finite(losses, grads)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    t0 = time.perf_counter()
+    for _ in range(100):
+        run()
+    host_ms = (time.perf_counter() - t0) * 10.0
+    torch.cuda.synchronize()
+    return {"device_ops": len(kernels),
+            "launches": sum(e.name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+                            for e in events),
+            "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "host_ms": host_ms, "leaves": len(grads) + len(losses)}
+
+
+def costs_phase(cfg_of, corpus, tmp, seed, dev, batch):
+    """Phase 10, what the new paths cost (no claim): ``run_training`` in
+    COST_ORDER, the kernel path with the prefetcher and the NaN sentinel
+    (the defaults), with the sentinel off, and with the inline copy in place
+    of the prefetcher: step time, data wait and iteration per step; what the
+    sentinel's reduction adds to a step; the save stall."""
+    from speakingstyle_torch.data import prefetch
+
+    rep = dataclasses.replace
+    kernels = dict(TRAIN_PATHS)["kernels"]
+
+    def variant(tag, out):
+        cfg = cfg_of(corpus, out, seed, **kernels)
+        if tag == "no_sentinel":
+            cfg = rep(cfg, train=rep(cfg.train, resilience=rep(cfg.train.resilience,
+                                                                nan_sentinel=False)))
+        return cfg
+
+    # first: a traced window late in the process can come back without its
+    # device events
+    sentinel = sentinel_cost(variant("no_sentinel", os.path.join(tmp, "cost_ops")), batch, dev)
+    runs = {}
+    for i, tag in enumerate(COST_ORDER):
+        cfg = variant(tag, os.path.join(tmp, f"cost_{i}_{tag}"))
+        saved = prefetch.DevicePrefetcher
+        if tag == "inline_copy":
+            prefetch.DevicePrefetcher = InlineCopy
+        try:
+            run = timed_run(cfg, dev)
+        finally:
+            prefetch.DevicePrefetcher = saved
+        for k, v in run.items():
+            runs.setdefault(tag, {}).setdefault(k, []).extend(v)
+    summary = {tag: {f"{k}_median": statistics.median(v) for k, v in r.items()}
+               for tag, r in runs.items()}
+    emit("train_costs", nvidia_smi=nvidia_smi(), order=COST_ORDER, steps=COST_STEPS,
+         warmup_steps=TRAIN_WARMUP, runs=runs, medians=summary,
+         sentinel=sentinel,
+         saves=save_costs(variant("prefetcher", os.path.join(tmp, "cost_save")), dev, tmp))
 
 
 # ---------------------------------------------------------------- the bf16 softmax
@@ -1845,6 +2441,8 @@ def main(argv=None) -> int:
     bad = [c["case"] for c in cases.values() if not c["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    with strict_float32():
+        nonfinite_phase(load_config(preset="LJSpeech_paper"), dev, args.seed)
     # the LJSpeech config under attention_softmax_dtype: bfloat16
     sm16_cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, attention_softmax_dtype="bfloat16"))

@@ -4,12 +4,17 @@ speakingstyle_tpu/cli/train.py).
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails rather than
 fall back when no card is present. The weights start from ``train.seed``;
 ``--restore_step`` resumes from a checkpoint of ``train.path.ckpt_path``.
+``--faults`` arms resilience drills (``SPEAKINGSTYLE_FAULTS``), e.g.
+``nan_grads@7,loader_ioerror@3`` or ``sigterm@8``.
 
     python -m speakingstyle_torch train -p preprocess.yaml -m model.yaml \\
-        -t train.yaml [--max_steps N] [--restore_step -1] [--device cpu]
+        -t train.yaml [--max_steps N] [--restore_step -1] [--device cpu] \\
+        [--faults SPEC] [--deterministic] [--synth [--vocoder_ckpt PATH]] \\
+        [--profile_dir DIR] [--profile_at N]
 """
 
 import argparse
+import os
 
 
 def build_parser(parser=None):
@@ -24,21 +29,58 @@ def build_parser(parser=None):
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override train.step.total_step")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--synth", action="store_true",
+                        help="render a ground-truth vs predicted sample every synth_step")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="HiFi-GAN checkpoint for --synth audio (Griffin-Lim otherwise)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler chrome trace of steps 10-20 here")
+    parser.add_argument("--profile_at", type=int, default=None,
+                        help="trace steps [N, N+10) of this run (relative to the resume "
+                             "point) into --profile_dir, by default <log_path>/profile")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="deterministic algorithms: the same steps repeat bit for bit "
+                             "(slower; for reproducible runs and comparisons)")
+    parser.add_argument("--faults", default=None,
+                        help="fault-injection spec for resilience drills, e.g. "
+                             "'nan_grads@120;sigterm@500' (sets SPEAKINGSTYLE_FAULTS; "
+                             "grammar in speakingstyle_torch/faults.py; ',' separates too)")
     return parser
 
 
 def main(args):
     from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.training.faults import ENV_VAR, FaultPlan
     from speakingstyle_torch.training.trainer import run_training
 
     if args.preset is None and not (args.preprocess_config and args.model_config
                                     and args.train_config):
         raise SystemExit("train needs --preset or all of -p, -m and -t")
+    if args.deterministic:
+        from speakingstyle_torch.device import use_deterministic
+
+        use_deterministic()
+    if args.faults:
+        spec = args.faults.replace(",", ";")
+        FaultPlan.parse(spec)  # validate the spec before training
+        os.environ[ENV_VAR] = spec
     cfg = load_config(args.preprocess_config, args.model_config, args.train_config,
                       preset=args.preset)
+    vocoder = None
+    if args.synth and args.vocoder_ckpt:
+        from speakingstyle_torch.device import resolve_device
+        from speakingstyle_torch.synthesis import get_vocoder
+
+        vocoder = get_vocoder(cfg, args.vocoder_ckpt).to(resolve_device(args.device)).eval()
+    profile_dir, profile_steps = args.profile_dir, (10, 20)
+    if args.profile_at is not None:
+        profile_steps = (args.profile_at, args.profile_at + 10)
+        profile_dir = profile_dir or os.path.join(cfg.train.path.log_path, "profile")
     state = run_training(cfg, device=args.device,
                          restore_step=args.restore_step if args.restore_step != 0 else None,
-                         max_steps=args.max_steps)
+                         max_steps=args.max_steps,
+                         synth_callback="default" if args.synth else None, vocoder=vocoder,
+                         profile_dir=profile_dir, profile_steps=profile_steps)
     print(f"training finished at step {state.step}")
     return state
 

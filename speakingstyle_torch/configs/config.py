@@ -15,20 +15,14 @@ knobs keep their values and meanings:
 Every key is checked at load time; an unknown key raises and names itself.
 ``train.yaml`` loads into ``TrainConfig`` (the JAX package's blocks and
 defaults) plus the serve block. The trainer (training/trainer.py) reads
-``path``, ``optimizer``, ``step``, ``loss``, ``seed``,
-``resilience.max_to_keep`` and ``ignore_layers``. Knobs that tune only the
-JAX package's compiler or runtime have no meaning here and are accepted as
-they are: ``fast_prng`` (the PRNG behind dropout bits), ``fused_optimizer``
-(three layouts of one update, which the port computes one way),
-``obs.compilation_cache_dir`` / ``obs.program_card``, and the
-``resilience`` knobs of the rollbacks and loader retries. What asks for a
-path not ported yet raises ``NotImplementedError`` when training starts
-(``check_train_supported``): a mesh other than one device,
-``sharding.remat: true``, fault injection (``SPEAKINGSTYLE_FAULTS``), or
-``resilience.nan_sentinel`` / ``keep_best`` / ``async_checkpointing``.
-Those three default to false here (true in the JAX package), so a
-``train.yaml`` that leaves them out loads and trains, and one that asks
-for them raises.
+``path``, ``optimizer``, ``step``, ``loss``, ``seed``, ``resilience``,
+``obs.events*``, ``sharding.remat`` and ``ignore_layers``. Knobs that tune
+only the JAX package's compiler or runtime have no meaning here and are
+accepted as they are: ``fast_prng`` (the PRNG behind dropout bits),
+``fused_optimizer`` (three layouts of one update, which the port computes
+one way), ``obs.compilation_cache_dir`` / ``obs.program_card``. A mesh
+other than one device raises ``NotImplementedError`` when training starts
+(``check_train_supported``).
 """
 
 from __future__ import annotations
@@ -329,15 +323,20 @@ class ParallelConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    # not ported yet, so false by default (check_train_supported raises on true)
-    async_checkpointing: bool = False
+    """Fault-tolerance knobs (training/resilience.py); the JAX package's
+    defaults."""
+
+    # checkpoint writes run on a background thread after a host snapshot
+    async_checkpointing: bool = True
     max_to_keep: int = 5  # newest N step checkpoints; 0 keeps everything
-    keep_best: bool = False
-    nan_sentinel: bool = False
-    max_rollbacks: int = 3
+    keep_best: bool = True  # never prune the best-val-loss step
+    # an all-finite flag over losses + grads each step, read at the log
+    # boundary; on a trip, roll back to the last good checkpoint
+    nan_sentinel: bool = True
+    max_rollbacks: int = 3  # consecutive rollbacks before TrainingDivergedError
     loader_retries: int = 3
-    loader_backoff: float = 0.05
-    bad_sample_budget: int = 16
+    loader_backoff: float = 0.05  # seconds; doubles per attempt
+    bad_sample_budget: int = 16  # quarantined samples before the run fails
 
     def __post_init__(self):
         for name in ("max_to_keep", "max_rollbacks", "loader_retries", "bad_sample_budget"):
@@ -387,13 +386,9 @@ class TrainConfig:
             )
 
 
-FAULTS_ENV = "SPEAKINGSTYLE_FAULTS"
-
-
 def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
-    """Raise ``NotImplementedError`` for a training setting whose path is
-    not ported yet (ROADMAP.md queue A): more than one device, remat, fault
-    injection, the NaN sentinel, keep-best retention or async saves.
+    """Raise ``NotImplementedError`` for more than one device: the port
+    trains on one (multi-device training is ROADMAP.md queue A item 6).
     ``n_devices`` is what ``sharding.data_axis = -1`` resolves to."""
     par, sh = train.parallel, train.sharding
     dp = n_devices if sh.data_axis == -1 else sh.data_axis
@@ -401,24 +396,7 @@ def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
         raise NotImplementedError(
             f"train.parallel.mesh {par.mesh} (seq {par.seq}) / train.sharding "
             f"data_axis {sh.data_axis}, model_axis {sh.model_axis}: the port trains "
-            "on one device; multi-device training is ROADMAP.md queue A item 8"
-        )
-    if sh.remat:
-        raise NotImplementedError(
-            "train.sharding.remat: true is not ported yet (ROADMAP.md queue A item 6)"
-        )
-    if os.environ.get(FAULTS_ENV):
-        raise NotImplementedError(
-            f"{FAULTS_ENV} is set: fault injection and the resilience drills are "
-            "not ported yet (ROADMAP.md queue A item 6)"
-        )
-    asked = [k for k in ("nan_sentinel", "keep_best", "async_checkpointing")
-             if getattr(train.resilience, k)]
-    if asked:
-        raise NotImplementedError(
-            f"train.resilience {', '.join(asked)}: true is not ported yet (the port "
-            "saves synchronously, keeps the newest max_to_keep steps and has no NaN "
-            "rollback; ROADMAP.md queue A item 6)"
+            "on one device; multi-device training is ROADMAP.md queue A item 6"
         )
 
 

@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < BT; ++r) {
       float v = acc[r][c] + bc;
-      if (relu) v = fmaxf(v, 0.f);
+      if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
       acc[r][c] = v;
     }
   }
@@ -445,7 +445,7 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float v = acc[mt][nt][2 * h + e] + bc;
-          if (relu) v = fmaxf(v, 0.f);
+          if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
           if (LN) v = __bfloat162float(__float2bfloat16(v));
           acc[mt][nt][2 * h + e] = v;
         }

@@ -10,8 +10,9 @@ splits it into ``group_size`` real batches.
 Every emitted batch is padded to a shape from a small static bucket grid
 (src rounded up to ``src_bucket``, mel rounded up to ``mel_bucket``), as in
 the JAX package, so both packages see the same batches from the same seed.
-The loader's retry and quarantine layer is not ported yet (ROADMAP.md): a
-failed feature load raises.
+Transient feature-load errors are retried with exponential backoff, and a
+sample that still fails is quarantined (skipped) up to a budget, as in the
+JAX package (training/resilience.py).
 """
 
 import json
@@ -79,10 +80,17 @@ class Batch:
 
 
 class SpeechDataset:
-    """Feature-loading dataset (reference: dataset.py:12-146)."""
+    """Feature-loading dataset (reference: dataset.py:12-146).
+
+    ``retries``/``backoff`` engage retry-with-exponential-backoff on
+    transient OSErrors in the feature loads; ``fault_plan``
+    (training/faults.py) injects a ``loader_ioerror`` exactly once at the
+    named feature-load count (1-based, per dataset instance), counted in
+    ``registry``'s ``faults_fired_total`` where one is given."""
 
     def __init__(self, filename: str, config: Config, sort: bool = True,
-                 drop_last: bool = False):
+                 drop_last: bool = False, retries: int = 0, backoff: float = 0.05,
+                 fault_plan=None, registry=None):
         pp = config.preprocess
         self.root = pp.path.preprocessed_path
         self.cleaners = pp.preprocessing.text.text_cleaners
@@ -92,6 +100,9 @@ class SpeechDataset:
         self.drop_last = drop_last
         self.pitch_level = pp.preprocessing.pitch.feature
         self.energy_level = pp.preprocessing.energy.feature
+        self.retries, self.backoff, self.fault_plan = retries, backoff, fault_plan
+        self.registry = registry
+        self._feature_loads = 0  # the loader_ioerror@N counter
         self.entries = parse_metadata(os.path.join(self.root, filename))
         with open(os.path.join(self.root, "speakers.json")) as f:
             self.speaker_map = json.load(f)
@@ -100,7 +111,23 @@ class SpeechDataset:
         return len(self.entries)
 
     def _feature(self, kind: str, speaker: str, basename: str) -> np.ndarray:
-        return np.load(os.path.join(self.root, kind, f"{speaker}-{kind}-{basename}.npy"))
+        from speakingstyle_torch.training.resilience import retry_io
+
+        path = os.path.join(self.root, kind, f"{speaker}-{kind}-{basename}.npy")
+        self._feature_loads += 1
+        n = self._feature_loads
+
+        def load():
+            if self.fault_plan is not None and self.fault_plan.fire("loader_ioerror", n):
+                if self.registry is not None:
+                    self.registry.counter("faults_fired_total").inc()
+                raise IOError(f"injected loader_ioerror@{n} ({path})")
+            return np.load(path)
+
+        if not self.retries:
+            return load()
+        return retry_io(load, retries=self.retries, backoff=self.backoff,
+                        exceptions=(OSError,), describe=path)
 
     def __getitem__(self, idx: int) -> Dict:
         basename, speaker, text, raw = self.entries[idx]
@@ -125,6 +152,12 @@ class BucketedBatcher:
     are truncated, mirroring the reference Decoder's max_seq_len truncation,
     transformer/Models.py:154-162). The shuffle draws from
     ``np.random.default_rng(seed)``, as the JAX package's does.
+
+    ``quarantine`` (training/resilience.Quarantine): a sample that still
+    fails after the dataset's own retries is quarantined (logged and
+    skipped) instead of killing the loader, and the run fails only past
+    the quarantine's budget. Without it, the first loader error
+    propagates.
     """
 
     def __init__(
@@ -136,6 +169,7 @@ class BucketedBatcher:
         max_mel: Optional[int] = None,
         batch_pad_multiple: int = 1,
         seed: int = 1234,
+        quarantine=None,
     ):
         self.ds = dataset
         self.src_bucket = src_bucket
@@ -143,7 +177,22 @@ class BucketedBatcher:
         self.max_src = max_src
         self.max_mel = max_mel
         self.batch_pad_multiple = batch_pad_multiple
+        self.quarantine = quarantine
         self.rng = np.random.default_rng(seed)
+
+    def _fetch(self, idx: int) -> Optional[Dict]:
+        """Load one sample; with a quarantine, skip (None) a known-bad one
+        and quarantine one that fails."""
+        sample_id = self.ds.entries[idx][0]
+        if self.quarantine is not None and sample_id in self.quarantine:
+            return None  # known-bad: don't pay the retries again
+        try:
+            return self.ds[idx]
+        except Exception as e:
+            if self.quarantine is None:
+                raise
+            self.quarantine.add(sample_id, e)  # raises past the budget
+            return None
 
     def _pad_batch(self, items: Sequence[Dict]) -> Batch:
         n_real = len(items)
@@ -215,7 +264,9 @@ class BucketedBatcher:
         super_size = ds.batch_size * ds.group_size
         for s in range(0, len(order), super_size):
             chunk = order[s : s + super_size]
-            items = [ds[int(i)] for i in chunk]
+            items = [it for i in chunk if (it := self._fetch(int(i))) is not None]
+            if not items:
+                continue
             if ds.sort:
                 idx = np.argsort([-len(d["text"]) for d in items], kind="stable")
                 items = [items[int(i)] for i in idx]

@@ -51,7 +51,9 @@ class FastSpeech2(nn.Module):
                 ref.encoder_layer, ref.encoder_head, ref.encoder_hidden,
                 n_position=n_position, dropout=ref.dropout, **common,
             )
-        stack = dict(common, attention_impl=m.attention_impl)
+        # train.sharding.remat checkpoints the encoder's and decoder's FFT
+        # blocks (not the reference encoder's), as the JAX package does
+        stack = dict(common, attention_impl=m.attention_impl, remat=config.train.sharding.remat)
         self.encoder = Encoder(
             tf.encoder_layer, tf.encoder_hidden, tf.encoder_head, tf.conv_filter_size,
             tuple(tf.conv_kernel_size), n_position, film=self.use_ref,

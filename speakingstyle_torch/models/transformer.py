@@ -2,14 +2,22 @@
 counterpart: speakingstyle_tpu/models/transformer.py).
 
 The PE table is sized at construction (``n_position``); sequences longer
-than the table raise.
+than the table raise. ``remat`` (``train.sharding.remat``) checkpoints each
+FFT block of a stack in training: its activations are dropped after the
+forward and recomputed in the backward (``torch.utils.checkpoint``,
+non-reentrant), trading the block's forward FLOPs for its activation
+memory, as ``nn.remat`` does in the JAX package. The recompute replays the
+forward's dropout masks (``ops.dropout.ReplayRNG``).
 """
 
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+from speakingstyle_torch.ops.dropout import ReplayRNG
 
 from speakingstyle_torch.models.layers import FFTBlock, position_table
 from speakingstyle_torch.ops.positional import add_position_encoding
@@ -25,9 +33,9 @@ class FFTStack(nn.Module):
                  conv_impl: str = "xla", dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
                  attention_impl: str = "dense", dropout: float = 0.0,
-                 dropout_impl: str = "hash"):
+                 dropout_impl: str = "hash", remat: bool = False):
         super().__init__()
-        self.n_layers = n_layers
+        self.n_layers, self.remat = n_layers, remat
         self.register_buffer("pe", position_table(n_position, d_model), persistent=False)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", FFTBlock(
@@ -41,8 +49,22 @@ class FFTStack(nn.Module):
                 rng=None):
         x = add_position_encoding(x, self.pe)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, pad_mask, gammas, betas, deterministic, rng)
+            block = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                replay = None if rng is None or deterministic else ReplayRNG(rng)
+                x = torch.utils.checkpoint.checkpoint(
+                    _run_block, block, x, pad_mask, gammas, betas, deterministic,
+                    replay or rng, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, pad_mask, gammas, betas, deterministic, rng)
         return x
+
+
+def _run_block(block, x, pad_mask, gammas, betas, deterministic, rng):
+    """One FFT block; a ReplayRNG learns whether this run is the first."""
+    if isinstance(rng, ReplayRNG):
+        rng.start()
+    return block(x, pad_mask, gammas, betas, deterministic, rng)
 
 
 class Encoder(nn.Module):

@@ -40,6 +40,40 @@ class DropoutRNG:
         return int(torch.randint(0, 1 << 32, (1,), generator=self.cpu, dtype=torch.int64)[0])
 
 
+class ReplayRNG:
+    """The dropout draws of one region that runs twice: a block under
+    activation checkpointing, whose backward recomputes its forward. The
+    first run draws from ``rng`` (so the step's stream advances exactly as
+    without checkpointing) and records each hash salt; every later run
+    (``start()`` marks one) replays those salts in order and draws its
+    random bits from a generator restarted at the state ``rng.device`` had
+    before the first run. The recompute thus sees the masks the forward
+    used, as JAX's functional keys give under ``nn.remat``;
+    ``torch.utils.checkpoint`` restores only the default generators."""
+
+    def __init__(self, rng: DropoutRNG):
+        self.rng = rng
+        self.salts: list = []
+        self.device = getattr(rng, "device", None)  # a stand-in may give salts only
+        self.device_state = None if self.device is None else self.device.get_state()
+        self.runs = self.pos = 0
+
+    def start(self) -> "ReplayRNG":
+        self.runs += 1
+        self.pos = 0
+        if self.runs > 1 and self.device_state is not None:
+            self.device = torch.Generator(device=self.rng.device.device)
+            self.device.set_state(self.device_state)
+        return self
+
+    def salt(self) -> int:
+        if self.runs == 1:
+            self.salts.append(self.rng.salt())
+            return self.salts[-1]
+        self.pos += 1
+        return self.salts[self.pos - 1]
+
+
 def _mul32(h, c: int):
     """(h * c) mod 2^32 for 0 <= h < 2^32, without overflowing int64."""
     return ((h & 0xFFFF) * c + ((((h >> 16) * c) & 0xFFFF) << 16)) & _M32

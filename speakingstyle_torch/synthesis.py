@@ -223,3 +223,51 @@ def render_result(result, cfg: Config, path: str, plot: bool = False, device=Non
     out = os.path.join(path, f"{result.id}.wav")
     scipy.io.wavfile.write(out, pp.audio.sampling_rate, wav)
     return out
+
+
+def _vocode_one(cfg: Config, vocoder, mel: np.ndarray, device=None) -> np.ndarray:
+    """[T, n_mels] normalised log-mel -> int16 wav: the vocoder (a
+    HiFi-GAN or MelGAN generator) where given, else Griffin-Lim."""
+    from speakingstyle_torch.models.hifigan import vocoder_infer
+
+    if vocoder is None:
+        return (np.zeros(0, np.int16) if mel.shape[0] < 2 else
+                _griffin_lim_wav(cfg, mel, device))
+    p = next(vocoder.parameters())
+    mels = torch.from_numpy(np.ascontiguousarray(mel[None], np.float32)).to(p.device)
+    return vocoder_infer(vocoder, mels, [mel.shape[0]],
+                         cfg.preprocess.preprocessing.audio.max_wav_value)[0]
+
+
+def synth_one_sample(batch, output, vocoder, cfg: Config, plot: bool = True, device=None):
+    """The batch's first item: (figure or None, wav of the ground-truth
+    mel, wav of the predicted mel, basename), for the training loop's
+    validation sample (reference: utils/tools.py:128-180). ``output`` is
+    the teacher-forced model's. The figure (ground truth below the
+    prediction, with the pitch and energy targets) is drawn only with
+    ``plot`` and where matplotlib imports."""
+    pp = cfg.preprocess.preprocessing
+    mel_len = int(output["mel_lens"][0])
+    src_len = int(batch.src_lens[0])
+    durations = np.asarray(batch.durations)[0, :src_len]
+    mel_target = np.asarray(batch.mels)[0, :mel_len]
+    mel_pred = output["mel_postnet"][0, :mel_len].float().cpu().numpy()
+    fig = None
+    if plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            series = {}
+            for key, level in (("pitches", pp.pitch.feature), ("energies", pp.energy.feature)):
+                a = np.asarray(getattr(batch, key))[0]
+                series[key] = _frame_level_overlay(
+                    a[:src_len] if level == "phoneme_level" else a, mel_len, durations, level)
+            fig = plot_mel([(mel_pred.T, series["pitches"], series["energies"]),
+                            (mel_target.T, series["pitches"], series["energies"])],
+                           load_denorm_stats(cfg),
+                           ["Synthetized Spectrogram", "Ground-Truth Spectrogram"])
+    wav_recon = _vocode_one(cfg, vocoder, mel_target, device)
+    wav_pred = _vocode_one(cfg, vocoder, mel_pred, device)
+    return fig, wav_recon, wav_pred, batch.ids[0]

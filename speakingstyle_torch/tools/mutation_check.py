@@ -14,8 +14,8 @@ change there, and runs in that copy what ``chip_smoke.py`` holds the
 kernels to: every kernel case of the serve path (untimed), the
 bf16-softmax forward cases at the same shapes, the attention backward at
 those shapes (it reads the forward's lse) in bfloat16 under either
-softmax and in float32 under the bf16 softmax, and the teacher-forced
-acoustic comparison. One JSON line per variant gives the kernel cases
+softmax and in float32 under the bf16 softmax, the non-finite input cases
+(``nonfinite_cases``), and the teacher-forced acoustic comparison. One JSON line per variant gives the kernel cases
 that fail, each bf16-softmax backward case's error over its bound, and the
 bf16 acoustic ratio (kernel-conv vs cuDNN-conv distance over cuDNN-conv
 vs float32 distance); the smallest
@@ -25,7 +25,8 @@ broken conv variant's ratio against the sound one is the margin of
 Exits 0 only if the sound source passes every check and each broken
 variant fails the kernel cases, a conv variant the bf16 acoustic
 comparison too (both sides of that comparison run the same attention
-kernels, so it cannot see an attention variant).
+kernels, so it cannot see an attention variant), but for a variant that
+changes nothing on finite inputs (``NONFINITE_ONLY``).
 """
 
 import json
@@ -91,7 +92,14 @@ MUTANTS = {
                        "p[i][j] = expf(s[i][j] * sm_scale + bias - row_lse[ty + 16 * i]);"),
     "sm16_bwd_f32_p": (ATTENTION, "if constexpr (SM16) p[i][j] = round_bf16(p[i][j]);",
                        "if constexpr (SM16) p[i][j] = p[i][j];"),
+    # the bf16 conv's ReLU as fmaxf, which maps NaN to 0 (as it was before
+    # the select): visible only on non-finite inputs
+    "relu_fmaxf": (CONV, "          if (relu) v = v < 0.f ? 0.f : v;",
+                   "          if (relu) v = fmaxf(v, 0.f);"),
 }
+# variants that change nothing on finite inputs: the non-finite cases alone
+# must catch them (the acoustic comparison cannot)
+NONFINITE_ONLY = {"relu_fmaxf"}
 
 # run inside a variant's copy: chip_smoke's kernel cases, the attention
 # backward at the same shapes, and the acoustic comparison, on phase 2's
@@ -119,6 +127,8 @@ with cs.strict_float32():
                                (torch.bfloat16, torch.bfloat16)):
             for c in cs.attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev, softmax):
                 cases[c["case"]] = c
+    for c in cs.nonfinite_cases(load_config(preset="LJSpeech_paper"), dev, 0):
+        cases[c["case"]] = c
     parity = cs.teacher_forced_parity(cfg, engine, requests, results, dev)
 print(json.dumps({"kernel_cases_failed": [c["case"] for c in cases.values() if not c["ok"]],
                   "sm16_bwd_err_over_bound": {c["case"]: max(c["err_over_bound"])
@@ -188,7 +198,8 @@ def main(argv=None) -> int:
         if change is None:
             ok &= not any(failed)
         else:
-            row["caught"] = failed[0] and (failed[1] or change[0] != CONV)
+            row["caught"] = failed[0] and (failed[1] or change[0] != CONV
+                                           or variant in NONFINITE_ONLY)
             ok &= row["caught"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1

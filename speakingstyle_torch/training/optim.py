@@ -117,10 +117,13 @@ class Optimizer:
         torch._foreach_add_(self.params, step)
         return True
 
-    def state_dict(self) -> Dict:
+    def state_dict(self, copy: bool = True) -> Dict:
+        """The counts and moments; ``copy=False`` hands out the live
+        tensors (the checkpoint's snapshot copies them itself)."""
+        c = (lambda ts: [t.clone() for t in ts]) if copy else list
         return {"count": self.count, "mini_step": self.mini_step,
-                "mu": [t.clone() for t in self.mu], "nu": [t.clone() for t in self.nu],
-                "acc": None if self.acc is None else [t.clone() for t in self.acc]}
+                "mu": c(self.mu), "nu": c(self.nu),
+                "acc": None if self.acc is None else c(self.acc)}
 
     def load_state_dict(self, state: Dict) -> None:
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])

@@ -20,9 +20,11 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
 
-    def state_dict(self) -> Dict:
+    def state_dict(self, copy: bool = True) -> Dict:
+        """``copy=False``: the live tensors (the model's state dict holds
+        them anyway; the optimizer's moments are cloned only with copy)."""
         return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+                "optimizer": self.optimizer.state_dict(copy)}
 
     def load_state_dict(self, state: Dict) -> None:
         self.step = int(state["step"])

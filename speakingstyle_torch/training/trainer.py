@@ -6,48 +6,68 @@ teacher-forced forward in training mode (dropout on, the postnet's
 BatchNorm on batch statistics), the loss, ``torch.autograd.grad`` of
 ``total_loss`` over the model's parameters, and one optimizer update. The
 dropout masks of step s come from ``DropoutRNG`` seeded by (seed, s), so a
-resumed run draws what an uninterrupted one would.
+resumed run draws what an uninterrupted one would. With
+``train.resilience.nan_sentinel`` the step also returns
+``losses["_finite"]``, an all-finite flag over the losses and the
+gradients before the update, left on the device.
 
-``run_training`` is the core of the JAX loop: bucketed batches from the
-same seeds, a pinned-memory non-blocking host -> device copy, a log line
-every ``log_step`` in ``<log_path>/log.txt`` (losses, lr, step and data-wait
-seconds, mel frames/s), validation every ``val_step``, a checkpoint every
-``save_step`` and a final one, and ``restore_step`` resume. Not ported yet
-(ROADMAP.md): the NaN sentinel and rollback, the SIGTERM flush, loader
-quarantine, the device prefetcher thread, the event log and TensorBoard,
-the synth callback and profiling flags.
+``run_training`` is the JAX loop: bucketed batches from the same seeds
+through a ``DevicePrefetcher`` (a worker thread and a side CUDA stream), a
+log line every ``log_step`` in ``<log_path>/log.txt`` and a structured
+record in ``<log_path>/events.jsonl`` (``obs/events.py``), TensorBoard
+scalars where ``torch.utils.tensorboard`` imports, validation every
+``val_step``, a checkpoint every ``save_step`` (async, keep-best;
+``training/checkpoint.py``) and a final blocking one, and ``restore_step``
+resume. Resilience (``train.resilience``): at a log boundary a false
+``_finite`` rolls the run back to the latest checkpoint (or a fresh init)
+with a data stream seeded apart, and ``max_rollbacks`` consecutive trips
+raise ``TrainingDivergedError``; SIGTERM/SIGINT end the loop after the
+current step with a flushed checkpoint; loader errors are retried and the
+failing samples quarantined. ``SPEAKINGSTYLE_FAULTS`` (``faults.py``)
+drills each path: ``nan_grads@N`` poisons the batch of step N,
+``sigterm@N`` delivers a real SIGTERM after step N, ``loader_ioerror@N``
+fails the Nth feature load once. The registry counts
+``train_steps_total``, ``train_rollbacks_total``,
+``checkpoint_saves_total``, ``faults_fired_total`` and times
+``train_step_seconds`` / ``train_data_wait_seconds``; a last ``train_end``
+event carries those counters and the run's launches of each hand-written
+kernel.
 """
 
 import os
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from speakingstyle_torch import obs
 from speakingstyle_torch.configs.config import Config, check_train_supported
+from speakingstyle_torch.data.prefetch import host_tensors
 from speakingstyle_torch.models.loss import fastspeech2_loss
 from speakingstyle_torch.ops.dropout import DropoutRNG
+from speakingstyle_torch.training import faults, resilience
 from speakingstyle_torch.training.state import TrainState
 
-ARRAY_KEYS = ("speakers", "texts", "src_lens", "mels", "mel_lens", "pitches", "energies",
-              "durations")
-_INT_KEYS = ("speakers", "texts", "src_lens", "mel_lens", "durations")
+# keys of the step's losses that are bookkeeping, not losses
+_INTERNAL_LOSS_KEYS = ("_finite",)
+
+
+def public_losses(losses: Dict) -> Dict:
+    return {k: v for k, v in losses.items() if k not in _INTERNAL_LOSS_KEYS}
 
 
 def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A batch's numpy arrays on ``device``: ids and lengths as int64, the
-    rest float32; through pinned host memory with a non-blocking copy when
-    the device is a card."""
-    out = {}
-    for k in ARRAY_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(arrays[k]))
-        t = t.long() if k in _INT_KEYS else t.float()
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
+    """A batch's numpy arrays on ``device`` in the calling thread: ids and
+    lengths as int64, the rest float32; through pinned host memory with a
+    non-blocking copy when the device is a card. (The step loop's copies
+    run on ``data/prefetch.py``'s worker instead.)"""
+    device = torch.device(device)
+    host = host_tensors(arrays, pin=device.type == "cuda")
+    if device.type != "cuda":
+        return host
+    return {k: t.to(device, non_blocking=True) for k, t in host.items()}
 
 
 def model_kwargs(arrays: Dict) -> Dict:
@@ -79,16 +99,21 @@ def make_train_step(cfg: Config):
     """fn(state, arrays) -> (losses, grads): one step in place on
     ``state``. The losses stay on the device (no host sync); the
     gradients, in ``trainable(state.model)`` order, are the ones the
-    update applied."""
+    update applied. Under ``nan_sentinel`` the losses carry ``_finite``,
+    computed from the losses and the gradients before the update."""
     seed = cfg.train.seed + 1
+    nan_sentinel = cfg.train.resilience.nan_sentinel
 
     def step(state: TrainState, arrays: Dict):
         rng = DropoutRNG(seed * 1_000_003 + state.step, arrays["texts"].device)
         losses = compute_losses(state.model, cfg, arrays, deterministic=False, rng=rng)
         grads = torch.autograd.grad(losses["total_loss"], trainable(state.model))
+        losses = {k: v.detach() for k, v in losses.items()}
+        if nan_sentinel:
+            losses["_finite"] = resilience.all_finite(losses, grads)
         state.optimizer.update(grads)
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}, grads
+        return losses, grads
 
     return step
 
@@ -103,30 +128,44 @@ def make_eval_step(cfg: Config):
     return step
 
 
-def evaluate(eval_step, state, batches: Iterator, device) -> Dict[str, float]:
-    """Batch-size-weighted mean of every loss over a val pass."""
+def evaluate(eval_step, state, batches) -> Dict[str, float]:
+    """Batch-size-weighted mean of every loss over a val pass of
+    (Batch, tensors) pairs (reference: evaluate.py:39-58)."""
     sums: Dict[str, torch.Tensor] = {}
     count = 0
-    for batch in batches:
-        losses = eval_step(state, to_device(batch.arrays(), device))
+    for batch, arrays in batches:
+        losses = eval_step(state, arrays)
         count += batch.n_real
         for k, v in losses.items():
             sums[k] = sums.get(k, 0.0) + v * batch.n_real
     return {k: float(v) / count for k, v in sums.items()} if count else {}
 
 
-def batch_streams(cfg: Config, start_step: int = 0):
-    """(the endless stream of training batches from ``start_step``, the val
-    batcher): bucketed batches of ``train.txt`` (sorted, last partial batch
-    dropped) and ``val.txt``, cut as the JAX package's loop cuts them."""
+def train_batcher(cfg: Config, start_step: int = 0, retry: int = 0, dataset=None,
+                  quarantine=None):
+    """The training batches (``train.txt``, sorted, last partial batch
+    dropped), cut as the JAX package's loop cuts them, from the seed
+    ``train.seed + start_step + 7919 * retry``: a resumed run does not
+    replay its stream from the start, and a rolled-back run diverges past
+    the batches that tripped the sentinel."""
     from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
 
     max_len = cfg.model.max_seq_len
-    train = BucketedBatcher(SpeechDataset("train.txt", cfg, sort=True, drop_last=True),
-                            max_src=max_len, max_mel=max_len, seed=cfg.train.seed + start_step)
+    dataset = dataset or SpeechDataset("train.txt", cfg, sort=True, drop_last=True)
+    return BucketedBatcher(dataset, max_src=max_len, max_mel=max_len,
+                           seed=cfg.train.seed + start_step + 7919 * retry,
+                           quarantine=quarantine)
+
+
+def batch_streams(cfg: Config, start_step: int = 0):
+    """(the endless stream of training batches from ``start_step``, the val
+    batcher), as ``run_training`` cuts them before any rollback."""
+    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+
+    max_len = cfg.model.max_seq_len
     val = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
                           max_src=max_len, max_mel=max_len, seed=0)
-    return iter(train), val
+    return iter(train_batcher(cfg, start_step)), val
 
 
 def build_state(cfg: Config, device) -> TrainState:
@@ -139,88 +178,354 @@ def build_state(cfg: Config, device) -> TrainState:
     return TrainState(step=0, model=model, optimizer=Optimizer(trainable(model), cfg.train))
 
 
-class TrainLogger:
-    """Append-only ``log.txt`` under the log path."""
+def _summary_writer(log_dir: str):
+    """A ``torch.utils.tensorboard`` writer, or None where TensorBoard does
+    not import (it is optional, as tensorboardX is in the JAX package)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
 
-    def __init__(self, log_dir: str):
+
+class TrainLogger:
+    """Append-only ``log.txt``, TensorBoard scalars, figures and audio
+    (where it imports), and with ``registry`` / ``events`` the loss gauges
+    and one JSONL record per ``log()`` (``train_step`` / ``val``), written by
+    the same call from the same values so the two cannot drift. Unlike the
+    JAX package's, a ``log.txt`` line also carries the timing fields."""
+
+    def __init__(self, log_dir: str, use_tensorboard: bool = True,
+                 registry: Optional[obs.MetricsRegistry] = None,
+                 events: Optional[obs.JsonlEventLog] = None):
         os.makedirs(log_dir, exist_ok=True)
         self.txt = open(os.path.join(log_dir, "log.txt"), "a")
+        self.registry, self.events = registry, events
+        self.tb = _summary_writer(log_dir) if use_tensorboard else None
 
-    def log(self, step: int, losses: Dict[str, float], prefix: str = "train",
-            lr: Optional[float] = None, timing: Optional[Dict[str, float]] = None):
+    def _write(self, line: str) -> None:
+        self.txt.write(line + "\n")
+        self.txt.flush()
+
+    def log(self, step: int, losses: Dict[str, float], lr: Optional[float] = None,
+            prefix: str = "train", timing: Optional[Dict[str, float]] = None):
         msg = f"[{prefix}] Step {step}, " + ", ".join(f"{k}: {v:.4f}" for k, v in losses.items())
         if lr is not None:
             msg += f", lr: {lr:.6f}"
         for k, v in (timing or {}).items():
             msg += f", {k}: {v:.6g}"
-        self.txt.write(msg + "\n")
-        self.txt.flush()
+        self._write(msg)
+        if self.tb is not None:
+            for k, v in losses.items():
+                self.tb.add_scalar(f"{prefix}/{k}", v, step)
+            if lr is not None:
+                self.tb.add_scalar(f"{prefix}/lr", lr, step)
+        if self.registry is not None:
+            self.registry.gauge("train_step", help="last logged step").set(step)
+            for k, v in losses.items():
+                self.registry.gauge("train_loss", labels={"loss": k, "split": prefix}).set(v)
+        self.event("train_step" if prefix == "train" else prefix, step=step, **losses,
+                   **({"lr": lr} if lr is not None else {}), **(timing or {}))
+
+    def event(self, name: str, /, **fields):
+        """Append one record to events.jsonl (a no-op without an event log)."""
+        if self.events is not None:
+            self.events.emit(name, **fields)
+
+    def note(self, msg: str):
+        """A raw line into log.txt (rollbacks, SIGTERM flushes, quarantine
+        summaries), and a ``note`` event."""
+        self._write(msg)
+        self.event("note", msg=msg)
+
+    def log_throughput(self, step: int, steps_per_sec: float, frames_per_sec: float):
+        self._write(f"[perf] Step {step}, steps/s: {steps_per_sec:.2f}, "
+                    f"mel-frames/s: {frames_per_sec:.0f}")
+        if self.tb is not None:
+            self.tb.add_scalar("perf/steps_per_sec", steps_per_sec, step)
+            self.tb.add_scalar("perf/mel_frames_per_sec", frames_per_sec, step)
+
+    def log_figure(self, step: int, tag: str, fig):
+        if self.tb is not None and fig is not None:
+            self.tb.add_figure(tag, fig, step)
+
+    def log_audio(self, step: int, tag: str, wav, sampling_rate: int,
+                  max_wav_value: float = 32768.0):
+        if self.tb is not None:
+            wav = torch.from_numpy(np.asarray(wav, np.float32) / max_wav_value)
+            self.tb.add_audio(tag, wav[None], step, sample_rate=sampling_rate)
 
     def close(self):
         self.txt.close()
+        if self.events is not None:
+            self.events.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The hand-written kernels' launch counts so far in this process
+    (each wrapper counts its own launches; ops/fused_attention.py,
+    ops/fused_conv.py)."""
+    from speakingstyle_torch.ops.fused_attention import attention_delta, fused_mha, fused_mha_bwd
+    from speakingstyle_torch.ops.fused_conv import fused_conv1d
+
+    return {"fused_attention_fwd": fused_mha.launches,
+            "fused_attention_fwd_bf16sm": fused_mha.launches_bf16sm,
+            "fused_attention_bwd": fused_mha_bwd.launches,
+            "fused_attention_bwd_bf16sm": fused_mha_bwd.launches_bf16sm,
+            "fused_attention_bwd_delta": attention_delta.launches,
+            "fused_conv1d_fwd": fused_conv1d.launches,
+            "fused_conv1d_fwd_act": fused_conv1d.act_launches}
+
+
+def _profile_start(profile_dir: str):
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _profile_stop(prof, profile_dir: str, step: int) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_to_step{step}.json"))
 
 
 def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
-                 max_steps: Optional[int] = None, log: bool = True) -> TrainState:
+                 max_steps: Optional[int] = None, synth_callback=None, log: bool = True,
+                 vocoder=None, profile_dir: Optional[str] = None,
+                 profile_steps: tuple = (10, 20),
+                 registry: Optional[obs.MetricsRegistry] = None) -> TrainState:
     """The step loop; returns the final TrainState. ``max_steps`` overrides
     ``total_step``; ``restore_step`` -1 (or None after a 0 from the CLI)
-    resumes from the latest checkpoint, N > 0 from step N. Each train step
-    runs inside a ``train.step`` profiler range."""
+    resumes from the latest checkpoint, N > 0 from step N.
+    ``synth_callback(state, batch, arrays, step, model)`` runs every
+    ``synth_step`` ("default": the ground-truth vs predicted sample of
+    ``default_synth_callback``). ``profile_dir``: a ``torch.profiler`` trace
+    of steps [profile_steps) of this run, exported as a chrome trace. Each
+    train step runs inside a ``train.step`` profiler range."""
+    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+    from speakingstyle_torch.data.prefetch import DevicePrefetcher
     from speakingstyle_torch.device import resolve_device
     from speakingstyle_torch.training.checkpoint import CheckpointManager
 
     device = resolve_device(device)
     check_train_supported(cfg.train,
                           torch.cuda.device_count() if device.type == "cuda" else 1)
-    steps = cfg.train.step
+    steps, res = cfg.train.step, cfg.train.resilience
     total_step = max_steps if max_steps is not None else steps.total_step
+    plan = faults.FaultPlan.from_env()
+    registry = registry if registry is not None else obs.get_registry()
+    step_hist = registry.histogram(
+        "train_step_seconds", help="per-step wall time excluding data wait (host "
+        "dispatch; device-honest at log boundaries where the loop syncs)")
+    wait_hist = registry.histogram("train_data_wait_seconds",
+                                   help="per-step time blocked on the prefetcher")
+    steps_ctr = registry.counter("train_steps_total", help="optimizer steps run")
+    rollback_ctr = registry.counter("train_rollbacks_total", help="NaN-sentinel rollbacks taken")
+    save_ctr = registry.counter("checkpoint_saves_total", help="checkpoints enqueued/flushed")
+    fault_ctr = registry.counter("faults_fired_total", help="injected faults fired (drills)")
+    launches0 = kernel_launches()
+
+    events = (obs.JsonlEventLog(cfg.train.path.log_path, max_bytes=cfg.train.obs.events_max_bytes,
+                                keep=cfg.train.obs.events_keep)
+              if log and cfg.train.obs.events else None)
+    logger = TrainLogger(cfg.train.path.log_path, registry=registry, events=events) if log else None
     state = build_state(cfg, device)
-    ckpt = CheckpointManager(cfg.train.path.ckpt_path, cfg.train.resilience.max_to_keep)
+    ckpt = CheckpointManager(cfg.train.path.ckpt_path, max_to_keep=res.max_to_keep or None,
+                             async_save=res.async_checkpointing, keep_best=res.keep_best,
+                             fault_plan=plan, events=events, registry=registry)
     if restore_step is not None:
         ckpt.restore(state, step=restore_step if restore_step > 0 else None,
                      ignore_layers=cfg.train.ignore_layers)
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
-    start_step = state.step
-    stream, val_batcher = batch_streams(cfg, start_step)
-    logger = TrainLogger(cfg.train.path.log_path) if log else None
-    last_saved = None
-    window_t0, window_step0, window_frames = time.perf_counter(), state.step, 0
+    train_ds = SpeechDataset("train.txt", cfg, sort=True, drop_last=True,
+                             retries=res.loader_retries, backoff=res.loader_backoff,
+                             fault_plan=plan, registry=registry)
+    quarantine = resilience.Quarantine(budget=res.bad_sample_budget)
+    step = start_step = state.step  # the profile window is relative to start_step
+
+    def make_stream(retry: int) -> DevicePrefetcher:
+        batcher = train_batcher(cfg, start_step, retry, train_ds, quarantine)
+        return DevicePrefetcher(iter(batcher), device, transfer_retries=res.loader_retries,
+                                transfer_backoff=res.loader_backoff, registry=registry)
+
+    prefetch = make_stream(0)
+    max_len = cfg.model.max_seq_len
+    val_batcher = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
+                                  max_src=max_len, max_mel=max_len, seed=0)
+    if logger:
+        logger.event("train_start", step=step, total_step=total_step, torch=torch.__version__,
+                     cuda=torch.version.cuda, device=str(device),
+                     device_name=(torch.cuda.get_device_name(device)
+                                  if device.type == "cuda" else "cpu"),
+                     device_count=1, checkpoint_step=ckpt.last_restored_step)
+    if synth_callback == "default":
+        synth_callback = default_synth_callback(cfg, logger, vocoder=vocoder)
+    guard = resilience.RollbackGuard(res.max_rollbacks)
+    last_val: Optional[float] = None
+    last_saved: Optional[int] = None
+    window_t0, window_step0, window_frames = time.perf_counter(), step, 0
     window_wait = window_compute = 0.0
+    prof = None
+    shutdown = resilience.GracefulShutdown()
     try:
-        while state.step < total_step:
-            t_iter = time.perf_counter()
-            batch = next(stream)
-            arrays = to_device(batch.arrays(), device)
-            data_wait = time.perf_counter() - t_iter
-            lr = state.optimizer.lr()
-            with record_function("train.step"):
-                losses, _ = train_step(state, arrays)
-            window_wait += data_wait
-            window_compute += time.perf_counter() - t_iter - data_wait
-            window_frames += int(batch.mel_lens.sum())
-            if state.step % steps.log_step == 0 and logger:
-                t_sync = time.perf_counter()
-                host = {k: float(v) for k, v in losses.items()}  # the one sync
-                window_compute += time.perf_counter() - t_sync
-                n = state.step - window_step0
-                dt = time.perf_counter() - window_t0
-                logger.log(state.step, host, lr=lr, timing={
-                    "train_step_seconds": window_compute / n,
-                    "train_data_wait_seconds": window_wait / n,
-                    "mel_frames_per_sec": window_frames / dt,
-                })
-                window_t0, window_step0, window_frames = time.perf_counter(), state.step, 0
-                window_wait = window_compute = 0.0
-            if state.step % steps.val_step == 0:
-                val = evaluate(eval_step, state, val_batcher.epoch(shuffle=False), device)
+        with shutdown:
+            while step < total_step and not shutdown.requested:
+                t_iter = time.perf_counter()
+                try:
+                    batch, arrays = next(prefetch)
+                except StopIteration:
+                    break
+                data_wait = time.perf_counter() - t_iter
+                wait_hist.observe(data_wait)
+                window_wait += data_wait
+                if plan.fire("nan_grads", step + 1):
+                    arrays = faults.poison_batch(arrays)
+                    fault_ctr.inc()
+                    if logger:
+                        logger.event("fault_fire", kind="nan_grads", step=step + 1)
+                if (profile_dir is not None and prof is None
+                        and profile_steps[0] <= step - start_step < profile_steps[1]):
+                    prof = _profile_start(profile_dir)
+                lr = state.optimizer.lr()
+                with record_function("train.step"):
+                    losses, _ = train_step(state, arrays)
+                step = state.step
+                steps_ctr.inc()
+                step_time = time.perf_counter() - t_iter - data_wait
+                step_hist.observe(step_time)
+                window_compute += step_time
+                window_frames += int(batch.mel_lens.sum())  # host-side, no sync
+                if prof is not None and step - start_step >= profile_steps[1]:
+                    _profile_stop(prof, profile_dir, step)
+                    prof = None
+                if plan.fire("sigterm", step):
+                    fault_ctr.inc()
+                    if logger:
+                        logger.event("fault_fire", kind="sigterm", step=step)
+                    faults.deliver_sigterm()
+
+                if step % steps.log_step == 0:
+                    # the loop's one synchronisation: the sentinel's flag and
+                    # the losses come to the host together
+                    t_sync = time.perf_counter()
+                    finite = bool(losses.get("_finite", True))
+                    host = {k: float(v) for k, v in public_losses(losses).items()}
+                    window_compute += time.perf_counter() - t_sync
+                    if not finite:
+                        n = guard.trip(step)  # raises past max_rollbacks
+                        ckpt.wait()
+                        good = ckpt.latest_step()
+                        rollback_ctr.inc()
+                        msg = (f"[resilience] non-finite losses/grads at step {step}; "
+                               f"rollback {n}/{res.max_rollbacks} to "
+                               + (f"checkpoint step {good}" if good is not None
+                                  else "fresh init (no checkpoint yet)"))
+                        print(msg)
+                        if logger:
+                            logger.note(msg)
+                            logger.event("rollback", step=step, rollback_n=n, restore_step=good)
+                        prefetch.stop()
+                        if good is not None:
+                            ckpt.restore(state, step=good)
+                        else:  # deterministic re-init: the same seed
+                            state.load_state_dict(build_state(cfg, device).state_dict())
+                        step = state.step
+                        prefetch = make_stream(guard.count)
+                        window_t0, window_step0, window_frames = time.perf_counter(), step, 0
+                        window_wait = window_compute = 0.0
+                        continue
+                    guard.ok()
+                    if logger:
+                        n_window = step - window_step0
+                        dt = time.perf_counter() - window_t0
+                        timing = {"step_time_s": window_compute / n_window,
+                                  "data_wait_s": window_wait / n_window,
+                                  "steps_per_sec": n_window / dt,
+                                  "mel_frames_per_sec": window_frames / dt}
+                        logger.log(step, host, lr=lr, timing=timing)
+                        logger.log_throughput(step, timing["steps_per_sec"],
+                                              timing["mel_frames_per_sec"])
+                    window_t0, window_step0, window_frames = time.perf_counter(), step, 0
+                    window_wait = window_compute = 0.0
+                if synth_callback is not None and step % steps.synth_step == 0:
+                    synth_callback(state, batch, arrays, step, state.model)
+                if step % steps.val_step == 0:
+                    with DevicePrefetcher(val_batcher.epoch(shuffle=False), device,
+                                          registry=registry) as val_prefetch:
+                        val = evaluate(eval_step, state, val_prefetch)
+                    last_val = val.get("total_loss", last_val)
+                    if logger:
+                        logger.log(step, val, prefix="val")
+                if step % steps.save_step == 0:
+                    ckpt.save(step, state, val_loss=last_val)
+                    save_ctr.inc()
+                    if logger:
+                        logger.event("checkpoint_save", step=step)
+                    last_saved = step
+
+            # always flush a final checkpoint: the tail steps past the last
+            # save_step, and the SIGTERM/SIGINT preemption path
+            if step > start_step and last_saved != step:
+                ckpt.save(step, state, val_loss=last_val, block=True)
+                save_ctr.inc()
                 if logger:
-                    logger.log(state.step, val, prefix="val")
-            if state.step % steps.save_step == 0:
-                ckpt.save(state.step, state)
-                last_saved = state.step
-        if state.step > start_step and last_saved != state.step:
-            ckpt.save(state.step, state)  # the final flush
+                    logger.event("checkpoint_save", step=step, final=True)
+                last_saved = step
+            if shutdown.requested:
+                msg = (f"[resilience] {shutdown.signame}: checkpoint flushed at step {step}; "
+                       "exiting")
+                print(msg)
+                if logger:
+                    logger.note(msg)
+                    logger.event("preempt_flush", signal=shutdown.signame, step=step)
     finally:
+        if prof is not None:  # the run ended inside the profile window
+            _profile_stop(prof, profile_dir, step)
+        prefetch.stop()
+        if quarantine.bad and logger:
+            logger.note(f"[resilience] {len(quarantine.bad)} quarantined sample(s): "
+                        f"{sorted(quarantine.bad)}")
+            logger.event("quarantine", samples=sorted(quarantine.bad))
         if logger:
+            launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+            logger.event("train_end", step=step, counters=registry.snapshot()["counters"],
+                         kernel_launches=launches)
             logger.close()
+        ckpt.close()
     return state
+
+
+def default_synth_callback(cfg: Config, logger: Optional[TrainLogger], vocoder=None):
+    """The periodic validation sample (reference: train.py:117-144): the
+    batch's first utterance through the model teacher-forced, its
+    ground-truth and predicted mels vocoded (``vocoder``, else
+    Griffin-Lim) into TensorBoard audio, and the two mels plotted where a
+    writer exists and matplotlib imports."""
+
+    def callback(state, batch, arrays, step, model):
+        from speakingstyle_torch.synthesis import synth_one_sample
+
+        with torch.no_grad():
+            out = model(**model_kwargs(arrays), deterministic=True)
+        plot = logger is not None and logger.tb is not None
+        fig, wav_recon, wav_pred, basename = synth_one_sample(
+            batch, out, vocoder, cfg, plot=plot, device=arrays["mels"].device)
+        if logger is not None:
+            pp = cfg.preprocess.preprocessing
+            sr, mw = pp.audio.sampling_rate, pp.audio.max_wav_value
+            logger.log_figure(step, f"Training/{basename}", fig)
+            logger.log_audio(step, f"Training/{basename}_reconstructed", wav_recon, sr, mw)
+            logger.log_audio(step, f"Training/{basename}_synthesized", wav_pred, sr, mw)
+        if fig is not None:
+            import matplotlib.pyplot as plt
+
+            plt.close(fig)
+
+    return callback

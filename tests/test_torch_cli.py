@@ -22,6 +22,9 @@ from scipy.io import wavfile
 
 from test_torch_training import corpus, write_configs  # noqa: F401 (a fixture)
 from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import no_tensorflow  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 
 def _ref_wav(path, seconds=0.4, f0=220.0):
@@ -250,17 +253,11 @@ def test_speaker_id_drives_a_multi_speaker_model(tmp_path, corpus):  # noqa: F81
         main(_args(paths, *args, "--speaker_id", "3"))
 
 
-UNPORTED_DEFAULTS = {f"train.resilience.{k}"
-                     for k in ("nan_sentinel", "keep_best", "async_checkpointing")}
-
-
 @pytest.mark.parametrize("preset", ["LJSpeech", "LJSpeech_paper", "AISHELL3", "BC2013",
                                     "LibriTTS"])
 def test_presets_match_jax(preset):
     """Each preset loads in both packages, and every field the port reads
-    has the JAX package's value, but for the defaults of the resilience
-    paths the port has not ported yet (ROADMAP.md queue A item 2: off in the
-    port, on in the JAX package; no preset sets them)."""
+    has the JAX package's value, the resilience defaults included."""
     from speakingstyle_tpu.configs.config import load_config as j_load
     from speakingstyle_torch.configs.config import load_config as t_load
 
@@ -272,7 +269,7 @@ def test_presets_match_jax(preset):
             assert len(t) == len(j), where
             for i, (a, b) in enumerate(zip(t, j)):
                 same(a, b, f"{where}[{i}]")
-        elif where not in UNPORTED_DEFAULTS:
+        else:
             assert t == j, where
 
     t, j = t_load(preset=preset), j_load(preset=preset)

@@ -13,6 +13,7 @@ the postnet's fixed 0.5).
 """
 
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,21 @@ class RecordedSalts:
 
 
 def test_train_step_with_hash_dropout_matches_jax(tmp_path, monkeypatch):
+    hash_dropout_step(tmp_path, monkeypatch, remat=False)
+
+
+def test_remat_train_step_with_hash_dropout_matches_jax_remat(tmp_path, monkeypatch):
+    """The same step with ``sharding.remat`` on both sides: the port's
+    checkpointed FFT blocks recompute their forward in the backward with
+    the forward's dropout masks (``ops.dropout.ReplayRNG``), and the JAX
+    package's ``nn.remat`` blocks draw theirs from the same keys. The salts
+    are recorded from the JAX model without remat (a remat block traces
+    its body, so no salt can be read from it); the same sites draw the
+    same salts, which the matching gradients confirm."""
+    hash_dropout_step(tmp_path, monkeypatch, remat=True)
+
+
+def hash_dropout_step(tmp_path, monkeypatch, remat: bool):
     from speakingstyle_tpu.data.dataset import BucketedBatcher, SpeechDataset
     from speakingstyle_tpu.models.factory import build_model as j_build, init_variables
     from speakingstyle_tpu.models.loss import fastspeech2_loss as j_loss
@@ -54,11 +70,15 @@ def test_train_step_with_hash_dropout_matches_jax(tmp_path, monkeypatch):
 
     corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=8, val_utts=2,
                              n_phones_per_utt=(6, 11), duration_range=(1, 3), seed=6)
-    paths = write_configs(tmp_path, corpus)
+    paths = write_configs(tmp_path, corpus, sharding={"remat": remat})
     (tmp_path / "model.yaml").write_text(__import__("yaml").safe_dump(DROPOUT_MODEL))
     jcfg, tcfg = load_both(paths)
     assert tcfg.model.dropout_impl == "hash" and tcfg.model.transformer.encoder_dropout == 0.2
+    assert jcfg.train.sharding.remat == tcfg.train.sharding.remat == remat
     jmodel = j_build(jcfg)
+    plain = dataclasses.replace(jcfg.train, sharding=dataclasses.replace(jcfg.train.sharding,
+                                                                         remat=False))
+    recorder = j_build(dataclasses.replace(jcfg, train=plain))
     variables = jax.device_get(init_variables(jmodel, jcfg, jax.random.PRNGKey(4)))
     batch = next(iter(BucketedBatcher(SpeechDataset("train.txt", jcfg, sort=True,
                                                     drop_last=True),
@@ -66,8 +86,8 @@ def test_train_step_with_hash_dropout_matches_jax(tmp_path, monkeypatch):
     arrays = batch.arrays()
     key = jax.random.PRNGKey(11)
 
-    def j_losses(params):
-        out, _ = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+    def j_losses(params, model=jmodel):
+        out, _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
                               **_model_kwargs(arrays, teacher_forced=True),
                               deterministic=False, rngs={"dropout": key},
                               mutable=["batch_stats"])
@@ -84,7 +104,7 @@ def test_train_step_with_hash_dropout_matches_jax(tmp_path, monkeypatch):
         return keep_mask(rng, rate, shape, impl)  # jaxlint: disable=JL006
 
     monkeypatch.setattr(j_dropout, "keep_mask", recording)
-    j_losses(variables["params"])  # eager: records every site's salt
+    j_losses(variables["params"], recorder)  # eager: records every site's salt
     monkeypatch.setattr(j_dropout, "keep_mask", keep_mask)
     # (1 + 1 + 2) FFT blocks x 2 sites, 2 reference convs, 3 predictors x 2,
     # 3 postnet layers

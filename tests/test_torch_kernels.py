@@ -259,6 +259,27 @@ def test_conv_cin80_dilation2_on_card(cuda_device, K, ln):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln", [False, True])
+def test_conv_relu_passes_nan_on_card(cuda_device, dtype, ln):
+    """A NaN entering the ReLU comes out as NaN (and makes its LN row NaN),
+    where the plain version puts it: the ReLU is a select, not fmaxf."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 45, 64), generator=g)
+    x[0, 7, 3] = float("nan")
+    x = x.to(cuda_device, dtype)
+    w = (torch.randn((3, 64, 256), generator=g) / 8.0).to(cuda_device, dtype)
+    b, s, sb = (torch.randn(256, generator=g).to(cuda_device, dtype) for _ in range(3))
+    lnp = (s, sb) if ln else (None, None)
+    y, act = t_conv.fused_conv_fwd(x, w, b, *lnp, relu=True, want_act=ln)
+    want, want_act = t_conv.fused_conv_plain_parts(x, w, b, *lnp, 1, True)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    if ln:
+        assert torch.equal(torch.isnan(act), torch.isnan(want_act))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cout", [128, 256, 1024])
 @pytest.mark.parametrize("T", [45, 300])
 def test_conv_ln_cluster_sizes_on_card(cuda_device, cout, T):

@@ -12,6 +12,7 @@ made: the parameters whose gradient is zero in exact arithmetic.
 """
 
 import copy
+import dataclasses
 import re
 
 import jax
@@ -25,6 +26,9 @@ import yaml
 from speakingstyle_torch.compat.from_jax import load_flax_variables, to_flax_tree
 
 from test_torch_models import one_cpu_thread  # noqa: F401 (an autouse fixture)
+from torch_threads import no_tensorflow  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 MODEL_YAML = {
     "transformer": {
@@ -48,7 +52,13 @@ MODEL_YAML = {
 }
 
 
-def write_configs(root, corpus, **train_overrides):
+# the tiny model on the library path (einsum attention, XLA / cuDNN convs):
+# the tests of the loop, where the JAX side would otherwise run its Pallas
+# kernels in interpret mode
+LIBRARY_MODEL = dict(MODEL_YAML, attention_kernel="einsum", conv_impl="xla")
+
+
+def write_configs(root, corpus, model=None, **train_overrides):
     pre = {"path": {"preprocessed_path": str(corpus)},
            "preprocessing": {"pitch": {"feature": "phoneme_level"},
                              "energy": {"feature": "phoneme_level"}}}
@@ -61,7 +71,7 @@ def write_configs(root, corpus, **train_overrides):
     for k, v in train_overrides.items():
         train[k] = dict(train.get(k, {}), **v)
     paths = {}
-    for name, data in (("preprocess", pre), ("model", MODEL_YAML), ("train", train)):
+    for name, data in (("preprocess", pre), ("model", model or MODEL_YAML), ("train", train)):
         paths[name] = root / f"{name}.yaml"
         paths[name].write_text(yaml.safe_dump(data))
     return {k: str(v) for k, v in paths.items()}
@@ -218,38 +228,85 @@ def test_batchnorm_train_mode_matches_flax():
 
 
 def test_unported_settings_raise(monkeypatch):
+    """Only more than one device is refused now; remat, fault injection and
+    the resilience defaults (the JAX package's) are ported."""
     from speakingstyle_torch.configs.config import (
         ParallelConfig, ResilienceConfig, ShardingConfig, TrainConfig, check_train_supported,
     )
+    from speakingstyle_tpu.configs.config import ResilienceConfig as JResilience
 
-    check_train_supported(TrainConfig())
+    assert ResilienceConfig() == ResilienceConfig(**dataclasses.asdict(JResilience()))
+    monkeypatch.setenv("SPEAKINGSTYLE_FAULTS", "nan_grads@3")
+    for ok in (TrainConfig(), TrainConfig(sharding=ShardingConfig(remat=True)),
+               TrainConfig(resilience=ResilienceConfig(nan_sentinel=True, keep_best=True,
+                                                       async_checkpointing=True))):
+        check_train_supported(ok)
     for bad in (TrainConfig(parallel=ParallelConfig(mesh=[2, 1])),
-                TrainConfig(sharding=ShardingConfig(model_axis=2)),
-                TrainConfig(sharding=ShardingConfig(remat=True)),
-                TrainConfig(resilience=ResilienceConfig(nan_sentinel=True)),
-                TrainConfig(resilience=ResilienceConfig(keep_best=True)),
-                TrainConfig(resilience=ResilienceConfig(async_checkpointing=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                TrainConfig(sharding=ShardingConfig(model_axis=2))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
             check_train_supported(bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_train_supported(TrainConfig(), n_devices=4)
-    monkeypatch.setenv("SPEAKINGSTYLE_FAULTS", "nan_grads@3")
-    with pytest.raises(NotImplementedError, match="SPEAKINGSTYLE_FAULTS"):
-        check_train_supported(TrainConfig())
 
 
 def test_train_yaml_asking_for_the_nan_sentinel_raises(tmp_path, corpus):
     """A train.yaml that both packages load, asking for the NaN sentinel and
-    keep-best retention: the port's trainer refuses it before any step."""
+    keep-best retention: once refused by the port, it now trains in both
+    packages (2 steps each), with the sentinel's flag in the port's step
+    and never in its log."""
+    from speakingstyle_tpu.training.trainer import run_training as j_run
     from speakingstyle_torch.training.trainer import run_training
 
-    paths = write_configs(tmp_path, corpus,
-                          resilience={"nan_sentinel": True, "keep_best": True})
-    jcfg, tcfg = load_both(paths)
-    assert jcfg.train.resilience.nan_sentinel and tcfg.train.resilience.nan_sentinel
-    with pytest.raises(NotImplementedError, match="nan_sentinel, keep_best"):
-        run_training(tcfg, device="cpu", max_steps=1)
-    assert not (tmp_path / "ckpt").exists()
+    logs = []
+    for side in ("jax", "torch"):
+        (tmp_path / side).mkdir()
+        jcfg, tcfg = load_both(write_configs(tmp_path / side, corpus, LIBRARY_MODEL,
+                                             step={"val_step": 1000},
+                                             obs={"program_card": False},
+                                             resilience={"nan_sentinel": True,
+                                                         "keep_best": True}))
+        assert jcfg.train.resilience.nan_sentinel and tcfg.train.resilience.nan_sentinel
+        if side == "torch":
+            assert run_training(tcfg, device="cpu", max_steps=2).step == 2
+        else:
+            with jax.default_prng_impl("threefry2x32"):
+                assert int(j_run(dataclasses.replace(jcfg, train=dataclasses.replace(
+                    jcfg.train, fast_prng=False)), max_steps=2).step) == 2
+        logs.append((tmp_path / side / "log" / "log.txt").read_text())
+    assert all("_finite" not in log and "[train] Step 2," in log for log in logs)
+
+
+def test_remat_keeps_the_gradients_with_dropout_on(tmp_path, corpus):
+    """``sharding.remat`` checkpoints the encoder's and decoder's blocks:
+    with hash dropout on, one step's gradients equal those without remat,
+    because the recompute replays the forward's masks; a recompute that
+    drew fresh salts gives other gradients (so the recompute does run)."""
+    from speakingstyle_torch.ops import dropout
+    from speakingstyle_torch.training.trainer import (
+        batch_streams, build_state, make_train_step, to_device,
+    )
+
+    paths = write_configs(tmp_path, corpus)
+    (tmp_path / "model.yaml").write_text(yaml.safe_dump(dict(MODEL_YAML, transformer=dict(
+        MODEL_YAML["transformer"], encoder_dropout=0.2, decoder_dropout=0.2))))
+    cfg = load_both(paths)[1]
+    arrays = to_device(next(batch_streams(cfg)[0]).arrays(), torch.device("cpu"))
+
+    def grads(remat):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, sharding=dataclasses.replace(cfg.train.sharding, remat=remat)))
+        state = build_state(c, torch.device("cpu"))
+        assert state.model.decoder.layer_stack.remat == remat
+        return make_train_step(c)(state, arrays)[1]
+
+    plain, remat = grads(False), grads(True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, remat))
+    fresh = dropout.ReplayRNG.salt
+    try:
+        dropout.ReplayRNG.salt = lambda self: self.rng.salt()
+        assert not all(torch.equal(a, b) for a, b in zip(plain, grads(True)))
+    finally:
+        dropout.ReplayRNG.salt = fresh
 
 
 # ---------------------------------------------------------------- the whole slice
@@ -415,9 +472,45 @@ def test_train_cli_saves_and_resumes(tmp_path, corpus):
     log = open(tmp_path / "log" / "log.txt").read().splitlines()
     steps = [l.split(",")[0] for l in log if l.startswith("[train]")]
     assert steps == ["[train] Step 1", "[train] Step 2", "[train] Step 3"]
-    assert all("train_step_seconds" in l and "mel_frames_per_sec" in l
+    assert all("step_time_s" in l and "data_wait_s" in l and "mel_frames_per_sec" in l
                for l in log if l.startswith("[train]"))
     assert any(l.startswith("[val] Step 2") for l in log)
+
+
+def test_train_cli_drills_faults_and_writes_samples_and_a_trace(tmp_path, corpus, monkeypatch):
+    """``train --faults 'nan_grads@2,loader_ioerror@3' --synth --profile_at 1
+    --deterministic``:
+    the loader error is retried, step 2 rolls back to a fresh init (no
+    checkpoint yet) and the run completes; the ground-truth vs predicted
+    sample lands in TensorBoard every synth_step; steps [1, 11) of the run
+    are traced into ``<log_path>/profile``."""
+    import os
+
+    from speakingstyle_torch.__main__ import main
+    from speakingstyle_torch.obs import read_events
+
+    from speakingstyle_torch.device import use_deterministic
+
+    paths = write_configs(tmp_path, corpus, step={"synth_step": 2, "val_step": 1000})
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # restored after the test
+    try:
+        state = main(["train", "-p", paths["preprocess"], "-m", paths["model"], "-t",
+                      paths["train"], "--device", "cpu", "--max_steps", "3", "--synth",
+                      "--profile_at", "1", "--faults", "nan_grads@2,loader_ioerror@3",
+                      "--deterministic"])
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        use_deterministic(False)
+    assert state.step == 3 and os.environ.pop("SPEAKINGSTYLE_FAULTS") == (
+        "nan_grads@2;loader_ioerror@3")
+    events = list(read_events(str(tmp_path / "log")))
+    fired = [(e["kind"], e["step"]) for e in events if e["event"] == "fault_fire"]
+    assert fired == [("nan_grads", 2)]
+    assert [e["restore_step"] for e in events if e["event"] == "rollback"] == [None]
+    assert [e["step"] for e in events if e["event"] == "train_step"] == [1, 1, 2, 3]
+    assert os.listdir(tmp_path / "log" / "profile") == ["trace_to_step3.json"]
+    tb = [f for f in os.listdir(tmp_path / "log") if f.startswith("events.out.tfevents")]
+    assert tb and os.path.getsize(tmp_path / "log" / tb[0]) > 10_000  # scalars, figure, audio
 
 
 def test_checkpoint_detects_a_flipped_leaf(tmp_path, corpus):
@@ -439,9 +532,10 @@ def test_checkpoint_detects_a_flipped_leaf(tmp_path, corpus):
     manifest["leaves"][name]["sha256"] = "0" * 64
     path.write_text(json.dumps(manifest))
     with pytest.raises(CheckpointCorruptError, match="leaf_hash_mismatch"):
-        mgr.restore(build_state(tcfg, torch.device("cpu")))
-    restored = mgr.restore(build_state(tcfg, torch.device("cpu")), step=2)
-    assert restored.step == 2
+        mgr.restore(build_state(tcfg, torch.device("cpu")), step=3)
+    # the latest restorable step: the walk passes the corrupt one, noted
+    restored = mgr.restore(build_state(tcfg, torch.device("cpu")))
+    assert restored.step == 2 and [e.reason for e in mgr.skipped] == ["leaf_hash_mismatch"]
 
 
 def test_restore_with_ignore_layers_keeps_fresh_parameters(tmp_path, corpus):

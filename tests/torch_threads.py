@@ -28,3 +28,23 @@ def one_cpu_thread():
             yield
     finally:
         torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def no_tensorflow():
+    """TensorFlow unimportable for the module. The trainer logs to
+    TensorBoard through ``torch.utils.tensorboard``, which imports
+    TensorFlow where it is installed (seconds, and much memory, per
+    worker) and its own stub where it is not. The training modules use
+    this fixture so that they run as on a machine without TensorFlow."""
+    import sys
+
+    before = sys.modules.get("tensorflow", False)
+    sys.modules["tensorflow"] = None
+    try:
+        yield
+    finally:
+        if before is False:
+            del sys.modules["tensorflow"]
+        else:
+            sys.modules["tensorflow"] = before
