@@ -72,11 +72,43 @@ printing one JSON line:
    inline copy (12-step runs in turns: step time, data wait, iteration),
    the sentinel's own device operations and ms, the save stall sync vs
    async, the checkpoint's bytes.
+11. ``train_vocoder`` (after phase 4's restore and convert phases): the
+   ``train_vocoder`` command at the reference recipe's sizes (HiFi-GAN V1,
+   MPD periods 2 3 5 7 11, MSD 3 scales, batch 16 x 8192 samples, lr
+   5e-4) on 32 seeded 2 s wavs: 20 steps, every metric finite and
+   ``mel_l1`` at the last below the first, step ms, peak memory, TF32;
+   ``--restore`` of its checkpoint for 2 more steps; its
+   ``.generator.msgpack`` in ``synthesize --vocoder_ckpt`` (a finite wav).
+12. ``train_vocoder_resilience``: ``nan_grads@3`` gives exactly one
+   rollback (to the step-2 checkpoint); ``sigterm@4`` (the command in a
+   subprocess) exits 0 with a flushed checkpoint, and the resume from it
+   logs steps 5-6.
+13. ``vocode``: the trained generator on a mel dir (both layouts) and on
+   a wav dir: int16 wavs of T x 256 samples.
+14. ``distill`` (inside phase 6, from its kernel path's checkpoint, the
+   duration layer set as phase 2 sets it): ``run_distillation`` at the
+   JAX defaults (batch 8, 12 phonemes, 144 frames) and at (48, 128,
+   1000), 30 steps each: every kernel count set to 0 just before and read
+   just after, held to the launches a step exactly (15 attention
+   forwards, 5 backwards and δ pre-passes, 49 convs); the loss falls; the
+   student restores from ``<ckpt>/student``; its reference encoder stays
+   bit-equal to the teacher's and the teacher unchanged; the step's ms
+   (30 steps), device busy ms and idle share (3 traced steps), and peak
+   memory. The ``distill`` command's drills (``nan_grads@6``: one
+   rollback to step 4; ``sigterm@7``: flushed at 7). One step's student
+   gradients, kernel path against library path (the rule of phase 6),
+   for 3 seeds under deterministic algorithms, the first seed repeated
+   bit for bit.
+15. ``distill_kernels``: the student's new conv shapes (k9 256 -> 512
+   +ReLU, k1 512 -> 256, postnet k5 80 -> 256 and 256 -> 80) and the
+   attention forward, backward and δ at both distill sizes, against their
+   plain versions, timed.
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 
-Then a summary line of every kernel, the ``nvidia-smi`` line, and last
+Then a summary line of every kernel (with its launches a distill step),
+the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
 rest of the repository.
@@ -872,16 +904,43 @@ def write_smoke_inputs(tmp, cfg, seed):
     return wavs, source
 
 
+def captured_cli(argv):
+    """``python -m speakingstyle_torch`` in this process, its standard
+    output captured: (the command's return value, the output, the kernels'
+    launches)."""
+    import io
+
+    from speakingstyle_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        out = cli(argv)
+    return out, buf.getvalue(), read_counts()
+
+
+@contextlib.contextmanager
+def fault_env(spec):
+    """SPEAKINGSTYLE_FAULTS set to ``spec`` for the block."""
+    from speakingstyle_torch.training.faults import ENV_VAR
+
+    saved = os.environ.get(ENV_VAR)
+    os.environ[ENV_VAR] = spec
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = saved
+
+
 def run_cli(argv, want):
     """``python -m speakingstyle_torch`` in this process, every kernel
     count set to 0 just before and read just after; fails unless each
     kernel of ``want`` launched its count. Returns (the command's return
     value, the counts)."""
-    from speakingstyle_torch.__main__ import main as cli
-
-    reset_counts()
-    out = cli(argv)
-    counts = read_counts()
+    out, _, counts = captured_cli(argv)
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{argv[0]} {argv[-1]}: {name} launched {counts[name]} times, want {n}")
@@ -1157,6 +1216,225 @@ def convert_phase(cfg, seed, dev, attn_per, conv_per):
                 or not same_msgpack:
             fail(f"convert_reference: step {single.info['step']}, vocoder fold error "
                  f"{fold_err}, msgpack equal {same_msgpack}")
+
+
+# ---------------------------------------------------------------- phases 11-13: the vocoder
+
+# train_vocoder at the reference recipe's sizes: HiFi-GAN V1 (512 initial
+# channels, upsampling 8 8 2 2), MPD periods 2 3 5 7 11, MSD 3 scales,
+# batch 16 segments of 8192 samples (the trainer's default, checked), from
+# VOC_WAVS seeded 2 s wavs; the learning rate of the JAX package's CPU test
+# of the descent
+VOC_BATCH, VOC_SEGMENT, VOC_LR = 16, 8192, 5e-4
+VOC_WAVS, VOC_SECONDS = 32, 2.0
+VOC_STEPS, VOC_RESUMED = 20, 2  # steps of the run, then of its resume
+VOC_WARMUP = 2  # first steps, left out of the step-time median (cuDNN plans)
+# the drills: nan_grads poisons step VOC_NAN's wavs (a checkpoint every 2
+# steps, so it rolls back to step VOC_NAN - 1); sigterm after step VOC_SIGTERM
+VOC_DRILL_STEPS, VOC_NAN, VOC_SIGTERM = 6, 3, 4
+VOC_MELS = 4  # the vocode phase's mel files (from the first wavs), and as many wavs
+
+
+def vocoder_log(text):
+    """{step: {metric: value}} of train_vocoder's ``[vocoder] step N:`` lines."""
+    rows = {}
+    for line in text.splitlines():
+        m = re.match(r"\[vocoder\] step (\d+): (.*)$", line.strip())
+        if m:
+            rows[int(m[1])] = {k: float(v) for k, v in (kv.split(": ") for kv in m[2].split(", "))}
+    return rows
+
+
+def vocoder_phase(cfg, seed, dev, attn_per):
+    """Phases 11-13 in a temporary directory: ``train_vocoder`` (the
+    command in this process) at the reference recipe's sizes, its resume,
+    its generator in ``synthesize --vocoder_ckpt``; the NaN and SIGTERM
+    drills; ``vocode`` on a mel dir and a wav dir."""
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from speakingstyle_torch.training.vocoder_trainer import VocoderHParams
+
+    if VocoderHParams().segment_size != VOC_SEGMENT:
+        fail(f"train_vocoder: the default segment is {VocoderHParams().segment_size}, "
+             f"not the recipe's {VOC_SEGMENT}")
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    hop = cfg.preprocess.preprocessing.stft.hop_length
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vocoder_") as tmp:
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        for i in range(VOC_WAVS):
+            scipy.io.wavfile.write(os.path.join(wav_dir, f"w{i:02d}.wav"), sr,
+                                   reference_wav(seed + 100 + i, sr, VOC_SECONDS))
+        ckpt = os.path.join(tmp, "ckpt")
+
+        def args(steps, ckpt_dir=ckpt, save_every=VOC_STEPS):
+            return ["train_vocoder", "--preset", "LJSpeech", "--input_wavs_dir", wav_dir,
+                    "--checkpoint_path", ckpt_dir, "--batch_size", str(VOC_BATCH),
+                    "--learning_rate", str(VOC_LR),
+                    "--log_every", "1", "--save_every", str(save_every),
+                    "--training_steps", str(steps), "--device", dev.type]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, text, counts = captured_cli(args(VOC_STEPS))
+        peak = torch.cuda.max_memory_allocated()
+        log = vocoder_log(text)
+        last = os.path.join(ckpt, f"vocoder_{VOC_STEPS:08d}.msgpack")
+        resumed, resumed_text, _ = captured_cli(
+            args(VOC_STEPS + VOC_RESUMED) + ["--restore", last])
+        resumed_log = vocoder_log(resumed_text)
+        gen_file = last + ".generator.msgpack"
+        synth = vocoder_synthesize(cfg, seed, dev, attn_per, tmp, gen_file)
+        step_ms = [log[s]["step_ms"] for s in range(VOC_WARMUP + 1, VOC_STEPS + 1) if s in log]
+        mel_l1 = [log[s]["mel_l1"] for s in sorted(log)]
+        emit("train_vocoder", entry="cli.train_vocoder.main", generator="HiFi-GAN V1",
+             mpd_periods=[2, 3, 5, 7, 11], msd_scales=3, batch=VOC_BATCH,
+             segment=VOC_SEGMENT, learning_rate=VOC_LR, wavs=VOC_WAVS, steps=VOC_STEPS,
+             metrics={s: log[s] for s in sorted(log)}, mel_l1=mel_l1,
+             step_ms=step_ms, step_ms_median=statistics.median(step_ms) if step_ms else None,
+             warmup_steps=VOC_WARMUP, max_memory_allocated_bytes=peak,
+             tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32},
+             checkpoints=sorted(os.listdir(ckpt)), resumed_steps=sorted(resumed_log),
+             resumed_to=resumed.step, launches=counts, synthesize=synth)
+        if sorted(log) != list(range(1, VOC_STEPS + 1)) or not all(
+                math.isfinite(v) for row in log.values() for v in row.values()):
+            fail(f"train_vocoder: log steps {sorted(log)} or non-finite metrics {log}")
+        if not mel_l1[-1] < mel_l1[0]:
+            fail(f"train_vocoder: mel_l1 did not fall: {mel_l1}")
+        if state.step != VOC_STEPS or resumed.step != VOC_STEPS + VOC_RESUMED or sorted(
+                resumed_log) != list(range(VOC_STEPS + 1, VOC_STEPS + VOC_RESUMED + 1)):
+            fail(f"train_vocoder: ended at {state.step}, resumed to {resumed.step} with "
+                 f"steps {sorted(resumed_log)}")
+        if any(counts.values()):
+            fail(f"train_vocoder launched hand-written kernels: {counts}")
+        vocoder_drills(args, tmp, dev)
+        vocode_phase(cfg, tmp, wav_dir, gen_file, dev, hop)
+
+
+def vocoder_synthesize(cfg, seed, dev, attn_per, tmp, gen_file):
+    """``synthesize --vocoder_ckpt`` with the trained generator sidecar, on
+    a checkpoint of the seeded LJSpeech engine's model: a finite wav of
+    mel_len * hop samples."""
+    import numpy as np
+
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    step = 7
+    root = os.path.join(tmp, "synthesize")
+    os.makedirs(root)
+    engine = build_engine(cfg, seed, dev)
+    args = smoke_configs(root)
+    CheckpointManager(os.path.join(root, "ckpt")).save(step, TrainState(
+        step=step, model=engine.model, optimizer=Optimizer(trainable(engine.model), cfg.train)))
+    wavs, _ = write_smoke_inputs(root, cfg, seed)
+    ns, counts = run_cli(["synthesize", *args, "--device", dev.type, "--restore_step", str(step),
+                          "--mode", "single", "--text", TEXTS[1], "--ref_audio", wavs[1],
+                          "--vocoder_ckpt", gen_file],
+                         {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+                          "fused_conv1d_fwd": 0})
+    r = ns.results[0]
+    hop = cfg.preprocess.preprocessing.stft.hop_length
+    row = {"mel_len": r.mel_len, "wav_samples": int(len(r.wav)), "wav_finite": r.wav_finite,
+           "wav_rms": float(np.sqrt(np.mean(r.wav.astype(np.float64) ** 2)))
+           if len(r.wav) else 0.0, "launches": counts}
+    if not (r.mel_len > 0 and len(r.wav) == r.mel_len * hop and r.wav_finite):
+        fail(f"synthesize --vocoder_ckpt: {row}")
+    return row
+
+
+def vocoder_drills(args, tmp, dev):
+    """``nan_grads@VOC_NAN`` (in this process): exactly one rollback, to the
+    step-(VOC_NAN - 1) checkpoint, and the run ends at its last step.
+    ``sigterm@VOC_SIGTERM`` (the command in a subprocess): exit 0 with a
+    flushed checkpoint at that step; the resume from it continues at the
+    next step."""
+    drill = os.path.join(tmp, "drill_nan")
+    with fault_env(f"nan_grads@{VOC_NAN}"):
+        state, text, _ = captured_cli(args(VOC_DRILL_STEPS, drill, 2))
+    rollbacks = re.findall(r"rollback (\d+)/\d+ to (\S+)", text)
+    log = vocoder_log(text)
+    sig = os.path.join(tmp, "drill_sigterm")
+    env = dict(os.environ, SPEAKINGSTYLE_FAULTS=f"sigterm@{VOC_SIGTERM}")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "speakingstyle_torch",
+                          *args(VOC_DRILL_STEPS, sig, VOC_DRILL_STEPS)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    sig_s = time.perf_counter() - t0
+    flushed = os.path.join(sig, f"vocoder_{VOC_SIGTERM:08d}.msgpack")
+    resumed, resumed_text, _ = captured_cli(args(VOC_DRILL_STEPS, sig, VOC_DRILL_STEPS)
+                                            + ["--restore", flushed])
+    resumed_steps = sorted(vocoder_log(resumed_text))
+    emit("train_vocoder_resilience", nan_drill={
+        "faults": f"nan_grads@{VOC_NAN}", "rollbacks": rollbacks, "steps": sorted(log),
+        "ended_at": state.step, "last": log.get(VOC_DRILL_STEPS)},
+        sigterm_drill={"faults": f"sigterm@{VOC_SIGTERM}", "exit_code": out.returncode,
+                       "seconds": sig_s, "flushed": os.path.isfile(flushed),
+                       "resumed_steps": resumed_steps, "resumed_to": resumed.step})
+    want_to = os.path.join(drill, f"vocoder_{VOC_NAN - 1:08d}.msgpack")
+    if rollbacks != [("1", want_to)] or state.step != VOC_DRILL_STEPS or not all(
+            math.isfinite(v) for v in log[VOC_DRILL_STEPS].values()):
+        fail(f"train_vocoder nan drill: rollbacks {rollbacks}, ended at {state.step}")
+    if out.returncode != 0 or f"SIGTERM: checkpoint flushed at step {VOC_SIGTERM}" not in \
+            out.stdout or not os.path.isfile(flushed):
+        fail(f"train_vocoder sigterm drill: exit {out.returncode}: {out.stdout[-2000:]} "
+             f"{out.stderr[-2000:]}")
+    if resumed_steps != list(range(VOC_SIGTERM + 1, VOC_DRILL_STEPS + 1)):
+        fail(f"train_vocoder sigterm drill: the resume logged steps {resumed_steps}")
+
+
+def vocode_phase(cfg, tmp, wav_dir, gen_file, dev, hop):
+    """``vocode`` with the trained generator: mels of the first wavs (half
+    of them saved [T, 80], half [80, T]) and the wavs themselves; int16 wavs
+    of T * hop samples, finite and not silent."""
+    import numpy as np
+    import scipy.io.wavfile
+
+    from speakingstyle_torch.audio.stft import MelExtractor, get_mel_from_wav
+    from speakingstyle_torch.audio.tools import load_wav
+
+    pp = cfg.preprocess.preprocessing
+    extractor = MelExtractor(pp.stft.filter_length, pp.stft.hop_length, pp.stft.win_length,
+                             pp.mel.n_mel_channels, pp.audio.sampling_rate, pp.mel.mel_fmin,
+                             pp.mel.mel_fmax)
+    mel_dir, in_wavs = os.path.join(tmp, "vocode_mels"), os.path.join(tmp, "vocode_wavs")
+    os.makedirs(mel_dir)
+    os.makedirs(in_wavs)
+    frames = {}
+    names = sorted(os.listdir(wav_dir))[:VOC_MELS]
+    for i, name in enumerate(names):
+        audio, _ = load_wav(os.path.join(wav_dir, name), target_sr=pp.audio.sampling_rate)
+        audio = audio[: len(audio) * (i + 1) // VOC_MELS]  # unequal lengths
+        mel, _ = get_mel_from_wav(audio, extractor)  # [80, T]
+        base = os.path.splitext(name)[0]
+        np.save(os.path.join(mel_dir, base + ".npy"), mel if i % 2 else mel.T)
+        scipy.io.wavfile.write(os.path.join(in_wavs, base + ".wav"), pp.audio.sampling_rate, audio)
+        frames[base] = mel.shape[1]
+    rows, bad = [], []
+    for flag, src, suffix in (("--input_mels_dir", mel_dir, "_generated_e2e.wav"),
+                              ("--input_wavs_dir", in_wavs, "_generated.wav")):
+        written, _, counts = captured_cli(["vocode", "--preset", "LJSpeech", flag, src,
+                                           "--output_dir", os.path.join(tmp, "vocoded"),
+                                           "--checkpoint_file", gen_file, "--device", dev.type])
+        for path in written:
+            base = os.path.basename(path)[: -len(suffix)]
+            rate, wav = scipy.io.wavfile.read(path)
+            rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))) if len(wav) else 0.0
+            rows.append({"input": flag[8:12], "file": base, "frames": frames[base],
+                         "samples": int(len(wav)), "dtype": str(wav.dtype), "rms": rms})
+            if not (rate == pp.audio.sampling_rate and wav.dtype == np.int16
+                    and len(wav) == frames[base] * hop and rms > 1.0):
+                bad.append(rows[-1])
+        if len(written) != len(names) or any(counts.values()):
+            bad.append({"flag": flag, "written": len(written), "launches": counts})
+    emit("vocode", entry="cli.vocode.main", checkpoint=os.path.basename(gen_file), results=rows)
+    if bad:
+        fail(f"vocode: {bad}")
 
 
 # ---------------------------------------------------------------- phase 6: training
@@ -1513,14 +1791,25 @@ def grad_parity(cfg, batch, dev, seed):
     dropout masks, kernel path against library path: float32 (TF32 off)
     within F32_GRAD_RTOL of each leaf's max |grad|, bfloat16 by the distance
     ratio. Returns the failed checks."""
-    import torch
-
     from speakingstyle_torch.models.factory import build_model, init_weights
     from speakingstyle_torch.ops.dropout import DropoutRNG
     from speakingstyle_torch.training.trainer import compute_losses, to_device
 
     weights = init_weights(build_model(cfg), seed).state_dict()
     arrays = to_device(batch.arrays(), dev)
+    grads, loss = path_grads(cfg, weights, dev, lambda model, c: compute_losses(
+        model, c, arrays, deterministic=False, rng=DropoutRNG(seed, dev)))
+    return judge_grads("train_grad_parity", grads, loss)
+
+
+def path_grads(cfg, weights, dev, losses_of_model):
+    """({"<dtype>_<path>": {parameter: float32 grad}}, {...: total loss}) of
+    ``losses_of_model(model, cfg)`` for a model of ``cfg`` holding
+    ``weights`` on each of TRAIN_PATHS, in float32 (TF32 off) and bfloat16."""
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model
+
     grads, loss = {}, {}
     for dtype in ("float32", "bfloat16"):
         for tag, model_kw in TRAIN_PATHS:
@@ -1531,18 +1820,26 @@ def grad_parity(cfg, batch, dev, seed):
             model = model.to(dev)
             named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
             with strict_float32():
-                losses = compute_losses(model, c, arrays, deterministic=False,
-                                        rng=DropoutRNG(seed, dev))
-                gs = torch.autograd.grad(losses["total_loss"], [p for _, p in named])
+                losses = losses_of_model(model, c)
+                gs = torch.autograd.grad(losses["total_loss"], [p for _, p in named],
+                                         materialize_grads=True)
             grads[f"{dtype}_{tag}"] = {n: gr.float() for (n, _), gr in zip(named, gs)}
             loss[f"{dtype}_{tag}"] = float(losses["total_loss"].detach())
             del model, gs, losses
+    return grads, loss
+
+
+def judge_grads(phase, grads, loss, **extra):
+    """The gradient parity of ``path_grads``'s results, emitted as one
+    ``phase`` line (with ``extra``); returns the failed checks."""
     ref = grads["float32_library"]
     share = {name: g.abs().max().item() for name, g in ref.items()}
     top = max(share.values())
     share = {name: v / top for name, v in share.items()}
     zero = {name for name, v in share.items() if v <= NOISE_SHARE}
     rows, bad = {}, []
+    d_leaf = lambda name, a, b: ((grads[a][name] - grads[b][name]).abs().max().item()
+                                 / ref[name].abs().max().item())
     loss_err = abs(loss["float32_kernels"] - loss["float32_library"]) / abs(loss["float32_library"])
     if not loss_err <= F32_LOSS_RTOL:
         bad.append(f"float32 total loss {loss['float32_kernels']} vs {loss['float32_library']}")
@@ -1553,17 +1850,17 @@ def grad_parity(cfg, batch, dev, seed):
             if worst > ZERO_GRAD_SHARE * top:
                 bad.append(f"{name}: |grad| {worst} with zero exact gradient")
             continue
-        d = lambda a, b: (grads[a][name] - grads[b][name]).abs().max().item() / scale
-        rows[name] = (d("float32_kernels", "float32_library"),
-                      d("bfloat16_kernels", "bfloat16_library"),
-                      d("bfloat16_library", "float32_library"))
+        rows[name] = (d_leaf(name, "float32_kernels", "float32_library"),
+                      d_leaf(name, "bfloat16_kernels", "bfloat16_library"),
+                      d_leaf(name, "bfloat16_library", "float32_library"))
         if not rows[name][0] <= F32_GRAD_RTOL:
             bad.append(f"float32 {name}: {rows[name][0]} of its max |grad| {scale}")
     f32_worst = max(rows.items(), key=lambda kv: kv[1][0])
-    err = max(r[1] for r in rows.values())
-    noise = max(r[2] for r in rows.values())
+    err_leaf = max(rows, key=lambda n: rows[n][1])
+    noise_leaf = max(rows, key=lambda n: rows[n][2])
+    err, noise = rows[err_leaf][1], rows[noise_leaf][2]
     ratio = err / noise if noise > 0 else math.inf
-    emit("train_grad_parity", leaves=len(ref), max_abs_grad=top, total_loss=loss,
+    emit(phase, **extra, leaves=len(ref), max_abs_grad=top, total_loss=loss,
          noise_leaves=sorted(zero), noise_share=NOISE_SHARE,
          noise_leaves_max_share=max((share[n] for n in zero), default=None),
          other_leaves_min_share=min(share[n] for n in rows),
@@ -1573,7 +1870,10 @@ def grad_parity(cfg, batch, dev, seed):
                   "median_rel_err": statistics.median(r[0] for r in rows.values()),
                   "rtol": F32_GRAD_RTOL, "loss_rel_err": loss_err},
          bfloat16={"kernels_vs_library": err, "library_vs_float32": noise, "ratio": ratio,
-                   "max_ratio": BF16_GRAD_RATIO})
+                   "max_ratio": BF16_GRAD_RATIO,
+                   "worst_leaf": [err_leaf, share[err_leaf], *rows[err_leaf][1:], d_leaf(
+                       err_leaf, "bfloat16_kernels", "float32_library")],
+                   "noise_worst_leaf": [noise_leaf, share[noise_leaf], *rows[noise_leaf][1:]]})
     if not ratio <= BF16_GRAD_RATIO:
         bad.append(f"bfloat16 gradient ratio {ratio}")
     return bad
@@ -1609,9 +1909,10 @@ def train_sm16_run(cfg, dev, attn):
 
 
 def train_phase(cfg_of, dev, seed):
-    """Phase 6 on a synthetic corpus in a temporary directory; returns
-    (the kernel path's counts, those of its run under the bf16 softmax, the
-    kernel cases)."""
+    """Phase 6 on a synthetic corpus in a temporary directory, then the
+    distillation phases from its checkpoint; returns (the kernel path's
+    counts, those of its run under the bf16 softmax, the kernel cases, the
+    launches per distill step)."""
     from speakingstyle_torch.data.synthetic import generate_corpus
     from speakingstyle_torch.training.trainer import batch_streams
 
@@ -1650,8 +1951,374 @@ def train_phase(cfg_of, dev, seed):
         bad = grad_parity(cfg, first, dev, seed)
         if bad:
             fail(f"train gradient parity: {bad}")
-    return counts, sm16_counts, cases
+        distill_launches, distill_cases = distill_phase(cfg, tmp, dev, seed)
+        cases.update(distill_cases)
+    return counts, sm16_counts, cases, distill_launches
 
+
+
+# ---------------------------------------------------------------- phases 14-15: distillation
+
+# (tag, batch, phonemes) of the distill runs: the JAX package's defaults
+# (src = min(serve.src_buckets[0], 12), mel = 12 x 12 = 144 frames) and the
+# train phase's size (mel = min(128 x 12, max_seq_len) = 1000 frames)
+DISTILL_RUNS = (("defaults", 8, 12), ("train_size", 48, 128))
+DISTILL_STEPS = 30
+DISTILL_TIMED = 30  # steps of the timed loop after each run
+DISTILL_TRACED = 3  # then steps under torch.profiler: device busy ms, idle share
+# the gradient parity: one student per seed (weights, batch, dropout), and
+# the first seed again, which must give the same gradients bit for bit
+DISTILL_PARITY_SEEDS = 3
+# the loss falls: the mean of the last DISTILL_MEAN logged losses below
+# that of the first (dropout is on: single steps are noisy)
+DISTILL_MEAN = 5
+# a log line (and the sentinel's read) every step, a student checkpoint
+# every 10; the lr ramp shortened to 5 steps (as the JAX package's distill
+# test does), so that the loss moves within the run
+DISTILL_STEP_CFG = {"log_step": 1, "save_step": 10}
+DISTILL_ANNEAL = 5
+# the distill command's drills, with a student checkpoint every 4 steps
+DISTILL_DRILL_STEPS, DISTILL_DRILL, DISTILL_DRILL_SAVE = 8, "nan_grads@6,sigterm@7", 4
+TEACHER_STEP = 1000  # the step the prepared teacher is saved under
+
+
+def distill_config(cfg, out):
+    """The train phase's kernel-path config with the teacher's checkpoints
+    and the logs under ``out``, DISTILL_STEP_CFG and the short lr ramp."""
+    rep = dataclasses.replace
+    train = rep(cfg.train, step=rep(cfg.train.step, **DISTILL_STEP_CFG),
+                loss=rep(cfg.train.loss, anneal_steps=DISTILL_ANNEAL),
+                path=rep(cfg.train.path, ckpt_path=os.path.join(out, "ckpt"),
+                         log_path=os.path.join(out, "log")))
+    return rep(cfg, train=train)
+
+
+def set_duration_layer(model):
+    """``model`` with the duration predictor's output layer set as
+    ``build_engine`` sets it, to predict ~FRAMES_PER_PHONEME frames a
+    phoneme (briefly trained or random weights predict ~0)."""
+    import torch
+
+    lin = model.variance_adaptor.duration_predictor.linear_layer
+    with torch.no_grad():
+        lin.weight.mul_(0.1)
+        lin.bias.fill_(math.log(1.0 + FRAMES_PER_PHONEME))
+    return model
+
+
+def prepare_teacher(cfg, out, dev):
+    """The train phase's latest checkpoint, restored through
+    ``CheckpointManager``, with ``set_duration_layer``, saved as step
+    TEACHER_STEP of the distill config's checkpoint directory. Returns
+    (that config, its step)."""
+    from speakingstyle_torch.models.factory import build_model
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    teacher = build_model(cfg)
+    restored = CheckpointManager(cfg.train.path.ckpt_path).restore_weights(teacher)
+    set_duration_layer(teacher)
+    dcfg = distill_config(cfg, out)
+    CheckpointManager(dcfg.train.path.ckpt_path).save(TEACHER_STEP, TrainState(
+        step=TEACHER_STEP, model=teacher, optimizer=Optimizer(trainable(teacher), cfg.train)),
+        block=True)
+    return dcfg, restored["step"]
+
+
+def distill_per_step(cfg):
+    """Launches of each kernel per distill step: the teacher free-running
+    (forwards), the student teacher-forced (forwards, backwards and their
+    delta pre-passes); no reference encoder runs, so no LayerNorm conv."""
+    from speakingstyle_torch.training.distill import student_config
+
+    s_cfg = student_config(cfg)
+    n_attn = lambda c: c.model.transformer.encoder_layer + c.model.transformer.decoder_layer
+    n_conv = lambda c: sum(n for name, *_, n in conv_cases(c) if not name.startswith("ref_"))
+    return {"fused_attention_fwd": n_attn(cfg) + n_attn(s_cfg),
+            "fused_attention_bwd": n_attn(s_cfg), "fused_attention_bwd_delta": n_attn(s_cfg),
+            "fused_attention_fwd_bf16sm": 0, "fused_attention_bwd_bf16sm": 0,
+            "fused_conv1d_fwd": n_conv(cfg) + n_conv(s_cfg), "fused_conv1d_fwd_act": 0}
+
+
+def read_distill_log(path):
+    return {s: r["total_loss"] for s, r in sorted(read_log(path).get("distill", {}).items())}
+
+
+def distill_run(dcfg, tag, batch, src, dev, want):
+    """``run_distillation`` for DISTILL_STEPS steps with the teacher
+    restored from the distill config's checkpoint, every kernel count set to
+    0 just before and read just after (each a whole multiple of the steps;
+    ``launches_per_step`` is the count over the steps, held to ``want``);
+    then DISTILL_TIMED synchronised steps of the distill step alone, and
+    DISTILL_TRACED more under the profiler. Returns (the emitted row, the
+    student's config, the first batch's teacher mel lengths)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.models.factory import build_model
+    from speakingstyle_torch.obs import MetricsRegistry
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.distill import (
+        STUDENT_SUBDIR, batch_tensors, make_distill_batch, make_distill_step, run_distillation,
+        teacher_targets,
+    )
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    rep = dataclasses.replace
+    out = os.path.join(os.path.dirname(dcfg.train.path.ckpt_path), tag)
+    run_cfg = rep(dcfg, train=rep(dcfg.train, path=rep(dcfg.train.path,
+                                                       log_path=os.path.join(out, "log"))))
+    teacher = build_model(run_cfg)
+    CheckpointManager(run_cfg.train.path.ckpt_path).restore_weights(teacher, step=TEACHER_STEP)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    t_mel = min(src * run_cfg.serve.frames_per_phoneme, run_cfg.model.max_seq_len)
+    student_dir = os.path.join(out, STUDENT_SUBDIR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, s_cfg = run_distillation(run_cfg, teacher=teacher, max_steps=DISTILL_STEPS,
+                                    batch_size=batch, src_len=src, registry=MetricsRegistry(),
+                                    ckpt_dir=student_dir, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = read_distill_log(os.path.join(run_cfg.train.path.log_path, "log.txt"))
+    t_ref, s_ref = (m.reference_encoder.state_dict() for m in (teacher, state.model))
+    graft_equal = all(torch.equal(t_ref[k], s_ref[k]) for k in t_ref)
+    teacher_same = all(torch.equal(v.cpu(), before[k]) for k, v in teacher.state_dict().items())
+    model = build_model(s_cfg)
+    restored = TrainState(0, model, Optimizer(trainable(model), s_cfg.train))
+    CheckpointManager(student_dir).restore(restored)
+    restore_equal = restored.step == DISTILL_STEPS and all(
+        torch.equal(a.cpu(), b) for a, b in zip(state.model.state_dict().values(),
+                                                restored.model.state_dict().values()))
+    # the step alone, synchronised: the student carries on from the run
+    step = make_distill_step(teacher, run_cfg, t_mel)
+    rng = np.random.default_rng(0)
+    arrays = batch_tensors(make_distill_batch(run_cfg, rng, batch, src), dev)
+    mel_lens = [int(x) for x in teacher_targets(teacher, run_cfg, arrays, t_mel)["mel_lens"]]
+    step(state, arrays)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(DISTILL_TIMED):
+        step(state, arrays)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / DISTILL_TIMED
+    # the profiler adds host time to every launch: the idle share is an
+    # upper bound on an unprofiled step's
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(DISTILL_TRACED):
+            step(state, arrays)
+        torch.cuda.synchronize()
+    window, busy, by_name, ours = device_time(
+        f"distill {tag} trace", [e for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation])
+    per_step = {k: n // DISTILL_STEPS for k, n in counts.items()}
+    whole = all(n % DISTILL_STEPS == 0 for n in counts.values())
+    first = list(losses.values())[:DISTILL_MEAN]
+    last = list(losses.values())[-DISTILL_MEAN:]
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    row = {"path": tag, "batch": batch, "src_len": src, "max_mel_len": t_mel,
+           "teacher_mel_lens": mel_lens, "steps": DISTILL_STEPS, "run_s": run_s,
+           "total_loss": losses, "launches": counts, "launches_per_step": per_step,
+           "want_launches_per_step": want, "step_ms": step_ms, "timed_steps": DISTILL_TIMED,
+           "traced_steps": DISTILL_TRACED, "trace_window_ms": window,
+           "device_busy_ms_per_step": busy / DISTILL_TRACED, "idle_share": 1.0 - busy / window,
+           "port_kernel_ms_per_step": {k: v / DISTILL_TRACED for k, v in ours.items()},
+           "top_kernels": [{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top],
+           "max_memory_allocated_bytes": peak, "graft_bit_equal": graft_equal,
+           "teacher_unchanged": teacher_same, "student_restored": restore_equal,
+           "student_checkpoints": CheckpointManager(student_dir).all_steps()}
+    emit("distill", entry="training.distill.run_distillation", **row)
+    if sorted(losses) != list(range(1, DISTILL_STEPS + 1)) or not all(
+            math.isfinite(v) for v in losses.values()):
+        fail(f"distill {tag}: losses {losses}")
+    if not statistics.mean(last) < statistics.mean(first):
+        fail(f"distill {tag}: the loss did not fall: {losses}")
+    if not whole or per_step != want:
+        fail(f"distill {tag}: launches {counts} over {DISTILL_STEPS} steps, want {want} a step")
+    if not (graft_equal and teacher_same and restore_equal):
+        fail(f"distill {tag}: graft equal {graft_equal}, teacher unchanged {teacher_same}, "
+             f"student restored {restore_equal}")
+    return row, s_cfg, mel_lens
+
+
+def distill_drills(dcfg, dev):
+    """The ``distill`` command in this process with ``--faults
+    DISTILL_DRILL`` and a student checkpoint every DISTILL_DRILL_SAVE steps:
+    one rollback at step 6 to the step-4 checkpoint, the SIGTERM after step
+    7 ending the run there with a flushed checkpoint."""
+    from speakingstyle_torch.obs import read_events
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.distill import STUDENT_SUBDIR
+
+    rep = dataclasses.replace
+    out = os.path.join(os.path.dirname(dcfg.train.path.ckpt_path), "drill")
+    drill_cfg = rep(dcfg, train=rep(
+        dcfg.train, path=rep(dcfg.train.path, log_path=os.path.join(out, "log")),
+        step=rep(dcfg.train.step, save_step=DISTILL_DRILL_SAVE)))
+    with fault_env(""):  # the command sets the variable for its process
+        state, _, _ = captured_cli(["distill", *config_yamls(drill_cfg, out), "--device",
+                                    dev.type, "--max_steps", str(DISTILL_DRILL_STEPS),
+                                    "--faults", DISTILL_DRILL])
+
+    events = list(read_events(drill_cfg.train.path.log_path))
+    rollbacks = [(e["step"], e["restore_step"]) for e in of(events, "rollback")]
+    fired = [(e["kind"], e["step"]) for e in of(events, "fault_fire")]
+    student = CheckpointManager(os.path.join(dcfg.train.path.ckpt_path, STUDENT_SUBDIR))
+    row = {"faults": DISTILL_DRILL, "rollbacks": rollbacks, "faults_fired": fired,
+           "ended_at": state.step, "student_checkpoints": student.all_steps(),
+           "distill_end": [e.get("step") for e in of(events, "distill_end")]}
+    emit("distill_drills", entry="cli.distill.main", **row)
+    if rollbacks != [(6, DISTILL_DRILL_SAVE)] or fired != [("nan_grads", 6), ("sigterm", 7)] \
+            or state.step != 7 or student.latest_step() != 7:
+        fail(f"distill drills: {row}")
+
+
+def distill_grad_parity(dcfg, s_cfg, batch, src, dev, seed):
+    """The first distill step's student losses and gradients, kernel path
+    against library path, from the same student weights, batch, teacher
+    targets (the teacher once, on the kernel path) and dropout masks; the
+    rule of ``judge_grads``, for DISTILL_PARITY_SEEDS seeds of the student,
+    batch and dropout, under deterministic algorithms; the first seed again
+    must give the same gradients bit for bit. The teacher is drawn from
+    ``seed`` (with ``set_duration_layer``), not taken from the train phase,
+    whose run is not deterministic: so every input, and with them the
+    gradients, repeat from one card run to the next. Returns the failed
+    checks."""
+    import numpy as np
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model, init_weights
+    from speakingstyle_torch.ops.dropout import DropoutRNG
+    from speakingstyle_torch.training.distill import (
+        batch_tensors, make_distill_batch, student_losses, teacher_targets,
+    )
+
+    t_mel = min(src * dcfg.serve.frames_per_phoneme, dcfg.model.max_seq_len)
+    teacher = set_duration_layer(init_weights(build_model(dcfg), seed)).to(dev)
+
+    def grads_of(s):
+        arrays = batch_tensors(make_distill_batch(dcfg, np.random.default_rng(s), batch, src),
+                               dev)
+        with strict_float32():
+            t_out = teacher_targets(teacher, dcfg, arrays, t_mel)
+        weights = init_weights(build_model(s_cfg), s).state_dict()
+        grads, loss = path_grads(s_cfg, weights, dev, lambda model, c: student_losses(
+            model, c, arrays, t_out, t_mel, DropoutRNG(s, dev)))
+        # the inputs' fingerprint, to compare across card runs
+        return grads, loss, {"teacher_mel_lens": [int(x) for x in t_out["mel_lens"]],
+                             "teacher_duration_sum": int(t_out["durations"].sum()),
+                             "teacher_mel_sum": float(t_out["mel_postnet"].double().sum())}
+
+    bad = []
+    with deterministic():
+        for s in range(seed, seed + DISTILL_PARITY_SEEDS):
+            grads, loss, inputs = grads_of(s)
+            bad += judge_grads("distill_grad_parity", grads, loss, seed=s, inputs=inputs)
+            if s == seed:
+                first = grads
+        again, _, _ = grads_of(seed)
+    differ = sorted(f"{k}/{n}" for k in first for n in first[k]
+                    if not torch.equal(first[k][n], again[k][n]))
+    emit("distill_grad_parity_repeat", seed=seed, leaves=sum(len(v) for v in first.values()),
+         differ=len(differ), first_differing=differ[:10])
+    if differ:
+        bad.append(f"seed {seed} again: {len(differ)} gradients differ under deterministic "
+                   f"algorithms, e.g. {differ[:3]}")
+    return bad
+
+
+def distill_kernel_cases(cfg, s_cfg, sizes, dev, seed):
+    """The student's convs (FFN k9 d -> filter / 2 with ReLU and k1 back,
+    postnet k5 80 -> dim / 2 and back) at each distill size over its mel
+    frames, bfloat16; and the attention forward, backward and delta
+    pre-pass at the distill batches (encoder over the phonemes, decoder
+    over the teacher's frames), float32 and bfloat16. ``sizes``: [(batch,
+    phonemes, mel frames, the teacher's mel lengths)]. Each case's
+    ``layers_per_step`` counts the layers of the step at its shape, from
+    the configs (the counters give each kernel's total a step, not its
+    split by shape). Returns {case: result}."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 11)
+    m, tr, t_tr = s_cfg.model, s_cfg.model.transformer, cfg.model.transformer
+    n_mels = cfg.preprocess.preprocessing.mel.n_mel_channels
+    k1, k2 = tr.conv_kernel_size
+    pk, pe = m.postnet_kernel_size, m.postnet_embedding_dim
+    convs = [("ffn_w1", "mel", k1, tr.decoder_hidden, tr.conv_filter_size, True, False,
+              tr.decoder_layer),
+             ("ffn_w2", "mel", k2, tr.conv_filter_size, tr.decoder_hidden, False, False,
+              tr.decoder_layer),
+             ("postnet_in", "mel", pk, n_mels, pe, False, False, 1),
+             ("postnet_out", "mel", pk, pe, n_mels, False, False, 1)]
+    cases = []
+    for B, src, T, mel_lens in sizes:
+        lengths = {"src": (B, src, [src] * B), "mel": (B, T, mel_lens)}
+        for case in convs:
+            c = conv_case(case, lengths, torch.bfloat16, g, dev, prefix=f"distill_conv_{B}x{T}")
+            c["layers_per_step"] = c.pop("launches_per_dispatch")
+            cases.append(c)
+            emit("distill_kernels", **c)
+        for dtype in (torch.float32, torch.bfloat16):
+            # (name, axis, L, lengths, student layers, teacher layers, heads, width):
+            # the teacher's forwards run at the student's shapes
+            for name, axis, L, lens, n, n_t, H, d in (
+                    ("encoder", "src", src, [src] * B, tr.encoder_layer, t_tr.encoder_layer,
+                     tr.encoder_head, tr.encoder_hidden),
+                    ("decoder", "mel", T, mel_lens, tr.decoder_layer, t_tr.decoder_layer,
+                     tr.decoder_head, tr.decoder_hidden)):
+                D = d // H
+                c = attention_case((name, axis, H, D, n + n_t), lengths, dtype, g, dev,
+                                   train=True)
+                c["case"] = f"distill_{B}x{L}_{c['case']}"
+                c["layers_per_step"] = c.pop("launches_per_dispatch")
+                cases.append(c)
+                emit("distill_kernels", **c)
+                for c in attention_bwd_case(name, B, L, H, D, lens, dtype, g, dev):
+                    c["case"] = f"distill_{B}x{L}_{c['case']}"
+                    c.pop("launches_per_step", None)
+                    c["layers_per_step"] = n
+                    cases.append(c)
+                    emit("distill_kernels", **c)
+    return {c["case"]: c for c in cases}
+
+
+def distill_phase(cfg, tmp, dev, seed):
+    """Phases 14-15 in the train phase's directory (``cfg``: its kernel
+    path): the teacher from its checkpoint, the distill runs at
+    DISTILL_RUNS, the CLI drills, the gradient parity, the student-shape
+    kernel cases. Returns (the first run's measured launches per distill
+    step, the kernel cases)."""
+    out = os.path.join(tmp, "distill")
+    dcfg, teacher_step = prepare_teacher(cfg, out, dev)
+    want = distill_per_step(dcfg)
+    sizes, rows = [], []
+    for tag, batch, src in DISTILL_RUNS:
+        row, s_cfg, mel_lens = distill_run(dcfg, tag, batch, src, dev, want)
+        sizes.append((batch, src, row["max_mel_len"], mel_lens))
+        rows.append(row)
+    distill_drills(dcfg, dev)
+    _, batch, src = DISTILL_RUNS[0]
+    bad = distill_grad_parity(dcfg, s_cfg, batch, src, dev, seed)
+    if bad:
+        fail(f"distill gradient parity: {bad}")
+    with strict_float32():
+        cases = distill_kernel_cases(dcfg, s_cfg, sizes, dev, seed)
+    bad = [c["case"] for c in cases.values() if not c["ok"]]
+    if bad:
+        fail(f"distill kernels disagree with their plain versions: {bad}")
+    emit("distill_teacher", restored_from_step=teacher_step, saved_as=TEACHER_STEP,
+         duration_layer={"weight_scale": 0.1, "bias": math.log(1.0 + FRAMES_PER_PHONEME)})
+    return rows[0]["launches_per_step"], cases
 
 
 # ---------------------------------------------------------------- phase 7: non-finite inputs
@@ -2465,7 +3132,9 @@ def main(argv=None) -> int:
     del xla_engine, engine
     restored_phase(cfg, args.seed, dev, attn_per)
     convert_phase(cfg, args.seed, dev, attn_per, conv_per)
-    train_counts, train_sm16_counts, train_cases = train_phase(train_config, dev, args.seed)
+    vocoder_phase(cfg, args.seed, dev, attn_per)
+    train_counts, train_sm16_counts, train_cases, distill_per_step = train_phase(
+        train_config, dev, args.seed)
     cases.update(train_cases)
 
     sources = {
@@ -2500,6 +3169,7 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "bound_share": c["bound_share"],
             "vs_library": c["vs_library"], "case": c["case"],
+            "distill_launches_per_step": distill_per_step[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -40,6 +40,15 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
     return spec.abs().float().transpose(1, 2)
 
 
+def dynamic_range_compression(x: torch.Tensor, C: float = 1.0, clip_val: float = 1e-5):
+    """log(clamp(x, clip_val) * C): the log-mel of a mel magnitude."""
+    return torch.log(torch.clamp(x, min=clip_val) * C)
+
+
+def dynamic_range_decompression(x: torch.Tensor, C: float = 1.0):
+    return torch.exp(x) / C
+
+
 class MelExtractor:
     """TacotronSTFT equivalent: wav -> (log-mel, energy)."""
 
@@ -57,7 +66,7 @@ class MelExtractor:
         """[B, T] wav in [-1, 1] -> (mel [B, n_mels, n_frames], energy [B, n_frames])."""
         mag = stft_magnitude(y, self.filter_length, self.hop_length, self.win_length)
         mel = torch.einsum("mf,bft->bmt", self.mel_basis.to(y.device), mag)
-        return torch.log(torch.clamp(mel, min=1e-5)), torch.linalg.norm(mag, dim=1)
+        return dynamic_range_compression(mel), torch.linalg.norm(mag, dim=1)
 
 
 def get_mel_from_wav(audio: np.ndarray, extractor: MelExtractor):

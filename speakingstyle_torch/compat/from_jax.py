@@ -15,6 +15,9 @@ tree's names, so each leaf's path is its module path plus a leaf rule:
   ``kernel`` [K, Cin, Cout] as stored, HiFi-GAN's convs transpose it to
   torch's [Cout, Cin, K], FiLM has ``s_gamma``/``s_beta``, the postnet
   BatchNorm ``scale``/``bias`` and, in ``batch_stats``, ``mean``/``var``.
+  A rule's third element, where given, names its collection: Flax's
+  spectral-norm state is ``batch_stats`` of ``SpectralNorm_<i>``, leaves
+  named ``"<layer>/kernel/u"`` and ``"<layer>/kernel/sigma"`` (one key each).
 
 Every expected leaf must be present with its exact shape and no other
 leaf may be: a missing, extra or misshapen leaf raises and names itself,
@@ -27,7 +30,7 @@ updated parameters compare leaf by leaf against the JAX package
 ``flax_param_names`` maps the module's state-dict keys to those paths.
 """
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,28 +72,39 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def expected_leaves(module: nn.Module) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, object]]:
-    """``(collection, *module path, flax leaf)`` -> (the port tensor, permutation)."""
+def expected_leaves(module: nn.Module, collections: Optional[Sequence[str]] = None
+                    ) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, object]]:
+    """``(collection, *module path, flax leaf)`` -> (the port tensor,
+    permutation), for the leaves of ``collections`` (default all)."""
     expected = {}
     for mod_name, mod in module.named_modules():
         path = tuple(mod_name.split(".")) if mod_name else ()
-        for leaf, (attr, perm) in _leaf_rules(mod).items():
+        for leaf, (attr, perm, *coll) in _leaf_rules(mod).items():
             tensor = getattr(mod, attr, None)
             if tensor is None:
                 continue  # e.g. a bias-free Linear
-            collection = "batch_stats" if (
-                isinstance(mod, BatchNorm) and leaf in _BATCH_STATS) else "params"
-            expected[(collection,) + path + (leaf,)] = (tensor, perm)
+            if coll:
+                collection = coll[0]
+            elif isinstance(mod, BatchNorm) and leaf in _BATCH_STATS:
+                collection = "batch_stats"
+            else:
+                collection = "params"
+            if collections is None or collection in collections:
+                expected[(collection,) + path + (leaf,)] = (tensor, perm)
     return expected
 
 
 @torch.no_grad()
-def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Fill ``module``'s parameters and BatchNorm statistics from a Flax
-    variable tree of numpy arrays; raises on any missing, extra or
-    misshapen leaf."""
+def load_flax_variables(module: nn.Module, variables: Mapping,
+                        tensors: Optional[Mapping[int, torch.Tensor]] = None,
+                        collections: Optional[Sequence[str]] = None) -> nn.Module:
+    """Fill ``module``'s parameters and BatchNorm statistics (only
+    ``collections``, where given) from a Flax variable tree of numpy
+    arrays; raises on any missing, extra or misshapen leaf. ``tensors``
+    (``id(parameter) -> tensor``) writes each leaf into another tensor of
+    its parameter's shape (an optimizer moment, say) instead."""
     given = _flatten(variables)
-    expected = expected_leaves(module)
+    expected = expected_leaves(module, collections)
     missing = sorted("/".join(p) for p in expected.keys() - given.keys())
     extra = sorted("/".join(p) for p in given.keys() - expected.keys())
     if missing or extra:
@@ -109,6 +123,8 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                 f"{'/'.join(path)}: Flax shape {tuple(given[path].shape)} does not "
                 f"fit the port's {tuple(tensor.shape)}"
             )
+        if tensors is not None:
+            tensor = tensors.get(id(tensor), tensor)
         tensor.copy_(torch.from_numpy(np.array(value, np.float32)))
     return module
 
@@ -123,19 +139,19 @@ def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     return tree
 
 
-def to_flax_tree(module: nn.Module, tensors: Optional[Mapping[int, torch.Tensor]] = None
-                 ) -> Dict:
+def to_flax_tree(module: nn.Module, tensors: Optional[Mapping[int, torch.Tensor]] = None,
+                 collections: Optional[Sequence[str]] = None) -> Dict:
     """``{"params": ..., "batch_stats": ...}`` of float32 numpy arrays in
-    the Flax layout. ``tensors`` (``id(parameter) -> tensor``) substitutes
-    other tensors of the same shapes for the parameters, e.g. their
-    gradients."""
+    the Flax layout (only ``collections``, where given). ``tensors``
+    (``id(parameter) -> tensor``) substitutes other tensors of the same
+    shapes for the parameters, e.g. their gradients."""
     flat = {}
-    for path, (tensor, perm) in expected_leaves(module).items():
+    for path, (tensor, perm) in expected_leaves(module, collections).items():
         t = tensor if tensors is None else tensors.get(id(tensor), tensor)
         value = t.detach().float().cpu().numpy()
         if perm is not None:
             value = np.transpose(value, np.argsort(perm))
-        flat[path] = np.ascontiguousarray(value)
+        flat[path] = np.array(value, order="C")
     return _nest(flat)
 
 

@@ -44,7 +44,18 @@ def _read_msgpack_params(path: str):
     return tree
 
 
-def get_vocoder(cfg: Config, ckpt_path: Optional[str] = None, seed: int = 0) -> nn.Module:
+def vocoder_config(config_path: Optional[str] = None) -> dict:
+    """The HiFi-GAN generator's hyperparameters: the LJSpeech V1 defaults,
+    updated from a config.json where one is given."""
+    hcfg = dict(DEFAULT_HIFIGAN_CONFIG)
+    if config_path:
+        with open(config_path) as f:
+            hcfg.update(json.load(f))
+    return hcfg
+
+
+def get_vocoder(cfg: Config, ckpt_path: Optional[str] = None, seed: int = 0,
+                config_path: Optional[str] = None) -> nn.Module:
     """The configured vocoder generator on the host, weights loaded
     (reference: utils/model.py:62-94).
 
@@ -52,7 +63,8 @@ def get_vocoder(cfg: Config, ckpt_path: Optional[str] = None, seed: int = 0) -> 
     folded, then converted by compat/torch_convert.py) or a Flax
     ``*.msgpack`` params file (the JAX package's generator-only sidecar,
     or ``convert --kind hifigan``'s output). Without a checkpoint the
-    weights are drawn from ``seed`` (tests, Griffin-Lim comparisons)."""
+    weights are drawn from ``seed`` (tests, Griffin-Lim comparisons).
+    ``config_path``: a HiFi-GAN config.json for another topology (V2, V3)."""
     from speakingstyle_torch.models.factory import init_weights
 
     name = cfg.model.vocoder.model
@@ -64,7 +76,7 @@ def get_vocoder(cfg: Config, ckpt_path: Optional[str] = None, seed: int = 0) -> 
             f"vocoder {name!r}: HiFi-GAN and MelGAN are supported; "
             "use synthesize --griffin_lim for a vocoder-free fallback"
         )
-    gen = generator_from_config(DEFAULT_HIFIGAN_CONFIG, n_mels)
+    gen = generator_from_config(vocoder_config(config_path), n_mels)
     if ckpt_path and ckpt_path.endswith(".msgpack"):
         return _load_params(gen, _read_msgpack_params(ckpt_path))
     if ckpt_path:

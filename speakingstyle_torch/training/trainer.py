@@ -95,6 +95,23 @@ def trainable(model) -> List[torch.nn.Parameter]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
+def apply_gradients(state: TrainState, losses: Dict, nan_sentinel: bool):
+    """The gradients of ``losses["total_loss"]`` over
+    ``trainable(state.model)``, one optimizer update and the step count, in
+    place; returns (the detached losses, with ``_finite`` under
+    ``nan_sentinel``, the gradients). A parameter the loss does not reach
+    (a distilled student's grafted reference encoder) gets a zero
+    gradient, as JAX's ``value_and_grad`` gives it."""
+    grads = torch.autograd.grad(losses["total_loss"], trainable(state.model),
+                                materialize_grads=True)
+    losses = {k: v.detach() for k, v in losses.items()}
+    if nan_sentinel:
+        losses["_finite"] = resilience.all_finite(losses, grads)
+    state.optimizer.update(grads)
+    state.step += 1
+    return losses, grads
+
+
 def make_train_step(cfg: Config):
     """fn(state, arrays) -> (losses, grads): one step in place on
     ``state``. The losses stay on the device (no host sync); the
@@ -107,13 +124,7 @@ def make_train_step(cfg: Config):
     def step(state: TrainState, arrays: Dict):
         rng = DropoutRNG(seed * 1_000_003 + state.step, arrays["texts"].device)
         losses = compute_losses(state.model, cfg, arrays, deterministic=False, rng=rng)
-        grads = torch.autograd.grad(losses["total_loss"], trainable(state.model))
-        losses = {k: v.detach() for k, v in losses.items()}
-        if nan_sentinel:
-            losses["_finite"] = resilience.all_finite(losses, grads)
-        state.optimizer.update(grads)
-        state.step += 1
-        return losses, grads
+        return apply_gradients(state, losses, nan_sentinel)
 
     return step
 

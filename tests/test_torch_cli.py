@@ -389,3 +389,117 @@ def test_save_wav_and_expand_match_jax(tmp_path):
     assert open(tmp_path / "j.wav", "rb").read() == open(tmp_path / "t.wav", "rb").read()
     vals, durs = np.array([0.5, -1.0, 2.0]), np.array([2, 0, 3])
     np.testing.assert_array_equal(ts.expand(vals, durs), js.expand(vals, durs))
+
+
+# ---------------------------------------------------------------- vocoder training,
+# distillation and vocode
+
+
+@pytest.fixture(scope="module")
+def vocoder_run(tmp_path_factory):
+    """``train_vocoder`` on the CPU at SEG 1024 with the small generator
+    (32 initial channels, also written as a config.json for ``vocode``)
+    and small discriminators (periods 2 and 3 of narrow channels, one
+    scale), all patched into the trainer: 2 steps, then ``--restore`` of
+    its step-2 checkpoint to step 3. Returns (root, the generator config,
+    the two runs' states)."""
+    import functools
+
+    from speakingstyle_torch.__main__ import main
+    from speakingstyle_torch.models import hifigan_disc
+    from speakingstyle_torch.training import vocoder_trainer
+
+    root = tmp_path_factory.mktemp("vocoder")
+    (root / "wavs").mkdir()
+    for i, f0 in enumerate((180.0, 220.0, 260.0, 300.0)):
+        _ref_wav(root / "wavs" / f"w{i}.wav", seconds=0.3, f0=f0)
+    config = root / "config.json"
+    small_gen = {"upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+                 "upsample_initial_channel": 32}
+    config.write_text(json.dumps(small_gen))
+    common = ["train_vocoder", "--input_wavs_dir", str(root / "wavs"), "--checkpoint_path",
+              str(root / "ckpt"), "--batch_size", "2", "--log_every", "1", "--device", "cpu"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vocoder_trainer, "Generator", functools.partial(
+            vocoder_trainer.Generator, **small_gen))
+        mp.setattr(vocoder_trainer, "VocoderHParams", functools.partial(
+            vocoder_trainer.VocoderHParams, segment_size=1024))
+        mp.setattr(vocoder_trainer, "MultiPeriodDiscriminator", functools.partial(
+            hifigan_disc.MultiPeriodDiscriminator, (2, 3), (8, 16, 32, 32, 32)))
+        mp.setattr(vocoder_trainer, "MultiScaleDiscriminator", functools.partial(
+            hifigan_disc.MultiScaleDiscriminator, 1))
+        first = main(common + ["--training_steps", "2"])
+        resumed = main(common + ["--training_steps", "3", "--restore",
+                                 str(root / "ckpt" / "vocoder_00000002.msgpack")])
+    return root, config, (first, resumed)
+
+
+def test_train_vocoder_command_saves_and_resumes(vocoder_run):
+    root, _, (first, resumed) = vocoder_run
+    assert first.step == 2 and resumed.step == 3
+    names = sorted(p.name for p in (root / "ckpt").iterdir())
+    assert names == [f"vocoder_0000000{s}.msgpack{x}" for s in (2, 3)
+                     for x in ("", ".generator.msgpack")]
+    # the resumed run started from the saved discriminators and moments
+    assert resumed.gen_opt.count == 3 and resumed.disc_opt.count == 3
+
+
+@pytest.mark.parametrize("layout", ["mels_frames_first", "mels_channels_first", "wavs"])
+def test_vocode_command_writes_int16_wavs_of_t_hops(vocoder_run, tmp_path, layout):
+    """``vocode`` with the trained generator sidecar: a mel dir in either
+    layout ([T, 80] or [80, T]; T = 70, padded to 128 and trimmed) and a
+    wav dir (wav -> mel -> wav); int16 wavs of T * 256 samples."""
+    from speakingstyle_torch.__main__ import main
+
+    root, config, _ = vocoder_run
+    src = tmp_path / "in"
+    src.mkdir()
+    if layout == "wavs":
+        _ref_wav(src / "a.wav", seconds=0.5)
+        frames = int(22050 * 0.5) // 256 + 1
+        flag = "--input_wavs_dir"
+    else:
+        frames = 70
+        mel = np.random.default_rng(0).standard_normal((frames, 80)).astype(np.float32) - 5
+        np.save(src / "a.npy", mel if layout == "mels_frames_first" else mel.T)
+        flag = "--input_mels_dir"
+    written = main(["vocode", flag, str(src), "--output_dir", str(tmp_path / "out"),
+                    "--checkpoint_file", str(root / "ckpt" / "vocoder_00000003.msgpack"
+                                             ".generator.msgpack"),
+                    "--hifigan_config", str(config), "--device", "cpu"])
+    assert len(written) == 1
+    sr, wav = wavfile.read(written[0])
+    assert sr == 22050 and wav.dtype == np.int16 and len(wav) == frames * 256
+
+
+def test_distill_command_checkpoints_the_student(tmp_path, corpus, monkeypatch):  # noqa: F811
+    from speakingstyle_torch.__main__ import main
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+
+    # --faults sets the variable for the process: restore it after the test
+    monkeypatch.setenv("SPEAKINGSTYLE_FAULTS", "")
+    paths = write_configs(tmp_path, corpus, serve=SERVE)
+    state = main(["distill", "-p", paths["preprocess"], "-m", paths["model"],
+                  "-t", paths["train"], "--device", "cpu", "--max_steps", "3",
+                  "--batch_size", "2", "--src_len", "6", "--faults", "sigterm@2"])
+    assert state.step == 2
+    assert CheckpointManager(str(tmp_path / "ckpt" / "student")).all_steps() == [2]
+    # no teacher checkpoint: the seeded fresh teacher, as --fresh_teacher gives
+    monkeypatch.setenv("SPEAKINGSTYLE_FAULTS", "")
+    again = main(["distill", "-p", paths["preprocess"], "-m", paths["model"],
+                  "-t", paths["train"], "--device", "cpu", "--max_steps", "2",
+                  "--batch_size", "2", "--src_len", "6", "--fresh_teacher"])
+    for a, b in zip(state.model.state_dict().values(), again.model.state_dict().values()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("command", ["train_vocoder", "distill", "vocode"])
+def test_new_commands_run_on_cuda_unless_told(command, monkeypatch, tmp_path):
+    from speakingstyle_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    extra = {"train_vocoder": ["--input_wavs_dir", str(tmp_path)],
+             "distill": [],
+             "vocode": ["--input_mels_dir", str(tmp_path), "--checkpoint_file", "g.msgpack"]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, *extra[command]])
