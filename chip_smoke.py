@@ -117,6 +117,7 @@ rest of the repository.
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -239,8 +240,13 @@ DISPATCHES = 3
 FRAMES_PER_PHONEME = 6
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -381,7 +387,7 @@ def path_lengths(engine, requests, results):
     path's dispatch: the style bucket over the reference frames, and the
     serve bucket over the phonemes and the predicted mel frames."""
     b = results[0].bucket
-    sb, r = engine.style_lattice.cover(len(requests), max(len(q.ref_mel) for q in requests))
+    sb, r = engine.style.lattice.cover(len(requests), max(len(q.ref_mel) for q in requests))
 
     def rows(lens, n):
         return list(lens) + [0] * (n - len(lens))
@@ -531,12 +537,36 @@ def conv_case(case, lengths, dtype, g, dev, prefix="conv"):
     })
 
 
-def kernels_phase(cfg, lengths, dev, seed):
+def preset_style_dispatches(cfg, requests):
+    """[(batch, ref bucket, valid lengths)] of the encoder dispatches the
+    StyleService makes for ``requests``' fresh references under ``cfg``'s
+    style lattice: grouped by covering ref bucket in arrival order, chunked
+    at the largest batch, as ``StyleService.encode_mels`` does."""
+    from speakingstyle_torch.serving.lattice import StyleLattice
+
+    lattice = StyleLattice.from_config(cfg.serve)
+    groups = {}
+    for q in requests:
+        groups.setdefault(lattice.cover(1, len(q.ref_mel))[1], []).append(len(q.ref_mel))
+    out = []
+    for r, lens in groups.items():
+        for at in range(0, len(lens), lattice.max_batch):
+            chunk = lens[at: at + lattice.max_batch]
+            b, r = lattice.cover(len(chunk), r)
+            out.append((b, r, chunk + [0] * (b - len(chunk))))
+    return out
+
+
+def kernels_phase(cfg, lengths, dev, seed, style_dispatches=()):
     """Every kernel case of the main path (shapes and valid lengths from
-    ``path_lengths``) in float32 and bfloat16; returns {case: result}."""
+    ``path_lengths``) in float32 and bfloat16, and the reference encoder's
+    cases at each of ``style_dispatches``' other shapes; returns {case:
+    result}."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
+    ref_attn = [c for c in attention_cases(cfg) if c[1] == "ref"]
+    ref_conv = [c for c in conv_cases(cfg) if c[1] == "ref"]
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in attention_cases(cfg):
@@ -545,6 +575,16 @@ def kernels_phase(cfg, lengths, dev, seed):
         for case in conv_cases(cfg):
             cases.append(conv_case(case, lengths, dtype, g, dev))
             emit("kernels", **cases[-1])
+        for b, r, lens in style_dispatches:
+            if (b, r) == lengths["ref"][:2]:
+                continue
+            at = {"ref": (b, r, lens)}
+            for name, *rest in ref_attn:
+                cases.append(attention_case((f"{name}_b{b}_r{r}", *rest), at, dtype, g, dev))
+                emit("kernels", **cases[-1])
+            for name, *rest in ref_conv:
+                cases.append(conv_case((f"{name}_b{b}_r{r}", *rest), at, dtype, g, dev))
+                emit("kernels", **cases[-1])
     return {c["case"]: c for c in cases}
 
 
@@ -592,24 +632,36 @@ def make_requests(cfg, seed):
     return requests
 
 
+def serve_cell(cfg):
+    """The serve cell's config, cut to one style bucket (ref 1000), so a
+    dispatch's fresh references (603-216 frames) encode together in the
+    style bucket (4, 1000) and every phase counts one encoder dispatch a
+    dispatch. (The StyleService groups references by their covering ref
+    bucket: under the preset's [256, 512, 1000] these four take three
+    encoder dispatches, whose other shapes ``kernels_phase`` holds against
+    the plain versions.)"""
+    return dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, style=dataclasses.replace(cfg.serve.style, ref_buckets=[1000])))
+
+
 def build_engine(cfg, seed, dev):
     import torch
 
-    from speakingstyle_torch.models.factory import init_weights
+    from speakingstyle_torch.models.factory import build_model, init_weights
     from speakingstyle_torch.models.hifigan import DEFAULT_HIFIGAN_CONFIG, generator_from_config
-    from speakingstyle_torch.serving.engine import SynthesisEngine
+    from speakingstyle_torch.serving.engine import SynthesisEngine, n_position_for
 
     vocoder = init_weights(generator_from_config(DEFAULT_HIFIGAN_CONFIG), seed + 1)
-    engine = SynthesisEngine(cfg, vocoder=vocoder, device=dev, seed=seed)
+    model = init_weights(build_model(cfg, n_position=n_position_for(cfg)), seed)
     # random weights put the log-durations far from any real speech (a
     # random FiLM beta shifts a whole utterance); scale the duration
     # predictor's output layer so they sit near ln(1 + 6), LJSpeech's
-    # ~6 frames per phoneme
-    lin = engine.model.variance_adaptor.duration_predictor.linear_layer
+    # ~6 frames per phoneme (before the engine casts its precision tiers)
+    lin = model.variance_adaptor.duration_predictor.linear_layer
     with torch.no_grad():
         lin.weight.mul_(0.1)
         lin.bias.fill_(math.log(1.0 + FRAMES_PER_PHONEME))
-    return engine
+    return SynthesisEngine(cfg, model=model, vocoder=vocoder, device=dev)
 
 
 @contextlib.contextmanager
@@ -643,24 +695,31 @@ def read_counts():
 
 
 def synthesize_phase(phase, cfg, requests, seed, dev, want_per_dispatch):
-    """Drive ``SynthesisEngine.run`` ``DISPATCHES`` times (after one warm-up
-    run), with every kernel count set to 0 just before and read just after;
-    check the counts and the wavs."""
+    """Drive ``SynthesisEngine.run(eager=True)`` ``DISPATCHES`` times (after
+    a warm-up that prepares the programs and runs them eagerly once), with
+    every kernel count set to 0 just before and read just after; check the
+    counts and the wavs. Eager, so that every count is one the kernel
+    wrappers made where they launched (a replayed graph's launches are
+    counted from a trace in ``serve_core_phase``)."""
     import numpy as np
     import torch
 
     engine = build_engine(cfg, seed, dev)
-    engine.run(requests)  # warm-up: cuDNN plans, allocator
+    engine.run(requests)  # warm-up: prepares (captures) the programs
+    engine.run(requests, eager=True)
     torch.cuda.synchronize()
-    engine.dispatches = 0
+    first = engine.dispatch_count
     walls = []
     reset_counts()
     for _ in range(DISPATCHES):
+        # every dispatch encodes its references afresh (the path of a new
+        # reference): the StyleService's cache is emptied before it
+        engine.style.clear()
         t0 = time.perf_counter()
-        results = engine.run(requests)  # ends in a device -> host copy
+        results = engine.run(requests, eager=True)  # ends in a device -> host copy
         walls.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
-    n = engine.dispatches
+    n = engine.dispatch_count - first
     hop = engine.vocoder.hop_factor
     rows = []
     for r in results:
@@ -672,7 +731,7 @@ def synthesize_phase(phase, cfg, requests, seed, dev, want_per_dispatch):
         })
     b = results[0].bucket
     emit(phase, conv_impl=cfg.model.conv_impl, compute_dtype=cfg.model.compute_dtype,
-         bucket={"b": b.b, "l_src": b.l_src, "t_mel": b.t_mel}, dispatches=n,
+         bucket={"b": b.b, "l_src": b.l_src, "t_mel": b.t_mel}, dispatches=n, eager=True,
          launches=counts, want_launches_per_dispatch=want_per_dispatch,
          dispatch_wall_ms=walls, dispatch_wall_ms_median=statistics.median(walls),
          requests=rows)
@@ -693,19 +752,25 @@ def profile_dispatch(path, engine, requests):
     busiest kernels, and the device's idle share within the traced window,
     from the start of its first device operation to the end of its last.
     The profiler adds host time to every launch, so the share is an upper
-    bound on an unprofiled dispatch's."""
+    bound on an unprofiled dispatch's. The dispatch replays its graphs:
+    its port kernels counted in the trace must equal the launches the
+    registry credited."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    engine.style.clear()  # a dispatch with fresh references, as synthesize_phase times
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.run(requests)
         torch.cuda.synchronize()
+    credited = read_counts()
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = {e.name: e.time_range for e in on_device
              if e.is_user_annotation and e.name.startswith("synthesis.")}
     kernels = [e for e in on_device if not e.is_user_annotation]
     window, busy, by_name, ours = device_time(f"profile of {path}", kernels)
+    in_trace = check_trace(f"profile of {path}", by_name, credited)
     stages = {
         name: {"span_ms": r.elapsed_us() / 1e3,
                "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels
@@ -715,7 +780,7 @@ def profile_dispatch(path, engine, requests):
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
     emit("profile", path=path, trace_window_ms=window, device_busy_ms=busy,
          idle_share=1.0 - busy / window, device_ops=len(kernels), stages=stages,
-         port_kernel_ms=ours,
+         port_kernel_ms=ours, kernels_in_trace=in_trace, credited=credited,
          top_kernels=[{"name": n[:100], "ms": ms, "calls": c} for n, (ms, c) in top])
 
 
@@ -727,6 +792,43 @@ PORT_SYMBOLS = (("fused_attention_fwd", "(anonymous namespace)::attn_fwd"),
                 ("fused_attention_bwd", "(anonymous namespace)::attn_bwd"),
                 ("fused_attention_bwd_delta", "(anonymous namespace)::attn_bwd_delta"),
                 ("fused_conv1d_fwd", "(anonymous namespace)::conv_fwd"))
+
+
+# a trace's kernel names -> the launch counters' names: the forward (one
+# kernel a launch) and the backward's dK/dV kernel (one a backward launch)
+# carry SM16 as their second template argument; the convs and the delta
+# pre-pass are one kernel a launch
+TRACE_KERNELS = re.compile(
+    r"\(anonymous namespace\)::(attn_fwd|attn_bwd_dkdv|attn_bwd_delta|conv_fwd)"
+    r"(?:_mma)?_kernel<(?:\d+, (true|false))?")
+TRACE_NAMES = {"attn_fwd": "fused_attention_fwd", "attn_bwd_dkdv": "fused_attention_bwd",
+               "attn_bwd_delta": "fused_attention_bwd_delta", "conv_fwd": "fused_conv1d_fwd"}
+
+
+def trace_launches(by_name):
+    """{launch counter: kernels of that counter in a trace} from
+    ``device_time``'s {name: (ms, calls)}."""
+    counts = dict.fromkeys(TRACE_NAMES.values(), 0)
+    counts.update(fused_attention_fwd_bf16sm=0, fused_attention_bwd_bf16sm=0)
+    for name, (_, calls) in by_name.items():
+        m = TRACE_KERNELS.search(name)
+        if m:
+            key = TRACE_NAMES[m.group(1)]
+            if m.group(2) == "true" and m.group(1) != "conv_fwd":
+                key += "_bf16sm"
+            counts[key] += calls
+    return counts
+
+
+def check_trace(what, by_name, credited):
+    """Fail unless the port's kernels counted in a trace equal the launch
+    counts read over the traced run; returns the trace's counts."""
+    in_trace = trace_launches(by_name)
+    differ = {k: (n, credited[k]) for k, n in in_trace.items() if n != credited[k]}
+    if differ:
+        fail(f"{what}: kernels in the trace differ from the launch counts (trace, counted): "
+             f"{differ}")
+    return in_trace
 
 
 def device_time(what, kernels):
@@ -780,7 +882,7 @@ def teacher_forced_parity(cfg, engine, requests, results, dev):
 
     b = results[0].bucket
     B, L, T = b.b, b.l_src, b.t_mel
-    r = engine.style_lattice.cover(len(requests), max(len(q.ref_mel) for q in requests))[1]
+    r = engine.style.lattice.cover(len(requests), max(len(q.ref_mel) for q in requests))[1]
     texts = np.zeros((B, L), np.int64)
     src_lens = np.zeros((B,), np.int64)
     d = np.zeros((B, L), np.int64)
@@ -3062,6 +3164,259 @@ def sm16_serve_cases(cfg, lengths, dev, seed):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- serve_core
+
+SERVE_CORE_PRECISIONS = ("f32", "bf16", "int8")
+SERVE_CORE_DISPATCHES = 3  # steady dispatches per precision, and timed ones per path
+STREAM_WINDOW = 32  # mel frames a streamed chunk emits (+ the 14-frame overlap a side)
+# a streamed sample against the full-utterance vocode, outside the final
+# overlap: cuDNN may pick another algorithm for the window's (1, 64) bucket
+# than for the utterance's (4, 1000) one, and under TF32 (PyTorch's default
+# for cuDNN convs, which a captured graph keeps) inputs that differ by f32
+# noise can round to different 10-bit mantissas: one TF32 ulp of full
+# scale, 2^-10 * 32768 = 32 int16 LSB
+STREAM_LSB = 32
+
+
+def serve_core_config(cfg, conv_impl):
+    """The LJSpeech config on a lattice cut to the serve cell's point
+    (4, 128, 1000), batch 1 and T_mel 64 for the streamed windows, one
+    style bucket (4 or 1, 1000), and the three precision tiers."""
+    serve = dataclasses.replace(
+        serve_cell(cfg).serve, batch_buckets=[1, 4], src_buckets=[128], mel_buckets=[64, 1000],
+        tiers=dataclasses.replace(cfg.serve.tiers, enabled=True,
+                                  precisions=list(SERVE_CORE_PRECISIONS)))
+    return dataclasses.replace(cfg, serve=serve,
+                               model=dataclasses.replace(cfg.model, conv_impl=conv_impl))
+
+
+def same_results(a, b):
+    """Two dispatches' results equal bit for bit (mel, durations, wav)."""
+    import numpy as np
+
+    return all(x.mel_len == y.mel_len and np.array_equal(x.mel, y.mel)
+               and np.array_equal(x.durations, y.durations) and np.array_equal(x.wav, y.wav)
+               for x, y in zip(a, b))
+
+
+def counted_run(engine, requests, **kw):
+    """One dispatch with every kernel count set to 0 just before and read
+    just after: (results, counts)."""
+    import torch
+
+    reset_counts()
+    res = engine.run(requests, **kw)
+    torch.cuda.synchronize()
+    return res, read_counts()
+
+
+def serve_core_phase(cfg, requests, seed, dev, attn_per, conv_per):
+    """The serving engine core at the LJSpeech width, per conv path:
+    precompile (CUDA graphs), steady dispatches at every precision, replay
+    against eager, the style cache, streaming, a faulted stream, the
+    poisoned tier, card FLOPs and the traced replayed dispatch. Returns
+    {conv_impl: the kernel launches of one replayed dispatch}."""
+    import numpy as np
+    import torch
+
+    from speakingstyle_torch.faults import FaultPlan
+    from speakingstyle_torch.obs.cost import device_memory_watermarks
+    from speakingstyle_torch.serving.resilience import InjectedFault
+    from speakingstyle_torch.serving.streaming import receptive_field_frames, stream_wav
+
+    flops, replay_launches = {}, {}
+    for conv_impl in ("xla", "pallas"):
+        phase = f"serve_core_{conv_impl}"
+        want = {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+                "fused_conv1d_fwd": conv_per if conv_impl == "pallas" else 0}
+        scfg = serve_core_config(cfg, conv_impl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved(dev)
+        engine = build_engine(scfg, seed, dev)
+        style = engine.style
+        torch.cuda.synchronize()
+        precompile_s = engine.precompile()
+        torch.cuda.synchronize()
+        rows = engine.programs() + style.programs()
+        reserved = torch.cuda.memory_reserved(dev)
+        watermarks = device_memory_watermarks()
+        # a graph per program on the card (none on a CPU rehearsal)
+        if any(r["graph"] != (dev.type == "cuda") for r in rows) or not engine.is_ready \
+                or not style.is_ready:
+            fail(f"{phase}: precompile left a program without a graph: {rows}")
+        compiles = (engine.compile_count, style.compile_count)
+        allocs = None
+
+        # steady dispatches at every precision: nothing prepared
+        steady, walls = {}, {"graph": [], "eager": []}
+        for prec in SERVE_CORE_PRECISIONS:
+            reqs = [dataclasses.replace(r, precision=prec) for r in requests]
+            for _ in range(SERVE_CORE_DISPATCHES):
+                steady[prec] = engine.run(reqs)
+            if allocs is None:
+                allocs = engine.pool.allocated
+        if (engine.compile_count, style.compile_count) != compiles:
+            fail(f"{phase}: steady dispatches prepared programs: "
+                 f"{compiles} -> {(engine.compile_count, style.compile_count)}")
+        # the dispatch wall, graphs against eager, in turns (cached styles),
+        # after one eager dispatch (the default stream's first library calls)
+        engine.run(requests, eager=True)
+        for eager in (False, True, True, False, False, True):
+            t0 = time.perf_counter()
+            engine.run(requests, eager=eager)
+            walls["eager" if eager else "graph"].append((time.perf_counter() - t0) * 1e3)
+
+        # replay against eager, each with fresh references (the style
+        # programs run too): bit for bit, and the same kernel launches,
+        # the replay's counted by name in its trace
+        replay_rows, bad = [], []
+        for prec in SERVE_CORE_PRECISIONS:
+            reqs = [dataclasses.replace(r, precision=prec) for r in requests]
+            style.clear()
+            got, trace = traced_replay(engine, reqs)
+            style.clear()
+            ref, ref_counts = counted_run(engine, reqs, eager=True)
+            same = same_results(got, ref)
+            got_counts = trace["kernels_in_trace"]
+            replay_rows.append({"precision": prec, "bit_equal": same, "replay_launches": got_counts,
+                                "eager_launches": ref_counts, "trace": trace})
+            if not same or any(got_counts[k] != ref_counts[k] for k in got_counts) or any(
+                    got_counts[k] != n for k, n in want.items()):
+                bad.append(replay_rows[-1])
+        if bad:
+            fail(f"{phase}: replay differs from eager or from the launches a dispatch makes "
+                 f"({want}): {bad}")
+
+        # repeated references: zero encoder dispatches, a hit per request
+        d0, h0 = style.dispatch_count, engine.registry.value("serve_style_cache_hits_total")
+        repeat = engine.run(requests)
+        hits = engine.registry.value("serve_style_cache_hits_total") - h0
+        if style.dispatch_count != d0 or hits != len(requests):
+            fail(f"{phase}: repeated references ran the encoder "
+                 f"{style.dispatch_count - d0} times, {hits} cache hits")
+
+        # streaming at depth 2 against depth 1 and the full-utterance wav
+        overlap = receptive_field_frames(engine.vocoder)
+        hop = engine.vocoder.hop_factor
+        stream_rows = []
+        for r in repeat:
+            one = list(stream_wav(engine, r, STREAM_WINDOW, overlap, depth=1))
+            two = list(stream_wav(engine, r, STREAM_WINDOW, overlap, depth=2))
+            wav = np.concatenate(two)
+            keep = max(0, r.mel_len - overlap) * hop
+            lsb = int(np.abs(wav[:keep].astype(np.int32) - r.wav[:keep].astype(np.int32)).max(
+                initial=0))
+            stream_rows.append({
+                "id": r.id, "chunks": len(two),
+                "depth2_bit_equal_depth1": len(one) == len(two) and all(
+                    np.array_equal(a, b) for a, b in zip(one, two)),
+                "samples": int(len(wav)), "max_lsb_vs_full": lsb, "compared_samples": keep})
+            if not (stream_rows[-1]["depth2_bit_equal_depth1"] and len(wav) == r.mel_len * hop
+                    and lsb <= STREAM_LSB and keep > 0):
+                fail(f"{phase}: stream {stream_rows[-1]} (bound {STREAM_LSB} LSB)")
+        # a fault on the second window of a stream: every lease returns
+        # (windows 1 and 2 dispatched, 1 emitted, the third dispatch raises)
+        engine.fault_plan = FaultPlan.parse(f"vocoder_raise@{engine.vocode_calls + 3}")
+        emitted = []
+        longest = max(repeat, key=lambda r: r.mel_len)
+        if longest.mel_len <= 2 * STREAM_WINDOW:
+            fail(f"{phase}: no result spans three stream windows: {longest.mel_len} frames")
+        try:
+            for chunk in stream_wav(engine, longest, STREAM_WINDOW, overlap, depth=2):
+                emitted.append(chunk)
+            fail(f"{phase}: the armed vocoder_raise did not fire")
+        except InjectedFault:
+            pass
+        engine.fault_plan = None
+        faulted = {"chunks_emitted": len(emitted), "pool_outstanding": engine.pool.outstanding}
+        if engine.pool.outstanding != 0 or len(emitted) != 1:
+            fail(f"{phase}: the faulted stream left {faulted}")
+        if engine.pool.allocated != allocs + 2:  # + two (1, 64) windows in flight
+            fail(f"{phase}: staging buffers grew from {allocs} to {engine.pool.allocated}")
+
+        # the poisoned int8 tier fails the quality gate, f32 still passes
+        engine.poison_params("int8")
+        poisoned = engine.run([dataclasses.replace(r, precision="int8") for r in requests])
+        healthy = engine.run([dataclasses.replace(r, precision="f32") for r in requests])
+        # a poisoned row whose durations all collapse to 0 (a huge negative
+        # log-duration) emits an empty wav, which a per-wav gate cannot
+        # judge (the JAX package's own drill notes it; its golden prober is
+        # the detector for those): every non-empty poisoned wav must fail
+        judged = [r for r in poisoned if len(r.wav)]
+        gate = {"int8_poisoned": [dict(r.quality.as_dict(), mel_len=r.mel_len) for r in poisoned],
+                "int8_empty_rows": len(poisoned) - len(judged),
+                "f32": [dict(r.quality.as_dict(), mel_len=r.mel_len) for r in healthy]}
+        if not judged or any(r.quality.ok for r in judged) or not all(
+                r.quality.ok and len(r.wav) for r in healthy):
+            fail(f"{phase}: the quality gate did not tell the poisoned tier apart: {gate}")
+        if (engine.compile_count, style.compile_count) != compiles:
+            fail(f"{phase}: the serve path prepared programs after precompile")
+
+        cards = {r["name"]: r for r in rows}
+        bucket = "acoustic:b4.s128.m1000"
+        flops[conv_impl] = cards[bucket]["flops"]
+        emit(phase, conv_impl=conv_impl, compute_dtype=scfg.model.compute_dtype,
+             lattice={"batch": scfg.serve.batch_buckets, "src": scfg.serve.src_buckets,
+                      "mel": scfg.serve.mel_buckets, "ref": scfg.serve.style.ref_buckets,
+                      "precisions": list(SERVE_CORE_PRECISIONS)},
+             precompile_s=precompile_s, graphs=len(rows), memory_reserved_bytes=reserved,
+             memory_watermarks=watermarks,
+             memory_reserved_by_engine_bytes=reserved - reserved_before,
+             compiles=compiles, steady_dispatches=SERVE_CORE_DISPATCHES,
+             pool_allocated=engine.pool.allocated,
+             dispatch_wall_ms=walls,
+             dispatch_wall_ms_median={k: statistics.median(v) for k, v in walls.items()},
+             replay_vs_eager=replay_rows, style_repeat={"encoder_dispatches": 0, "hits": hits},
+             stream=stream_rows, stream_overlap=overlap, stream_lsb_bound=STREAM_LSB,
+             faulted_stream=faulted, quality_gate=gate,
+             traced_replay=replay_rows[0]["trace"],
+             cards={n: {k: c[k] for k in ("flops", "peak_bytes", "launches_per_replay",
+                                          "precision")} for n, c in cards.items()})
+        replay_launches[conv_impl] = replay_rows[0]["replay_launches"]
+        del engine, style, steady, poisoned, healthy, repeat
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the card's FLOPs on the library path (einsum attention, cuDNN convs)
+    lib_cfg = serve_core_config(cfg, "xla")
+    lib_cfg = dataclasses.replace(lib_cfg, model=dataclasses.replace(
+        lib_cfg.model, attention_kernel="einsum"))
+    from speakingstyle_torch.serving.lattice import Bucket
+
+    lib = build_engine(lib_cfg, seed, dev)
+    flops["library"] = lib.acoustic_program(Bucket(4, 128, 1000)).card["flops"]
+    del lib
+    torch.cuda.empty_cache()
+    emit("serve_core_flops", acoustic_flops=flops)
+    if not (flops["xla"] == flops["pallas"] == flops["library"] > 0):
+        fail(f"serve_core: the kernel and library paths' cards disagree: {flops}")
+    return replay_launches
+
+
+def traced_replay(engine, requests):
+    """One replayed dispatch under ``torch.profiler``: (results, {device
+    busy ms and idle share in the traced window, the port's kernels counted
+    by name in the trace, the launches the registry credited}). Fails
+    unless the two counts agree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = engine.run(requests)
+        torch.cuda.synchronize()
+    credited = read_counts()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    window, busy, by_name, ours = device_time("traced replay", kernels)
+    in_trace = check_trace("traced replay", by_name, credited)
+    return results, {"trace_window_ms": window, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / window, "device_ops": len(kernels),
+                     "port_kernel_ms": ours, "kernels_in_trace": in_trace,
+                     "credited": credited}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3091,7 +3446,7 @@ def main(argv=None) -> int:
          tf32_in_synthesis_phases={"matmul": torch.backends.cuda.matmul.allow_tf32,
                                    "cudnn": torch.backends.cudnn.allow_tf32})
 
-    cfg = load_config(preset="LJSpeech")
+    cfg = serve_cell(load_config(preset="LJSpeech"))
     requests = make_requests(cfg, args.seed)
     # launches per dispatch of each kernel: 14 attentions, 42 convs
     attn_per = sum(c[-1] for c in attention_cases(cfg))
@@ -3102,8 +3457,13 @@ def main(argv=None) -> int:
          "fused_conv1d_fwd": 0})
 
     lengths = path_lengths(xla_engine, requests, results)
+    # the shipped preset's style lattice encodes these references at other
+    # shapes than the serve cell's single (4, 1000) dispatch
+    shipped = preset_style_dispatches(load_config(preset="LJSpeech"), requests)
+    emit("style_dispatches_of_the_preset", dispatches=[
+        {"batch": b, "ref": r, "lengths": lens} for b, r, lens in shipped])
     with strict_float32():
-        cases = kernels_phase(cfg, lengths, dev, args.seed)
+        cases = kernels_phase(cfg, lengths, dev, args.seed, shipped)
         cases.update(sm16_serve_cases(cfg, lengths, dev, args.seed))
     bad = [c["case"] for c in cases.values() if not c["ok"]]
     if bad:
@@ -3130,6 +3490,7 @@ def main(argv=None) -> int:
     profile_dispatch("xla", xla_engine, requests)
     profile_dispatch("pallas", engine, requests)
     del xla_engine, engine
+    serve_launches = serve_core_phase(cfg, requests, args.seed, dev, attn_per, conv_per)
     restored_phase(cfg, args.seed, dev, attn_per)
     convert_phase(cfg, args.seed, dev, attn_per, conv_per)
     vocoder_phase(cfg, args.seed, dev, attn_per)
@@ -3170,6 +3531,9 @@ def main(argv=None) -> int:
             "library_ms": c["library_ms"], "bound_share": c["bound_share"],
             "vs_library": c["vs_library"], "case": c["case"],
             "distill_launches_per_step": distill_per_step[name],
+            # one replayed serve dispatch (CUDA graphs, fresh references),
+            # counted by name in its trace
+            "serve_launches_per_replay": serve_launches["pallas"][name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

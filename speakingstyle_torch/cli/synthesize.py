@@ -84,7 +84,17 @@ def _control_value(spec, spans):
     return np.asarray(expand_word_controls(spans, spec), np.float32)
 
 
-def _single_request(args, cfg, controls):
+def _cli_style(engine, ref_audio):
+    """A --ref_audio wav -> cached StyleVectors, content-addressed by the
+    file's bytes through the engine's StyleService (repeats hit the cache,
+    not the encoder); None without a service or a reference."""
+    if engine.style is None or ref_audio is None:
+        return None
+    with open(ref_audio, "rb") as f:
+        return engine.style.encode_wav_bytes(f.read())
+
+
+def _single_request(args, cfg, engine, controls):
     from speakingstyle_torch.control import english_word_spans, spans_to_sequence
     from speakingstyle_torch.serving.engine import SynthesisRequest
     from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
@@ -112,24 +122,22 @@ def _single_request(args, cfg, controls):
     p_c, e_c, d_c = (_control_value(c, spans) for c in controls)
     return SynthesisRequest(
         id=safe_id, sequence=np.asarray(sequence, np.int32),
-        ref_mel=load_ref_mel(cfg, args.ref_audio), speaker=speaker, raw_text=args.text,
+        style=_cli_style(engine, args.ref_audio),
+        ref_mel=load_ref_mel(cfg, args.ref_audio) if engine.style is None else None,
+        speaker=speaker, raw_text=args.text,
         p_control=p_c, e_control=e_c, d_control=d_c,
     )
 
 
 def _batch_requests(args, cfg, engine, controls):
     from speakingstyle_torch.data.dataset import TextBatcher
-    from speakingstyle_torch.serving.engine import StyleVectors, SynthesisRequest
-    from speakingstyle_torch.serving.frontend import load_ref_mel
+    from speakingstyle_torch.serving.engine import SynthesisRequest
 
     if not all(np.isscalar(c) for c in controls):
         raise SystemExit("per-word controls need single mode with English text")
-    shared = None
-    if args.ref_audio is not None:
-        # one reference styles the whole batch: one encoder pass, and every
-        # request carries the same FiLM (gamma, beta)
-        film = engine.encode_styles([load_ref_mel(cfg, args.ref_audio)])[0].cpu().numpy()
-        shared = StyleVectors(gamma=film[0], beta=film[1])
+    # one reference styles the whole batch: one encoder pass through the
+    # StyleService's cache, and every request carries the same (gamma, beta)
+    shared = _cli_style(engine, args.ref_audio)
     ds = TextBatcher(args.source, cfg)
     requests = []
     for i in range(len(ds)):
@@ -176,7 +184,7 @@ def main(args):
     controls = [_parse_control(c) for c in
                 (args.pitch_control, args.energy_control, args.duration_control)]
     if args.mode == "single":
-        requests = [_single_request(args, cfg, controls)]
+        requests = [_single_request(args, cfg, engine, controls)]
     else:
         requests = _batch_requests(args, cfg, engine, controls)
 

@@ -415,25 +415,138 @@ def _check_ascending(name: str, vals: List[int]) -> None:
 
 @dataclass(frozen=True)
 class StyleConfig:
+    """The StyleService's knobs (serving/style.py): its ``(batch, ref_len)``
+    lattice and its content-addressed cache."""
+
     # padded reference-mel lengths the style encoder runs at
     ref_buckets: List[int] = field(default_factory=lambda: [256, 512, 1000])
+    # encode batch sizes; empty = inherit serve.batch_buckets
+    batch_buckets: List[int] = field(default_factory=list)
+    # (gamma, beta) entries the LRU cache keeps
+    cache_capacity: int = 512
 
     def __post_init__(self):
         _check_ascending("serve.style.ref_buckets", self.ref_buckets)
+        if self.batch_buckets:
+            _check_ascending("serve.style.batch_buckets", self.batch_buckets)
+        if self.cache_capacity <= 0:
+            raise ValueError(
+                f"serve.style.cache_capacity must be > 0, got {self.cache_capacity}"
+            )
+
+
+TIER_PRECISIONS = ("f32", "bf16", "int8")
+
+
+@dataclass(frozen=True)
+class TiersConfig:
+    """Quality tiers (copied whole from the JAX package): precision
+    variants of the acoustic lattice. A tier name is
+    ``<model>-<precision>`` (``teacher-f32``, ``student-int8``); the port's
+    engine reads ``enabled`` and ``precisions``, the rest waits for the
+    tier router (ROADMAP.md queue A item 5)."""
+
+    enabled: bool = False
+    # precision tiers the lattice prepares; the first is the default
+    precisions: List[str] = field(default_factory=lambda: ["f32"])
+    # traffic class -> tier name; classes absent here ride default_tier
+    class_tier: Dict[str, str] = field(default_factory=dict)
+    default_tier: str = "teacher-f32"
+    # golden-set mel-L2 ceiling vs the teacher-f32 engine for a tier to ship
+    tier_tolerance: float = 1e3
+    golden_set_size: int = 4
+    golden_seed: int = 0
+    # the distilled student checkpoint; empty = no student tiers
+    student_ckpt_path: str = ""
+
+    def __post_init__(self):
+        if not self.precisions:
+            raise ValueError("serve.tiers.precisions must be non-empty")
+        for p in self.precisions:
+            if p not in TIER_PRECISIONS:
+                raise ValueError(
+                    f"serve.tiers.precisions entries must be in {TIER_PRECISIONS}, got {p!r}"
+                )
+        if len(set(self.precisions)) != len(self.precisions):
+            raise ValueError(f"serve.tiers.precisions must be unique, got {self.precisions}")
+        for name in [self.default_tier, *self.class_tier.values()]:
+            model, sep, prec = name.partition("-")
+            if not sep or model not in ("teacher", "student") or prec not in TIER_PRECISIONS:
+                raise ValueError(
+                    "tier names must be '<model>-<precision>' with model in "
+                    f"(teacher, student) and precision in {TIER_PRECISIONS}, got {name!r}"
+                )
+        if self.tier_tolerance <= 0:
+            raise ValueError(f"serve.tiers.tier_tolerance must be > 0, got {self.tier_tolerance}")
+        if self.golden_set_size <= 0:
+            raise ValueError(
+                f"serve.tiers.golden_set_size must be > 0, got {self.golden_set_size}"
+            )
+
+
+@dataclass(frozen=True)
+class QualityConfig:
+    """The audio-quality gate's thresholds (obs/quality.py), and the golden
+    prober's knobs, which wait for the prober (ROADMAP.md queue A item 5)."""
+
+    enabled: bool = True
+    # fraction of samples at >= 99.9% full scale before a wav fails
+    clip_fraction_max: float = 0.5
+    # longest exact-zero run (digital silence) a wav may carry
+    silence_run_ms_max: float = 500.0
+    # |mean| of the normalised wav (full scale = 1.0)
+    dc_offset_max: float = 0.5
+    # spectral flatness above this is a stuck signal (constant ~1.0,
+    # white noise ~0.56, speech far below)
+    flatness_max: float = 0.9
+    # no flatness check below this many samples
+    flatness_min_samples: int = 256
+    probe_class: str = "probe"
+    probe_deadline_ms: float = 30_000.0
+    probe_interval_s: float = 30.0
+    probe_mel_tolerance: float = 10.0
+    probe_style_tolerance: float = 10.0
+    anchor_dir: str = ""
+
+    def __post_init__(self):
+        for name in ("clip_fraction_max", "flatness_max"):
+            v = getattr(self, name)
+            if not (0.0 < v <= 1.0):
+                raise ValueError(f"serve.quality.{name} must be in (0, 1], got {v}")
+        for name in ("silence_run_ms_max", "dc_offset_max", "probe_deadline_ms",
+                     "probe_interval_s", "probe_mel_tolerance", "probe_style_tolerance"):
+            v = getattr(self, name)
+            if v <= 0:
+                raise ValueError(f"serve.quality.{name} must be > 0, got {v}")
+        if self.flatness_min_samples < 2:
+            raise ValueError(
+                "serve.quality.flatness_min_samples must be >= 2, got "
+                f"{self.flatness_min_samples}"
+            )
+        if not self.probe_class:
+            raise ValueError("serve.quality.probe_class must be non-empty")
 
 
 @dataclass(frozen=True)
 class ServeConfig:
     """The synthesis engine's shape lattice (serving/lattice.py): every
     dispatch runs at a ``(batch, L_src, T_mel)`` drawn from the cross
-    product of these buckets; ``T_mel`` is the free-run output buffer."""
+    product of these buckets; ``T_mel`` is the free-run output buffer.
+    The JAX package's serve keys that no ported module reads yet (fleet,
+    cluster, autoscale, rollout, longform, trace, slo, parallel and the
+    HTTP server's) are listed in ROADMAP.md queue A item 5."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
     mel_buckets: List[int] = field(default_factory=lambda: [256, 512, 1000])
     # a request with n phonemes needs T_mel >= n * frames_per_phoneme
     frames_per_phoneme: int = 12
+    # host -> device copy retries with backoff (seconds, doubling)
+    transfer_retries: int = 0
+    transfer_backoff: float = 0.05
     style: StyleConfig = field(default_factory=StyleConfig)
+    tiers: TiersConfig = field(default_factory=TiersConfig)
+    quality: QualityConfig = field(default_factory=QualityConfig)
 
     def __post_init__(self):
         for name in ("batch_buckets", "src_buckets", "mel_buckets"):

@@ -127,6 +127,11 @@ class Generator(nn.Module):
             raise ValueError(f"resblock must be '1' or '2', got {resblock!r}")
         block_cls = {"1": ResBlock, "2": ResBlock2}[str(resblock)]
         self.hop_factor = int(np.prod(upsample_rates))
+        # the topology, which serving/streaming.py's receptive field reads
+        self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilation_sizes = tuple(tuple(d) for d in resblock_dilation_sizes)
         self.n_ups, self.n_kernels = len(upsample_rates), len(resblock_kernel_sizes)
         self.conv_pre = TorchConv1d(n_mels, upsample_initial_channel, 7)
         ch = upsample_initial_channel

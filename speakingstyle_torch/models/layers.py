@@ -88,8 +88,11 @@ class MultiHeadSelfAttention(nn.Module):
         if self.attention_kernel == "fused":
             out = fused_mha(q, k, v, pad_mask, softmax_dtype=self.softmax_dtype)
         else:
-            scale = torch.tensor(math.sqrt(d_head), dtype=torch.float32).to(self.dtype)
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale.to(x.device)
+            # made on the device: a host tensor copied in would be a host
+            # sync, which a CUDA graph capture refuses
+            scale = torch.full((), math.sqrt(d_head), dtype=torch.float32,
+                               device=x.device).to(self.dtype)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
             logits = logits.to(self.softmax_dtype) + attention_bias(
                 pad_mask, self.softmax_dtype
             )

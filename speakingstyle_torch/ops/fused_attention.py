@@ -161,6 +161,7 @@ def fused_mha_fwd(q, k, v, pad_mask, sm_scale: float, want_lse: bool = False,
         _stream(q),
     )
     kernels.check(err, "fused_attention_fwd")
+    kernels.add_flops(4 * B * H * L * L * D)  # Q K^T and P V
     if softmax_dtype == torch.bfloat16:
         fused_mha.launches_bf16sm += 1
     else:

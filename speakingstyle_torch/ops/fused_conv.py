@@ -213,6 +213,7 @@ def fused_conv_fwd(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation: 
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(err, "fused_conv1d_fwd")
+    kernels.add_flops(2 * B * T * K * cin * cout)
     fused_conv1d.launches += 1
     fused_conv1d.act_launches += int(want_act)
     return out, act

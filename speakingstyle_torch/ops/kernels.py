@@ -14,6 +14,7 @@ never loaded. ``nvcc`` is looked up on ``PATH``,
 then under ``$CUDA_HOME`` and ``/usr/local/cuda``.
 """
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -123,6 +124,30 @@ def load(name: str, signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDL
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+_flop_tallies = []
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """A tally (a one-element list) of the work the hand-written kernels
+    launched inside the block do, which ``torch.utils.flop_counter`` cannot
+    see through ctypes: each wrapper adds its own count from its shapes
+    (``add_flops``) where it launches. ``parallel/registry.py`` reads it
+    beside the flop counter when it prepares a program."""
+    tally = [0]
+    _flop_tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _flop_tallies.remove(tally)
+
+
+def add_flops(n: int) -> None:
+    """Add one launch's work to every open ``counting_flops`` tally."""
+    for tally in _flop_tallies:
+        tally[0] += n
 
 
 def check(err: int, what: str) -> None:

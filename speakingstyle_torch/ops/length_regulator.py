@@ -45,8 +45,14 @@ def predicted_durations(log_duration_pred: torch.Tensor, src_pad_mask: torch.Ten
     Rounds BEFORE scaling by ``d_control`` and clamps after, the reference
     order; ``torch.round`` rounds half to even like ``jnp.round``. Padded
     source positions get duration 0.
+
+    The cast saturates as XLA's float -> int32 convert does (NaN -> 0,
+    past the range -> 2^31 - 1), where torch's cast of a non-finite or
+    out-of-range float is undefined (INT32_MIN on x86): a diverged or
+    poisoned model then predicts empty or full-length utterances, as in the
+    JAX package, never negative lengths.
     """
     d = torch.round(torch.exp(log_duration_pred) - 1.0) * d_control
     d = torch.clamp(d, min=0.0)
-    d = d.masked_fill(src_pad_mask, 0.0)
-    return d.to(torch.int32)
+    d = d.masked_fill(src_pad_mask | torch.isnan(d), 0.0)
+    return d.double().clamp(max=2.0 ** 31 - 1).to(torch.int32)

@@ -18,7 +18,8 @@ def attention_bias(pad_mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     Padded keys get ``finfo(dtype).min / 2``, not -inf: a fully padded row
     then softmaxes to a finite uniform row instead of NaN.
     """
-    neg = torch.tensor(torch.finfo(dtype).min / 2, dtype=dtype, device=pad_mask.device)
+    # a device fill, not a host scalar copied in (capturable in a CUDA graph)
+    neg = torch.full((), torch.finfo(dtype).min / 2, dtype=dtype, device=pad_mask.device)
     zero = torch.zeros((), dtype=dtype, device=pad_mask.device)
     return torch.where(pad_mask[:, None, None, :], neg, zero)
 

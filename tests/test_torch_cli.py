@@ -142,10 +142,12 @@ def seeded_checkpoint(root, corpus, step, speakers=None, **model_overrides):  # 
 
 def test_batch_mode_encodes_one_shared_reference_once(tmp_path, corpus):  # noqa: F811
     """``--mode batch --source`` over the synthetic corpus's metadata with
-    one ``--ref_audio``: the reference encoder runs once for the whole
-    batch, the requests go out in dispatches of at most the lattice's
-    largest batch, and each result equals its own single-request run (the
-    reference encoded inside that run): equal durations and mel lengths,
+    one ``--ref_audio``: the StyleService encodes the reference once for
+    the whole batch (one encoder dispatch, one cache entry), the requests
+    go out in dispatches of at most the lattice's largest batch, and each
+    result equals its own single-request run (the reference's mel resolved
+    inside that run: encoded once under the mel's content address, then
+    served from the cache): equal durations and mel lengths,
     the mel within 1e-5 (other paddings only reorder f32 sums). Free-running,
     the postnet reads its dispatch's buffer up to the longest row (the
     reference's semantics), so a shorter row's last frames within the
@@ -161,7 +163,10 @@ def test_batch_mode_encodes_one_shared_reference_once(tmp_path, corpus):  # noqa
     engine = ns.engine
     n = len(ns.requests)
     assert n == 11 and len(ns.paths) == n
-    assert engine.style_encodes == 1
+    style = engine.style
+    assert style.dispatch_count == engine.style_encodes == 1 and len(style) == 1
+    assert engine.registry.value("serve_style_cache_misses_total") == 1
+    hits = engine.registry.value("serve_style_cache_hits_total")
     most = engine.lattice.batch_buckets[-1]
     assert engine.dispatches == -(-n // most)
     reach = engine.cfg.model.postnet_layers * (engine.cfg.model.postnet_kernel_size // 2)
@@ -177,7 +182,8 @@ def test_batch_mode_encodes_one_shared_reference_once(tmp_path, corpus):  # noqa
         np.testing.assert_allclose(got.mel[:upto], alone.mel[:upto], atol=1e-5)
         compared += upto
         assert os.path.isfile(os.path.join(str(tmp_path / "result"), "3", f"{got.id}.wav"))
-    assert engine.style_encodes == 1 + n
+    assert style.dispatch_count == engine.style_encodes == 2 and len(style) == 2
+    assert engine.registry.value("serve_style_cache_hits_total") == hits + n - 1
     assert compared > sum(r.mel_len for r in ns.results) // 2
 
 
@@ -192,6 +198,10 @@ def test_batch_mode_without_reference_reads_each_items_mel(trained, corpus):  # 
                     "--griffin_lim"))
     assert len(ns.results) == 3
     assert all(r.style is None and r.ref_mel is not None for r in ns.requests)
+    # three distinct references, fresh in one dispatch: one encoder pass
+    style = ns.engine.style
+    assert style.dispatch_count == 1 and len(style) == 3
+    assert ns.engine.registry.value("serve_style_cache_misses_total") == 3
     with pytest.raises(SystemExit, match="per-word"):
         main(_args(paths, "--restore_step", "2", "--mode", "batch", "--source", source,
                    "--duration_control", "1.0,2.0"))

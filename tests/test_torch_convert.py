@@ -164,6 +164,12 @@ def test_converted_reference_checkpoint_synthesizes_like_jax(tmp_path):
                "--ref_audio", str(ref), "--griffin_lim"])
     req, res = ns.requests[0], ns.results[0]
     assert ns.info["step"] == 100 and res.bucket.t_mel == 128
+    # the reference reaches the engine as StyleService vectors, encoded
+    # from the wav's bytes; the JAX side reads the same wav's mel
+    from speakingstyle_torch.serving.frontend import load_ref_mel
+
+    assert req.ref_mel is None and req.style is not None
+    ref_mel = load_ref_mel(ns.engine.cfg, str(ref))
 
     # the JAX model on the identical padded batch
     jcfg = j_load(preprocess=pre_yaml, model=model_yaml, preset="LJSpeech")
@@ -172,11 +178,11 @@ def test_converted_reference_checkpoint_synthesizes_like_jax(tmp_path):
     texts = np.zeros((1, L), np.int32)
     texts[0, : len(req.sequence)] = req.sequence
     mels = np.zeros((1, R, 80), np.float32)
-    mels[0, : len(req.ref_mel)] = req.ref_mel
+    mels[0, : len(ref_mel)] = ref_mel
     apply = jax.jit(j_build(jcfg, n_position=1001).apply, static_argnames="max_mel_len")
     want = apply(j_convert(sd), jnp.zeros((1,), jnp.int32), jnp.asarray(texts),
                  jnp.asarray([len(req.sequence)]), mels=jnp.asarray(mels),
-                 mel_lens=jnp.asarray([len(req.ref_mel)]), max_mel_len=T)
+                 mel_lens=jnp.asarray([len(ref_mel)]), max_mel_len=T)
     n = res.src_len
     logd = np.asarray(want["log_duration_prediction"])[0, :n]
     edges = np.log(np.arange(200) + 1.5)  # where round(exp(logd) - 1) steps

@@ -615,3 +615,152 @@ def test_sm16_backward_bound_tells_the_rounding_points_apart(dtype, broken):
         assert max(ratios) <= 1.0, ratios
     else:
         assert max(ratios) > 4.0, ratios
+
+
+# a small model whose attention heads are 32 wide (a width the kernel's tile
+# tests cover) for the graph test on the card
+GRAPH_MODEL = {
+    "transformer": {"encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 64,
+                    "decoder_hidden": 64, "encoder_head": 2, "decoder_head": 2,
+                    "conv_filter_size": 64},
+    "reference_encoder": {"encoder_layer": 1, "encoder_head": 2, "encoder_hidden": 64,
+                          "conv_layer": 2, "conv_filter_size": 64},
+    # the duration predictor's FiLM needs filter_size == d_model
+    "variance_predictor": {"filter_size": 64}, "variance_embedding": {"n_bins": 16},
+    "postnet_embedding_dim": 32, "postnet_layers": 3, "max_seq_len": 64,
+    "compute_dtype": "float32", "attention_kernel": "fused",
+}
+GRAPH_SERVE = {"batch_buckets": [1, 2, 4], "src_buckets": [16], "mel_buckets": [48],
+               "frames_per_phoneme": 3, "style": {"ref_buckets": [32]},
+               "tiers": {"enabled": True, "precisions": ["f32", "bf16", "int8"]}}
+
+
+def graph_engine(tmp_path, conv_impl, device):
+    """An engine of the small graph-test model on ``device``."""
+    import yaml
+
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.models.factory import build_model, init_weights
+    from speakingstyle_torch.models.hifigan import Generator
+    from speakingstyle_torch.serving.engine import SynthesisEngine, n_position_for
+
+    (tmp_path / "model.yaml").write_text(yaml.safe_dump(dict(GRAPH_MODEL, conv_impl=conv_impl)))
+    (tmp_path / "train.yaml").write_text(yaml.safe_dump({"serve": GRAPH_SERVE}))
+    cfg = load_config(model=str(tmp_path / "model.yaml"), train=str(tmp_path / "train.yaml"))
+    vocoder = init_weights(Generator(80, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+                                     upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+                                     resblock_dilation_sizes=((1,),)), 2)
+    model = init_weights(build_model(cfg, n_position=n_position_for(cfg)), 1)
+    lin = model.variance_adaptor.duration_predictor.linear_layer
+    with torch.no_grad():  # ~3 frames a phoneme from random weights (before the tier casts)
+        lin.weight.mul_(0.1)
+        lin.bias.fill_(float(np.log(1.0 + 3.0)))
+    return SynthesisEngine(cfg, model=model, vocoder=vocoder, device=device)
+
+
+def graph_requests(seed, shapes, **kw):
+    from speakingstyle_torch.serving.engine import SynthesisRequest
+
+    rng = np.random.default_rng(seed)
+    return [SynthesisRequest(id=f"u{i}", sequence=rng.integers(1, 300, L).astype(np.int32),
+                             ref_mel=rng.standard_normal((T, 80)).astype(np.float32), **kw)
+            for i, (L, T) in enumerate(shapes)]
+
+
+def launches_of(run):
+    """(``run()``'s result, the kernel launch counts it added)."""
+    from speakingstyle_torch.parallel.registry import read_launches
+
+    before = read_launches()
+    res = run()
+    torch.cuda.synchronize()
+    after = read_launches()
+    return res, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_graph_replay_matches_eager_on_card(cuda_device, tmp_path, conv_impl, precision):
+    """One dispatch replayed from the captured CUDA graphs equals the same
+    engine's eager dispatch bit for bit (mel, durations, wav), and the
+    launch counts the registry credits to the replay equal the eager
+    launches."""
+    engine = graph_engine(tmp_path, conv_impl, cuda_device)
+    requests = graph_requests(3, [(7, 20), (5, 12), (9, 30)], precision=precision)
+    engine.run(requests)  # prepares (captures) the programs
+    runs = {}
+    for eager in (False, True, False):
+        runs.setdefault(eager, []).append(
+            launches_of(lambda: engine.run(requests, eager=eager)))
+    (replay, credited), (again, _) = runs[False]
+    eager_res, launched = runs[True][0]
+    # 2 encoder + 2 decoder attentions; 4 + 4 FFN, 6 variance-predictor
+    # and 3 postnet convs (the references come from the style cache)
+    assert credited == launched and launched["fused_mha.launches"] == 4
+    assert launched.get("fused_conv1d.launches", 0) == (0 if conv_impl == "xla" else 17)
+    assert all(r.mel_len > 0 for r in replay), [r.mel_len for r in replay]
+    for a, b, c in zip(replay, eager_res, again):
+        for x in (b, c):
+            assert a.mel_len == x.mel_len
+            np.testing.assert_array_equal(a.mel, x.mel)
+            np.testing.assert_array_equal(a.durations, x.durations)
+            np.testing.assert_array_equal(a.wav, x.wav)
+    assert engine.programs()[0]["graph"] and engine.pool.outstanding == 0
+
+
+@pytest.mark.cuda
+def test_a_miss_under_concurrent_dispatches_on_card(cuda_device, tmp_path):
+    """One thread dispatches a single request at a prepared point while
+    another dispatches three fresh ones, which miss (acoustic, vocoder and
+    style programs are warmed up and captured). The capture waits for the
+    dispatch in flight and holds the next one back: no CUDA call fails,
+    every result equals its single-threaded twin, the three programs are
+    prepared once, and the launch counts over the whole run equal the
+    launches the same dispatches make eagerly."""
+    import threading
+
+    engine = graph_engine(tmp_path, "pallas", cuda_device)
+    one = graph_requests(5, [(6, 20)])
+    three = graph_requests(3, [(7, 20), (5, 12), (9, 30)])
+    want_one = engine.run(one)
+    torch.cuda.synchronize()
+    compiles = (engine.compile_count, engine.style.compile_count)
+    done, steady, errors = threading.Event(), [], []
+
+    def traffic():
+        try:
+            while not done.is_set() or len(steady) < 3:
+                steady.append(engine.run(one))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    def concurrent():
+        t = threading.Thread(target=traffic)
+        t.start()
+        while len(steady) < 2:
+            threading.Event().wait(0.001)
+        try:
+            return engine.run(three)
+        finally:
+            done.set()
+            t.join(timeout=300)
+
+    got_three, launched = launches_of(concurrent)
+    assert not errors, errors
+    assert (engine.compile_count, engine.style.compile_count) == (
+        compiles[0] + 2, compiles[1] + 1)
+    # the same dispatches eagerly: the single request (its style cached)
+    # and the three with fresh references
+    _, per_one = launches_of(lambda: engine.run(one, eager=True))
+    engine.style.clear()
+    eager_three, per_three = launches_of(lambda: engine.run(three, eager=True))
+    assert launched == {k: len(steady) * per_one.get(k, 0) + per_three.get(k, 0)
+                        for k in set(per_one) | set(per_three)}, (launched, len(steady))
+    for res in steady:
+        for a, b in zip(res, want_one):
+            np.testing.assert_array_equal(a.wav, b.wav)
+    for a, b in zip(got_three, eager_three):
+        np.testing.assert_array_equal(a.mel, b.mel)
+        np.testing.assert_array_equal(a.wav, b.wav)
+    assert engine.pool.outstanding == 0 and engine.style.pool.outstanding == 0
