@@ -64,12 +64,14 @@ printing one JSON line:
    launches per step unchanged, the best checkpoint kept), then
    ``--faults sigterm@8`` (a flushed step-8 checkpoint) and
    ``--restore_step -1`` to step 12, held to two runs that stop at step 8
-   without the signal and resume.
+   without the signal and resume. The four chains of runs (the NaN drill,
+   the SIGTERM drill, each baseline) run at once, each chain's runs in
+   turn.
 9. ``train_remat``: 4 steps with ``sharding.remat`` off and on (the
    checkpointed blocks' forwards launched twice), peak memory, step time,
    and one step's gradients with dropout on, remat against no remat.
 10. ``train_costs``: the NaN sentinel on vs off and the prefetcher vs the
-   inline copy (12-step runs in turns: step time, data wait, iteration),
+   inline copy (8-step runs in turns: step time, data wait, iteration),
    the sentinel's own device operations and ms, the save stall sync vs
    async, the checkpoint's bytes.
 11. ``train_vocoder`` (after phase 4's restore and convert phases): the
@@ -81,8 +83,8 @@ printing one JSON line:
    ``.generator.msgpack`` in ``synthesize --vocoder_ckpt`` (a finite wav).
 12. ``train_vocoder_resilience``: ``nan_grads@3`` gives exactly one
    rollback (to the step-2 checkpoint); ``sigterm@4`` (the command in a
-   subprocess) exits 0 with a flushed checkpoint, and the resume from it
-   logs steps 5-6.
+   subprocess, which runs while this process runs the NaN drill) exits 0
+   with a flushed checkpoint, and the resume from it logs steps 5-6.
 13. ``vocode``: the trained generator on a mel dir (both layouts) and on
    a wav dir: int16 wavs of T x 256 samples.
 14. ``distill`` (inside phase 6, from its kernel path's checkpoint, the
@@ -104,10 +106,36 @@ printing one JSON line:
    attention forward, backward and δ at both distill sizes, against their
    plain versions, timed.
 
+16. ``serve_http`` (after phase 4's ``synthesize_restored``, from its
+   checkpoint): the single-engine HTTP path. The LJSpeech preset at full
+   width on the kernel path (bf16 compute, bf16 softmax) with its whole
+   lattice (48 acoustic, 12 vocoder, 12 style points), built and
+   precompiled through the ``serve`` command's ``load_engine`` and
+   ``precompile`` (programs, seconds, ``memory_reserved``), behind
+   ``SynthesisServer`` on 127.0.0.1:0 with a frontend pool of 2. The
+   traffic runs under torch.profiler, every kernel count set to 0 just
+   before it and read just after (the port's kernels counted by name in
+   the trace must equal the registry's credits): the four references
+   uploaded with POST /styles, 4 closed-loop clients sending 32
+   /synthesize requests, 8 /synthesize/stream requests one at a time, a
+   burst of queue_depth + 16 concurrent requests (200 or 429 + Retry-After
+   only). Then shutdown() while 2 streams are in flight (both complete,
+   later requests get 503). Every 200 is a RIFF wav of mel_len x 256
+   samples that passes the quality gate and whose whole wav matches
+   ``engine.run(eager=True)`` of the same request alone; each stream is
+   within ``STREAM_LSB`` of its
+   full wav outside the overlap tail; no program is prepared over the
+   traffic. Client latency p50 / p90 / max, TTFA, batches and occupancy,
+   sheds and the server's histograms are printed. Then ``python -m
+   speakingstyle_torch serve`` in a subprocess on that checkpoint and a
+   one-point lattice answers a request and exits 0 on SIGTERM.
+
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
+A ``phase_seconds`` line gives each phase's seconds and the total.
 
-Then a summary line of every kernel (with its launches a distill step),
+Then a summary line of every kernel (with its launches a distill step and
+in the trace of the ``serve_http`` traffic),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -121,6 +149,7 @@ import gc
 import json
 import math
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -241,6 +270,18 @@ FRAMES_PER_PHONEME = 6
 
 
 T0 = time.perf_counter()
+
+
+PHASE_S = {}  # seconds of each phase of main()
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
 
 
 def emit(phase: str, **fields) -> None:
@@ -1064,16 +1105,18 @@ def check_wavs(phase, results, hop):
     return rows
 
 
-def restored_phase(cfg, seed, dev, attn_per):
+def restored_phase(cfg, seed, dev, attn_per, tmp):
     """``synthesize --restore_step`` from the port's own checkpoint: the
-    seeded LJSpeech engine's model saved with ``CheckpointManager``, then
+    seeded LJSpeech engine's model saved with ``CheckpointManager`` under
+    ``tmp`` (where the checkpoint stays, for ``serve_http_phase``), then
     the command in single mode (each smoke request with its own reference)
     and in batch mode (a metadata file of the 4 smoke requests, one shared
     ``--ref_audio`` encoded once). Durations, mel lengths and mels must
     equal the in-memory engine's on the command's own requests, bit for
     bit: both run the same kernels at the same shapes on the same weights.
     Then one request with ``--griffin_lim``, inverted on the card: its wav
-    must be (mel_len - 1) * hop samples, non-silent, and its mel equal."""
+    must be (mel_len - 1) * hop samples, non-silent, and its mel equal.
+    Returns the checkpoint's step."""
     import numpy as np
     import scipy.io.wavfile
 
@@ -1084,63 +1127,63 @@ def restored_phase(cfg, seed, dev, attn_per):
 
     step = 4242
     engine = build_engine(cfg, seed, dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as tmp:
-        args = smoke_configs(tmp)
-        CheckpointManager(os.path.join(tmp, "ckpt")).save(step, TrainState(
-            step=step, model=engine.model,
-            optimizer=Optimizer(trainable(engine.model), cfg.train)))
-        wavs, source = write_smoke_inputs(tmp, cfg, seed)
-        common = ["synthesize", *args, "--device", dev.type, "--restore_step", str(step),
-                  "--seed", str(seed)]
-        want = {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
-                "fused_conv1d_fwd": 0}
-        runs = []
-        for i, text in enumerate(TEXTS):
-            ns, counts = run_cli(common + ["--mode", "single", "--text", text,
-                                           "--ref_audio", wavs[i]], want)
-            runs.append(("single", ns, counts))
-        ns, counts = run_cli(common + ["--mode", "batch", "--source", source,
-                                       "--ref_audio", wavs[0]], want)
-        runs.append(("batch", ns, counts))
-        rows, bad = [], []
-        for mode, ns, counts in runs:
-            got = ns.results
-            mine = engine.run(ns.requests)
-            for g, m in zip(got, mine):
-                same = (g.mel_len == m.mel_len and np.array_equal(g.durations, m.durations)
-                        and np.array_equal(g.mel, m.mel))
-                diff = float(np.abs(g.mel - m.mel).max()) if g.mel_len == m.mel_len else None
-                rows.append({"mode": mode, "id": g.id, "mel_len": g.mel_len,
-                             "mel_max_abs_diff": diff, "equal": same,
-                             "wav_files": os.path.isfile(os.path.join(
-                                 tmp, "result", str(step), f"{g.id}.wav"))})
-                if not same or not rows[-1]["wav_files"]:
-                    bad.append(rows[-1])
-            check_wavs(f"synthesize_restored {mode}", got, engine.vocoder.hop_factor)
-            if ns.info["step"] != step:
-                bad.append({"restored_step": ns.info["step"]})
-        batch_engine = runs[-1][1].engine
-        ns, _ = run_cli(common + ["--mode", "single", "--text", TEXTS[0], "--ref_audio",
-                                  wavs[0], "--griffin_lim"], want)
-        gl = ns.results[0]
-        _, wav = scipy.io.wavfile.read(ns.paths[0])
-        hop = cfg.preprocess.preprocessing.stft.hop_length
-        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))) if len(wav) else 0.0
-        griffin_lim = {"id": gl.id, "mel_len": gl.mel_len, "wav_samples": int(len(wav)),
-                       "wav_rms": rms,
-                       "mel_equal": bool(np.array_equal(gl.mel, runs[0][1].results[0].mel))}
-        if not (gl.wav is None and len(wav) == (gl.mel_len - 1) * hop and rms > 1.0
-                and griffin_lim["mel_equal"]):
-            bad.append({"griffin_lim": griffin_lim})
-        emit("synthesize_restored", entry="cli.synthesize.main", restore_step=step,
-             results=rows, batch_style_encodes=batch_engine.style_encodes,
-             batch_dispatches=batch_engine.dispatches, griffin_lim=griffin_lim,
-             launches={mode: counts for mode, _, counts in runs})
-        if bad:
-            fail(f"synthesize_restored: results differ from the in-memory engine's: {bad}")
-        if batch_engine.style_encodes != 1:
-            fail(f"synthesize_restored: batch mode ran the style encoder "
-                 f"{batch_engine.style_encodes} times, want 1")
+    args = smoke_configs(tmp)
+    CheckpointManager(os.path.join(tmp, "ckpt")).save(step, TrainState(
+        step=step, model=engine.model,
+        optimizer=Optimizer(trainable(engine.model), cfg.train)))
+    wavs, source = write_smoke_inputs(tmp, cfg, seed)
+    common = ["synthesize", *args, "--device", dev.type, "--restore_step", str(step),
+              "--seed", str(seed)]
+    want = {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
+            "fused_conv1d_fwd": 0}
+    runs = []
+    for i, text in enumerate(TEXTS):
+        ns, counts = run_cli(common + ["--mode", "single", "--text", text,
+                                       "--ref_audio", wavs[i]], want)
+        runs.append(("single", ns, counts))
+    ns, counts = run_cli(common + ["--mode", "batch", "--source", source,
+                                   "--ref_audio", wavs[0]], want)
+    runs.append(("batch", ns, counts))
+    rows, bad = [], []
+    for mode, ns, counts in runs:
+        got = ns.results
+        mine = engine.run(ns.requests)
+        for g, m in zip(got, mine):
+            same = (g.mel_len == m.mel_len and np.array_equal(g.durations, m.durations)
+                    and np.array_equal(g.mel, m.mel))
+            diff = float(np.abs(g.mel - m.mel).max()) if g.mel_len == m.mel_len else None
+            rows.append({"mode": mode, "id": g.id, "mel_len": g.mel_len,
+                         "mel_max_abs_diff": diff, "equal": same,
+                         "wav_files": os.path.isfile(os.path.join(
+                             tmp, "result", str(step), f"{g.id}.wav"))})
+            if not same or not rows[-1]["wav_files"]:
+                bad.append(rows[-1])
+        check_wavs(f"synthesize_restored {mode}", got, engine.vocoder.hop_factor)
+        if ns.info["step"] != step:
+            bad.append({"restored_step": ns.info["step"]})
+    batch_engine = runs[-1][1].engine
+    ns, _ = run_cli(common + ["--mode", "single", "--text", TEXTS[0], "--ref_audio",
+                              wavs[0], "--griffin_lim"], want)
+    gl = ns.results[0]
+    _, wav = scipy.io.wavfile.read(ns.paths[0])
+    hop = cfg.preprocess.preprocessing.stft.hop_length
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))) if len(wav) else 0.0
+    griffin_lim = {"id": gl.id, "mel_len": gl.mel_len, "wav_samples": int(len(wav)),
+                   "wav_rms": rms,
+                   "mel_equal": bool(np.array_equal(gl.mel, runs[0][1].results[0].mel))}
+    if not (gl.wav is None and len(wav) == (gl.mel_len - 1) * hop and rms > 1.0
+            and griffin_lim["mel_equal"]):
+        bad.append({"griffin_lim": griffin_lim})
+    emit("synthesize_restored", entry="cli.synthesize.main", restore_step=step,
+         results=rows, batch_style_encodes=batch_engine.style_encodes,
+         batch_dispatches=batch_engine.dispatches, griffin_lim=griffin_lim,
+         launches={mode: counts for mode, _, counts in runs})
+    if bad:
+        fail(f"synthesize_restored: results differ from the in-memory engine's: {bad}")
+    if batch_engine.style_encodes != 1:
+        fail(f"synthesize_restored: batch mode ran the style encoder "
+             f"{batch_engine.style_encodes} times, want 1")
+    return step
 
 
 def reference_state_dict(cfg, seed):
@@ -1453,21 +1496,32 @@ def vocoder_synthesize(cfg, seed, dev, attn_per, tmp, gen_file):
 def vocoder_drills(args, tmp, dev):
     """``nan_grads@VOC_NAN`` (in this process): exactly one rollback, to the
     step-(VOC_NAN - 1) checkpoint, and the run ends at its last step.
-    ``sigterm@VOC_SIGTERM`` (the command in a subprocess): exit 0 with a
-    flushed checkpoint at that step; the resume from it continues at the
-    next step."""
-    drill = os.path.join(tmp, "drill_nan")
-    with fault_env(f"nan_grads@{VOC_NAN}"):
-        state, text, _ = captured_cli(args(VOC_DRILL_STEPS, drill, 2))
-    rollbacks = re.findall(r"rollback (\d+)/\d+ to (\S+)", text)
-    log = vocoder_log(text)
+    ``sigterm@VOC_SIGTERM`` (the command in a subprocess, which runs while
+    this process runs the NaN drill; its seconds are those until its exit
+    is read): exit 0 with a flushed checkpoint at that step; the resume
+    from it continues at the next step."""
     sig = os.path.join(tmp, "drill_sigterm")
     env = dict(os.environ, SPEAKINGSTYLE_FAULTS=f"sigterm@{VOC_SIGTERM}")
+    # its output goes to files: a pipe nobody reads while the NaN drill runs could fill
+    outs = [os.path.join(tmp, f"drill_sigterm.{n}") for n in ("out", "err")]
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "speakingstyle_torch",
-                          *args(VOC_DRILL_STEPS, sig, VOC_DRILL_STEPS)], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=600)
+    with open(outs[0], "w") as out, open(outs[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "speakingstyle_torch",
+                                 *args(VOC_DRILL_STEPS, sig, VOC_DRILL_STEPS)], cwd=REPO,
+                                env=env, stdout=out, stderr=err, text=True)
+    try:
+        drill = os.path.join(tmp, "drill_nan")
+        with fault_env(f"nan_grads@{VOC_NAN}"):
+            state, text, _ = captured_cli(args(VOC_DRILL_STEPS, drill, 2))
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
     sig_s = time.perf_counter() - t0
+    sig_out, sig_err = (pathlib.Path(f).read_text() for f in outs)
+    rollbacks = re.findall(r"rollback (\d+)/\d+ to (\S+)", text)
+    log = vocoder_log(text)
     flushed = os.path.join(sig, f"vocoder_{VOC_SIGTERM:08d}.msgpack")
     resumed, resumed_text, _ = captured_cli(args(VOC_DRILL_STEPS, sig, VOC_DRILL_STEPS)
                                             + ["--restore", flushed])
@@ -1475,17 +1529,17 @@ def vocoder_drills(args, tmp, dev):
     emit("train_vocoder_resilience", nan_drill={
         "faults": f"nan_grads@{VOC_NAN}", "rollbacks": rollbacks, "steps": sorted(log),
         "ended_at": state.step, "last": log.get(VOC_DRILL_STEPS)},
-        sigterm_drill={"faults": f"sigterm@{VOC_SIGTERM}", "exit_code": out.returncode,
+        sigterm_drill={"faults": f"sigterm@{VOC_SIGTERM}", "exit_code": proc.returncode,
                        "seconds": sig_s, "flushed": os.path.isfile(flushed),
                        "resumed_steps": resumed_steps, "resumed_to": resumed.step})
     want_to = os.path.join(drill, f"vocoder_{VOC_NAN - 1:08d}.msgpack")
     if rollbacks != [("1", want_to)] or state.step != VOC_DRILL_STEPS or not all(
             math.isfinite(v) for v in log[VOC_DRILL_STEPS].values()):
         fail(f"train_vocoder nan drill: rollbacks {rollbacks}, ended at {state.step}")
-    if out.returncode != 0 or f"SIGTERM: checkpoint flushed at step {VOC_SIGTERM}" not in \
-            out.stdout or not os.path.isfile(flushed):
-        fail(f"train_vocoder sigterm drill: exit {out.returncode}: {out.stdout[-2000:]} "
-             f"{out.stderr[-2000:]}")
+    if proc.returncode != 0 or f"SIGTERM: checkpoint flushed at step {VOC_SIGTERM}" not in \
+            sig_out or not os.path.isfile(flushed):
+        fail(f"train_vocoder sigterm drill: exit {proc.returncode}: {sig_out[-2000:]} "
+             f"{sig_err[-2000:]}")
     if resumed_steps != list(range(VOC_SIGTERM + 1, VOC_DRILL_STEPS + 1)):
         fail(f"train_vocoder sigterm drill: the resume logged steps {resumed_steps}")
 
@@ -2595,16 +2649,36 @@ def config_yamls(cfg, out):
     return args
 
 
-def train_cli(what, args, dev):
-    """``python -m speakingstyle_torch train`` in a subprocess from the
-    checkout's root: (stdout, seconds); a non-zero exit fails."""
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "speakingstyle_torch", "train", *args,
-                          "--device", dev.type], cwd=REPO, capture_output=True, text=True,
-                         timeout=900)
-    if out.returncode != 0:
-        fail(f"{what}: train exited {out.returncode}: {out.stderr[-3000:]}")
-    return out.stdout, time.perf_counter() - t0
+def train_chains(chains, dev):
+    """``python -m speakingstyle_torch train`` in subprocesses from the
+    checkout's root. ``chains``: {name: [(what, args), ...]}; each chain's
+    runs in turn, the chains at once (a thread each). Returns {name:
+    [(stdout, seconds), ...]} once every process has ended; a non-zero
+    exit, or a run past its time limit, fails."""
+    import concurrent.futures
+
+    def run_chain(runs):
+        done = []
+        for what, args in runs:
+            t0 = time.perf_counter()
+            try:  # subprocess.run kills the process at its time limit
+                out = subprocess.run([sys.executable, "-m", "speakingstyle_torch", "train",
+                                      *args, "--device", dev.type], cwd=REPO,
+                                     capture_output=True, text=True, timeout=900)
+            except subprocess.TimeoutExpired:
+                return done, f"{what}: train ran past 900 s"
+            if out.returncode != 0:
+                return done, f"{what}: train exited {out.returncode}: {out.stderr[-3000:]}"
+            done.append((out.stdout, time.perf_counter() - t0))
+        return done, None
+
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        futures = {name: pool.submit(run_chain, runs) for name, runs in chains.items()}
+    results = {name: f.result() for name, f in futures.items()}
+    errors = [err for _, err in results.values() if err]
+    if errors:
+        fail("; ".join(errors))
+    return {name: done for name, (done, _) in results.items()}
 
 
 def runs_of(log_path):
@@ -2636,17 +2710,41 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
     newest. (b) DRILL_SIGTERM: exit 0 after a flushed step-8 checkpoint and
     a preempt_flush event, then ``--restore_step -1`` resumes at step 9 and
     reaches 12, its losses against two runs that stop at 8 without the
-    signal and resume, all with ``--deterministic``."""
+    signal and resume, all with ``--deterministic``. The four chains of
+    runs ((a), (b), each of the two baselines) run at once, so each run's
+    seconds are taken beside the others."""
+    import torch
+
     from speakingstyle_torch.training.checkpoint import CheckpointManager
-    from speakingstyle_torch.training.trainer import run_training
 
     kernels = dict(TRAIN_PATHS)["kernels"]
     rep = dataclasses.replace
     cfg = cfg_of(corpus, os.path.join(tmp, "drill_a"), seed, **kernels)
     cfg = rep(cfg, train=rep(cfg.train, resilience=rep(cfg.train.resilience, max_to_keep=1)))
     res = cfg.train.resilience
-    stdout, secs_a = train_cli("train_resilience (a)", config_yamls(cfg, os.path.join(
-        tmp, "drill_a", "yaml")) + ["--max_steps", str(DRILL_STEPS), "--faults", DRILL_NAN], dev)
+    chains = {"a": [("train_resilience (a)", config_yamls(cfg, os.path.join(
+        tmp, "drill_a", "yaml")) + ["--max_steps", str(DRILL_STEPS), "--faults", DRILL_NAN])]}
+    # (b): every run of the train command with --deterministic, so that two
+    # uninterrupted runs repeat bit for bit (the default backward sums with
+    # atomics: two runs' losses part by ~1e-2 within 9 steps)
+    det = ["--deterministic", "--max_steps", str(DRILL_STEPS)]
+    cfg_b = cfg_of(corpus, os.path.join(tmp, "drill_b"), seed, **kernels)
+    args = config_yamls(cfg_b, os.path.join(tmp, "drill_b", "yaml")) + det
+    chains["b"] = [("train_resilience (b)", args + ["--faults", DRILL_SIGTERM]),
+                   ("train_resilience (b) resume", args + ["--restore_step", "-1"])]
+    base_cfgs = []
+    for i in range(2):  # stop at 8 without a signal, then resume: the same batches
+        c = cfg_of(corpus, os.path.join(tmp, f"drill_b_uninterrupted_{i}"), seed, **kernels)
+        a = config_yamls(c, os.path.join(tmp, f"drill_b_uninterrupted_{i}", "yaml")) + det
+        chains[f"uninterrupted_{i}"] = [
+            ("train_resilience (b) uninterrupted", a[:-1] + ["8"]),
+            ("train_resilience (b) uninterrupted", a + ["--restore_step", "-1"])]
+        base_cfgs.append(c)
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory for the four processes
+    done = train_chains(chains, dev)
+
+    ((stdout, secs_a),) = done["a"]
     (events,) = runs_of(cfg.train.path.log_path)
     end = of(events, "train_end")[-1]
     counters, launches = end["counters"], end["kernel_launches"]
@@ -2670,7 +2768,7 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
     on_disk = CheckpointManager(cfg.train.path.ckpt_path).all_steps()
     want_disk = sorted({max(saved)} | ({best} if best is not None else set()))
     emit("train_resilience", drill="a", entry="python -m speakingstyle_torch train",
-         faults=DRILL_NAN, steps=DRILL_STEPS, seconds=secs_a,
+         faults=DRILL_NAN, steps=DRILL_STEPS, seconds=secs_a, run_at_once=list(chains),
          resilience=dataclasses.asdict(res), rollbacks=rollbacks, loader_retried=retried,
          counters=counters, steps_run=n_steps, val_passes=n_vals,
          train_steps_logged=[e["step"] for e in of(events, "train_step")],
@@ -2689,26 +2787,13 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
     if on_disk != want_disk:
         fail(f"train_resilience (c): checkpoints {on_disk}, want {want_disk} (best {best})")
 
-    # (b): every run of the train command with --deterministic, so that two
-    # uninterrupted runs repeat bit for bit (the default backward sums with
-    # atomics: two runs' losses part by ~1e-2 within 9 steps)
-    det = ["--deterministic", "--max_steps", str(DRILL_STEPS)]
-    cfg = cfg_of(corpus, os.path.join(tmp, "drill_b"), seed, **kernels)
-    args = config_yamls(cfg, os.path.join(tmp, "drill_b", "yaml")) + det
-    stdout, secs_b = train_cli("train_resilience (b)", args + ["--faults", DRILL_SIGTERM], dev)
+    (stdout, secs_b), (_, secs_r) = done["b"]
     flushed = "SIGTERM: checkpoint flushed at step 8" in stdout
-    _, secs_r = train_cli("train_resilience (b) resume", args + ["--restore_step", "-1"], dev)
-    stopped, resumed = runs_of(cfg.train.path.log_path)
+    stopped, resumed = runs_of(cfg_b.train.path.log_path)
     flush = [(e["signal"], e["step"]) for e in of(stopped, "preempt_flush")]
-    ckpt8 = 8 in CheckpointManager(cfg.train.path.ckpt_path).all_steps()
-    base = []
-    for i in range(2):  # stop at 8 without a signal, then resume: the same batches
-        c = cfg_of(corpus, os.path.join(tmp, f"drill_b_uninterrupted_{i}"), seed, **kernels)
-        a = config_yamls(c, os.path.join(tmp, f"drill_b_uninterrupted_{i}", "yaml")) + det
-        train_cli("train_resilience (b) uninterrupted", a[:-1] + ["8"], dev)
-        train_cli("train_resilience (b) uninterrupted", a + ["--restore_step", "-1"], dev)
-        base.append({k: v for run in runs_of(c.train.path.log_path)
-                     for k, v in losses_of(run).items()})
+    ckpt8 = 8 in CheckpointManager(cfg_b.train.path.ckpt_path).all_steps()
+    base = [{k: v for run in runs_of(c.train.path.log_path) for k, v in losses_of(run).items()}
+            for c in base_cfgs]
     got = {**losses_of(stopped), **losses_of(resumed)}
     steps = range(1, DRILL_STEPS + 1)
     spread = max(abs(base[0][s] - base[1][s]) for s in steps)
@@ -2716,7 +2801,8 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
     allowed = spread + RESUME_RTOL * max(abs(base[0][s]) for s in steps)
     emit("train_resilience", drill="b", entry="python -m speakingstyle_torch train",
          faults=DRILL_SIGTERM, deterministic=True,
-         seconds={"stopped": secs_b, "resumed": secs_r}, flushed=flushed,
+         seconds={"stopped": secs_b, "resumed": secs_r}, run_at_once=list(chains),
+         flushed=flushed,
          preempt_flush=flush, checkpoint_8_on_disk=ckpt8,
          stopped_steps=sorted(losses_of(stopped)), resumed_steps=sorted(losses_of(resumed)),
          resumed_from=of(resumed, "train_start")[0].get("checkpoint_step"),
@@ -2850,7 +2936,7 @@ def remat_phase(cfg, batch, dev):
 SAVE_REPEATS = 3
 # the runs of the costs phase, each configuration twice, in turns (the
 # host's share of a step moves between runs more than these costs)
-COST_STEPS = 12
+COST_STEPS = 8
 COST_ORDER = ("prefetcher", "no_sentinel", "inline_copy", "inline_copy", "no_sentinel",
               "prefetcher")
 
@@ -3393,6 +3479,478 @@ def serve_core_phase(cfg, requests, seed, dev, attn_per, conv_per):
     return replay_launches
 
 
+# the serve_http phase: the LJSpeech preset on the kernel path under its
+# bf16 compute and the bf16 softmax, its whole lattice, behind the server
+SERVE_HTTP_MODEL = {"attention_kernel": "fused", "conv_impl": "pallas",
+                    "attention_softmax_dtype": "bfloat16"}
+SERVE_HTTP_CLIENTS = 4      # closed-loop client threads
+SERVE_HTTP_REQUESTS = 32    # their /synthesize requests in all
+SERVE_HTTP_STREAMS = 8      # then /synthesize/stream requests, one at a time
+SERVE_HTTP_BURST_EXTRA = 16  # the burst: queue_depth + this many at once
+# a whole /synthesize wav against engine.run(eager=True) of the same
+# request alone, in another bucket: within SERVE_HTTP_LSB int16 LSB, one
+# TF32 ulp of full scale as STREAM_LSB (cuDNN may pick another vocoder
+# algorithm per bucket; the first card runs read at most 12 LSB)
+SERVE_HTTP_LSB = 32
+# the serve command's subprocess: a lattice cut to one point per program
+SERVE_CLI_LATTICE = {"batch_buckets": [1], "src_buckets": [32], "mel_buckets": [256],
+                     "style": {"ref_buckets": [256]}}
+
+
+def http_call(address, method, path, body=None, headers=None, conn=None, timeout=300):
+    """(status, headers, body, seconds) of one request, on ``conn`` (kept
+    alive) or a new connection."""
+    import http.client
+
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection(*address, timeout=timeout)
+    try:
+        if isinstance(body, dict):
+            body = json.dumps(body)
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, time.perf_counter() - t0
+    finally:
+        if own:
+            conn.close()
+
+
+def stream_call(address, payload, timeout=300):
+    """One /synthesize/stream request: (status, headers, body, seconds to
+    the first PCM bytes, seconds in all)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*address, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/synthesize/stream", body=json.dumps(payload))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, dict(resp.getheaders()), resp.read(), None, None
+        head = resp.read(44)
+        first = resp.read(2)
+        ttfa = time.perf_counter() - t0
+        data = head + first + resp.read()
+        return 200, dict(resp.getheaders()), data, ttfa, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def pcm_of(what, body, sr):
+    """int16 samples of a RIFF/WAVE body (16-bit mono at ``sr``)."""
+    import numpy as np
+
+    if body[:4] != b"RIFF" or body[8:12] != b"WAVE" or body[36:40] != b"data" \
+            or int.from_bytes(body[24:28], "little") != sr:
+        fail(f"{what}: not a 16-bit RIFF wav at {sr} Hz: {body[:44]!r}")
+    return np.frombuffer(body[44:], np.int16)
+
+
+def quantiles_ms(seconds):
+    import numpy as np
+
+    a = np.asarray(seconds, np.float64) * 1e3
+    return {"n": int(a.size), "p50": float(np.percentile(a, 50)),
+            "p90": float(np.percentile(a, 90)), "max": float(a.max())}
+
+
+def hist_view(registry, name, labels=None):
+    snap = registry.histogram(name, labels=labels).snapshot()
+    return {k: snap.get(k) for k in ("count", "p50", "p95", "p99")}
+
+
+def serve_cli_check(tmp, step, seed, wav, dev):
+    """``python -m speakingstyle_torch serve`` in a subprocess over the
+    checkpoint ``restored_phase`` wrote, on a one-point lattice: it
+    precompiles, serves one request on the port it prints, and exits 0 on
+    SIGTERM. Returns its record."""
+    import queue
+    import signal
+    import threading
+
+    import yaml
+
+    out = os.path.join(tmp, "serve_cli")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = SERVE_CLI_LATTICE
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", *cli_args, "--restore_step",
+         str(step), "--seed", str(seed), "--host", "127.0.0.1", "--port", "0",
+         "--ref_audio", wav, "--device", dev.type],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout], daemon=True)
+    reader.start()
+    log, address = [], None
+    try:
+        deadline = time.monotonic() + 300
+        while address is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            log.append(line.rstrip())
+            if line.startswith("serving on http://"):
+                host, port = line.split("http://", 1)[1].split(" ", 1)[0].rsplit(":", 1)
+                address = (host, int(port))
+        if address is None:
+            fail(f"serve_http: the serve command did not start serving: {log[-20:]}")
+        ready_s = time.perf_counter() - t0
+        status, headers, body, secs = http_call(address, "POST", "/synthesize",
+                                                {"text": TEXTS[0]})
+        samples = len(body) - 44
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        reader.join(timeout=30)
+        while not lines.empty():
+            log.append(lines.get().rstrip())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    record = {"exit_code": code, "ready_s": ready_s, "status": status,
+              "wav_samples": samples // 2, "request_s": secs,
+              "model_version": headers.get("X-Model-Version"),
+              "precompiled": [l for l in log if l.startswith("precompiled")],
+              "log_tail": log[-6:]}
+    if not (code == 0 and status == 200 and body[:4] == b"RIFF" and samples > 0
+            and record["precompiled"] and any("SIGTERM" in l for l in log)):
+        fail(f"serve_http: the serve command {record}")
+    return record
+
+
+def serve_http_phase(tmp, step, seed, dev, smi):
+    """The single-engine HTTP path on the card: the LJSpeech preset at full
+    width on the kernel path (bf16 compute, bf16 softmax) and its whole
+    lattice, built and precompiled through the serve command's own
+    ``load_engine`` and ``precompile`` from ``restored_phase``'s
+    checkpoint, behind ``SynthesisServer`` on 127.0.0.1:0 (frontend pool of
+    2). Traffic, all of it under torch.profiler, with every kernel count
+    set to 0 just before and read just after: the four references uploaded
+    with POST /styles; 4 closed-loop clients sending 32 /synthesize
+    requests; 8 /synthesize/stream requests one at a time (TTFA); a burst
+    of queue_depth + 16 concurrent requests. Then shutdown() while 2
+    streams are in flight. Checks: every 200 a RIFF wav of mel_len x hop
+    samples that passes the quality gate and matches
+    ``engine.run(eager=True)`` of the same request alone, the whole wav
+    (``SERVE_HTTP_LSB``); each stream within ``STREAM_LSB`` of its full wav
+    outside the overlap tail; no program prepared over the traffic; the
+    burst answered 200 or 429 (each 429 with Retry-After); the in-flight
+    streams complete and later requests get 503; the port's kernels
+    counted by name in the trace of the traffic equal the registry's
+    credits; then the ``serve`` command in a subprocess. Returns the
+    kernels counted in the trace (the launches it reports). The client
+    latencies are read under the profiler."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.cli import config_from_args
+    from speakingstyle_torch.cli.serve import build_parser, model_version_string
+    from speakingstyle_torch.obs.quality import validate_wav
+    from speakingstyle_torch.serving.engine import load_engine
+    from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
+    from speakingstyle_torch.serving.server import SynthesisServer
+    from speakingstyle_torch.serving.streaming import resolve_overlap
+
+    out = os.path.join(tmp, "serve_http")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    args = build_parser().parse_args(smoke_configs(out, SERVE_HTTP_MODEL)
+                                     + ["--restore_step", str(step)])
+    cfg = config_from_args(args)
+    serve = cfg.serve
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    engine, info = load_engine(cfg, step, device=dev, vocoder_seed=seed + 1)
+    style = engine.style
+    hop = engine.vocoder.hop_factor
+    torch.cuda.synchronize()
+    precompile_s = engine.precompile()
+    torch.cuda.synchronize()
+    rows = engine.programs() + style.programs()
+    reserved = torch.cuda.memory_reserved(dev)
+    if any(r["graph"] != (dev.type == "cuda") for r in rows) or not engine.is_ready \
+            or not style.is_ready:
+        fail("serve_http: precompile left a program without a graph")
+    compiles = (engine.compile_count, style.compile_count)
+    emit("serve_http_precompile", nvidia_smi=smi, entry="cli.serve: load_engine + precompile",
+         restore_step=step, model=SERVE_HTTP_MODEL, compute_dtype=cfg.model.compute_dtype,
+         lattice={"batch": serve.batch_buckets, "src": serve.src_buckets,
+                  "mel": serve.mel_buckets, "ref": serve.style.ref_buckets,
+                  "precisions": list(engine.precisions)},
+         programs=len(rows), synthesis_programs=compiles[0], style_programs=compiles[1],
+         precompile_s=precompile_s, memory_reserved_bytes=reserved,
+         memory_reserved_by_engine_bytes=reserved - reserved0,
+         memory_allocated_bytes=torch.cuda.memory_allocated(dev))
+
+    wavs, _ = write_smoke_inputs(out, cfg, seed)
+    server = SynthesisServer(engine, TextFrontend(cfg, load_ref_mel(cfg, wavs[-1])),
+                             host="127.0.0.1", port=0,
+                             model_info=dict(info, version=model_version_string(info)))
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    address = server.address[:2]
+    answers = []  # (what, payload, status, headers, body)
+    # the whole traffic under the profiler: the port's kernels counted by
+    # name in its trace are the launches this phase reports
+    prof, profiling = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), False
+    try:
+        reset_counts()
+        prof.start()
+        profiling = True
+        t_traffic = time.perf_counter()
+        style_ids = []
+        for w in wavs:
+            with open(w, "rb") as f:
+                status, _, body, _ = http_call(address, "POST", "/styles", f.read(),
+                                               {"Content-Type": "audio/wav"})
+            if status != 200:
+                fail(f"serve_http: POST /styles answered {status}: {body[:300]!r}")
+            style_ids.append(json.loads(body)["style_id"])
+
+        def payload(i):
+            return {"text": TEXTS[i % len(TEXTS)], "style_id": style_ids[(i // 4) % 4]}
+
+        # closed-loop clients, each on its own kept-alive connection
+        import http.client
+
+        latencies, lock = [], threading.Lock()
+
+        def client(c):
+            conn = http.client.HTTPConnection(*address, timeout=300)
+            try:
+                for k in range(c, SERVE_HTTP_REQUESTS, SERVE_HTTP_CLIENTS):
+                    p = payload(k)
+                    status, headers, body, secs = http_call(address, "POST", "/synthesize", p,
+                                                            conn=conn)
+                    with lock:
+                        answers.append(("closed_loop", p, status, headers, body))
+                        latencies.append(secs)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        closed_loop_s = time.perf_counter() - t0
+
+        # streams, one at a time (so each dispatch is alone)
+        streams, ttfas = [], []
+        for i in range(SERVE_HTTP_STREAMS):
+            p = payload(i)
+            status, headers, body, ttfa, secs = stream_call(address, p)
+            streams.append((p, status, headers, body))
+            if ttfa is not None:
+                ttfas.append(ttfa)
+
+        # the burst
+        burst, n_burst = [], serve.queue_depth + SERVE_HTTP_BURST_EXTRA
+        start = threading.Event()
+
+        def burst_one(k):
+            start.wait(timeout=60)
+            p = payload(k)
+            status, headers, body, _ = http_call(address, "POST", "/synthesize", p)
+            with lock:
+                burst.append((p, status, headers, body))
+
+        threads = [threading.Thread(target=burst_one, args=(k,)) for k in range(n_burst)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        start.set()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        answers.extend(("burst", p, s, h, b) for p, s, h, b in burst if s == 200)
+        traffic_s = time.perf_counter() - t_traffic
+        torch.cuda.synchronize()
+        prof.stop()
+        profiling = False
+        credited = read_counts()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        window_ms, busy_ms, by_name, ours = device_time("serve_http traffic", kernels)
+        launches = check_trace("serve_http traffic", by_name, credited)
+        after = (engine.compile_count, style.compile_count)
+        if after != compiles:
+            fail(f"serve_http: the traffic prepared programs: {compiles} -> {after}")
+        for name in ("fused_attention_fwd_bf16sm", "fused_conv1d_fwd"):
+            if launches[name] <= 0:
+                fail(f"serve_http: {name} ran no time in the traffic's trace: {launches}")
+        statuses = sorted({s for _, s, _, _ in burst})
+        no_retry = [h for _, s, h, _ in burst if s == 429 and "Retry-After" not in h]
+        if len(burst) != n_burst or set(statuses) - {200, 429} or no_retry:
+            fail(f"serve_http: the burst answered {statuses} ({len(burst)} of {n_burst}), "
+                 f"{len(no_retry)} 429s without Retry-After")
+
+        # shutdown while two streams are in flight: each stream holds after
+        # its first window until both are inside their stream scope
+        hold, held = threading.Event(), threading.Semaphore(0)
+        real_chunks = server.stream_chunks
+
+        def held_chunks(result, arrival=None):
+            chunks = real_chunks(result, arrival)
+            try:
+                yield next(chunks)
+                held.release()
+                hold.wait(timeout=120)
+                yield from chunks
+            finally:
+                chunks.close()
+
+        server.stream_chunks = held_chunks
+        keep = http.client.HTTPConnection(*address, timeout=300)
+        first = http_call(address, "POST", "/synthesize", payload(0), conn=keep)[0]
+        inflight = []
+        drains = [threading.Thread(target=lambda k=k: inflight.append(
+            (payload(k), *stream_call(address, payload(k))[:3]))) for k in (3, 7)]
+        for t in drains:  # one after the other, so each dispatch is alone
+            t.start()
+            if not held.acquire(timeout=120):
+                fail("serve_http: a stream to hold in flight did not start")
+        closer = threading.Thread(target=server.shutdown)
+        closer.start()
+        closer.join(timeout=2.0)
+        draining = closer.is_alive() and server._active_streams == 2
+        hold.set()
+        for t in drains:
+            t.join(timeout=300)
+        closer.join(timeout=300)
+        server_thread.join(timeout=60)
+        late = [http_call(address, "POST", "/synthesize", payload(k), conn=keep)[:3]
+                for k in range(2)]
+        keep.close()
+        if not (first == 200 and draining and not closer.is_alive()
+                and [s for _, s, _, _ in inflight] == [200, 200]
+                and [s for s, _, _ in late] == [503, 503]
+                and all("X-Request-Id" in h for s, h, _ in late)):
+            fail(f"serve_http: shutdown with streams in flight: drained while waiting "
+                 f"{draining}, streams {[s for _, s, _, _ in inflight]}, later requests "
+                 f"{[s for s, _, _ in late]}")
+    finally:
+        if profiling:
+            prof.stop()
+        server.shutdown()
+
+    # every answer against engine.run(eager=True) of the same request alone
+    refs = {}
+
+    def reference(p):
+        key = (p["text"], p["style_id"])
+        if key not in refs:
+            req = server.frontend.request("eager", p)
+            refs[key] = engine.run([req], eager=True)[0]
+        return refs[key]
+
+    bad, worst, checked = [], 0, 0
+    for what, p, status, headers, body in answers:
+        if status != 200:
+            bad.append({"what": what, "status": status, "body": body[:200].decode(errors="replace")})
+            continue
+        wav = pcm_of(f"serve_http {what}", body, sr)
+        ref = reference(p)
+        verdict = validate_wav(wav, sr, serve.quality)
+        if len(wav) != ref.mel_len * hop or not verdict.ok or "X-Request-Id" not in headers \
+                or "X-Trace-Id" not in headers:
+            bad.append({"what": what, "samples": len(wav), "want": ref.mel_len * hop,
+                        "quality": verdict.as_dict()})
+            continue
+        lsb = int(np.abs(wav.astype(np.int32) - ref.wav.astype(np.int32)).max(initial=0))
+        worst = max(worst, lsb)
+        checked += 1
+        if lsb > SERVE_HTTP_LSB:
+            bad.append({"what": what, "text": p["text"][:20], "max_lsb": lsb})
+    overlap = resolve_overlap(serve.fleet.stream_overlap, engine.vocoder)
+    stream_rows = []
+    for p, status, headers, body in streams + [(p, s, h, b) for p, s, h, b in inflight]:
+        ref = reference(p)
+        wav = pcm_of("serve_http stream", body, sr) if status == 200 else np.zeros(0, np.int16)
+        keep_n = max(0, ref.mel_len - overlap) * hop
+        lsb = int(np.abs(wav[:keep_n].astype(np.int32)
+                         - ref.wav[:keep_n].astype(np.int32)).max(initial=0)) \
+            if len(wav) == len(ref.wav) else None
+        stream_rows.append({"status": status, "samples": int(len(wav)),
+                            "batch_rows": headers.get("X-Batch-Rows"), "max_lsb": lsb})
+        if status != 200 or lsb is None or lsb > STREAM_LSB or keep_n <= 0:
+            bad.append({"stream": stream_rows[-1], "want_samples": len(ref.wav)})
+    if bad:
+        fail(f"serve_http: answers that fail their checks: {bad[:8]}")
+
+    # one closed-loop request's span tree, its engine split timed on the
+    # device (CUDA events) on the card
+    from speakingstyle_torch.obs.trace import assemble_trace, get_span_ring
+
+    tid = next(h["X-Trace-Id"] for what, _, s, h, _ in answers if what == "closed_loop")
+    spans = {x["name"]: x for x in get_span_ring().spans(tid)}
+    clock = "cuda_event" if dev.type == "cuda" else "host"
+    if not ({"serve_request", "serve_frontend", "engine_run", "engine_acoustic",
+             "engine_vocode"} <= set(spans) and all(
+                spans[n]["fields"]["clock"] == clock and spans[n]["duration_s"] > 0
+                for n in ("engine_acoustic", "engine_vocode"))):
+        fail(f"serve_http: request {tid}'s spans {sorted(spans)} lack the engine split "
+             f"timed by {clock}")
+    span_tree = {n: spans[n]["duration_s"] * 1e3 for n in sorted(spans)}
+    span_tree["critical_path"] = [x["name"] for x in assemble_trace(
+        list(spans.values()), tid)["critical_path"]]
+
+    registry = engine.registry
+    occupancy = {int(dict(m.labels)["rows"]): int(m.value)
+                 for m in registry.metrics_named("serve_batch_occupancy_total")}
+    batches = sum(occupancy.values())
+    emit("serve_http", nvidia_smi=smi,
+         requests={"closed_loop": SERVE_HTTP_REQUESTS, "clients": SERVE_HTTP_CLIENTS,
+                   "streams": SERVE_HTTP_STREAMS, "burst": n_burst,
+                   "checked_wavs": checked},
+         under_profiler=True,
+         latency_ms=quantiles_ms(latencies), closed_loop_s=closed_loop_s,
+         ttfa_ms=quantiles_ms(ttfas), burst_s=burst_s, traffic_s=traffic_s,
+         burst_statuses={s: sum(1 for _, x, _, _ in burst if x == s) for s in statuses},
+         shed=int(registry.value("serve_shed_total")),
+         batches=batches, occupancy=occupancy,
+         mean_occupancy=(sum(r * n for r, n in occupancy.items()) / batches) if batches else None,
+         server_request_latency_s=hist_view(registry, "serve_request_latency_seconds"),
+         server_queue_wait_s=hist_view(registry, "serve_queue_wait_seconds"),
+         server_ttfa_s=hist_view(registry, "serve_ttfa_seconds"),
+         server_http_200_s=hist_view(registry, "serve_http_request_seconds", {"status": "200"}),
+         wav_vs_eager_lsb={"max": worst, "bound": SERVE_HTTP_LSB},
+         streams=stream_rows, stream_lsb_bound=STREAM_LSB, stream_overlap=overlap,
+         compiles={"before": compiles, "after": after},
+         traffic_trace={"trace_window_ms": window_ms, "device_busy_ms": busy_ms,
+                        "idle_share": 1.0 - busy_ms / window_ms, "device_ops": len(kernels),
+                        "port_kernel_ms": ours, "kernels_in_trace": launches,
+                        "credited": credited},
+         span_ms=span_tree,
+         shutdown={"drained_while_waiting": draining, "in_flight_streams": 2,
+                   "later_statuses": [s for s, _, _ in late]})
+    del server, engine, style, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_http_cli", **serve_cli_check(tmp, step, seed, wavs[-1], dev))
+    return launches
+
+
 def traced_replay(engine, requests):
     """One replayed dispatch under ``torch.profiler``: (results, {device
     busy ms and idle share in the traced window, the port's kernels counted
@@ -3436,7 +3994,7 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    build = kernels.build_all()
+    build = timed("build", kernels.build_all)
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -3451,8 +4009,8 @@ def main(argv=None) -> int:
     # launches per dispatch of each kernel: 14 attentions, 42 convs
     attn_per = sum(c[-1] for c in attention_cases(cfg))
     conv_per = sum(c[-1] for c in conv_cases(cfg))
-    xla_engine, results, _ = synthesize_phase(
-        "synthesize", cfg, requests, args.seed, dev,
+    xla_engine, results, _ = timed(
+        "synthesize", synthesize_phase, "synthesize", cfg, requests, args.seed, dev,
         {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
          "fused_conv1d_fwd": 0})
 
@@ -3463,40 +4021,51 @@ def main(argv=None) -> int:
     emit("style_dispatches_of_the_preset", dispatches=[
         {"batch": b, "ref": r, "lengths": lens} for b, r, lens in shipped])
     with strict_float32():
-        cases = kernels_phase(cfg, lengths, dev, args.seed, shipped)
-        cases.update(sm16_serve_cases(cfg, lengths, dev, args.seed))
+        cases = timed("kernels", kernels_phase, cfg, lengths, dev, args.seed, shipped)
+        cases.update(timed("bf16_softmax", sm16_serve_cases, cfg, lengths, dev, args.seed))
     bad = [c["case"] for c in cases.values() if not c["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     with strict_float32():
-        nonfinite_phase(load_config(preset="LJSpeech_paper"), dev, args.seed)
+        timed("kernels_nonfinite", nonfinite_phase, load_config(preset="LJSpeech_paper"), dev,
+              args.seed)
     # the LJSpeech config under attention_softmax_dtype: bfloat16
     sm16_cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, attention_softmax_dtype="bfloat16"))
-    _, _, sm16_counts = synthesize_phase(
+    _, _, sm16_counts = timed(
+        "synthesize_bf16_softmax", synthesize_phase,
         "synthesize_bf16_softmax", sm16_cfg, requests, args.seed, dev,
         {"fused_attention_fwd": 0, "fused_attention_fwd_bf16sm": attn_per,
          "fused_conv1d_fwd": 0})
 
     pallas_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, conv_impl="pallas"))
-    engine, _, conv_counts = synthesize_phase(
+    engine, _, conv_counts = timed(
+        "synthesize_pallas_conv", synthesize_phase,
         "synthesize_pallas_conv", pallas_cfg, requests, args.seed, dev,
         {"fused_attention_fwd": attn_per, "fused_attention_fwd_bf16sm": 0,
          "fused_conv1d_fwd": conv_per})
     with strict_float32():
-        bad = teacher_forced_parity(cfg, engine, requests, results, dev)
+        bad = timed("acoustic_parity", teacher_forced_parity, cfg, engine, requests, results,
+                    dev)
     if bad:
         fail(f"acoustic parity: {bad}")
-    profile_dispatch("xla", xla_engine, requests)
-    profile_dispatch("pallas", engine, requests)
+    timed("profile", lambda: (profile_dispatch("xla", xla_engine, requests),
+                              profile_dispatch("pallas", engine, requests)))
     del xla_engine, engine
-    serve_launches = serve_core_phase(cfg, requests, args.seed, dev, attn_per, conv_per)
-    restored_phase(cfg, args.seed, dev, attn_per)
-    convert_phase(cfg, args.seed, dev, attn_per, conv_per)
-    vocoder_phase(cfg, args.seed, dev, attn_per)
-    train_counts, train_sm16_counts, train_cases, distill_per_step = train_phase(
-        train_config, dev, args.seed)
+    serve_launches = timed("serve_core", serve_core_phase, cfg, requests, args.seed, dev,
+                           attn_per, conv_per)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restore_") as restore_tmp:
+        step = timed("synthesize_restored", restored_phase, cfg, args.seed, dev, attn_per,
+                     restore_tmp)
+        http_launches = timed("serve_http", serve_http_phase, restore_tmp, step, args.seed, dev,
+                              smi)
+    timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
+    timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
+    train_counts, train_sm16_counts, train_cases, distill_per_step = timed(
+        "train", train_phase, train_config, dev, args.seed)
     cases.update(train_cases)
+    emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
+         serve_http_s=PHASE_S["serve_http"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -3534,6 +4103,9 @@ def main(argv=None) -> int:
             # one replayed serve dispatch (CUDA graphs, fresh references),
             # counted by name in its trace
             "serve_launches_per_replay": serve_launches["pallas"][name],
+            # the serve_http phase's traffic over HTTP (replayed graphs),
+            # counted by name in its trace
+            "serve_http_launches": http_launches[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

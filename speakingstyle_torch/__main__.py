@@ -4,7 +4,7 @@ import argparse
 import importlib
 import sys
 
-COMMANDS = ("synthesize", "train", "convert", "train_vocoder", "distill", "vocode")
+COMMANDS = ("synthesize", "serve", "train", "convert", "train_vocoder", "distill", "vocode")
 
 
 def main(argv=None):

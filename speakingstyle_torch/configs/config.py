@@ -16,11 +16,11 @@ Every key is checked at load time; an unknown key raises and names itself.
 ``train.yaml`` loads into ``TrainConfig`` (the JAX package's blocks and
 defaults) plus the serve block. The trainer (training/trainer.py) reads
 ``path``, ``optimizer``, ``step``, ``loss``, ``seed``, ``resilience``,
-``obs.events*``, ``sharding.remat`` and ``ignore_layers``. Knobs that tune
-only the JAX package's compiler or runtime have no meaning here and are
-accepted as they are: ``fast_prng`` (the PRNG behind dropout bits),
-``fused_optimizer`` (three layouts of one update, which the port computes
-one way), ``obs.compilation_cache_dir`` / ``obs.program_card``. A mesh
+``obs.events*``, ``obs.program_card``, ``sharding.remat`` and
+``ignore_layers``. Knobs that tune only the JAX package's compiler or
+runtime have no meaning here and are accepted as they are: ``fast_prng``
+(the PRNG behind dropout bits), ``fused_optimizer`` (three layouts of one
+update, which the port computes one way), ``obs.compilation_cache_dir``. A mesh
 other than one device raises ``NotImplementedError`` when training starts
 (``check_train_supported``).
 """
@@ -424,6 +424,9 @@ class StyleConfig:
     batch_buckets: List[int] = field(default_factory=list)
     # (gamma, beta) entries the LRU cache keeps
     cache_capacity: int = 512
+    # allowlist directory for server-side "ref_audio" request paths; ""
+    # refuses path-based references (uploads go through POST /styles)
+    ref_dir: str = ""
 
     def __post_init__(self):
         _check_ascending("serve.style.ref_buckets", self.ref_buckets)
@@ -528,29 +531,214 @@ class QualityConfig:
 
 
 @dataclass(frozen=True)
+class FleetConfig:
+    """The fleet's knobs (copied whole from the JAX package, so a YAML with
+    a ``fleet:`` block loads and validates as there). The single-engine
+    path reads the shed watermarks and Retry-After (serving/batcher.py),
+    the stream window, overlap and depth and ``drain_timeout_s``
+    (serving/server.py), and ``replicas`` (cli/serve.py refuses more than
+    one). The rest (the class deadlines, which the JAX server reads only
+    behind a router, the watchdog, retries and re-warm backoff) waits for
+    the fleet router (ROADMAP.md queue A item 5b)."""
+
+    replicas: int = 1
+    queue_depth: int = 256
+    # shed from high * depth pending, readmit at low * depth
+    shed_high_watermark: float = 0.9
+    shed_low_watermark: float = 0.5
+    # Retry-After of a 429 before a drain rate is measured
+    shed_retry_after_s: float = 1.0
+    # traffic class -> completion budget (ms)
+    class_deadline_ms: Dict[str, float] = field(
+        default_factory=lambda: {"interactive": 250.0, "batch": 2000.0})
+    default_class: str = "interactive"
+    # streaming: mel frames a window, context a side (0 = the vocoder's
+    # receptive field), windows in flight
+    stream_window: int = 64
+    stream_overlap: int = 0
+    stream_depth: int = 2
+    # shutdown waits this long for in-flight streams
+    drain_timeout_s: float = 10.0
+    hang_watchdog_s: float = 10.0
+    retry_budget: Dict[str, int] = field(
+        default_factory=lambda: {"interactive": 1, "batch": 2})
+    rewarm_backoff_s: float = 0.5
+    rewarm_backoff_max_s: float = 30.0
+    # grace on top of a class deadline when the HTTP layer bounds its wait
+    deadline_grace_ms: float = 500.0
+    # ceiling of a per-request deadline override; 0.0 derives
+    # max(120000.0, largest class deadline)
+    max_deadline_ms: float = 0.0
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(f"fleet.replicas must be >= 1, got {self.replicas}")
+        if self.queue_depth <= 0:
+            raise ValueError(f"fleet.queue_depth must be > 0, got {self.queue_depth}")
+        if not (0.0 < self.shed_low_watermark <= self.shed_high_watermark <= 1.0):
+            raise ValueError(
+                "fleet watermarks must satisfy 0 < low <= high <= 1, got "
+                f"low={self.shed_low_watermark} high={self.shed_high_watermark}")
+        if not self.class_deadline_ms:
+            raise ValueError("fleet.class_deadline_ms must be non-empty")
+        for name, ms in self.class_deadline_ms.items():
+            if ms <= 0:
+                raise ValueError(f"fleet.class_deadline_ms[{name!r}] must be > 0, got {ms}")
+        if self.default_class not in self.class_deadline_ms:
+            raise ValueError(
+                f"fleet.default_class {self.default_class!r} is not a key of "
+                f"class_deadline_ms {sorted(self.class_deadline_ms)}")
+        if self.stream_window <= 0:
+            raise ValueError(f"fleet.stream_window must be > 0, got {self.stream_window}")
+        if self.stream_overlap < 0:
+            raise ValueError(f"fleet.stream_overlap must be >= 0, got {self.stream_overlap}")
+        if self.stream_depth < 1:
+            raise ValueError(f"fleet.stream_depth must be >= 1, got {self.stream_depth}")
+        if self.drain_timeout_s < 0:
+            raise ValueError(f"fleet.drain_timeout_s must be >= 0, got {self.drain_timeout_s}")
+        if self.hang_watchdog_s < 0:
+            raise ValueError(
+                f"fleet.hang_watchdog_s must be >= 0 (0 disables), got {self.hang_watchdog_s}")
+        for name, n in self.retry_budget.items():
+            if n < 0:
+                raise ValueError(f"fleet.retry_budget[{name!r}] must be >= 0, got {n}")
+        if self.rewarm_backoff_s <= 0:
+            raise ValueError(f"fleet.rewarm_backoff_s must be > 0, got {self.rewarm_backoff_s}")
+        if self.rewarm_backoff_max_s < self.rewarm_backoff_s:
+            raise ValueError(
+                "fleet.rewarm_backoff_max_s must be >= rewarm_backoff_s, got "
+                f"{self.rewarm_backoff_max_s} < {self.rewarm_backoff_s}")
+        if self.deadline_grace_ms < 0:
+            raise ValueError(
+                f"fleet.deadline_grace_ms must be >= 0, got {self.deadline_grace_ms}")
+        if self.max_deadline_ms < 0:
+            raise ValueError(
+                f"fleet.max_deadline_ms must be >= 0 (0 = derive), got {self.max_deadline_ms}")
+        if self.max_deadline_ms == 0.0:
+            object.__setattr__(self, "max_deadline_ms",
+                               max(120000.0, max(self.class_deadline_ms.values())))
+        elif self.max_deadline_ms < max(self.class_deadline_ms.values()):
+            raise ValueError(
+                "fleet.max_deadline_ms must be >= every class deadline "
+                f"(it is the override ceiling), got {self.max_deadline_ms} "
+                f"< max of {self.class_deadline_ms}")
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    """Span recording (obs/trace.py): the per-process ring and the
+    keep-store of pinned traces."""
+
+    enabled: bool = True
+    ring_capacity: int = 4096
+    keep_traces: int = 256
+    # accepted and validated for the JAX package's YAMLs and without effect
+    # here: only the fleet's tail sampler reads it (ROADMAP.md queue A 5b)
+    sample_rate: float = 0.1
+
+    def __post_init__(self):
+        if self.ring_capacity < 1:
+            raise ValueError(
+                f"serve.trace.ring_capacity must be >= 1, got {self.ring_capacity}")
+        if self.keep_traces < 1:
+            raise ValueError(f"serve.trace.keep_traces must be >= 1, got {self.keep_traces}")
+        if not (0.0 <= self.sample_rate <= 1.0):
+            raise ValueError(
+                f"serve.trace.sample_rate must be in [0, 1], got {self.sample_rate}")
+
+
+@dataclass(frozen=True)
+class SloConfig:
+    """Multi-window burn-rate accounting per traffic class (obs/slo.py):
+    burn = (bad / total) / (1 - objective) over a fast and a slow window;
+    an alert fires when both pass their thresholds."""
+
+    enabled: bool = True
+    objectives: Dict[str, float] = field(
+        default_factory=lambda: {"interactive": 0.999, "batch": 0.99})
+    fast_window_s: float = 60.0
+    slow_window_s: float = 600.0
+    fast_burn_threshold: float = 14.4
+    slow_burn_threshold: float = 6.0
+    tick_s: float = 5.0
+    # traffic class -> share of validated wavs that must pass the gate
+    quality_objectives: Dict[str, float] = field(
+        default_factory=lambda: {"interactive": 0.99, "batch": 0.99, "probe": 0.99})
+
+    def __post_init__(self):
+        for klass, obj in self.objectives.items():
+            if not (0.0 < obj < 1.0):
+                raise ValueError(
+                    f"serve.slo.objectives[{klass!r}] must be in (0, 1), got {obj}")
+        for klass, obj in self.quality_objectives.items():
+            if not (0.0 < obj < 1.0):
+                raise ValueError(
+                    f"serve.slo.quality_objectives[{klass!r}] must be in (0, 1), got {obj}")
+        if self.fast_window_s <= 0:
+            raise ValueError(f"serve.slo.fast_window_s must be > 0, got {self.fast_window_s}")
+        if self.slow_window_s <= self.fast_window_s:
+            raise ValueError(
+                "serve.slo.slow_window_s must be > fast_window_s, got "
+                f"{self.slow_window_s} <= {self.fast_window_s}")
+        if self.fast_burn_threshold <= 0 or self.slow_burn_threshold <= 0:
+            raise ValueError(
+                "serve.slo burn thresholds must be > 0, got "
+                f"{self.fast_burn_threshold}/{self.slow_burn_threshold}")
+        if self.tick_s <= 0:
+            raise ValueError(f"serve.slo.tick_s must be > 0, got {self.tick_s}")
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """The synthesis engine's shape lattice (serving/lattice.py): every
     dispatch runs at a ``(batch, L_src, T_mel)`` drawn from the cross
     product of these buckets; ``T_mel`` is the free-run output buffer.
-    The JAX package's serve keys that no ported module reads yet (fleet,
-    cluster, autoscale, rollout, longform, trace, slo, parallel and the
-    HTTP server's) are listed in ROADMAP.md queue A item 5."""
+    The HTTP server's keys follow (serving/batcher.py, serving/server.py,
+    cli/serve.py). The JAX package's serve keys that no ported module
+    reads yet (``longform``, ``autoscale``, ``rollout``, ``cluster``,
+    ``parallel``) are listed in ROADMAP.md queue A items 5b, 5c and 6."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
     mel_buckets: List[int] = field(default_factory=lambda: [256, 512, 1000])
+    # a request is dispatched at most this long after arrival (sooner when
+    # a full batch_buckets[-1] coalesces first)
+    max_wait_ms: float = 10.0
+    # bounded admission queue; submit blocks (stop-aware) when full
+    queue_depth: int = 64
     # a request with n phonemes needs T_mel >= n * frames_per_phoneme
     frames_per_phoneme: int = 12
+    # accepted for the JAX package's YAMLs and without effect here: the
+    # engine's pool already reuses its staging buffers (serving/pool.py)
+    donate_buffers: bool = True
     # host -> device copy retries with backoff (seconds, doubling)
     transfer_retries: int = 0
     transfer_backoff: float = 0.05
+    host: str = "127.0.0.1"
+    port: int = 8400
+    # POST /debug/profile?seconds=N captures a torch.profiler trace
+    debug_profile: bool = True
+    # serve_dispatch / http_request JSONL events under train.path.log_path
+    log_events: bool = False
+    # G2P threads overlapped with the batcher's coalescing wait; 0 = inline
+    frontend_workers: int = 2
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     style: StyleConfig = field(default_factory=StyleConfig)
     tiers: TiersConfig = field(default_factory=TiersConfig)
+    trace: TraceConfig = field(default_factory=TraceConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
 
     def __post_init__(self):
         for name in ("batch_buckets", "src_buckets", "mel_buckets"):
             _check_ascending(f"serve.{name}", getattr(self, name))
+        if self.max_wait_ms < 0:
+            raise ValueError(f"serve.max_wait_ms must be >= 0, got {self.max_wait_ms}")
+        if self.queue_depth <= 0:
+            raise ValueError(f"serve.queue_depth must be > 0, got {self.queue_depth}")
+        if self.frontend_workers < 0:
+            raise ValueError(
+                f"serve.frontend_workers must be >= 0 (0 = inline), got {self.frontend_workers}")
         if self.frames_per_phoneme <= 0:
             raise ValueError(
                 f"serve.frames_per_phoneme must be > 0, got {self.frames_per_phoneme}"

@@ -9,7 +9,8 @@ once eagerly and, on the card, capturing it into a CUDA graph
 * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the warm-up
   run, plus the work of the hand-written kernels, which the flop counter
   cannot see through ctypes and which each kernel wrapper adds from its
-  shapes (``ops.kernels.counting_flops``): attention 4 B H L^2 D, conv
+  shapes (``ops.kernels.counting_flops``): attention 4 B H L^2 D forward
+  and 10 B H L^2 D backward (S recomputed, dV, dP, dQ, dK), conv
   2 B T K Cin Cout. The kernel path and the library path therefore read
   the same FLOPs at the same bucket.
 * ``peak_bytes``: the device memory the capture took (the peak allocated

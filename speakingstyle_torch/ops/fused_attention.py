@@ -237,6 +237,7 @@ def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float,
         int(softmax_dtype == torch.bfloat16), _stream(q),
     )
     kernels.check(err, "fused_attention_bwd")
+    kernels.add_flops(10 * B * H * L * L * D)  # S recomputed, dV, dP, dQ and dK
     if softmax_dtype == torch.bfloat16:
         fused_mha_bwd.launches_bf16sm += 1
     else:
@@ -247,17 +248,30 @@ def fused_mha_bwd(q, k, v, pad_mask, out, lse, dout, sm_scale: float,
 fused_mha_bwd.launches = fused_mha_bwd.launches_bf16sm = 0
 
 
+def kernel_takes_head_dim(head_dim: int) -> bool:
+    """Whether the CUDA kernels take this head dim: a multiple of 8 up to
+    ``MAX_HEAD_DIM``. ``fused_mha`` sends every other head dim to the plain
+    versions, as the JAX package's ``fused_mha`` sends every shape outside
+    its kernel's ``supported`` to ``_reference_mha``."""
+    return head_dim % 8 == 0 and head_dim <= MAX_HEAD_DIM
+
+
+def _runs_plain(q) -> bool:
+    return q.device.type == "cpu" or not kernel_takes_head_dim(q.shape[-1])
+
+
 class _FusedMHA(torch.autograd.Function):
     """Forward and backward both by kernel on CUDA, both by plain version
-    on the CPU. Where a backward can follow (grad mode on and an input that
-    requires grad), the forward saves q, k, v, the mask, and on CUDA the
-    output and the row lse the backward kernel reads."""
+    on the CPU or at a head dim the kernels do not take. Where a backward
+    can follow (grad mode on and an input that requires grad), the forward
+    saves q, k, v, the mask, and on the kernel path the output and the row
+    lse the backward kernel reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, sm_scale, softmax_dtype, grad_enabled):
         ctx.sm_scale, ctx.softmax_dtype = sm_scale, softmax_dtype
         grad = grad_enabled and any(ctx.needs_input_grad[:3])
-        if q.device.type == "cpu":
+        if _runs_plain(q):
             out = fused_mha_plain(q, k, v, pad_mask, sm_scale, softmax_dtype)
             if grad:
                 ctx.save_for_backward(q, k, v, pad_mask)
@@ -272,7 +286,7 @@ class _FusedMHA(torch.autograd.Function):
     def backward(ctx, dout):
         saved = ctx.saved_tensors
         q, k, v, pad_mask = saved[:4]
-        if q.device.type == "cpu":
+        if _runs_plain(q):
             grads = fused_mha_bwd_plain(q, k, v, pad_mask, dout, ctx.sm_scale,
                                         ctx.softmax_dtype)
         else:
@@ -288,9 +302,12 @@ def fused_mha(q, k, v, pad_mask, sm_scale: Optional[float] = None,
     q, k and v.
 
     CPU tensors run the plain versions. CUDA tensors launch the kernels,
-    which take float32 or bfloat16, head dims that are multiples of 8 up
-    to 128, and a float32 or bfloat16 softmax; anything else raises (the
-    shapes, types and layout in ``fused_mha_fwd`` / ``fused_mha_bwd``).
+    which take float32 or bfloat16 and a float32 or bfloat16 softmax;
+    anything else raises (the shapes, types and layout in ``fused_mha_fwd``
+    / ``fused_mha_bwd``). A head dim the kernels do not take (not a
+    multiple of 8, or over 128: ``kernel_takes_head_dim``) runs the plain
+    versions on either device and counts no launch, as the JAX package's
+    entry sends shapes outside its kernel to the einsum path.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -42,9 +42,14 @@ Per-dispatch metrics live in the engine's ``MetricsRegistry``:
 ``serve_achieved_flops_per_sec{bucket}`` (the programs' card FLOPs over the
 measured wall). The stages run under ``record_function`` ranges
 (``synthesis.style``, ``.acoustic``, ``.vocoder``) that a
-``torch.profiler`` trace attributes device time to. The ``trace`` field of
-a request is carried through; distributed tracing spans wait for the
-tracing plane (ROADMAP.md queue A item 5).
+``torch.profiler`` trace attributes device time to. A request that carries
+a trace context (``trace``, obs/trace.py) gets an ``engine_run`` span with
+``engine_acoustic`` and ``engine_vocode`` children, one per trace in the
+dispatch, recorded after the fact. On the card the host is past the
+acoustic program once it is enqueued, so the two children's durations are
+device times, read from CUDA events recorded on the dispatch stream around
+each program and read after the readback that already syncs. With tracing
+disarmed, or no traced request in the dispatch, no event is recorded.
 
 ``run(..., eager=True)`` runs one dispatch's prepared programs eagerly
 instead of replaying their graphs: the smoke test's comparison of replay
@@ -66,6 +71,7 @@ from speakingstyle_torch.faults import FaultPlan
 from speakingstyle_torch.models.factory import build_model, init_weights
 from speakingstyle_torch.obs import MetricsRegistry, make_lock
 from speakingstyle_torch.obs.cost import FLOPS_PER_SEC_BUCKETS
+from speakingstyle_torch.obs.trace import Span, tracing_enabled
 from speakingstyle_torch.obs.quality import QualityGate
 from speakingstyle_torch.parallel.registry import (
     DEVICE_GATE,
@@ -682,8 +688,14 @@ class SynthesisEngine:
                 f"request precision {prec!r} not in this engine's axis {self.precisions}")
         compiles = self.compile_count
         t_dispatch = time.monotonic()
+        t_dispatch_wall = time.time()
         b, l, t = bucket.b, bucket.l_src, bucket.t_mel
         n = len(requests)
+        traced = tracing_enabled() and any(r.trace is not None for r in requests)
+        # device-side stage marks for the spans: acoustic start / end,
+        # vocoder start / end
+        marks = ([torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                 if traced and self.device.type == "cuda" else None)
 
         leases: List[torch.Tensor] = []
         synced = False
@@ -718,22 +730,33 @@ class SynthesisEngine:
                 arrays["gammas"], arrays["betas"] = gammas, betas
             with torch.no_grad():
                 with record_function("synthesis.acoustic"):
+                    if marks:
+                        marks[0].record()
                     out = self._run_program(
                         "acoustic", (bucket, prec), self._acoustic,
                         lambda inputs: self._compile_acoustic(bucket, prec, inputs), arrays,
                         eager)
+                    if marks:
+                        marks[1].record()
                 mel_dev = out["mel_postnet"]
                 host = {k: out[k].cpu().numpy() for k in _KEEP}  # the readback: the sync point
                 synced = True
                 acoustic_s = time.monotonic() - t_dispatch
                 wavs, finite, hop = None, np.ones((b,), bool), 1
+                t_vocode_wall = None
                 if self.vocoder is not None and any(not r.stream for r in requests):
                     hop = self.vocoder.hop_factor
                     with record_function("synthesis.vocoder"):
-                        wav_f = self._run_program(
+                        t_vocode_wall = time.time()
+                        if marks:
+                            marks[2].record()
+                        wav_dev = self._run_program(
                             "vocoder", (b, t), self._vocoder_exe,
                             lambda inputs: self._compile_vocoder(b, t, inputs), {"mel": mel_dev},
-                            eager)["wav"].cpu().numpy()
+                            eager)["wav"]
+                        if marks:
+                            marks[3].record()
+                        wav_f = wav_dev.cpu().numpy()
                     finite = np.isfinite(wav_f).all(axis=1)
                     if not finite.all():
                         wav_f = np.nan_to_num(wav_f, posinf=1.0, neginf=-1.0)
@@ -793,7 +816,42 @@ class SynthesisEngine:
                 style_degraded=r.style_degraded, trace=r.trace, priority=r.priority,
                 precision=prec, quality=verdict,
             ))
+        if traced:
+            self._record_spans(requests, t_dispatch_wall, dur, acoustic_s, t_vocode_wall,
+                               marks, label)
         return results
+
+    @staticmethod
+    def _record_spans(requests, start_wall: float, dur: float, acoustic_s: float,
+                      vocode_wall: Optional[float], marks, label: str) -> None:
+        """One ``engine_run`` span per trace in the dispatch, with the
+        acoustic / vocode split as children (the JAX engine's records).
+        ``vocode_wall`` is the host's clock just before the vocoder was
+        enqueued (None: no vocoder ran), so each child starts at a host
+        time. ``marks`` (CUDA events, already passed by the readback) give
+        the children device durations; without them the host's times
+        stand."""
+        vocoded = vocode_wall is not None
+        vocode_s = max(0.0, dur - acoustic_s)
+        if marks:
+            acoustic_s = marks[0].elapsed_time(marks[1]) / 1e3
+            if vocoded:
+                vocode_s = marks[2].elapsed_time(marks[3]) / 1e3
+        seen = set()
+        for r in requests:
+            ctx = r.trace
+            if ctx is None or ctx.trace_id in seen:
+                continue
+            seen.add(ctx.trace_id)
+            eng = Span.record("engine_run", start_wall, dur, parent=ctx, bucket=label,
+                              rows=len(requests))
+            if eng is None:
+                continue
+            Span.record("engine_acoustic", start_wall, acoustic_s, parent=eng,
+                        clock="cuda_event" if marks else "host")
+            if vocoded:
+                Span.record("engine_vocode", vocode_wall, vocode_s, parent=eng,
+                            clock="cuda_event" if marks else "host")
 
 
 def load_engine(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = None,

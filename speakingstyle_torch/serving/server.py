@@ -1,0 +1,727 @@
+"""Stdlib HTTP front end over the continuous batcher (JAX counterpart: the
+single-engine half of speakingstyle_tpu/serving/server.py).
+
+``ThreadingHTTPServer`` gives one thread per connection. Each handler
+thread parses JSON, hands the G2P to the frontend pool (or runs it inline
+with ``serve.frontend_workers: 0``), submits the request to the batcher and
+blocks on its future, so concurrent clients coalesce into shared
+dispatches. Every synthesis runs on the batcher's one dispatch thread,
+which replays the engine's prepared CUDA graphs; the handlers prepare
+nothing. Style uploads encode through the StyleService on the handler or
+pool thread, on programs the precompile prepared.
+
+API (every field of a synthesize payload but "text" optional):
+  POST /synthesize     {"text", "speaker_id"/"speaker", "pitch_control",
+                       "energy_control", "duration_control" (a number, or
+                       a per-word list with English text), "style_id",
+                       "ref_audio" (confined to serve.style.ref_dir),
+                       "priority"} -> audio/wav (16-bit PCM)
+  POST /synthesize/stream
+                       same payload -> chunked audio/wav: a streaming RIFF
+                       header, then overlap-trimmed windows as they are
+                       vocoded (serving/streaming.py); serve_ttfa_seconds
+                       records the first window
+  POST /synthesize/longform
+                       400 until the chunked long-form tier is ported
+                       (ROADMAP.md queue A item 5b), as the JAX server
+                       answers without a long-form service
+  POST /styles         a reference wav (audio/wav body, or JSON
+                       {"ref_audio": <ref_dir path>}, "?speaker=NAME")
+                       -> {"style_id", "ref_frames", "speaker", "d_model",
+                       "cached"}; content-addressed, so a repeat upload
+                       runs no encoder work
+  GET  /styles         -> {"styles": [...], "capacity"}
+  GET  /healthz        -> the registry snapshot's view, build identity,
+                       the model block and the ``slo`` block; 503 until
+                       the engine's lattice is prepared
+  GET  /metrics        -> Prometheus text of the same registry
+  GET  /debug/programs -> one ProgramCard dict per prepared program
+  GET  /debug/spans, /debug/trace/<trace_id>
+                       -> the span ring, one assembled trace
+  POST /debug/profile?seconds=N
+                       -> a torch.profiler capture of the live process
+                       (serve.debug_profile gates it)
+
+Status codes: 400 bad input, 413 a request past the lattice, 429 +
+Retry-After on shed (``serve_shed_total``), 503 on shutdown
+(``serve_rejected_total``), 504 on a timeout, 500 on a dispatch error or
+a wav that fails the quality gate. Every synthesize response, errors
+included, carries ``X-Request-Id`` and ``X-Trace-Id``.
+
+The fleet router, rollouts, probes and the cluster wait for ROADMAP.md
+queue A items 5b and 5c: the constructor refuses ``router=``.
+"""
+
+import concurrent.futures
+import contextlib
+import json
+import os
+import struct
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from speakingstyle_torch.obs import JsonlEventLog, Span, build_info, make_lock, process_rss_bytes
+from speakingstyle_torch.obs.quality import QualityGate
+from speakingstyle_torch.obs.quality import last_fail as quality_last_fail
+from speakingstyle_torch.obs.trace import assemble_trace, get_span_ring
+from speakingstyle_torch.serving import streaming
+from speakingstyle_torch.serving.batcher import ContinuousBatcher, Overloaded, ShutdownError
+from speakingstyle_torch.serving.engine import SynthesisEngine
+from speakingstyle_torch.serving.frontend import FrontendPool, TextFrontend, confined_ref_path
+from speakingstyle_torch.serving.lattice import RequestTooLarge
+from speakingstyle_torch.serving.resilience import DeadlineExceeded, DispatchError, ReplicaError
+
+__all__ = ["SynthesisServer", "wav_bytes", "wav_stream_header"]
+
+# how long a handler waits on its request's future (the JAX server's
+# single-engine default: its class deadlines apply only behind a router)
+REQUEST_TIMEOUT_S = 60.0
+LONGFORM_MISSING = ("long-form synthesis is not served by this server yet: the chunked "
+                    "long-form tier is ROADMAP.md queue A item 5b")
+
+
+def wav_bytes(wav: np.ndarray, sampling_rate: int) -> bytes:
+    """int16 PCM -> a complete RIFF/WAVE file in memory."""
+    data = np.asarray(wav, np.int16).tobytes()
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sampling_rate, sampling_rate * 2, 2, 16)
+    hdr += b"data" + struct.pack("<I", len(data))
+    return hdr + data
+
+
+def wav_stream_header(sampling_rate: int) -> bytes:
+    """A RIFF/WAVE header with unknown-length sizes (0xFFFFFFFF), sent
+    before the first PCM chunk of a stream."""
+    hdr = b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sampling_rate, sampling_rate * 2, 2, 16)
+    hdr += b"data" + struct.pack("<I", 0xFFFFFFFF)
+    return hdr
+
+
+def _error_status(e: BaseException):
+    """(status, headers) of a synthesize failure, or None for an error the
+    handler does not map (it propagates)."""
+    if isinstance(e, RequestTooLarge):
+        return 413, None
+    if isinstance(e, ValueError):
+        return 400, None
+    if isinstance(e, Overloaded):
+        return 429, {"Retry-After": str(max(1, int(e.retry_after_s)))}
+    if isinstance(e, (ShutdownError, ReplicaError)):
+        return 503, None
+    if isinstance(e, (DeadlineExceeded, TimeoutError, concurrent.futures.TimeoutError)):
+        return 504, None
+    if isinstance(e, DispatchError):
+        return 500, None
+    return None
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """A thread per connection, none of which holds the process open. The
+    listen backlog is the admission queue's scale, not socketserver's 5: a
+    burst of concurrent clients past 5 otherwise finds its connections
+    reset before the batcher could shed them with a 429."""
+
+    daemon_threads = True
+    request_queue_size = 1024
+
+
+class SynthesisServer:
+    """One engine behind the continuous batcher, served over HTTP.
+
+    ``host`` / ``port`` default to ``serve.host`` / ``serve.port`` (bind
+    port 0 for a free one and read ``address``). ``model_info``
+    ({"version", "step", "weights_digest"}) is the /healthz model block
+    and the ``X-Model-Version`` header; ``slo`` an ``obs.slo.SloEngine``
+    whose status is the /healthz ``slo`` block."""
+
+    def __init__(self, engine: Optional[SynthesisEngine] = None,
+                 frontend: Optional[TextFrontend] = None, host: Optional[str] = None,
+                 port: Optional[int] = None, events: Optional[JsonlEventLog] = None,
+                 profile_dir: Optional[str] = None, router=None,
+                 model_info: Optional[Dict] = None, slo=None):
+        if router is not None:
+            raise ValueError("the fleet router is not ported yet (ROADMAP.md queue A item 5b): "
+                             "serve one engine with engine=")
+        if engine is None:
+            raise ValueError("SynthesisServer needs an engine")
+        self.engine = engine
+        self.cfg = engine.cfg
+        serve = self.cfg.serve
+        self.slo = slo
+        self._model_info = model_info
+        self.frontend = frontend
+        self.registry = engine.registry
+        self.style = engine.style
+        if frontend is not None and frontend.style is None:
+            frontend.style = self.style
+        self.events = events
+        # the HTTP boundary's gate: turns a failed verdict into a 500 with
+        # X-Audio-Quality instead of shipping the bytes
+        self.quality_gate = QualityGate(serve.quality, self.cfg.preprocess.preprocessing.audio
+                                        .sampling_rate, registry=self.registry, events=events)
+        self.batcher = ContinuousBatcher(engine, events=events)
+        self.frontend_pool = (FrontendPool(frontend, serve.frontend_workers,
+                                           registry=self.registry, events=events)
+                              if frontend is not None and serve.frontend_workers > 0 else None)
+        self.started = time.monotonic()
+        self.profile_dir = profile_dir or os.path.join(self.cfg.train.path.log_path,
+                                                       "serve_profile")
+        self._streams_cond = make_lock("SynthesisServer._streams_cond", kind="condition")
+        self._active_streams = 0
+        self._streams_gauge = self.registry.gauge(
+            "serve_active_streams", help="chunked streams currently emitting")
+        self._ttfa_hist = self.registry.histogram(
+            "serve_ttfa_seconds", help="request arrival -> first streamed wav chunk ready")
+        self._stream_overlap: Optional[int] = None
+        self._shutdown_lock = make_lock("SynthesisServer._shutdown_lock")
+        self._shut_down = False
+        self._shutdown_done = threading.Event()
+        self._profile_lock = make_lock("SynthesisServer._profile_lock")
+        # the request-id sequence is the request counter
+        self._requests = self.registry.counter(
+            "serve_http_requests_total", help="synthesize requests admitted")
+        self._http_errors = self.registry.counter(
+            "serve_http_errors_total", help="synthesize requests failed")
+        self.build = build_info()
+        self._rss_gauge = self.registry.gauge(
+            "process_rss_bytes", help="resident set size of this process")
+        self._uptime_gauge = self.registry.gauge(
+            "process_uptime_seconds", help="seconds since server start")
+        self.httpd = _HTTPServer(
+            (host if host is not None else serve.host, port if port is not None else serve.port),
+            _handler(self))
+
+    # -- request path (also called directly by tests) ------------------------
+
+    def next_req_id(self) -> str:
+        return f"req{int(self._requests.inc()):08d}"
+
+    def too_large_body(self) -> Dict:
+        """The 413 payload: the lattice's admissible ceiling per axis."""
+        serve = self.cfg.serve
+        return {"max_src": serve.src_buckets[-1], "max_mel": serve.mel_buckets[-1],
+                "max_phonemes": min(serve.src_buckets[-1],
+                                    serve.mel_buckets[-1] // serve.frames_per_phoneme)}
+
+    def synthesize(self, payload: Dict, req_id: Optional[str] = None, stream: bool = False,
+                   trace_id: Optional[str] = None):
+        """One request through the frontend and the batcher; returns its
+        SynthesisResult. The ``serve_request`` span is the trace's root."""
+        if req_id is None:
+            req_id = self.next_req_id()
+        with Span("serve_request", trace_id=trace_id or req_id, req_id=req_id,
+                  stream=bool(stream)) as sp:
+            if self.frontend_pool is not None:
+                # submit the handle first: a shed or shutdown wastes no G2P
+                pending = self.frontend_pool.prepare(req_id, payload, stream=stream)
+                pending.trace = sp.ctx
+                future = self.batcher.submit(pending)
+                self.frontend_pool.dispatch(pending)
+                return future.result(timeout=REQUEST_TIMEOUT_S)
+            request = self.frontend.request(req_id, payload)
+            request.stream = stream
+            request.trace = sp.ctx
+            future = self.batcher.submit(request)
+            return future.result(timeout=REQUEST_TIMEOUT_S)
+
+    # -- streaming ------------------------------------------------------------
+
+    def streaming_available(self) -> bool:
+        return self.engine.vocoder is not None
+
+    @contextlib.contextmanager
+    def stream_scope(self):
+        """Counts an in-flight chunked stream, so shutdown can drain it."""
+        with self._streams_cond:
+            self._active_streams += 1
+            self._streams_gauge.set(self._active_streams)
+        try:
+            yield
+        finally:
+            with self._streams_cond:
+                self._active_streams -= 1
+                self._streams_gauge.set(self._active_streams)
+                self._streams_cond.notify_all()
+
+    def stream_chunks(self, result, arrival: Optional[float] = None):
+        """int16 wav chunks of a dispatched result, window by window over
+        the prepared vocoder lattice; observes serve_ttfa_seconds at the
+        first."""
+        fleet = self.cfg.serve.fleet
+        if self.engine.vocoder is None:
+            raise ValueError("streaming requires a vocoder engine")
+        if self._stream_overlap is None:
+            self._stream_overlap = streaming.resolve_overlap(fleet.stream_overlap,
+                                                             self.engine.vocoder)
+        first = True
+        for chunk in streaming.stream_wav(self.engine, result, fleet.stream_window,
+                                          self._stream_overlap, depth=fleet.stream_depth):
+            if first and arrival is not None:
+                self._ttfa_hist.observe(time.monotonic() - arrival)
+            first = False
+            yield chunk
+
+    # -- readiness and introspection -------------------------------------------
+
+    def is_ready(self) -> bool:
+        """The /healthz predicate: the engine's lattice is prepared."""
+        return self.engine.is_ready
+
+    def programs(self):
+        """The engine's program cards, then the style encoder's."""
+        out = list(self.engine.programs())
+        if self.style is not None:
+            out.extend(self.style.programs())
+        return out
+
+    def request_done(self, req_id: str, path: str, status: int, t0: float,
+                     trace_id: Optional[str] = None) -> None:
+        dur = time.monotonic() - t0
+        if status >= 400:
+            self._http_errors.inc()
+        self.registry.histogram(
+            "serve_http_request_seconds", labels={"status": str(status)},
+            help="HTTP handler wall time (parse + G2P + batcher wait)").observe(dur)
+        if self.events is not None:
+            fields = dict(req_id=req_id, path=path, status=status, duration_s=dur)
+            if trace_id:
+                fields["trace_id"] = trace_id
+            self.events.emit("http_request", **fields)
+
+    def model_info(self) -> Optional[Dict]:
+        return self._model_info
+
+    def model_version(self) -> Optional[str]:
+        info = self.model_info()
+        return info.get("version") if info else None
+
+    def model_tier(self, result=None) -> Optional[str]:
+        """The ``X-Model-Tier`` header: the result's tier, else
+        ``teacher-<precision>`` of the lattice's leading precision; None
+        for an f32-only lattice (nothing to tell apart)."""
+        tier = getattr(result, "tier", None) if result is not None else None
+        if tier:
+            return tier
+        precisions = tuple(self.engine.lattice.precisions)
+        return None if precisions == ("f32",) else f"teacher-{precisions[0]}"
+
+    def trace_view(self, trace_id: str) -> Dict:
+        """GET /debug/trace/<id>: the ring's spans of one trace assembled
+        into a tree with its critical path."""
+        ring = get_span_ring()
+        spans = {s["span_id"]: s for s in ring.spans(trace_id) if s.get("span_id")}
+        return assemble_trace(list(spans.values()), trace_id)
+
+    def refresh_process_gauges(self) -> None:
+        rss = process_rss_bytes()
+        if rss is not None:
+            self._rss_gauge.set(rss)
+        self._uptime_gauge.set(time.monotonic() - self.started)
+
+    def stats(self) -> Dict:
+        """The /healthz payload: a view of ``registry.snapshot()``."""
+        self.batcher.refresh_gauges()
+        self.refresh_process_gauges()
+        snap = self.registry.snapshot()
+        counters, gauges = snap["counters"], snap["gauges"]
+        occupancy = {}
+        for key, count in counters.items():
+            if key.startswith("serve_batch_occupancy_total{"):
+                occupancy[key.split('rows="', 1)[1].split('"', 1)[0]] = int(count)
+
+        def c(name):
+            return int(counters.get(name, 0))
+
+        out = {
+            "ready": self.is_ready(),
+            "uptime_s": round(time.monotonic() - self.started, 1),
+            "build": self.build,
+            "lattice_points": len(self.engine.lattice),
+            "compile_count": c("serve_compiles_total"),
+            "dispatches": c("serve_dispatches_total"),
+            "queue_depth": int(gauges.get("serve_queue_depth", 0)),
+            "batch_occupancy": dict(sorted(occupancy.items())),
+            "requests": c("serve_http_requests_total"),
+            "errors": c("serve_http_errors_total"),
+            "shed": c("serve_shed_total"),
+            "rejected": c("serve_rejected_total"),
+            "active_streams": int(gauges.get("serve_active_streams", 0)),
+            "style": {
+                "entries": int(gauges.get("serve_style_cache_entries", 0)),
+                "hits": c("serve_style_cache_hits_total"),
+                "misses": c("serve_style_cache_misses_total"),
+                "evictions": c("serve_style_cache_evictions_total"),
+                "compiles": c("serve_style_compiles_total"),
+                "encodes": c("serve_style_dispatches_total"),
+            },
+        }
+        model = self.model_info()
+        if model:
+            out["model"] = dict(model)
+            tier = self.model_tier()
+            if tier is not None:
+                out["model"]["tier"] = tier
+        if self.slo is not None:
+            out["slo"] = self.slo.status()
+        quality: Dict = {"validators": dict(self.quality_gate.status())}
+        last = quality_last_fail()
+        if last is not None:
+            quality["last_fail"] = last
+        if self.slo is not None:
+            quality["slo"] = self.slo.quality_status()
+        out["quality"] = quality
+        return out
+
+    def capture_profile(self, seconds: float):
+        """A ``torch.profiler`` window over the live process, one at a
+        time; the chrome trace lands in a numbered directory under
+        ``profile_dir``. The profiler is stopped whatever happens."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self._profile_lock.acquire(blocking=False):
+            return False, {"error": "a profile capture is already running"}
+        try:
+            seq = int(self.registry.counter(
+                "serve_profile_captures_total", help="on-demand torch.profiler captures").inc())
+            trace_dir = os.path.join(self.profile_dir, f"capture_{seq:04d}")
+            os.makedirs(trace_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if self.engine.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+            try:
+                # the sleep is the capture window; a second capture is
+                # refused without waiting on the lock
+                time.sleep(seconds)
+            finally:
+                prof.stop()
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+        finally:
+            self._profile_lock.release()
+        if self.events is not None:
+            self.events.emit("profile_capture", trace_dir=trace_dir, seconds=seconds)
+        return True, {"trace_dir": trace_dir, "trace": path, "seconds": seconds}
+
+    @property
+    def address(self):
+        return self.httpd.server_address
+
+    def serve_forever(self):
+        self.httpd.serve_forever()
+
+    def drain_streams(self, timeout: Optional[float] = None) -> bool:
+        """Block until every in-flight stream finished (True) or the drain
+        timeout (``serve.fleet.drain_timeout_s``) passed (False)."""
+        if timeout is None:
+            timeout = self.cfg.serve.fleet.drain_timeout_s
+        deadline = time.monotonic() + timeout
+        with self._streams_cond:
+            while self._active_streams > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._streams_cond.wait(timeout=remaining)
+        return True
+
+    def shutdown(self):
+        """Idempotent: stop accepting, drain in-flight streams, then close
+        the batcher (which flushes admitted requests) and the frontend
+        pool. A second caller waits for the first to finish. A request
+        that reaches a handler after this gets 503."""
+        with self._shutdown_lock:
+            first = not self._shut_down
+            self._shut_down = True
+        if not first:
+            self._shutdown_done.wait()
+            return
+        try:
+            self._shutdown()
+        finally:
+            self._shutdown_done.set()
+
+    def _shutdown(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if not self.drain_streams() and self.events is not None:
+            self.events.emit("shutdown_drain_timeout",
+                             active_streams=int(self._streams_gauge.value))
+        # the batcher first: its flush may still resolve pending handles
+        self.batcher.close()
+        if self.frontend_pool is not None:
+            self.frontend_pool.close()
+
+
+def _handler(outer: SynthesisServer):
+    class Handler(BaseHTTPRequestHandler):
+        # chunked transfer needs HTTP/1.1; every other response sets
+        # Content-Length, so persistent connections stay correct
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def _json(self, code: int, obj: Dict, req_id: Optional[str] = None,
+                  headers: Optional[Dict[str, str]] = None, trace_id: Optional[str] = None):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            if req_id is not None:
+                self.send_header("X-Request-Id", req_id)
+            if trace_id is not None:
+                self.send_header("X-Trace-Id", trace_id)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _text(self, code: int, text: str, content_type: str):
+            body = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _body(self) -> bytes:
+            n = int(self.headers.get("Content-Length", 0))
+            return self.rfile.read(n) if n else b""
+
+        def do_GET(self):
+            path = self.path.split("?")[0]
+            if path == "/healthz":
+                return self._json(200 if outer.is_ready() else 503, outer.stats())
+            if path == "/metrics":
+                outer.batcher.refresh_gauges()
+                outer.refresh_process_gauges()
+                return self._text(200, outer.registry.prometheus_text(),
+                                  "text/plain; version=0.0.4; charset=utf-8")
+            if path == "/debug/programs":
+                return self._json(200, {"programs": outer.programs(), "build": outer.build})
+            if path == "/debug/spans":
+                ring = get_span_ring()
+                return self._json(200, {
+                    "spans": ring.spans(),
+                    "kept": {tid: ring.spans(tid) for tid in ring.kept_trace_ids()},
+                    "stats": ring.stats()})
+            if path.startswith("/debug/trace/"):
+                tid = path[len("/debug/trace/"):]
+                if not tid:
+                    return self._json(400, {"error": "GET /debug/trace/<trace_id>"})
+                return self._json(200, outer.trace_view(tid))
+            if path == "/styles":
+                if outer.style is None:
+                    return self._json(400, {
+                        "error": "no style service (the model has no reference encoder)"})
+                return self._json(200, {"styles": outer.style.styles(),
+                                        "capacity": outer.cfg.serve.style.cache_capacity})
+            return self._json(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            parsed = urlparse(self.path)
+            if parsed.path == "/debug/profile":
+                return self._profile(parsed)
+            if parsed.path == "/styles":
+                return self._post_style(parsed)
+            if parsed.path == "/synthesize/longform":
+                return self._synthesize_longform(parsed)
+            if parsed.path == "/synthesize/stream":
+                return self._synthesize(parsed, stream=True)
+            if parsed.path == "/synthesize":
+                return self._synthesize(parsed, stream=False)
+            return self._json(404, {"error": f"no route {self.path}"})
+
+        def _post_style(self, parsed):
+            """Register a reference style: wav bytes (audio/wav) or JSON
+            {"ref_audio": <confined path>}. The style_id is the sha256 of
+            the bytes, so a repeat upload does no encoder work."""
+            if outer.style is None:
+                return self._json(400, {
+                    "error": "no style service (the model has no reference encoder)"})
+            try:
+                body = self._body()
+                ctype = (self.headers.get("Content-Type") or "").lower()
+                speaker = parse_qs(parsed.query).get("speaker", [None])[0]
+                if ctype.startswith("application/json"):
+                    payload = json.loads(body or b"{}")
+                    speaker = payload.get("speaker", speaker)
+                    ref = payload.get("ref_audio")
+                    if not ref:
+                        raise ValueError(
+                            'JSON style registration needs "ref_audio" (a serve.style.ref_dir '
+                            "path); raw wav uploads go in an audio/wav body")
+                    ref_cfg = outer.frontend.cfg if outer.frontend is not None else outer.cfg
+                    with open(confined_ref_path(ref_cfg, str(ref)), "rb") as f:
+                        body = f.read()
+                elif not body:
+                    raise ValueError('empty body: POST the reference wav bytes (audio/wav) or '
+                                     'JSON {"ref_audio": ...}')
+                if speaker is not None and outer.frontend is not None:
+                    outer.frontend.speaker(speaker)  # the registry check
+                key = outer.style.digest_bytes(body)
+                entry = outer.style.get(key)
+                cached = entry is not None
+                if entry is None:
+                    entry = outer.style.encode_wav_bytes(body, speaker=speaker)
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            return self._json(200, dict(entry.as_dict(), cached=cached))
+
+        def _fail(self, req_id, parsed, t0, trace_id, status, err, headers=None, extra=None):
+            outer.request_done(req_id, parsed.path, status, t0, trace_id=trace_id)
+            body = {"error": err, "id": req_id}
+            body.update(extra or {})
+            return self._json(status, body, req_id=req_id, headers=headers, trace_id=trace_id)
+
+        def _model_headers(self, result) -> Dict[str, str]:
+            hdr = {}
+            if result.style_degraded:
+                hdr["X-Style-Degraded"] = "1"
+            version = outer.model_version()
+            if version is not None:
+                hdr["X-Model-Version"] = version
+            tier = outer.model_tier(result)
+            if tier is not None:
+                hdr["X-Model-Tier"] = tier
+            return hdr
+
+        def _synthesize(self, parsed, stream: bool):
+            # the req_id rides frontend -> batcher -> engine as the request's
+            # id; the trace joins on it unless a proxy forwarded its own
+            req_id = outer.next_req_id()
+            trace_id = self.headers.get("X-Trace-Id") or req_id
+            t0 = time.monotonic()
+            try:
+                payload = json.loads(self._body() or b"{}")
+                if not isinstance(payload, dict):
+                    raise ValueError("payload must be a JSON object")
+                if stream and not outer.streaming_available():
+                    raise ValueError("streaming requires a vocoder engine (--griffin_lim serves "
+                                     "mel JSON only)")
+                result = outer.synthesize(payload, req_id=req_id, stream=stream,
+                                          trace_id=trace_id)
+            except Exception as e:
+                mapped = _error_status(e)
+                if mapped is None:
+                    raise
+                status, headers = mapped
+                extra = outer.too_large_body() if status == 413 else None
+                return self._fail(req_id, parsed, t0, trace_id, status, str(e) or
+                                  "synthesis timed out", headers, extra)
+            if stream:
+                return self._stream_response(result, req_id, parsed, t0, trace_id)
+            hdr = self._model_headers(result)
+            if result.wav is None:  # a vocoder-less engine: the mel as JSON
+                outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
+                return self._json(200, {"id": result.id, "mel_len": result.mel_len,
+                                        "mel": result.mel.tolist()},
+                                  req_id=req_id, headers=hdr or None, trace_id=trace_id)
+            verdict = outer.quality_gate.check_result(result)
+            if verdict is not None and not verdict.ok:
+                reasons = ",".join(verdict.reasons)
+                return self._fail(req_id, parsed, t0, trace_id, 500, "audio quality check failed",
+                                  {"X-Audio-Quality": f"fail:{reasons}"},
+                                  {"reasons": list(verdict.reasons)})
+            body = wav_bytes(result.wav, outer.cfg.preprocess.preprocessing.audio.sampling_rate)
+            outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("X-Request-Id", result.id)
+            self.send_header("X-Trace-Id", trace_id)
+            self.send_header("X-Batch-Rows", str(result.batch_rows))
+            for k, v in hdr.items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _stream_response(self, result, req_id, parsed, t0, trace_id):
+            """Chunked audio/wav. The first window is pulled and checked
+            before any header goes out, so a stream whose first chunk fails
+            is a clean JSON 500."""
+            sr = outer.cfg.preprocess.preprocessing.audio.sampling_rate
+            chunks = outer.stream_chunks(result, arrival=t0)
+            try:
+                first = next(chunks, None)
+            except Exception as e:
+                return self._fail(req_id, parsed, t0, trace_id, 500, str(e))
+            if first is not None:
+                # record=False: vocode_collect already accounted this window
+                verdict = outer.quality_gate.check(first, klass=result.priority,
+                                                   source="server", record=False)
+                if not verdict.ok:
+                    reasons = ",".join(verdict.reasons)
+                    chunks.close()
+                    return self._fail(req_id, parsed, t0, trace_id, 500,
+                                      "audio quality check failed",
+                                      {"X-Audio-Quality": f"fail:{reasons}"},
+                                      {"reasons": list(verdict.reasons)})
+
+            def write_chunk(data: bytes):
+                self.wfile.write(b"%X\r\n" % len(data))
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("X-Request-Id", result.id)
+            self.send_header("X-Trace-Id", trace_id)
+            self.send_header("X-Batch-Rows", str(result.batch_rows))
+            for k, v in self._model_headers(result).items():
+                self.send_header(k, v)
+            self.end_headers()
+            try:
+                with outer.stream_scope():
+                    write_chunk(wav_stream_header(sr))
+                    if first is not None:
+                        write_chunk(first.tobytes())
+                    for wav in chunks:
+                        write_chunk(wav.tobytes())
+                self.wfile.write(b"0\r\n\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                # the client hung up mid-stream: stop vocoding for it
+                self.close_connection = True
+                outer.request_done(req_id, parsed.path, 499, t0, trace_id=trace_id)
+                return
+            except Exception as e:
+                # the headers are gone: a truncated chunked body (no
+                # terminal chunk) is the only honest signal
+                self.close_connection = True
+                outer.request_done(req_id, parsed.path, 500, t0, trace_id=trace_id)
+                if outer.events is not None:
+                    outer.events.emit("stream_abort", req_id=req_id, error=type(e).__name__)
+                return
+            finally:
+                chunks.close()
+            outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
+
+        def _synthesize_longform(self, parsed):
+            req_id = outer.next_req_id()
+            trace_id = self.headers.get("X-Trace-Id") or req_id
+            self._body()
+            return self._fail(req_id, parsed, time.monotonic(), trace_id, 400,
+                              LONGFORM_MISSING)
+
+        def _profile(self, parsed):
+            if not outer.cfg.serve.debug_profile:
+                return self._json(403, {"error": "serve.debug_profile is disabled"})
+            raw = parse_qs(parsed.query).get("seconds", ["3"])[0]
+            try:
+                seconds = float(raw)
+            except ValueError:
+                return self._json(400, {"error": f"seconds={raw!r} is not a number"})
+            if not 0 < seconds <= 60:
+                return self._json(400, {"error": "seconds must be in (0, 60]"})
+            ok, out = outer.capture_profile(seconds)
+            return self._json(200 if ok else 409, out)
+
+    return Handler

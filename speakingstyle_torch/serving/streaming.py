@@ -1,6 +1,7 @@
 """Chunked streaming synthesis: wav windows emitted as mel frames land
-(JAX counterpart: speakingstyle_tpu/serving/streaming.py; its spans wait
-for the tracing plane, ROADMAP.md queue A item 5).
+(JAX counterpart: speakingstyle_tpu/serving/streaming.py). A result that
+carries a trace context records one ``vocode_window`` span per window,
+from its dispatch to its collect.
 
 HiFi-GAN is convolutional: every output sample depends only on mel frames
 within its receptive field, so the wav can be produced in windows: vocode
@@ -28,10 +29,13 @@ emitted twice.
 """
 
 import math
+import time
 from collections import deque
 from typing import Iterator, Tuple
 
 import numpy as np
+
+from speakingstyle_torch.obs.trace import Span
 
 __all__ = ["receptive_field_frames", "resolve_overlap", "stream_plan", "stream_wav"]
 
@@ -97,17 +101,21 @@ def stream_wav(engine, result, window: int, overlap: int, depth: int = 2) -> Ite
     mel = result.mel
     trace = getattr(result, "trace", None)
     klass = getattr(result, "priority", None)
-    pending = deque()  # (handle, emit_start, emit_end, ctx_start)
+    # (handle, emit_start, emit_end, ctx_start, wall start, monotonic start)
+    pending = deque()
 
     def collect_one() -> np.ndarray:
-        handle, start, end, lo = pending.popleft()
+        handle, start, end, lo, t0, t0m = pending.popleft()
         wav = engine.vocode_collect(handle)
+        if trace is not None:
+            Span.record("vocode_window", t0, time.monotonic() - t0m, parent=trace,
+                        frames=end - start)
         return wav[(start - lo) * hop: (end - lo) * hop]
 
     try:
         for start, end, lo, hi in stream_plan(int(result.mel_len), window, overlap):
             pending.append((engine.vocode_dispatch(mel[lo:hi], klass=klass, trace=trace),
-                            start, end, lo))
+                            start, end, lo, time.time(), time.monotonic()))
             if len(pending) >= depth:
                 yield collect_one()
         while pending:

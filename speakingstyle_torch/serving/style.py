@@ -249,6 +249,13 @@ class StyleService:
             self._entries_gauge.set(0)
         return n
 
+    def styles(self) -> List[Dict]:
+        """Registration-ordered metadata of the resident styles (the
+        ``GET /styles`` payload)."""
+        with self._cache_lock:
+            entries = sorted(self._entries.values(), key=lambda e: e.created_seq)
+        return [e.as_dict() for e in entries]
+
     def fallback_style(self) -> StyleVectors:
         """The default style: all-zero (gamma, beta), the un-modulated
         decoder. Graceful degradation substitutes it when the encoder

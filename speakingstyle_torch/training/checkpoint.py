@@ -38,7 +38,6 @@ refused with ``ForeignCheckpointError``, which names the ``convert``
 route.
 """
 
-import hashlib
 import json
 import os
 import re
@@ -47,6 +46,9 @@ import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from speakingstyle_torch.obs.buildinfo import array_sha256 as tensor_sha256
+from speakingstyle_torch.obs.buildinfo import flatten, weights_digest
 
 MANIFEST_NAME = "manifest.json"
 STATE_NAME = "state.pt"
@@ -73,42 +75,6 @@ class CheckpointCorruptError(RuntimeError):
         self.step, self.reason = step, reason
         super().__init__(f"checkpoint step {step} is corrupt ({reason})"
                          + (f": {detail}" if detail else ""))
-
-
-def tensor_sha256(t: torch.Tensor) -> str:
-    """sha256 of one tensor's dtype + shape + raw bytes."""
-    t = t.detach().cpu().contiguous()
-    a = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
-    h = hashlib.sha256()
-    h.update(str(t.dtype).replace("torch.", "").encode())
-    h.update(str(tuple(a.shape)).encode())
-    h.update(a.tobytes())
-    return h.hexdigest()
-
-
-def flatten(tree, prefix: str = "") -> Dict[str, object]:
-    """'/'-joined leaf paths of nested dicts and lists."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
-
-
-def weights_digest(model_state: Dict) -> Optional[str]:
-    """One sha256 over sorted ``name=leaf_sha`` lines of the model's state."""
-    lines = sorted(f"{n}={tensor_sha256(t)}\n" for n, t in flatten(model_state).items())
-    if not lines:
-        return None
-    h = hashlib.sha256()
-    for line in lines:
-        h.update(line.encode())
-    return h.hexdigest()
 
 
 def _map(tree, fn):
@@ -178,6 +144,9 @@ class CheckpointManager:
         self.verify_count = 0  # 1-based fault-site counter (per instance)
         self.skipped: List[CheckpointCorruptError] = []  # corrupt steps the walk passed
         self.last_restored_step: Optional[int] = None
+        # the restored step's manifest digest (None for a fresh run or an
+        # unverified restore)
+        self.last_weights_digest: Optional[str] = None
         self._snapshot = _Snapshot()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -350,6 +319,7 @@ class CheckpointManager:
                 if tensor_sha256(t) != want[name]["sha256"]:
                     raise CheckpointCorruptError(step, "leaf_hash_mismatch", name)
         self.last_restored_step = step
+        self.last_weights_digest = (manifest or {}).get("weights_digest")
         return loaded, manifest or {}
 
     def load_verified(self, step: Optional[int] = None, strict: bool = True):

@@ -31,7 +31,12 @@ fails the Nth feature load once. The registry counts
 ``checkpoint_saves_total``, ``faults_fired_total`` and times
 ``train_step_seconds`` / ``train_data_wait_seconds``; a last ``train_end``
 event carries those counters and the run's launches of each hand-written
-kernel.
+kernel. ``train_start`` carries the build identity (``obs.build_info()``)
+and the restored checkpoint's ``weights_digest``. With
+``train.obs.program_card`` the first step runs under the flop counter
+(``build_train_step_card``): a one-time ``program_card`` event records its
+card, whose FLOPs over each step's wall time feed
+``train_achieved_flops_per_sec``.
 """
 
 import os
@@ -46,6 +51,7 @@ from speakingstyle_torch import obs
 from speakingstyle_torch.configs.config import Config, check_train_supported
 from speakingstyle_torch.data.prefetch import host_tensors
 from speakingstyle_torch.models.loss import fastspeech2_loss
+from speakingstyle_torch.obs.cost import FLOPS_PER_SEC_BUCKETS
 from speakingstyle_torch.ops.dropout import DropoutRNG
 from speakingstyle_torch.training import faults, resilience
 from speakingstyle_torch.training.state import TrainState
@@ -290,6 +296,35 @@ def kernel_launches() -> Dict[str, int]:
             "fused_conv1d_fwd_act": fused_conv1d.act_launches}
 
 
+def build_train_step_card(train_step, state, arrays, device):
+    """Run one train step under ``torch.utils.flop_counter`` and the
+    hand-written kernels' tally (``ops.kernels.counting_flops``): returns
+    (the step's losses, its ``ProgramCard``). The step is the run's own,
+    not an extra one. On the card ``peak_bytes`` is the allocation peak
+    the step reached above what was allocated before it, when it raised
+    the process's peak (else None)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from speakingstyle_torch.obs.cost import ProgramCard
+    from speakingstyle_torch.ops import kernels
+
+    cuda = device.type == "cuda"
+    if cuda:
+        allocated0, peak0 = torch.cuda.memory_allocated(device), \
+            torch.cuda.max_memory_allocated(device)
+    with kernels.counting_flops() as tally, FlopCounterMode(display=False) as counter:
+        losses, grads = train_step(state, arrays)
+    peak = None
+    if cuda:
+        peak1 = torch.cuda.max_memory_allocated(device)
+        peak = float(peak1 - allocated0) if peak1 > peak0 else None
+    card = ProgramCard(name="train_step", flops=float(counter.get_total_flops() + tally[0]),
+                       peak_bytes=peak,
+                       argument_bytes=float(sum(t.numel() * t.element_size()
+                                                for t in arrays.values())))
+    return (losses, grads), card
+
+
 def _profile_start(profile_dir: str):
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,6 +376,9 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     rollback_ctr = registry.counter("train_rollbacks_total", help="NaN-sentinel rollbacks taken")
     save_ctr = registry.counter("checkpoint_saves_total", help="checkpoints enqueued/flushed")
     fault_ctr = registry.counter("faults_fired_total", help="injected faults fired (drills)")
+    flops_hist = registry.histogram(
+        "train_achieved_flops_per_sec", edges=FLOPS_PER_SEC_BUCKETS,
+        help="ProgramCard train-step FLOPs / per-step wall time (host-dispatch-based)")
     launches0 = kernel_launches()
 
     events = (obs.JsonlEventLog(cfg.train.path.log_path, max_bytes=cfg.train.obs.events_max_bytes,
@@ -371,11 +409,14 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     val_batcher = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
                                   max_src=max_len, max_mel=max_len, seed=0)
     if logger:
-        logger.event("train_start", step=step, total_step=total_step, torch=torch.__version__,
-                     cuda=torch.version.cuda, device=str(device),
-                     device_name=(torch.cuda.get_device_name(device)
-                                  if device.type == "cuda" else "cpu"),
-                     device_count=1, checkpoint_step=ckpt.last_restored_step)
+        logger.event("train_start", **dict(
+            obs.build_info(), step=step, total_step=total_step, device=str(device),
+            device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
+            device_count=1, checkpoint_step=ckpt.last_restored_step,
+            weights_digest=ckpt.last_weights_digest))
+    # the train step's card is built once, on the first step (one
+    # attempt, success or not)
+    program_card, card_pending = None, cfg.train.obs.program_card
     if synth_callback == "default":
         synth_callback = default_synth_callback(cfg, logger, vocoder=vocoder)
     guard = resilience.RollbackGuard(res.max_rollbacks)
@@ -406,11 +447,20 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                     prof = _profile_start(profile_dir)
                 lr = state.optimizer.lr()
                 with record_function("train.step"):
-                    losses, _ = train_step(state, arrays)
+                    if card_pending:
+                        card_pending = False
+                        (losses, _), program_card = build_train_step_card(
+                            train_step, state, arrays, device)
+                        if logger:
+                            logger.event("program_card", **program_card.as_dict())
+                    else:
+                        losses, _ = train_step(state, arrays)
                 step = state.step
                 steps_ctr.inc()
                 step_time = time.perf_counter() - t_iter - data_wait
                 step_hist.observe(step_time)
+                if program_card is not None and program_card.flops and step_time > 0:
+                    flops_hist.observe(program_card.flops / step_time)
                 window_compute += step_time
                 window_frames += int(batch.mel_lens.sum())  # host-side, no sync
                 if prof is not None and step - start_step >= profile_steps[1]:

@@ -513,3 +513,115 @@ def test_new_commands_run_on_cuda_unless_told(command, monkeypatch, tmp_path):
              "vocode": ["--input_mels_dir", str(tmp_path), "--checkpoint_file", "g.msgpack"]}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([command, *extra[command]])
+
+
+def test_serve_command_precompiles_serves_and_drains_on_sigterm(tmp_path, corpus):  # noqa: F811
+    """``python -m speakingstyle_torch serve`` on the CPU over a saved
+    checkpoint: it prepares the whole lattice before it binds (the
+    "precompiled N synthesis + M style programs" line), answers a request
+    on the port it printed (mel JSON under --griffin_lim) and /healthz with
+    its model and SLO blocks, prints the JAX command's warnings for
+    --enable_rollout and --cluster without a fleet, and exits 0 on
+    SIGTERM."""
+    import http.client
+    import signal
+    import subprocess
+    import sys
+
+    paths, _ = seeded_checkpoint(tmp_path, corpus, 3)
+    ref = _ref_wav(tmp_path / "ref.wav", seconds=0.3)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", "-p", paths["preprocess"],
+         "-m", paths["model"], "-t", paths["train"], "--restore_step", "3", "--device", "cpu",
+         "--griffin_lim", "--ref_audio", ref, "--host", "127.0.0.1", "--port", "0",
+         "--enable_rollout", "--cluster"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                break
+        address = lines[-1].split("http://", 1)[1].split(" ", 1)[0]
+        host, port = address.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        conn.request("POST", "/synthesize", body=json.dumps({"text": "hello world"}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.request("GET", "/healthz")
+        health = conn.getresponse()
+        health_body = json.loads(health.read())
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = "".join(lines) + rest
+    assert proc.returncode == 0, out
+    assert "precompiled 3 synthesis + 3 style programs" in out
+    assert "warning: --enable_rollout needs fleet mode" in out
+    assert "warning: --cluster needs fleet mode" in out
+    assert health.status == 200 and health_body["model"]["step"] == 3
+    assert set(health_body["slo"]) == {"interactive", "batch"}
+    assert "SIGTERM: draining" in out and "server stopped" in out
+    assert resp.status == 200 and resp.getheader("X-Model-Version").startswith("3:")
+    assert body["mel_len"] > 0 and len(body["mel"]) == body["mel_len"]
+
+
+def test_serve_command_refuses_a_fleet_and_runs_on_cuda_unless_told(monkeypatch):
+    """``--replicas 2`` exits non-zero naming ROADMAP queue A item 5b (it
+    never serves one engine silently), and without ``--device cpu`` the
+    command needs a card."""
+    from speakingstyle_torch.__main__ import main
+
+    with pytest.raises(SystemExit, match="queue A item 5b"):
+        main(["serve", "--restore_step", "1", "--replicas", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--restore_step", "1"])
+
+
+@pytest.mark.parametrize("head_dim", [8, 12, 16, 24, 128, 136])
+def test_attention_routes_head_dims_the_kernels_do_not_take(head_dim, monkeypatch):
+    """ROADMAP queue C item 4: a head dim the kernels take (a multiple of 8
+    up to 128) goes to the kernels on a non-CPU tensor; any other runs the
+    plain versions with no launch, as the JAX package's ``fused_mha``
+    sends shapes outside ``supported`` to ``_reference_mha``. Held here on
+    meta tensors with the kernel wrappers replaced by recorders; on the
+    CPU both routes give the JAX einsum path's numbers."""
+    from speakingstyle_tpu.ops.pallas_attention import fused_mha as j_fused_mha
+    from speakingstyle_torch.ops import fused_attention as t_attn
+
+    calls = []
+
+    def fwd(q, k, v, mask, scale, want_lse=False, softmax_dtype=torch.float32):
+        calls.append("fwd")
+        return torch.empty_like(q), torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                                                device=q.device)
+
+    def bwd(q, k, v, mask, out, lse, dout, scale, softmax_dtype=torch.float32):
+        calls.append("bwd")
+        return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+    monkeypatch.setattr(t_attn, "fused_mha_fwd", fwd)
+    monkeypatch.setattr(t_attn, "fused_mha_bwd", bwd)
+    takes = head_dim % 8 == 0 and head_dim <= 128
+    assert t_attn.kernel_takes_head_dim(head_dim) == takes
+    B, L, H = 2, 5, 2
+    q = torch.empty((B, L, H, head_dim), device="meta", requires_grad=True)
+    mask = torch.zeros((B, L), dtype=torch.bool, device="meta")
+    out = t_attn._FusedMHA.apply(q, q, q, mask, 0.5, torch.float32, True)
+    out.backward(torch.empty_like(out))
+    assert calls == (["fwd", "bwd"] if takes else [])
+
+    rng = np.random.default_rng(head_dim)
+    qkv = [rng.standard_normal((B, L, H, head_dim)).astype(np.float32) for _ in range(3)]
+    pad = np.zeros((B, L), bool)
+    pad[1, 3:] = True
+    got = t_attn.fused_mha(*(torch.from_numpy(a) for a in qkv), torch.from_numpy(pad))
+    want = np.asarray(j_fused_mha(*(jnp.asarray(a) for a in qkv), jnp.asarray(pad)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)

@@ -764,3 +764,91 @@ def test_a_miss_under_concurrent_dispatches_on_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(a.mel, b.mel)
         np.testing.assert_array_equal(a.wav, b.wav)
     assert engine.pool.outstanding == 0 and engine.style.pool.outstanding == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [12, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unsupported_head_dims_run_the_plain_versions_on_card(cuda_device, D, dtype):
+    """Head dims the kernels do not take (not a multiple of 8, or over 128)
+    run through the plain versions on the card, as the JAX package's entry
+    sends them to its einsum path: forward and gradients equal the plain
+    versions' (the einsum path) on the same card, and no kernel launch is
+    counted. A supported head dim on the same call path still launches."""
+    from speakingstyle_torch.parallel.registry import read_launches
+
+    rng = np.random.default_rng(D)
+    B, L, H = 2, 37, 2
+    q, k, v, dout = (torch.tensor(rng.standard_normal((B, L, H, D)), dtype=dtype,
+                                  device=cuda_device) for _ in range(4))
+    mask = torch.tensor(_lengths_mask(rng, B, L), device=cuda_device)
+    before = read_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = t_attn.fused_mha(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert read_launches() == before
+    scale = 1.0 / np.sqrt(D)
+    torch.testing.assert_close(out, t_attn.fused_mha_plain(q, k, v, mask, scale), atol=0, rtol=0)
+    for got, want in zip(grads, t_attn.fused_mha_bwd_plain(q, k, v, mask, dout, scale)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+    q16 = torch.tensor(rng.standard_normal((B, L, H, 16)), dtype=dtype, device=cuda_device)
+    t_attn.fused_mha(q16, q16, q16, mask)
+    torch.cuda.synchronize()
+    after = read_launches()
+    assert after["fused_mha.launches"] + after["fused_mha.launches_bf16sm"] == \
+        before["fused_mha.launches"] + before["fused_mha.launches_bf16sm"] + 1
+
+
+@pytest.mark.cuda
+def test_http_load_from_two_threads_prepares_nothing_on_card(cuda_device, tmp_path):
+    """After ``precompile()``, two client threads' /synthesize and
+    /synthesize/stream requests over HTTP are all answered 200 with RIFF
+    wavs, and no acoustic, vocoder or style
+    program is prepared while they run (the replayed graphs serve every
+    dispatch, and every style miss replays a prepared encoder)."""
+    import http.client
+    import json
+    import threading
+
+    from speakingstyle_torch.serving.frontend import TextFrontend
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    engine = graph_engine(tmp_path, "pallas", cuda_device)
+    engine.precompile()
+    compiles = (engine.compile_count, engine.style.compile_count)
+    ref = np.random.default_rng(0).standard_normal((20, 80)).astype(np.float32)
+    server = SynthesisServer(engine, TextFrontend(engine.cfg, ref), host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.address[:2]
+    answers, errors = [], []
+
+    def client(seed):
+        try:
+            conn = http.client.HTTPConnection(host, port, timeout=300)
+            for i in range(6):
+                path = "/synthesize/stream" if i % 3 == 2 else "/synthesize"
+                conn.request("POST", path, body=json.dumps(
+                    {"text": "hello world " * (1 + (seed + i) % 3),
+                     "duration_control": 1.0 + 0.1 * i}))
+                resp = conn.getresponse()
+                answers.append((resp.status, resp.read()))
+            conn.close()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    clients = [threading.Thread(target=client, args=(s,)) for s in range(2)]
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    assert not errors, errors
+    assert [a[0] for a in answers] == [200] * 12
+    assert all(body[:4] == b"RIFF" for _, body in answers)
+    assert (engine.compile_count, engine.style.compile_count) == compiles

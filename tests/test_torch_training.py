@@ -557,3 +557,46 @@ def test_restore_with_ignore_layers_keeps_fresh_parameters(tmp_path, corpus):
     assert fresh.step == 5 and fresh.optimizer.count == 0
     assert not fresh.model.encoder.src_word_emb.weight.any()
     torch.testing.assert_close(fresh.model.mel_linear.weight, state.model.mel_linear.weight)
+
+
+def test_train_start_identity_and_program_card(tmp_path, corpus):
+    """``train_start`` carries ``build_info()`` and the restored step's
+    ``weights_digest`` (None on a fresh run, the manifest's on a resume);
+    ``train.obs.program_card`` adds one ``program_card`` event, counted on
+    the first step, whose FLOPs over each step's wall time feed
+    ``train_achieved_flops_per_sec``; with the key off there is neither."""
+    import json
+
+    from speakingstyle_torch import obs
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.training.trainer import run_training
+
+    paths = write_configs(tmp_path, corpus)
+    cfg = load_config(paths["preprocess"], paths["model"], paths["train"])
+    reg = obs.MetricsRegistry()
+    run_training(cfg, device="cpu", max_steps=2, registry=reg)
+    run_training(cfg, device="cpu", max_steps=3, restore_step=-1, registry=reg)
+    events = list(obs.read_events(str(tmp_path / "log")))
+    starts = [e for e in events if e["event"] == "train_start"]
+    assert [s["weights_digest"] for s in starts] == [
+        None, json.load(open(tmp_path / "ckpt" / "2" / "manifest.json"))["weights_digest"]]
+    info = obs.build_info()
+    for s in starts:
+        assert {k: s[k] for k in ("python", "torch", "backend", "device_kind")} == \
+            {k: info[k] for k in ("python", "torch", "backend", "device_kind")}
+        assert s["device"] == "cpu" and s["device_count"] == 1 and "git_sha" in s
+    cards = [e for e in events if e["event"] == "program_card"]
+    assert len(cards) == 2 and all(c["name"] == "train_step" for c in cards)
+    for c in cards:
+        assert c["flops"] > 0 and c["argument_bytes"] > 0
+        assert c["peak_bytes"] is None and c["partial"] is True  # no capture on the CPU
+    assert reg.histogram("train_achieved_flops_per_sec").count == 3
+
+    (tmp_path / "off").mkdir()
+    off = write_configs(tmp_path / "off", corpus, obs={"program_card": False})
+    cfg = load_config(off["preprocess"], off["model"], off["train"])
+    reg = obs.MetricsRegistry()
+    run_training(cfg, device="cpu", max_steps=1, registry=reg)
+    assert not [e for e in obs.read_events(str(tmp_path / "off" / "log"))
+                if e["event"] == "program_card"]
+    assert reg.histogram("train_achieved_flops_per_sec").count == 0
