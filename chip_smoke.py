@@ -20,8 +20,9 @@ printing one JSON line:
    attention kernel must have run 14 times per dispatch.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at every shape the main path gives it (phase 2's serve and style
-   buckets) with the padding masks of the requests' real lengths, in
-   float32 and bfloat16: the max abs error against the stated tolerance,
+   buckets) with the padding masks of the requests' real lengths, and the
+   LayerNorm conv past one cluster of 8 x 128 channels (Cout 1536, 2048),
+   in float32 and bfloat16: the max abs error against the stated tolerance,
    and the kernel / plain / library times (CUDA events, warm, median). The
    attention forward is also held to its row lse and, with the last batch
    row fully padded, to the plain version and to V's mean over the row.
@@ -129,13 +130,35 @@ printing one JSON line:
    sheds and the server's histograms are printed. Then ``python -m
    speakingstyle_torch serve`` in a subprocess on that checkpoint and a
    one-point lattice answers a request and exits 0 on SIGTERM.
+17. ``serve_fleet`` (after ``serve_http``, from the same checkpoint): the
+   fleet router on the one card, two replicas in this process, built by
+   the serve command's fleet branch (``build_fleet``: the checkpoint
+   loaded once, one shared StyleService), on the kernel path at a lattice
+   of batch {1, 4} x src {128} x mel {256, 1000} and style (b, 1000).
+   Replica 0 warms alone, then serves requests while replica 1 warms (the
+   device gate's waits of replica 0's dispatches in that window are
+   printed) and ``memory_reserved`` is read at 1 and 2 replicas. Steady
+   traffic under torch.profiler (4 closed-loop clients x 8 /synthesize, 4
+   streams): both replicas dispatch, nothing is prepared, the port's
+   kernels counted by name in the trace equal the credits summed over both
+   replicas. A ``replica_raise`` and a ``replica_hang`` drill under
+   concurrent requests (the watchdog at 1.5 s): every request 200, the
+   breakers open and close, the failed replicas come back READY, their
+   old engines are closed and ``memory_reserved`` stays within one
+   replica's graphs of its pre-drill reading. POST /admin/rollout to a
+   second step of the same weights under load: committed, every replica on
+   the new version and digest, no request failed, the surge's memory
+   polled. Every 200 within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of
+   one engine, streams within ``STREAM_LSB`` outside the overlap tail.
+   Then ``serve --replicas 2`` in a subprocess: /healthz 503, then 200,
+   and one /synthesize 200.
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 A ``phase_seconds`` line gives each phase's seconds and the total.
 
 Then a summary line of every kernel (with its launches a distill step and
-in the trace of the ``serve_http`` traffic),
+in the traces of the ``serve_http`` and ``serve_fleet`` traffic),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -598,11 +621,18 @@ def preset_style_dispatches(cfg, requests):
     return out
 
 
+# Cout of the LayerNorm conv past one cluster of 8 x 128 channels (each
+# block then computes two 128-channel tiles in turn): held at the reference
+# encoder's shapes (k3 from 1024 channels, the style dispatch's rows), on no
+# preset's path (every reference_encoder.conv_filter_size is 1024)
+WIDE_LN_COUTS = (1536, 2048)
+
+
 def kernels_phase(cfg, lengths, dev, seed, style_dispatches=()):
     """Every kernel case of the main path (shapes and valid lengths from
-    ``path_lengths``) in float32 and bfloat16, and the reference encoder's
-    cases at each of ``style_dispatches``' other shapes; returns {case:
-    result}."""
+    ``path_lengths``) in float32 and bfloat16, the reference encoder's
+    cases at each of ``style_dispatches``' other shapes, and the LN conv at
+    ``WIDE_LN_COUTS``; returns {case: result}."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -614,6 +644,12 @@ def kernels_phase(cfg, lengths, dev, seed, style_dispatches=()):
             cases.append(attention_case(case, lengths, dtype, g, dev))
             emit("kernels", **cases[-1])
         for case in conv_cases(cfg):
+            cases.append(conv_case(case, lengths, dtype, g, dev))
+            emit("kernels", **cases[-1])
+        re_ = cfg.model.reference_encoder
+        for cout in WIDE_LN_COUTS:
+            case = (f"ref_conv_ln_c{cout}", "ref", re_.conv_kernel_size, re_.conv_filter_size,
+                    cout, True, True, 0)
             cases.append(conv_case(case, lengths, dtype, g, dev))
             emit("kernels", **cases[-1])
         for b, r, lens in style_dispatches:
@@ -2556,6 +2592,8 @@ def nonfinite_cases(cfg, dev, seed):
                               "ok": all(v[0] for v in outs.values()) and outs["out"][2] > 0})
         convs = (("ref_conv_relu_ln", re_.conv_kernel_size, re_.conv_filter_size,
                   re_.conv_filter_size, True),
+                 ("ref_conv_relu_ln_c2048", re_.conv_kernel_size, re_.conv_filter_size, 2048,
+                  True),
                  ("ffn_w1_relu", tr.conv_kernel_size[0], tr.decoder_hidden, tr.conv_filter_size,
                   False),
                  ("ffn_w2", tr.conv_kernel_size[1], tr.conv_filter_size, tr.decoder_hidden, None))
@@ -3951,6 +3989,540 @@ def serve_http_phase(tmp, step, seed, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17: serve_fleet
+
+SERVE_FLEET_REPLICAS = 2
+# the fleet cell's lattice, cut as serve_core's: batch {1, 4} x src {128} x
+# mel {1000} and style (b, 1000), plus the 256-frame vocoder point the
+# stream windows cover (the engine's vocoder points are batch x mel, so 256
+# also brings two acoustic points)
+SERVE_FLEET_LATTICE = {"batch_buckets": [1, 4], "src_buckets": [128], "mel_buckets": [256, 1000],
+                       "style": {"ref_buckets": [1000]}}
+SERVE_FLEET_CLIENTS = 4
+SERVE_FLEET_REQUESTS = 8       # a closed-loop client's /synthesize requests
+SERVE_FLEET_STREAMS = 4        # then /synthesize/stream requests, one at a time
+SERVE_FLEET_WARM_REQUESTS = 4  # replica 0's, while replica 1 warms
+# the watchdog, low for the drill: a steady dispatch takes ~0.1 s and the
+# injected hang sleeps 3 x this before its (discarded) dispatch
+SERVE_FLEET_WATCHDOG_S = 1.5
+# class budgets past the drill's hang, so a stolen request is retried on
+# the other replica instead of resolving as 504
+SERVE_FLEET_DEADLINES = {"interactive": 30000.0, "batch": 60000.0}
+
+
+class EventLog:
+    """In-memory event log with ``JsonlEventLog``'s ``emit``: the fleet
+    phase reads the router's replica_state / replica_failure / engine_closed
+    / rollout events back from it."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.records = []
+
+    def emit(self, event, **fields):
+        with self._lock:
+            self.records.append((event, dict(fields)))
+        return fields
+
+    def of(self, kind):
+        with self._lock:
+            return [f for k, f in self.records if k == kind]
+
+
+def gate_wait_recorder():
+    """Time every outermost shared entry of the port's DEVICE_GATE (one
+    per dispatch, vocode window or style encode), by thread name: returns
+    (the list of (thread name, seconds), a function that restores the
+    gate)."""
+    import threading
+
+    from speakingstyle_torch.parallel.registry import DEVICE_GATE
+
+    waits = []
+    enter = DEVICE_GATE._enter_shared
+
+    def timed():
+        t0 = time.perf_counter()
+        enter()
+        waits.append((threading.current_thread().name, time.perf_counter() - t0))
+
+    DEVICE_GATE._enter_shared = timed
+    return waits, lambda: delattr(DEVICE_GATE, "_enter_shared")
+
+
+def fleet_cli_check(tmp, step, seed, wav, dev):
+    """``python -m speakingstyle_torch serve --replicas 2`` in a subprocess
+    over the phase's checkpoint, on the one-point lattice of
+    ``serve_cli_check``: it binds at once, /healthz answers 503 while the
+    replicas warm and then 200 with both ready, one /synthesize answers 200,
+    and SIGTERM exits 0. Returns its record."""
+    import queue
+    import signal
+    import threading
+
+    import yaml
+
+    out = os.path.join(tmp, "serve_fleet_cli")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = SERVE_CLI_LATTICE
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", *cli_args, "--restore_step",
+         str(step), "--seed", str(seed), "--host", "127.0.0.1", "--port", "0",
+         "--ref_audio", wav, "--device", dev.type, "--replicas", "2"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout], daemon=True)
+    reader.start()
+    log, address, healthz, code = [], None, [], None
+    try:
+        deadline = time.monotonic() + 300
+        while address is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            log.append(line.rstrip())
+            if line.startswith("serving on http://"):
+                host, port = line.split("http://", 1)[1].split(" ", 1)[0].rsplit(":", 1)
+                address = (host, int(port))
+        if address is None:
+            fail(f"serve_fleet: the serve command did not start serving: {log[-20:]}")
+        bound_s = time.perf_counter() - t0
+        ready = {}
+        while time.monotonic() < deadline:
+            status, _, body, _ = http_call(address, "GET", "/healthz")
+            ready = json.loads(body).get("replicas", {})
+            healthz.append((round(time.perf_counter() - t0, 3), status, ready))
+            if status == 200 and set(ready.values()) == {"ready"}:
+                break
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        status, headers, body, secs = http_call(address, "POST", "/synthesize",
+                                                {"text": TEXTS[0]})
+        samples = len(body) - 44
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        reader.join(timeout=30)
+        while not lines.empty():
+            log.append(lines.get().rstrip())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    statuses = [h[1] for h in healthz]
+    record = {"exit_code": code, "bound_s": bound_s, "ready_s": ready_s,
+              "healthz": healthz[:3] + healthz[-1:], "healthz_polls": len(healthz),
+              "status": status, "wav_samples": samples // 2, "request_s": secs,
+              "model_version": headers.get("X-Model-Version"), "log_tail": log[-6:]}
+    if not (code == 0 and statuses and statuses[0] == 503 and statuses[-1] == 200
+            and healthz[-1][2] == {"0": "ready", "1": "ready"} and status == 200
+            and body[:4] == b"RIFF" and samples > 0 and any("warming 2 replicas" in l for l in log)
+            and any("SIGTERM" in l for l in log)):
+        fail(f"serve_fleet: the serve --replicas 2 command {record}")
+    return record
+
+
+def serve_fleet_phase(tmp, step, seed, dev, smi):
+    """The fleet router on one card: the LJSpeech preset at full width on
+    the kernel path (bf16 compute, bf16 softmax), ``SERVE_FLEET_LATTICE``,
+    from ``restored_phase``'s checkpoint, built through the serve command's
+    fleet branch (``cli.serve.build_fleet``: the checkpoint loaded once, one
+    shared StyleService, the rollout armed) behind ``SynthesisServer``.
+
+    1. Warm-up: replica 0 warms alone (its ``memory_reserved``); then
+       ``scale_to(2)``, and replica 0 serves requests one after another
+       while replica 1 warms: the DEVICE_GATE waits of replica 0's
+       dispatches in that window (each preparation holds the gate
+       exclusively), then ``memory_reserved`` with two replicas.
+    2. Steady traffic under torch.profiler, every kernel count set to 0
+       just before and read just after: the 4 references uploaded, 4
+       closed-loop clients x 8 /synthesize (the 4 texts x 4 styles), 4
+       streams one at a time. Both replicas must dispatch, nothing may be
+       prepared, and the port's kernels counted by name in the trace must
+       equal the credits summed over both replicas.
+    3. Chaos: ``replica_raise`` at the next dispatch under 8 concurrent
+       requests, recovery; then ``replica_hang`` (the watchdog at
+       ``SERVE_FLEET_WATCHDOG_S``) under 8 more, recovery. Every request
+       ends 200, both breakers open and close again, each failed replica
+       comes back READY, its old engine is closed, and ``memory_reserved``
+       stays within one replica's graphs of the pre-drill reading.
+    4. Rollout: POST /admin/rollout to a second step saved from the same
+       weights, under two clients' load: it commits, every READY replica
+       runs the new version and digest, no request fails;
+       ``memory_reserved`` polled over the canary's surge.
+    Every 200 is a RIFF wav of mel_len x hop samples passing the quality
+    gate and within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of one engine
+    on the same request; each stream within ``STREAM_LSB`` of its full wav
+    outside the overlap tail. Then ``serve --replicas 2`` in a subprocess
+    (``fleet_cli_check``). Returns the kernels counted in the traffic's
+    trace."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+    import yaml
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.cli import config_from_args
+    from speakingstyle_torch.cli.serve import build_fleet, build_parser, model_version_string
+    from speakingstyle_torch.faults import FaultPlan
+    from speakingstyle_torch.obs.quality import validate_wav
+    from speakingstyle_torch.serving.engine import load_engine_parts
+    from speakingstyle_torch.serving.fleet import READY
+    from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
+    from speakingstyle_torch.serving.server import SynthesisServer
+    from speakingstyle_torch.serving.streaming import resolve_overlap
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    out = os.path.join(tmp, "serve_fleet")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = dict(SERVE_FLEET_LATTICE, fleet={
+        "hang_watchdog_s": SERVE_FLEET_WATCHDOG_S, "class_deadline_ms": SERVE_FLEET_DEADLINES})
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    args = build_parser().parse_args(cli_args + ["--restore_step", str(step), "--seed", str(seed),
+                                                 "--enable_rollout"])
+    cfg = config_from_args(args)
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    # the rollout's candidate: a second step of the same weights
+    step2 = step + 1
+    model, _, _, _ = load_engine_parts(cfg, step, griffin_lim=True, device=dev)
+    CheckpointManager(os.path.join(tmp, "ckpt")).save(step2, TrainState(
+        step=step2, model=model, optimizer=Optimizer(trainable(model), cfg.train)), block=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+
+    events, plan = EventLog(), FaultPlan()
+    waits, restore_gate = gate_wait_recorder()
+    server = None
+    answers, lock = [], threading.Lock()  # (what, payload, status, headers, body)
+    try:
+        router, lifecycle, _ = build_fleet(cfg, args, 1, dev, fault_plan=plan, events=events)
+        registry = router.registry
+        t0 = time.perf_counter()
+        if not router.wait_ready(timeout=300, n=1):
+            fail(f"serve_fleet: replica 0 did not warm: {router.states()}")
+        warm0_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reserved1 = torch.cuda.memory_reserved(dev)
+        wavs, _ = write_smoke_inputs(out, cfg, seed)
+        frontend = TextFrontend(cfg, load_ref_mel(cfg, wavs[-1]))
+
+        # 1. replica 1 warms while replica 0 serves
+        at = len(waits)
+        t0 = time.perf_counter()
+        router.scale_to(SERVE_FLEET_REPLICAS)
+        warm_lat, k = [], 0
+        while router.states().get(1) != READY or k < SERVE_FLEET_WARM_REQUESTS:
+            if time.perf_counter() - t0 > 300:
+                fail(f"serve_fleet: replica 1 did not warm: {router.states()}")
+            r0 = time.perf_counter()
+            res = router.submit(frontend.request(f"warm{k}", {"text": TEXTS[k % 4]})).result(
+                timeout=300)
+            if router.states().get(1) != READY:
+                warm_lat.append((res.replica, time.perf_counter() - r0))
+            k += 1
+        warm1_s = time.perf_counter() - t0
+        rep0 = [w for name, w in waits[at:] if name.startswith("replica-0-dispatch")]
+        served0 = sum(1 for r, _ in warm_lat if r == 0)
+        torch.cuda.synchronize()
+        reserved2 = torch.cuda.memory_reserved(dev)
+        precompile_s = {i: registry.value("serve_replica_precompile_seconds", {"replica": str(i)})
+                        for i in range(SERVE_FLEET_REPLICAS)}
+        if served0 < SERVE_FLEET_WARM_REQUESTS and warm1_s > 5.0:
+            fail(f"serve_fleet: replica 0 served {served0} requests during a {warm1_s:.1f} s "
+                 "warm-up of replica 1")
+        emit("serve_fleet_warmup", nvidia_smi=smi, entry="cli.serve.build_fleet",
+             lattice=SERVE_FLEET_LATTICE, model=SERVE_HTTP_MODEL,
+             replica0_warm_s=warm0_s, replica1_warm_s=warm1_s, precompile_s=precompile_s,
+             replica0_requests_during_warmup=served0,
+             replica0_latency_ms=quantiles_ms([s for r, s in warm_lat if r == 0])
+             if served0 else None,
+             replica0_gate_wait_ms=quantiles_ms(rep0) if rep0 else None,
+             memory_reserved_bytes={"before": reserved0, "replicas_1": reserved1,
+                                    "replicas_2": reserved2},
+             memory_reserved_per_replica_bytes=reserved2 - reserved1)
+
+        server = SynthesisServer(frontend=frontend, host="127.0.0.1", port=0, events=events,
+                                 router=router, lifecycle=lifecycle)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        address = server.address[:2]
+
+        def payload(i):
+            return {"text": TEXTS[i % len(TEXTS)], "style_id": style_ids[(i // 4) % 4]}
+
+        def clients(what, n_clients, per_client, stop=None):
+            """Closed-loop clients on kept-alive connections; returns their
+            latencies. With ``stop`` (an Event) each runs until it is set."""
+            lat = []
+
+            def client(c):
+                conn = http.client.HTTPConnection(*address, timeout=300)
+                try:
+                    i = 0
+                    while (i < per_client) if stop is None else not stop.is_set():
+                        p = payload(c + n_clients * i)
+                        status, headers, body, secs = http_call(address, "POST", "/synthesize",
+                                                                p, conn=conn)
+                        with lock:
+                            answers.append((what, p, status, headers, body))
+                            lat.append(secs)
+                        i += 1
+                finally:
+                    conn.close()
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+            for t in threads:
+                t.start()
+            return threads, lat
+
+        def join(threads):
+            for t in threads:
+                t.join(timeout=600)
+
+        # 2. steady traffic under the profiler
+        style_ids = []
+        prof, profiling = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), False
+        dispatched0 = [registry.value("serve_replica_dispatches_total", {"replica": str(i)})
+                       for i in range(SERVE_FLEET_REPLICAS)]
+        compiles = (registry.value("serve_compiles_total"),
+                    registry.value("serve_style_compiles_total"))
+        reset_counts()
+        prof.start()
+        profiling = True
+        try:
+            for w in wavs:
+                with open(w, "rb") as f:
+                    status, _, body, _ = http_call(address, "POST", "/styles", f.read(),
+                                                   {"Content-Type": "audio/wav"})
+                if status != 200:
+                    fail(f"serve_fleet: POST /styles answered {status}: {body[:300]!r}")
+                style_ids.append(json.loads(body)["style_id"])
+            t0 = time.perf_counter()
+            threads, latencies = clients("steady", SERVE_FLEET_CLIENTS, SERVE_FLEET_REQUESTS)
+            join(threads)
+            steady_s = time.perf_counter() - t0
+            streams, ttfas = [], []
+            for i in range(SERVE_FLEET_STREAMS):
+                p = payload(i)
+                status, headers, body, ttfa, _ = stream_call(address, p)
+                streams.append((p, status, headers, body))
+                if ttfa is not None:
+                    ttfas.append(ttfa)
+            torch.cuda.synchronize()
+        finally:
+            prof.stop()
+            profiling = False
+        credited = read_counts()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        window_ms, busy_ms, by_name, ours = device_time("serve_fleet traffic", kernels)
+        launches = check_trace("serve_fleet traffic", by_name, credited)
+        dispatched = [registry.value("serve_replica_dispatches_total", {"replica": str(i)}) - d
+                      for i, d in enumerate(dispatched0)]
+        after = (registry.value("serve_compiles_total"),
+                 registry.value("serve_style_compiles_total"))
+        if after != compiles:
+            fail(f"serve_fleet: the traffic prepared programs: {compiles} -> {after}")
+        if min(dispatched) <= 0:
+            fail(f"serve_fleet: a replica took no dispatch of the traffic: {dispatched}")
+        for name in ("fused_attention_fwd_bf16sm", "fused_conv1d_fwd"):
+            if launches[name] <= 0:
+                fail(f"serve_fleet: {name} ran no time in the traffic's trace: {launches}")
+        emit("serve_fleet", nvidia_smi=smi, under_profiler=True,
+             requests={"closed_loop": SERVE_FLEET_CLIENTS * SERVE_FLEET_REQUESTS,
+                       "clients": SERVE_FLEET_CLIENTS, "streams": SERVE_FLEET_STREAMS},
+             latency_ms=quantiles_ms(latencies), ttfa_ms=quantiles_ms(ttfas),
+             steady_s=steady_s, replica_dispatches=dispatched,
+             replica_requests={i: registry.value("serve_replica_requests_total",
+                                                 {"replica": str(i)})
+                               for i in range(SERVE_FLEET_REPLICAS)},
+             server_queue_wait_s=hist_view(registry, "serve_queue_wait_seconds"),
+             compiles={"before": compiles, "after": after},
+             traffic_trace={"trace_window_ms": window_ms, "device_busy_ms": busy_ms,
+                            "idle_share": 1.0 - busy_ms / window_ms, "port_kernel_ms": ours,
+                            "kernels_in_trace": launches, "credited": credited})
+
+        # 3. chaos: a raise, then a hang past the watchdog
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved_pre = torch.cuda.memory_reserved(dev)
+        drill = {}
+        for kind in ("replica_raise", "replica_hang"):
+            t0 = time.perf_counter()
+            fails0 = len(events.of("replica_failure"))
+            plan.arm(kind, router.dispatch_total + 1)
+            threads, lat = clients(kind, SERVE_FLEET_CLIENTS, 2)
+            join(threads)
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and not (
+                    sorted(router.states().values()).count(READY) == SERVE_FLEET_REPLICAS
+                    and all(registry.value("serve_replica_breaker_state", {"replica": str(i)})
+                            == 0 for i, s in router.states().items() if s == READY)):
+                # the breaker closes on the re-warmed replica's first good dispatch
+                if sorted(router.states().values()).count(READY) == SERVE_FLEET_REPLICAS:
+                    threads, more = clients(kind + "_recovery", 2, 1)
+                    join(threads)
+                else:
+                    time.sleep(0.05)
+            failures = events.of("replica_failure")[fails0:]
+            drill[kind] = {"seconds": time.perf_counter() - t0, "latency_ms": quantiles_ms(lat),
+                           "failures": [{k: f[k] for k in ("replica", "kind", "requeued",
+                                                           "failed", "backoff_s")}
+                                        for f in failures],
+                           "states": router.states()}
+            if len(failures) != 1 or failures[0]["failed"] or \
+                    failures[0]["kind"] != kind.split("_")[1]:
+                fail(f"serve_fleet: the {kind} drill's failures: {failures}")
+        states = router.states()
+        ready_now = [i for i, s in states.items() if s == READY]
+        if len(ready_now) != SERVE_FLEET_REPLICAS:
+            fail(f"serve_fleet: the fleet did not recover: {states}")
+        breakers = {i: registry.value("serve_replica_breaker_state", {"replica": str(i)})
+                    for i in ready_now}
+        opened = [f for f in events.of("replica_state") if f["state"] == "failed"]
+        closed_engines = len(events.of("engine_closed"))
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved_post = torch.cuda.memory_reserved(dev)
+        per_replica = reserved2 - reserved1
+        emit("serve_fleet_chaos", drills=drill, breakers=breakers, failed_states=len(opened),
+             engines_closed=closed_engines, watchdog_s=SERVE_FLEET_WATCHDOG_S,
+             deferred_warmups=len(events.of("replica_warm_deferred")),
+             requeued=registry.value("serve_requeued_total"),
+             memory_reserved_bytes={"before_drill": reserved_pre, "after_drill": reserved_post,
+                                    "one_replica": per_replica})
+        if any(breakers.values()) or len(opened) < 2 or closed_engines < 2:
+            fail(f"serve_fleet: breakers {breakers}, failed states {len(opened)}, engines "
+                 f"closed {closed_engines}")
+        if reserved_post > reserved_pre + per_replica:
+            fail(f"serve_fleet: memory_reserved {reserved_post} after the drill, "
+                 f"{reserved_pre} before, one replica's graphs {per_replica}")
+
+        # 4. the rollout under load, memory polled over the surge
+        old = {id(router.engine_at(i)) for i in ready_now}
+        stop, peak = threading.Event(), [0]
+
+        def poll():
+            while not stop.is_set():
+                peak[0] = max(peak[0], torch.cuda.memory_reserved(dev))
+                stop.wait(0.02)
+
+        poller = threading.Thread(target=poll)
+        poller.start()
+        load, load_lat = clients("rollout", 2, 0, stop=stop)
+        t0 = time.perf_counter()
+        try:
+            status, _, body, _ = http_call(address, "POST", "/admin/rollout", {"step": step2},
+                                           timeout=600)
+        finally:
+            stop.set()
+            join(load + [poller])
+        rollout_s = time.perf_counter() - t0
+        outcome = json.loads(body)
+        info2 = {"step": step2, "weights_digest": outcome.get("weights_digest")}
+        states = router.states()
+        ready_after = [i for i, s in states.items() if s == READY]
+        versions = {i: router._replicas[i].version for i in ready_after}
+        status_h, _, body_h, _ = http_call(address, "GET", "/healthz")
+        model = json.loads(body_h).get("model", {})
+        emit("serve_fleet_rollout", status=status, outcome=outcome, seconds=rollout_s,
+             states=states, versions=versions, healthz_model=model,
+             load_requests=len(load_lat), load_latency_ms=quantiles_ms(load_lat)
+             if load_lat else None,
+             memory_reserved_bytes={"surge_peak": peak[0],
+                                    "after": torch.cuda.memory_reserved(dev)})
+        want_version = model_version_string(info2)
+        if not (status == 200 and outcome.get("status") == "committed"
+                and len(ready_after) == SERVE_FLEET_REPLICAS
+                and set(versions.values()) == {want_version}
+                and not old & {id(router.engine_at(i)) for i in ready_after}
+                and model.get("version") == want_version and model.get("step") == step2
+                and model.get("weights_digest") == outcome.get("weights_digest")):
+            fail(f"serve_fleet: the rollout {outcome}, states {states}, versions {versions}, "
+                 f"healthz {model}")
+
+        # every answer against run(eager=True) of one live engine
+        engine = router.engine_at(ready_after[0])
+        hop = engine.vocoder.hop_factor
+        refs = {}
+
+        def reference(p):
+            key = (p["text"], p["style_id"])
+            if key not in refs:
+                refs[key] = engine.run([frontend.request("eager", p)], eager=True)[0]
+            return refs[key]
+
+        bad, worst, checked = [], 0, 0
+        for what, p, status, headers, body in answers:
+            if status != 200:
+                bad.append({"what": what, "status": status,
+                            "body": body[:200].decode(errors="replace")})
+                continue
+            wav = pcm_of(f"serve_fleet {what}", body, sr)
+            ref = reference(p)
+            verdict = validate_wav(wav, sr, cfg.serve.quality)
+            if len(wav) != ref.mel_len * hop or not verdict.ok:
+                bad.append({"what": what, "samples": len(wav), "want": ref.mel_len * hop,
+                            "quality": verdict.as_dict()})
+                continue
+            lsb = int(np.abs(wav.astype(np.int32) - ref.wav.astype(np.int32)).max(initial=0))
+            worst, checked = max(worst, lsb), checked + 1
+            if lsb > SERVE_HTTP_LSB:
+                bad.append({"what": what, "text": p["text"][:20], "max_lsb": lsb})
+        overlap = resolve_overlap(cfg.serve.fleet.stream_overlap, engine.vocoder)
+        stream_rows = []
+        for p, status, headers, body in streams:
+            ref = reference(p)
+            wav = pcm_of("serve_fleet stream", body, sr) if status == 200 \
+                else np.zeros(0, np.int16)
+            keep_n = max(0, ref.mel_len - overlap) * hop
+            lsb = int(np.abs(wav[:keep_n].astype(np.int32)
+                             - ref.wav[:keep_n].astype(np.int32)).max(initial=0)) \
+                if len(wav) == len(ref.wav) else None
+            stream_rows.append({"status": status, "samples": int(len(wav)), "max_lsb": lsb})
+            if status != 200 or lsb is None or lsb > STREAM_LSB or keep_n <= 0:
+                bad.append({"stream": stream_rows[-1], "want_samples": len(ref.wav)})
+        emit("serve_fleet_answers", checked_wavs=checked, wav_vs_eager_lsb={
+            "max": worst, "bound": SERVE_HTTP_LSB}, streams=stream_rows,
+            stream_lsb_bound=STREAM_LSB, by_phase={w: sum(1 for a in answers if a[0] == w)
+                                                   for w in sorted({a[0] for a in answers})})
+        if bad:
+            fail(f"serve_fleet: answers that fail their checks: {bad[:8]}")
+    finally:
+        restore_gate()
+        if server is not None:
+            server.shutdown()
+    del server, router, engine, refs, lifecycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_fleet_cli", **fleet_cli_check(tmp, step, seed, wavs[-1], dev))
+    return launches
+
+
 def traced_replay(engine, requests):
     """One replayed dispatch under ``torch.profiler``: (results, {device
     busy ms and idle share in the traced window, the port's kernels counted
@@ -4059,13 +4631,15 @@ def main(argv=None) -> int:
                      restore_tmp)
         http_launches = timed("serve_http", serve_http_phase, restore_tmp, step, args.seed, dev,
                               smi)
+        fleet_launches = timed("serve_fleet", serve_fleet_phase, restore_tmp, step, args.seed,
+                               dev, smi)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
     train_counts, train_sm16_counts, train_cases, distill_per_step = timed(
         "train", train_phase, train_config, dev, args.seed)
     cases.update(train_cases)
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
-         serve_http_s=PHASE_S["serve_http"])
+         serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -4106,6 +4680,9 @@ def main(argv=None) -> int:
             # the serve_http phase's traffic over HTTP (replayed graphs),
             # counted by name in its trace
             "serve_http_launches": http_launches[name],
+            # the serve_fleet phase's steady traffic over both replicas,
+            # counted by name in its trace
+            "serve_fleet_launches": fleet_launches[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
-"""``serve`` command: the continuous-batching text -> wav HTTP server on one
-engine (JAX counterpart: the single-engine branch of
-speakingstyle_tpu/cli/serve.py).
+"""``serve`` command: the text -> wav HTTP server, on one engine behind the
+continuous batcher or on a fleet of replica engines (JAX counterpart:
+speakingstyle_tpu/cli/serve.py, its fleet branch ``:229-380`` without the
+cluster).
 
 Restores the acoustic model from ``train.path.ckpt_path`` at
 ``--restore_step`` (<= 0: the latest; the port's own checkpoints, or a
@@ -21,7 +22,17 @@ serving/server.py:
 accepting, drains in-flight streams (``serve.fleet.drain_timeout_s``),
 flushes admitted requests and exits 0.
 
-``--replicas`` > 1 (the fleet router) is ROADMAP.md queue A item 5b and
+``--replicas N`` > 1 (or ``serve.fleet.replicas``) serves through the
+fleet router (serving/fleet.py): the checkpoint is loaded once and every
+replica's engine shares its f32 weights (one copy on the card) and one
+StyleService; the socket binds at once and ``/healthz`` answers 503 until
+the first replica has prepared its lattice on its background thread. On
+one card the replicas share the device: each holds its own CUDA graphs
+(memory grows with N) and a replica's warm-up holds the others' dispatches
+back for one capture at a time. ``--enable_rollout`` (or
+``serve.rollout.enabled``) arms ``POST /admin/rollout``;
+``serve.autoscale.enabled`` arms the autoscaler. ``--cluster`` with a
+fleet (the distributed control plane) is ROADMAP.md queue A item 5c and
 exits non-zero; ``--cluster`` and ``--enable_rollout`` without a fleet
 print the JAX command's warnings and are ignored.
 
@@ -29,7 +40,7 @@ Runs on ``cuda`` unless ``--device cpu`` is given, and fails rather than
 fall back when no card is present.
 
     python -m speakingstyle_torch serve --preset LJSpeech --restore_step 900000 \\
-        --ref_audio ref.wav --port 8400
+        --ref_audio ref.wav --port 8400 [--replicas 2 --enable_rollout]
 """
 
 import argparse
@@ -39,8 +50,9 @@ import threading
 
 from speakingstyle_torch.cli import add_config_args, config_from_args
 
-FLEET_MISSING = ("--replicas > 1 serves through the fleet router, which is not ported yet "
-                 "(ROADMAP.md queue A item 5b); run one engine with --replicas 1")
+CLUSTER_MISSING = ("--cluster (replicas as separate processes behind the distributed control "
+                   "plane) is not ported yet (ROADMAP.md queue A item 5c); serve the fleet "
+                   "in-process without --cluster")
 
 
 def build_parser(parser=None):
@@ -57,15 +69,17 @@ def build_parser(parser=None):
     parser.add_argument("--host", default=None, help="override serve.host")
     parser.add_argument("--port", type=int, default=None, help="override serve.port")
     parser.add_argument("--replicas", type=int, default=None,
-                        help="override serve.fleet.replicas; > 1 needs the fleet router "
-                             "(ROADMAP.md queue A item 5b) and exits non-zero")
+                        help="override serve.fleet.replicas: > 1 serves through the fleet "
+                             "router (replica engines, EDF dispatch, load shedding)")
     parser.add_argument("--ref_dir", default=None,
                         help='override serve.style.ref_dir: the allowlist directory of request '
                              '"ref_audio" paths (unset = uploads via POST /styles only)')
     parser.add_argument("--cluster", action="store_true",
-                        help="the distributed control plane (fleet mode only; ignored here)")
+                        help="the distributed control plane (ROADMAP.md queue A item 5c: "
+                             "exits non-zero with a fleet, ignored without)")
     parser.add_argument("--enable_rollout", action="store_true",
-                        help="POST /admin/rollout (fleet mode only; ignored here)")
+                        help="enable POST /admin/rollout (canary-gated rolling model upgrade; "
+                             "fleet mode only, overrides serve.rollout.enabled)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the vocoder's weights when no --vocoder_ckpt is given")
@@ -76,6 +90,68 @@ def model_version_string(info) -> str:
     """``<step>:<digest prefix>``, the X-Model-Version wire format."""
     digest = info.get("weights_digest") or "unverified"
     return f"{info.get('step')}:{digest[:12]}"
+
+
+def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None):
+    """The fleet branch's backend (JAX ``cli/serve.py:229-380`` without the
+    cluster): the checkpoint loaded once, one StyleService, a
+    ``FleetRouter`` of ``replicas`` engines over a factory that shares the
+    loaded weights, the model version published, and the rollout manager
+    (``--enable_rollout`` / ``serve.rollout.enabled``) and autoscaler
+    (``serve.autoscale.enabled``) when armed. Returns (router, lifecycle or
+    None, autoscaler or None). The replicas warm in the background."""
+    from speakingstyle_torch.obs import MetricsRegistry
+    from speakingstyle_torch.serving.engine import SynthesisEngine, load_engine_parts
+    from speakingstyle_torch.serving.fleet import FleetRouter
+    from speakingstyle_torch.serving.style import StyleService
+
+    registry = MetricsRegistry()
+    model, vocoder, lattice, info = load_engine_parts(
+        cfg, args.restore_step, vocoder_ckpt=args.vocoder_ckpt, griffin_lim=args.griffin_lim,
+        device=device, vocoder_seed=args.seed + 1)
+    # one style service for every replica: one embedding cache, one set of
+    # style programs (the first replica's warm-up prepares them)
+    style = (StyleService(cfg, model.reference_encoder, device=device, registry=registry,
+                          fault_plan=fault_plan)
+             if cfg.model.use_reference_encoder else None)
+
+    def factory_for(model, vocoder, lattice):
+        def factory(reg):
+            return SynthesisEngine(cfg, model=model, vocoder=vocoder, lattice=lattice,
+                                   device=device, registry=reg, fault_plan=fault_plan,
+                                   style=style)
+        return factory
+
+    router = FleetRouter(factory_for(model, vocoder, lattice), cfg, replicas=replicas,
+                         registry=registry, events=events, style=style, fault_plan=fault_plan)
+    router.set_model_version(model_version_string(info), info.get("step"),
+                             info.get("weights_digest"))
+    autoscaler = None
+    if cfg.serve.autoscale.enabled:
+        from speakingstyle_torch.serving.autoscale import Autoscaler
+
+        acfg = cfg.serve.autoscale
+        autoscaler = Autoscaler(router, acfg)
+        print(f"autoscaler armed: [{acfg.min_replicas}, {acfg.max_replicas}] replicas, tick "
+              f"{acfg.interval_s}s (serve_autoscale_target tracks decisions)", flush=True)
+    lifecycle = None
+    if args.enable_rollout or cfg.serve.rollout.enabled:
+        from speakingstyle_torch.serving.lifecycle import RolloutManager
+
+        def verify_and_build(step: int):
+            # the verify gate: the manifest-checked restore of the candidate;
+            # a corrupt one aborts here, before any replica is touched. The
+            # style service keeps encoding with the live weights' encoder,
+            # as the JAX fleet's shared service does.
+            m2, v2, l2, info2 = load_engine_parts(
+                cfg, step, vocoder_ckpt=args.vocoder_ckpt, griffin_lim=args.griffin_lim,
+                device=device, vocoder_seed=args.seed + 1)
+            return factory_for(m2, v2, l2), model_version_string(info2), info2
+
+        lifecycle = RolloutManager(router, verify_and_build, autoscaler=autoscaler,
+                                   events=events)
+        print('rollout enabled: POST /admin/rollout {"step": N}', flush=True)
+    return router, lifecycle, autoscaler
 
 
 def main(args):
@@ -94,11 +170,11 @@ def main(args):
 
     cfg = config_from_args(args)
     replicas = args.replicas if args.replicas is not None else cfg.serve.fleet.replicas
-    if replicas > 1:
-        raise SystemExit(FLEET_MISSING)
-    if args.enable_rollout:
+    if replicas > 1 and args.cluster:
+        raise SystemExit(CLUSTER_MISSING)
+    if replicas <= 1 and args.enable_rollout:
         print("warning: --enable_rollout needs fleet mode (--replicas > 1); ignoring", flush=True)
-    if args.cluster:
+    if replicas <= 1 and args.cluster:
         print("warning: --cluster needs fleet mode (--replicas > 1); ignoring", flush=True)
     device = resolve_device(args.device)
     # size the span ring and arm (or disarm) recording before any serving
@@ -119,25 +195,36 @@ def main(args):
         events = JsonlEventLog(cfg.train.path.log_path, max_bytes=cfg.train.obs.events_max_bytes,
                                keep=cfg.train.obs.events_keep)
 
-    engine, info = load_engine(cfg, args.restore_step, vocoder_ckpt=args.vocoder_ckpt,
-                               griffin_lim=args.griffin_lim, device=device,
-                               vocoder_seed=args.seed + 1, fault_plan=fault_plan)
-    style_points = len(engine.style.lattice) if engine.style is not None else 0
-    print(f"precompiling {len(engine.lattice)} lattice points + {style_points} style-encoder "
-          f"points on {device} ...", flush=True)
-    secs = engine.precompile()
-    style_n = engine.style.compile_count if engine.style is not None else 0
-    print(f"precompiled {engine.compile_count} synthesis + {style_n} style programs in "
-          f"{secs:.1f}s; steady-state serving prepares nothing", flush=True)
+    router = autoscaler = None
+    if replicas > 1:
+        router, lifecycle, autoscaler = build_fleet(cfg, args, replicas, device,
+                                                    fault_plan=fault_plan, events=events)
+        print(f"warming {replicas} replicas x {len(router.lattice)} lattice points on {device} "
+              "in the background (healthz: 503 until one is ready) ...", flush=True)
+        registry = router.registry
+        server_kwargs = dict(router=router, lifecycle=lifecycle)
+    else:
+        engine, info = load_engine(cfg, args.restore_step, vocoder_ckpt=args.vocoder_ckpt,
+                                   griffin_lim=args.griffin_lim, device=device,
+                                   vocoder_seed=args.seed + 1, fault_plan=fault_plan)
+        style_points = len(engine.style.lattice) if engine.style is not None else 0
+        print(f"precompiling {len(engine.lattice)} lattice points + {style_points} style-encoder "
+              f"points on {device} ...", flush=True)
+        secs = engine.precompile()
+        style_n = engine.style.compile_count if engine.style is not None else 0
+        print(f"precompiled {engine.compile_count} synthesis + {style_n} style programs in "
+              f"{secs:.1f}s; steady-state serving prepares nothing", flush=True)
+        registry = engine.registry
+        server_kwargs = dict(engine=engine,
+                             model_info=dict(info, version=model_version_string(info)))
     slo = None
     if cfg.serve.slo.enabled:
         scfg = cfg.serve.slo
-        slo = SloEngine(engine.registry, scfg, events=events, trace_ring=get_span_ring())
+        slo = SloEngine(registry, scfg, events=events, trace_ring=get_span_ring())
         print(f"SLO engine armed: objectives {dict(scfg.objectives)}, windows "
               f"{scfg.fast_window_s:g}s/{scfg.slow_window_s:g}s", flush=True)
-    server = SynthesisServer(engine, TextFrontend(cfg, default_ref), host=args.host,
-                             port=args.port, events=events, slo=slo,
-                             model_info=dict(info, version=model_version_string(info)))
+    server = SynthesisServer(frontend=TextFrontend(cfg, default_ref), host=args.host,
+                             port=args.port, events=events, slo=slo, **server_kwargs)
 
     # SIGTERM: stop accepting, drain in-flight streams, flush admitted
     # requests, exit; shutdown() must run off the serve_forever thread
@@ -151,12 +238,15 @@ def main(args):
           f"stream_depth={cfg.serve.fleet.stream_depth} (1 = sequential vocode)", flush=True)
     print(f"serving on http://{host}:{port} (POST /synthesize, POST /synthesize/stream, "
           "POST /styles, GET /styles, GET /healthz, GET /metrics, GET /debug/programs, "
-          "POST /debug/profile?seconds=N)", flush=True)
+          "POST /debug/profile?seconds=N"
+          + (", POST /admin/rollout" if server.lifecycle is not None else "") + ")", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         print("shutting down (flushing admitted requests) ...", flush=True)
     finally:
+        if autoscaler is not None:
+            autoscaler.close()
         if slo is not None:
             slo.close()
         server.shutdown()

@@ -536,10 +536,11 @@ class FleetConfig:
     a ``fleet:`` block loads and validates as there). The single-engine
     path reads the shed watermarks and Retry-After (serving/batcher.py),
     the stream window, overlap and depth and ``drain_timeout_s``
-    (serving/server.py), and ``replicas`` (cli/serve.py refuses more than
-    one). The rest (the class deadlines, which the JAX server reads only
-    behind a router, the watchdog, retries and re-warm backoff) waits for
-    the fleet router (ROADMAP.md queue A item 5b)."""
+    (serving/server.py). ``replicas`` > 1 serves through the fleet router
+    (cli/serve.py, serving/fleet.py), which reads the rest: the queue depth
+    and watermarks of its EDF heap, the class deadlines (also the server's
+    wait behind a router, plus ``deadline_grace_ms``), the hang watchdog,
+    the retry budgets and the breaker's re-warm backoff."""
 
     replicas: int = 1
     queue_depth: int = 256
@@ -625,6 +626,108 @@ class FleetConfig:
 
 
 @dataclass(frozen=True)
+class AutoscaleConfig:
+    """Closed-loop fleet autoscaler knobs (serving/autoscale.py; copied from
+    the JAX package's ``AutoscaleConfig``). Disabled by default: with
+    ``enabled: false`` nothing constructs one and the replica count stays
+    wherever ``scale_to()`` last put it. Enabled, a policy thread reads the
+    router's pending depth, dispatch occupancy and shed / deadline-miss
+    rate and drives ``scale_to()`` inside ``[min_replicas, max_replicas]``
+    with hysteresis and cooldowns; the calm window before a scale-down is
+    stretched by the measured warm-up cost (``serve_replica_warmup_seconds``)."""
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # policy tick period (a stop-aware Event.wait)
+    interval_s: float = 0.25
+    # scale-up triggers (any one fires): pending depth as a fraction of
+    # fleet.queue_depth (below the shed watermark on purpose); busy share of
+    # READY replicas, with a backlog of one a live replica (floor 2) held a
+    # full tick; shed + deadline-miss events a second
+    up_queue_fraction: float = 0.5
+    up_occupancy: float = 0.9
+    up_pressure_rate: float = 1.0
+    # scale-down: all must hold, for max(down_stable_s, warmup_cost_factor x
+    # the measured warm-up)
+    down_queue_fraction: float = 0.05
+    down_occupancy: float = 0.5
+    down_stable_s: float = 5.0
+    cooldown_up_s: float = 2.0
+    cooldown_down_s: float = 10.0
+    # replicas added at extreme pressure (depth past twice the up watermark)
+    max_step: int = 2
+    # warm-up seconds assumed until the first one is measured
+    assumed_warmup_s: float = 10.0
+    warmup_cost_factor: float = 1.0
+
+    def __post_init__(self):
+        if self.min_replicas < 1:
+            raise ValueError(f"autoscale.min_replicas must be >= 1, got {self.min_replicas}")
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                "autoscale.max_replicas must be >= min_replicas, got "
+                f"{self.max_replicas} < {self.min_replicas}")
+        if self.interval_s <= 0:
+            raise ValueError(f"autoscale.interval_s must be > 0, got {self.interval_s}")
+        if not (0.0 < self.up_queue_fraction <= 1.0):
+            raise ValueError(
+                f"autoscale.up_queue_fraction must be in (0, 1], got {self.up_queue_fraction}")
+        if not (0.0 <= self.down_queue_fraction < self.up_queue_fraction):
+            raise ValueError(
+                "autoscale.down_queue_fraction must satisfy 0 <= down < "
+                f"up_queue_fraction, got {self.down_queue_fraction}")
+        if not (0.0 < self.up_occupancy <= 1.0):
+            raise ValueError(f"autoscale.up_occupancy must be in (0, 1], got {self.up_occupancy}")
+        if not (0.0 <= self.down_occupancy < self.up_occupancy):
+            raise ValueError(
+                "autoscale.down_occupancy must satisfy 0 <= down < "
+                f"up_occupancy, got {self.down_occupancy}")
+        if self.up_pressure_rate < 0:
+            raise ValueError(
+                f"autoscale.up_pressure_rate must be >= 0, got {self.up_pressure_rate}")
+        for name in ("down_stable_s", "cooldown_up_s", "cooldown_down_s",
+                     "warmup_cost_factor"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"autoscale.{name} must be >= 0, got {getattr(self, name)}")
+        if self.max_step < 1:
+            raise ValueError(f"autoscale.max_step must be >= 1, got {self.max_step}")
+        if self.assumed_warmup_s <= 0:
+            raise ValueError(
+                f"autoscale.assumed_warmup_s must be > 0, got {self.assumed_warmup_s}")
+
+
+@dataclass(frozen=True)
+class RolloutConfig:
+    """Canary-gated rolling model rollout knobs (serving/lifecycle.py;
+    copied from the JAX package's ``RolloutConfig``): verify the candidate
+    checkpoint, warm one canary replica on it, replay a seeded golden set
+    through the canary and the live version (all-finite, mean |dmel|
+    within ``canary_tolerance``), then drain-replace the old replicas one
+    at a time. Any failure before commit aborts with the fleet untouched."""
+
+    # gates POST /admin/rollout: a mutating admin surface is opted into
+    enabled: bool = False
+    golden_set_size: int = 4
+    canary_seed: int = 0
+    # against broken weights (NaN, garbage), not intended retraining deltas
+    canary_tolerance: float = 1e3
+    # per-replica warm / drain wait during the canary and the roll
+    replica_timeout_s: float = 600.0
+
+    def __post_init__(self):
+        if self.golden_set_size <= 0:
+            raise ValueError(
+                f"serve.rollout.golden_set_size must be > 0, got {self.golden_set_size}")
+        if self.canary_tolerance < 0:
+            raise ValueError(
+                f"serve.rollout.canary_tolerance must be >= 0, got {self.canary_tolerance}")
+        if self.replica_timeout_s <= 0:
+            raise ValueError(
+                f"serve.rollout.replica_timeout_s must be > 0, got {self.replica_timeout_s}")
+
+
+@dataclass(frozen=True)
 class TraceConfig:
     """Span recording (obs/trace.py): the per-process ring and the
     keep-store of pinned traces."""
@@ -632,8 +735,8 @@ class TraceConfig:
     enabled: bool = True
     ring_capacity: int = 4096
     keep_traces: int = 256
-    # accepted and validated for the JAX package's YAMLs and without effect
-    # here: only the fleet's tail sampler reads it (ROADMAP.md queue A 5b)
+    # the share of healthy traces the fleet router's tail sampler pins
+    # (obs/trace.py TailSampler); shed / 504 / miss traces are always pinned
     sample_rate: float = 0.1
 
     def __post_init__(self):
@@ -693,10 +796,11 @@ class ServeConfig:
     """The synthesis engine's shape lattice (serving/lattice.py): every
     dispatch runs at a ``(batch, L_src, T_mel)`` drawn from the cross
     product of these buckets; ``T_mel`` is the free-run output buffer.
-    The HTTP server's keys follow (serving/batcher.py, serving/server.py,
-    cli/serve.py). The JAX package's serve keys that no ported module
-    reads yet (``longform``, ``autoscale``, ``rollout``, ``cluster``,
-    ``parallel``) are listed in ROADMAP.md queue A items 5b, 5c and 6."""
+    The HTTP server's and the fleet's keys follow (serving/batcher.py,
+    serving/server.py, serving/fleet.py, serving/autoscale.py,
+    serving/lifecycle.py, cli/serve.py). The JAX package's serve keys that
+    no ported module reads yet (``longform``, ``cluster``, ``parallel``)
+    are listed in ROADMAP.md queue A items 5b, 5c and 6."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
@@ -728,6 +832,8 @@ class ServeConfig:
     trace: TraceConfig = field(default_factory=TraceConfig)
     slo: SloConfig = field(default_factory=SloConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
+    autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
 
     def __post_init__(self):
         for name in ("batch_buckets", "src_buckets", "mel_buckets"):

@@ -38,19 +38,27 @@
 //   instead. At 64 input channels a stage each warp does 64 mma between two
 //   barriers (32 channels measured ~20 % slower on the H100).
 //   LayerNorm needs each time step's statistics over all of Cout, so the
-//   LN variant splits Cout across a thread-block cluster of
-//   ceil(Cout / 128) <= 8 blocks (8 x 128 at Cout = 1024), launched with
-//   cudaLaunchKernelEx and a cluster-dimension attribute: each block owns
-//   BM steps and 1/8 of the weights, and the per-step partial sums of both
-//   passes (the mean, then the variance about it) are exchanged through
-//   distributed shared memory (map_shared_rank), summed in rank order so
-//   that every block of the cluster gets the same bits. (One block owning
-//   16 steps x all of Cout would re-read the whole 6 MB weight per 16
-//   steps.)
+//   LN variant splits Cout across a thread-block cluster of at most 8
+//   blocks (the portable maximum; 8 x 128 at Cout = 1024), launched with
+//   cudaLaunchKernelEx and a cluster-dimension attribute: of the n =
+//   ceil(Cout / 128) channel tiles each block owns tiles = ceil(n / 8) in
+//   a row, over its BM steps, and the cluster has ceil(n / tiles) blocks.
+//   A block computes its tiles one after another; every tile but its last
+//   parks the rounded pre-LN activation in the output buffer (exact: the
+//   values are already bf16) and reads it back for both statistics passes
+//   and the final affine. Each block sums both passes' per-step partials
+//   (the mean, then the variance about it) over its tiles, and the blocks
+//   exchange them through distributed shared memory (map_shared_rank),
+//   summed in rank order so that every block of the cluster gets the same
+//   bits. (One block owning 16 steps x all of Cout would re-read the whole
+//   6 MB weight per 16 steps.)
 // * float32, conv_fwd_kernel: f32 FMA on the CUDA cores, which keeps full
 //   f32 products (the tensor cores would round the inputs to TF32) for the
 //   float32 parity checks. A block owns 16 steps and 256 * CPT channels,
-//   one thread per channel, 16 x CPT accumulators each.
+//   one thread per channel, 16 x CPT accumulators each. With LayerNorm one
+//   block covers all of Cout: past 1024 channels in groups of 1024, one
+//   after another, every group but the last parked in the output buffer
+//   until the statistics are known.
 //
 // Left for later: wgmma and TMA (warpgroup products from shared memory fed
 // by one producer warp), larger tiles (each weight tile is read once per
@@ -132,102 +140,149 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(
   const int b = blockIdx.z;
   const int rows = BT + (K - 1) * dil;
   const float* xb = x + (size_t)b * T_len * Cin;
+  // with LN one block covers all of Cout, in groups of NT * CPT channels
+  // computed one after another; every group but the last parks its pre-LN
+  // values in out until the statistics are known
+  const int n_groups = LN ? (Cout + NT * CPT - 1) / (NT * CPT) : 1;
 
   int co[CPT];
   bool co_ok[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    co[c] = blockIdx.y * (NT * CPT) + tid + NT * c;
-    co_ok[c] = co[c] < Cout;
-  }
   float acc[BT][CPT];
+  float part[BT];
 #pragma unroll
-  for (int r = 0; r < BT; ++r)
+  for (int r = 0; r < BT; ++r) part[r] = 0.f;
+  auto group_channels = [&](int gi) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += BCI) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < rows * BCI; i += NT) {
-      const int r = i / BCI, c = i - r * BCI;
-      const int t = t0 - pad_lo + r, ci = ci0 + c;
-      halo[i] = (t >= 0 && t < T_len && ci < Cin) ? xb[(size_t)t * Cin + ci] : 0.f;
+    for (int c = 0; c < CPT; ++c) {
+      co[c] = (LN ? gi : blockIdx.y) * (NT * CPT) + tid + NT * c;
+      co_ok[c] = co[c] < Cout;
     }
-    __syncthreads();
-    const int nci = min(BCI, Cin - ci0);
-    for (int j = 0; j < K; ++j) {
-      const float4* hx = halo4 + (j * dil) * (BCI / 4);
-      const float* wj = w + ((size_t)j * Cin + ci0) * Cout;
-      for (int c4 = 0; c4 * 4 < nci; ++c4) {
-        float wv[4][CPT];
+  };
+
+  for (int gi = 0; gi < n_groups; ++gi) {
+    group_channels(gi);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int ci = c4 * 4 + u;
+    for (int r = 0; r < BT; ++r)
 #pragma unroll
-          for (int c = 0; c < CPT; ++c)
-            wv[u][c] = (ci < nci && co_ok[c]) ? wj[(size_t)ci * Cout + co[c]] : 0.f;
-        }
+      for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
+
+    for (int ci0 = 0; ci0 < Cin; ci0 += BCI) {
+      __syncthreads();  // the previous chunk's readers are done
+      for (int i = tid; i < rows * BCI; i += NT) {
+        const int r = i / BCI, c = i - r * BCI;
+        const int t = t0 - pad_lo + r, ci = ci0 + c;
+        halo[i] = (t >= 0 && t < T_len && ci < Cin) ? xb[(size_t)t * Cin + ci] : 0.f;
+      }
+      __syncthreads();
+      const int nci = min(BCI, Cin - ci0);
+      for (int j = 0; j < K; ++j) {
+        const float4* hx = halo4 + (j * dil) * (BCI / 4);
+        const float* wj = w + ((size_t)j * Cin + ci0) * Cout;
+        for (int c4 = 0; c4 * 4 < nci; ++c4) {
+          float wv[4][CPT];
 #pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 xv = hx[r * (BCI / 4) + c4];
+          for (int u = 0; u < 4; ++u) {
+            const int ci = c4 * 4 + u;
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            float a = acc[r][c];
-            a = fmaf(xv.x, wv[0][c], a);
-            a = fmaf(xv.y, wv[1][c], a);
-            a = fmaf(xv.z, wv[2][c], a);
-            a = fmaf(xv.w, wv[3][c], a);
-            acc[r][c] = a;
+            for (int c = 0; c < CPT; ++c)
+              wv[u][c] = (ci < nci && co_ok[c]) ? wj[(size_t)ci * Cout + co[c]] : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float4 xv = hx[r * (BCI / 4) + c4];
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              float a = acc[r][c];
+              a = fmaf(xv.x, wv[0][c], a);
+              a = fmaf(xv.y, wv[1][c], a);
+              a = fmaf(xv.z, wv[2][c], a);
+              a = fmaf(xv.w, wv[3][c], a);
+              acc[r][c] = a;
+            }
           }
         }
       }
     }
-  }
 
-  // epilogue: bias, ReLU, then (LN) stats and affine (rounding the
-  // activation to the storage dtype first is the identity in float32)
+    // epilogue: bias, ReLU, then (LN) the per-row sums of the mean (rounding
+    // the activation to the storage dtype first is the identity in float32)
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const float bc = (bias != nullptr && co_ok[c]) ? bias[co[c]] : 0.f;
+    for (int c = 0; c < CPT; ++c) {
+      const float bc = (bias != nullptr && co_ok[c]) ? bias[co[c]] : 0.f;
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      float v = acc[r][c] + bc;
-      if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
-      acc[r][c] = v;
+      for (int r = 0; r < BT; ++r) {
+        float v = acc[r][c] + bc;
+        if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
+        acc[r][c] = v;
+      }
+    }
+    if (act != nullptr) store_rows<CPT>(act, acc, co, co_ok, T_len, Cout, b, t0);
+    if (LN) {
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) part[r] += co_ok[c] ? acc[r][c] : 0.f;
+      if (gi + 1 < n_groups) store_rows<CPT>(out, acc, co, co_ok, T_len, Cout, b, t0);
     }
   }
-  if (act != nullptr) store_rows<CPT>(act, acc, co, co_ok, T_len, Cout, b, t0);
   if (LN) {
+    // a parked group's value of row r, channel c (this thread wrote it)
+    auto parked = [&](int r, int c) {
+      const int t = t0 + r;
+      return (t < T_len && co_ok[c]) ? out[((size_t)b * T_len + t) * Cout + co[c]] : 0.f;
+    };
     const float inv_n = 1.f / (float)Cout;
-    float part[BT];
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      part[r] = 0.f;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) part[r] += co_ok[c] ? acc[r][c] : 0.f;
-    }
     block_row_sums(part, stat, red);
     float mean[BT];
 #pragma unroll
     for (int r = 0; r < BT; ++r) mean[r] = stat[r] * inv_n;
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      part[r] = 0.f;
+    for (int r = 0; r < BT; ++r) part[r] = 0.f;
+    for (int gi = 0; gi + 1 < n_groups; ++gi) {
+      group_channels(gi);
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float d = parked(r, c) - mean[r];
+          part[r] += co_ok[c] ? d * d : 0.f;
+        }
+    }
+    group_channels(n_groups - 1);
+#pragma unroll
+    for (int r = 0; r < BT; ++r)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const float d = acc[r][c] - mean[r];
         part[r] += co_ok[c] ? d * d : 0.f;
       }
-    }
     block_row_sums(part, stat, red);
+    float rstd[BT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) rstd[r] = 1.f / sqrtf(stat[r] * inv_n + LN_EPS);
+    for (int gi = 0; gi + 1 < n_groups; ++gi) {
+      group_channels(gi);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float gm = co_ok[c] ? ln_scale[co[c]] : 0.f;
+        const float sh = co_ok[c] ? ln_shift[co[c]] : 0.f;
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const int t = t0 + r;
+          if (t < T_len && co_ok[c])
+            out[((size_t)b * T_len + t) * Cout + co[c]] =
+                (parked(r, c) - mean[r]) * rstd[r] * gm + sh;
+        }
+      }
+    }
+    group_channels(n_groups - 1);
 #pragma unroll
     for (int r = 0; r < BT; ++r) {
-      const float rstd = 1.f / sqrtf(stat[r] * inv_n + LN_EPS);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const float g = co_ok[c] ? ln_scale[co[c]] : 0.f;
         const float s = co_ok[c] ? ln_shift[co[c]] : 0.f;
-        acc[r][c] = (acc[r][c] - mean[r]) * rstd * g + s;
+        acc[r][c] = (acc[r][c] - mean[r]) * rstd[r] * g + s;
       }
     }
   }
@@ -247,7 +302,7 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* l
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  dim3 grid((T_len + BT - 1) / BT, (Cout + NT * CPT - 1) / (NT * CPT), B);
+  dim3 grid((T_len + BT - 1) / BT, LN ? 1 : (Cout + NT * CPT - 1) / (NT * CPT), B);
   conv_fwd_kernel<CPT, LN><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(ln_scale),
@@ -261,9 +316,9 @@ cudaError_t dispatch_cpt(const void* x, const void* w, const void* bias,
                          const void* ln_scale, const void* ln_shift, void* out, void* act,
                          int B, int T_len, int Cin, int Cout, int K, int dil, int relu,
                          cudaStream_t s) {
-  // channels per thread: enough for one block to cover Cout up to 1024
+  // channels per thread: one block covers Cout up to 1024 in one group
+  // (with LN, wider Cout in groups of 1024, conv_fwd_kernel)
   const int cpt = min(4, (Cout + NT - 1) / NT);
-  if (LN && Cout > NT * 4) return cudaErrorInvalidValue;
   switch (cpt) {
     case 1: return launch<1, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
     case 2: return launch<2, LN>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, s);
@@ -283,7 +338,7 @@ constexpr int CONV_NTH = CONV_WM * CONV_WN * 32;
 constexpr int CONV_NT8 = CONV_BN / CONV_WN / 8;  // 8-channel mma tiles a warp
 constexpr int A_LD = CONV_BK + 8;  // 144-byte rows: ldmatrix conflict-free
 constexpr int B_LD = CONV_BN + 8;  // 272-byte rows
-constexpr int MAX_CLUSTER = 8;     // LayerNorm: Cout <= 8 x 128
+constexpr int MAX_CLUSTER = 8;     // LayerNorm: blocks sharing Cout (the portable maximum)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -333,15 +388,19 @@ __device__ __forceinline__ void store_mma_tile(bf16* dst, const float (&acc)[MT]
 
 // The same contract as conv_fwd_kernel, for bfloat16 tensors. A block owns
 // BM = CONV_WM * MT * 16 steps (t0 = blockIdx.y * BM of batch row blockIdx.z)
-// and CONV_BN channels from n0 = blockIdx.x * CONV_BN; each warp MT 16-row x
-// CONV_NT8 8-column mma tiles. With LN the launch makes blockIdx.x's axis
-// one cluster (gridDim.x = its size), which together covers Cout.
+// and `tiles` tiles of CONV_BN channels, the first at n0 = blockIdx.x *
+// tiles * CONV_BN, computed one after another; each warp MT 16-row x
+// CONV_NT8 8-column mma tiles of each. Without LN a block has one tile.
+// With LN the launch makes blockIdx.x's axis one cluster (gridDim.x = its
+// size), which together covers Cout; every tile but a block's last parks
+// its pre-LN activation (already rounded to bf16, so exactly) in out until
+// the statistics are known, and is read back from there.
 template <int MT, bool LN>
 __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
     const bf16* __restrict__ ln_scale, const bf16* __restrict__ ln_shift,
     bf16* __restrict__ out, bf16* __restrict__ act, int T_len, int Cin, int Cout, int K,
-    int dil, int pad_lo, int relu, int vec_x, int vec_w) {
+    int dil, int pad_lo, int relu, int vec_x, int vec_w, int tiles) {
   constexpr int BM = CONV_WM * MT * 16;
   constexpr int NT8 = CONV_NT8;
   constexpr int B_ELEMS = CONV_BK * B_LD;
@@ -356,7 +415,10 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / CONV_WN, wn = warp % CONV_WN;
   const int g = lane >> 2, q = lane & 3;  // the mma fragment's row group / column pair
-  const int n0 = blockIdx.x * CONV_BN, t0 = blockIdx.y * BM, b = blockIdx.z;
+  const int t0 = blockIdx.y * BM, b = blockIdx.z;
+  // this block's tiles: at least one (the launch sizes the cluster so)
+  const int n_tiles = min(tiles, (Cout + CONV_BN - 1) / CONV_BN - (int)blockIdx.x * tiles);
+  int n0 = blockIdx.x * tiles * CONV_BN;
   const bf16* xb = x + (size_t)b * T_len * Cin;
   const int n_chunks = (Cin + CONV_BK - 1) / CONV_BK;
   const int n_iter = n_chunks * K;  // (chunk, tap) pairs, taps fastest
@@ -395,64 +457,79 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
   };
 
   float acc[MT][NT8][4];
+  const int r0 = wm * MT * 16;  // this warp's rows of the block's tile
+  int c0 = 0;                   // and its first channel, of the tile in acc
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    n0 = (blockIdx.x * tiles + ti) * CONV_BN;
+    c0 = n0 + wn * NT8 * 8;
+    if (ti > 0) __syncthreads();  // the last tile's readers of the ring are done
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT8; ++nt)
+      for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  for (int it = 0; it < CONV_STAGES - 1; ++it) issue(it);
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<CONV_STAGES - 2>();
-    __syncthreads();  // pair it has landed; every reader of the slot refilled next is done
-    issue(it + CONV_STAGES - 1);
-    // tap it % K's rows of the chunk it / K
-    const bf16* as = As + ((it / K) % CONV_STAGES) * A_ELEMS + (it % K) * dil * A_LD;
-    const bf16* bs = Bs + (it % CONV_STAGES) * B_ELEMS;
+    for (int it = 0; it < CONV_STAGES - 1; ++it) issue(it);
+    for (int it = 0; it < n_iter; ++it) {
+      cp_async_wait<CONV_STAGES - 2>();
+      __syncthreads();  // pair it has landed; every reader of the slot refilled next is done
+      issue(it + CONV_STAGES - 1);
+      // tap it % K's rows of the chunk it / K
+      const bf16* as = As + ((it / K) % CONV_STAGES) * A_ELEMS + (it % K) * dil * A_LD;
+      const bf16* bs = Bs + (it % CONV_STAGES) * B_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < CONV_BK; kk += 16) {
-      uint32_t a[MT][4];
+      for (int kk = 0; kk < CONV_BK; kk += 16) {
+        uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(a[mt], as + (wm * MT * 16 + mt * 16 + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(a[mt], as + (wm * MT * 16 + mt * 16 + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int np = 0; np < NT8 / 2; ++np) {
-        // B[k][n] = w rows: .trans gives b0, b1 of n-tile 2np (regs 0, 1) and 2np + 1 (2, 3)
-        uint32_t bb[4];
-        ldsm_x4_t(bb, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD + wn * NT8 * 8 +
-                          np * 16 + (lane >> 4) * 8);
+        for (int np = 0; np < NT8 / 2; ++np) {
+          // B[k][n] = w rows: .trans gives b0, b1 of n-tile 2np (regs 0, 1) and 2np + 1 (2, 3)
+          uint32_t bb[4];
+          ldsm_x4_t(bb, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD + wn * NT8 * 8 +
+                            np * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bb[0], bb[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bb[0], bb[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bb[2], bb[3]);
+          }
         }
       }
     }
-  }
-  cp_async_wait<0>();
+    cp_async_wait<0>();
 
-  // epilogue. acc[mt][nt][i] is row wm*MT*16 + mt*16 + g + 8*(i >> 1),
-  // column wn*NT8*8 + nt*8 + 2*q + (i & 1) of the block's tile
+    // epilogue. acc[mt][nt][i] is row wm*MT*16 + mt*16 + g + 8*(i >> 1),
+    // column wn*NT8*8 + nt*8 + 2*q + (i & 1) of the block's tile
 #pragma unroll
-  for (int nt = 0; nt < NT8; ++nt)
+    for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = n0 + wn * NT8 * 8 + nt * 8 + 2 * q + e;
-      const float bc = (bias != nullptr && co < Cout) ? __bfloat162float(bias[co]) : 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int co = n0 + wn * NT8 * 8 + nt * 8 + 2 * q + e;
+        const float bc = (bias != nullptr && co < Cout) ? __bfloat162float(bias[co]) : 0.f;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = acc[mt][nt][2 * h + e] + bc;
-          if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
-          if (LN) v = __bfloat162float(__float2bfloat16(v));
-          acc[mt][nt][2 * h + e] = v;
-        }
-    }
-  const int r0 = wm * MT * 16, c0 = n0 + wn * NT8 * 8;  // this warp's tile
-  if (act != nullptr) store_mma_tile(act, acc, T_len, Cout, b, t0 + r0, c0, g, q);
+          for (int h = 0; h < 2; ++h) {
+            float v = acc[mt][nt][2 * h + e] + bc;
+            if (relu) v = v < 0.f ? 0.f : v;  // not fmaxf: NaN passes on, as in jnp.maximum
+            if (LN) v = __bfloat162float(__float2bfloat16(v));
+            acc[mt][nt][2 * h + e] = v;
+          }
+      }
+    if (act != nullptr) store_mma_tile(act, acc, T_len, Cout, b, t0 + r0, c0, g, q);
+    if (LN && ti + 1 < n_tiles) store_mma_tile(out, acc, T_len, Cout, b, t0 + r0, c0, g, q);
+  }  // tiles
   if (LN) {
+    // the value a parked tile (first channel cp of this warp's columns)
+    // holds at fragment (mt, h, nt, e); this thread wrote it
+    auto parked = [&](int cp, int mt, int h, int nt, int e) {
+      const int t = t0 + r0 + mt * 16 + g + 8 * h, co = cp + nt * 8 + 2 * q + e;
+      return (t < T_len && co < Cout)
+                 ? __bfloat162float(out[((size_t)b * T_len + t) * Cout + co]) : 0.f;
+    };
+    const int c_first = blockIdx.x * tiles * CONV_BN + wn * NT8 * 8;
     // per-step sums over all Cout: in-thread, over the 4 threads of a row
     // group (shuffles), over the CONV_WN warps along Cout (shared memory),
     // then over the cluster's blocks (distributed shared memory)
@@ -466,15 +543,27 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          // this pass's term of one value of row (mt, h)
+          auto term = [&](float v) {
+            const float d = pass == 0 ? v : v - mean[mt][h];
+            return pass == 0 ? d : d * d;
+          };
           float s = 0.f;
+          // the parked tiles' terms, then the tile in registers
+          for (int ti = 0; ti + 1 < n_tiles; ++ti)
+#pragma unroll
+            for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int cp = c_first + ti * CONV_BN;
+                s += cp + nt * 8 + 2 * q + e < Cout ? term(parked(cp, mt, h, nt, e)) : 0.f;
+              }
 #pragma unroll
           for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int co = c0 + nt * 8 + 2 * q + e;
-              const float v = acc[mt][nt][2 * h + e];
-              const float d = pass == 0 ? v : v - mean[mt][h];
-              s += co < Cout ? (pass == 0 ? d : d * d) : 0.f;
+              s += co < Cout ? term(acc[mt][nt][2 * h + e]) : 0.f;
             }
           s += __shfl_xor_sync(0xffffffffu, s, 1);
           s += __shfl_xor_sync(0xffffffffu, s, 2);
@@ -504,6 +593,27 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
       __syncthreads();  // stat and red are rewritten by the next pass
     }
     cluster.sync();  // no block exits (freeing its part[]) while another reads it
+    for (int ti = 0; ti + 1 < n_tiles; ++ti) {
+      const int cp = c_first + ti * CONV_BN;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = cp + nt * 8 + 2 * q + e;
+          if (co >= Cout) continue;
+          const float gm = __bfloat162float(ln_scale[co]), sh = __bfloat162float(ln_shift[co]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = t0 + r0 + mt * 16 + g + 8 * h;
+              if (t >= T_len) continue;
+              const float v = parked(cp, mt, h, nt, e);
+              out[((size_t)b * T_len + t) * Cout + co] =
+                  __float2bfloat16((v - mean[mt][h]) * rstd[mt][h] * gm + sh);
+            }
+        }
+    }
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
@@ -526,7 +636,8 @@ __global__ void __launch_bounds__(CONV_NTH, 2) conv_fwd_mma_kernel(
 template <int MT, bool LN>
 cudaError_t launch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
                        const void* ln_shift, void* out, void* act, int B, int T_len, int Cin,
-                       int Cout, int K, int dil, int relu, int cluster, cudaStream_t stream) {
+                       int Cout, int K, int dil, int relu, int cluster, int tiles,
+                       cudaStream_t stream) {
   constexpr int BM = CONV_WM * MT * 16;
   static int configured = 48 * 1024;  // default dynamic shared memory limit
   const int span = (K - 1) * dil + 1;
@@ -555,27 +666,28 @@ cudaError_t launch_mma(const void* x, const void* w, const void* bias, const voi
       static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(ln_scale), static_cast<const bf16*>(ln_shift),
       static_cast<bf16*>(out), static_cast<bf16*>(act), T_len, Cin, Cout, K, dil,
-      (span - 1) / 2, relu, vec_x, vec_w);
+      (span - 1) / 2, relu, vec_x, vec_w, LN ? tiles : 1);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // bm: the block's time steps (128, 64 or 32); cluster: with LayerNorm, the
-// blocks that share Cout, ceil(Cout / 128). Both are chosen by the caller
-// (ops/fused_conv.py::conv_plan).
+// blocks that share Cout: each takes tiles = ceil(n / 8) of the n =
+// ceil(Cout / 128) channel tiles, and the cluster is ceil(n / tiles) <= 8.
+// Both are chosen by the caller (ops/fused_conv.py::conv_plan).
 cudaError_t dispatch_mma(const void* x, const void* w, const void* bias, const void* ln_scale,
                          const void* ln_shift, void* out, void* act, int B, int T_len,
                          int Cin, int Cout, int K, int dil, int relu, int bm, int cluster,
                          cudaStream_t s) {
   const bool ln = ln_scale != nullptr;
-  if (ln && (cluster != (Cout + CONV_BN - 1) / CONV_BN || cluster > MAX_CLUSTER))
-    return cudaErrorInvalidValue;
+  const int n = (Cout + CONV_BN - 1) / CONV_BN, tiles = (n + MAX_CLUSTER - 1) / MAX_CLUSTER;
+  if (ln && cluster != (n + tiles - 1) / tiles) return cudaErrorInvalidValue;
   switch (bm * 2 + (ln ? 1 : 0)) {
-    case 256: return launch_mma<4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
-    case 257: return launch_mma<4, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
-    case 128: return launch_mma<2, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
-    case 129: return launch_mma<2, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
-    case 64: return launch_mma<1, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
-    case 65: return launch_mma<1, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, s);
+    case 256: return launch_mma<4, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
+    case 257: return launch_mma<4, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
+    case 128: return launch_mma<2, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
+    case 129: return launch_mma<2, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
+    case 64: return launch_mma<1, false>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
+    case 65: return launch_mma<1, true>(x, w, bias, ln_scale, ln_shift, out, act, B, T_len, Cin, Cout, K, dil, relu, cluster, tiles, s);
     default: return cudaErrorInvalidValue;
   }
 }

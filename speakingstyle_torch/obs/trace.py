@@ -24,13 +24,16 @@ two ways:
     ``engine_vocode`` split).
 
 Finished spans land in a bounded ring buffer (oldest evicted first).
-Interesting traces (a quality-gate failure) are pinned into a bounded
-keep-store by the code that detects them.  ``GET /debug/spans`` serves
-the ring; ``GET /debug/trace/<req_id>`` assembles one trace with
-``assemble_trace`` + ``critical_path``.  The healthy-traffic sampler
-(``serve.trace.sample_rate``), the explicit ``ambient`` context and the
-cluster wire headers come with the fleet and cluster slices (ROADMAP.md
-queue A items 5b and 5c).
+Interesting traces (a shed, a 504, a deadline miss, a retry exhaustion, a
+quality-gate failure) are pinned into a bounded keep-store by the code
+that detects them; healthy traffic is pinned at ``serve.trace.sample_rate``
+by ``TailSampler``'s deterministic dice (the fleet router builds one).
+``ambient(ctx)`` installs an explicit context as the thread's ambient one
+(JAX counterpart ``:120-166``; ``TailSampler`` ``:303-338``).
+``GET /debug/spans`` serves the ring; ``GET /debug/trace/<req_id>``
+assembles one trace with ``assemble_trace`` + ``critical_path``. The
+cluster wire headers come with the cluster slice (ROADMAP.md queue A item
+5c).
 
 Device-side timing comes from the engine's CUDA events (the
 ``engine_acoustic`` / ``engine_vocode`` spans, serving/engine.py) and the
@@ -42,6 +45,7 @@ import itertools
 import os
 import threading
 import time
+import zlib
 from collections import deque
 from typing import Any, Deque, Dict, List, Mapping, Optional
 
@@ -54,7 +58,9 @@ from speakingstyle_torch.obs.registry import (
 __all__ = [
     "Span",
     "SpanRing",
+    "TailSampler",
     "TraceContext",
+    "ambient",
     "assemble_trace",
     "critical_path",
     "current_context",
@@ -121,6 +127,31 @@ def current_context() -> Optional[TraceContext]:
     """The innermost open Span's context on this thread (or None)."""
     s = _ctx_stack()
     return s[-1] if s else None
+
+
+class _AmbientContext:
+    """Context manager installing an explicit TraceContext as the thread's
+    ambient context, so spans opened inside parent under it without the
+    code that opens them knowing of tracing."""
+
+    def __init__(self, ctx: Optional[TraceContext]):
+        self.ctx = ctx
+
+    def __enter__(self):
+        if self.ctx is not None:
+            _ctx_stack().append(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc) -> bool:
+        if self.ctx is not None:
+            stack = _ctx_stack()
+            if stack and stack[-1] is self.ctx:
+                stack.pop()
+        return False
+
+
+def ambient(ctx: Optional[TraceContext]) -> _AmbientContext:
+    return _AmbientContext(ctx)
 
 
 # process-wide tracing arm switch: context propagation is always on
@@ -261,6 +292,39 @@ def configure_span_ring(capacity: int, keep_traces: int = 256) -> SpanRing:
     with _process_ring_lock:
         _process_ring = SpanRing(capacity, keep_traces=keep_traces)
     return _process_ring
+
+
+class TailSampler:
+    """The healthy-traffic half of tail sampling.
+
+    Interesting traces are pinned unconditionally by the code that detects
+    them; everything else rolls deterministic dice here: crc32(trace_id)
+    keeps the decision stable across processes."""
+
+    KEEP_REASONS = (
+        "shed", "deadline_exceeded", "hedge_won", "deadline_miss",
+        "error", "quality_fail",
+    )
+
+    def __init__(self, sample_rate: float = 0.1):
+        if not 0.0 <= sample_rate <= 1.0:
+            raise ValueError(f"sample_rate must be in [0, 1], got {sample_rate}")
+        self.sample_rate = float(sample_rate)
+        self.kept = 0
+        self.sampled_out = 0
+
+    def keep(self, trace_id: str, reason: Optional[str] = None) -> bool:
+        """True when the trace should be pinned: always for a keep reason,
+        at ``sample_rate`` for healthy traffic."""
+        if reason in self.KEEP_REASONS:
+            self.kept += 1
+            return True
+        bucket = zlib.crc32(trace_id.encode("utf-8", "replace")) % 10_000
+        if bucket < self.sample_rate * 10_000:
+            self.kept += 1
+            return True
+        self.sampled_out += 1
+        return False
 
 
 class Span:

@@ -9,7 +9,10 @@ design does about that is written at the top of the CUDA source. With
 LayerNorm it also writes ``act``, the post-ReLU, pre-LN activation rounded
 to the storage dtype, for the backward. ``conv_plan`` chooses the bf16
 launch's shape (time steps a block, and the cluster that shares Cout under
-LayerNorm) from the problem and the card's SM count.
+LayerNorm) from the problem and the card's SM count; ``ln_tiles`` gives the
+128-channel tiles each block of that cluster computes in turn. Any Cout
+runs in the kernel, LayerNorm included (the TPU kernel runs every
+128-aligned Cout).
 
 Both entry points are differentiable. The backward is the JAX package's
 "analytic" ``_fused_bwd`` (``pallas_conv.py:295-360``) in torch ops, on
@@ -35,7 +38,6 @@ LN_EPS = 1e-5
 CONV_BN = 128          # output channels a block of the bf16 kernel
 CONV_BMS = (128, 64, 32)  # its time steps a block, largest first
 MAX_CLUSTER = 8        # blocks of a cluster (the portable maximum)
-MAX_LN_CHANNELS = CONV_BN * MAX_CLUSTER  # LN: one cluster covers Cout
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, bias, ln_scale, ln_shift, out, act; B, T, Cin, Cout, K, dilation,
@@ -45,20 +47,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS: Dict[int, int] = {}  # device index -> SM count
 
 
+def ln_tiles(cout: int) -> int:
+    """128-channel tiles a block of the bf16 LayerNorm launch computes one
+    after another: ceil(n / 8) of the n = ceil(Cout / 128), so that one
+    cluster of at most 8 blocks covers Cout (1 up to Cout = 1024)."""
+    return -(-(-(-cout // CONV_BN)) // MAX_CLUSTER)
+
+
 def conv_plan(B: int, T: int, cout: int, ln: bool, sms: int) -> Tuple[int, int]:
     """(time steps a block, blocks a cluster) of the bf16 kernel's launch.
-    A block owns ``bm`` steps of one batch row x 128 output channels: the
-    largest of 128, 64, 32 steps whose grid still gives every one of the
-    card's ``sms`` SMs a block (32 where none does). With LayerNorm the
-    ceil(Cout / 128) blocks of one row tile form a cluster (at most 8),
-    which exchanges the per-step LN sums; without it the cluster is 1."""
+    A block owns ``bm`` steps of one batch row x 128 output channels (with
+    LayerNorm, ``ln_tiles(cout)`` such tiles in turn): the largest of 128,
+    64, 32 steps whose grid still gives every one of the card's ``sms`` SMs
+    a block (32 where none does). With LayerNorm the blocks of one row tile
+    form a cluster of ceil(ceil(Cout / 128) / ln_tiles) <= 8, which
+    exchanges the per-step LN sums; without it the cluster is 1."""
     n_tiles = -(-cout // CONV_BN)
-    if ln and n_tiles > MAX_CLUSTER:
-        raise ValueError(
-            f"fused_conv: the LayerNorm variant takes Cout <= {MAX_LN_CHANNELS}, got {cout}"
-        )
-    bm = next((m for m in CONV_BMS if B * -(-T // m) * n_tiles >= sms), CONV_BMS[-1])
-    return bm, (n_tiles if ln else 1)
+    cols = -(-n_tiles // ln_tiles(cout)) if ln else n_tiles
+    bm = next((m for m in CONV_BMS if B * -(-T // m) * cols >= sms), CONV_BMS[-1])
+    return bm, (cols if ln else 1)
 
 
 def _sm_count(device) -> int:
@@ -180,10 +187,6 @@ def check_inputs(x, kernel, bias=None, ln_scale=None, ln_bias=None, dilation=1) 
             raise ValueError(f"fused_conv: {name} must be [{cout}], got {tuple(t.shape)}")
     if (ln_scale is None) != (ln_bias is None):
         raise ValueError("fused_conv: ln_scale and ln_bias go together")
-    if ln_scale is not None and cout > MAX_LN_CHANNELS:
-        raise ValueError(
-            f"fused_conv: the LayerNorm variant takes Cout <= {MAX_LN_CHANNELS}, got {cout}"
-        )
     if dilation < 1 or K < 1:
         raise ValueError(f"fused_conv: K={K} dilation={dilation}")
     for name, t in [("x", x), ("kernel", kernel)] + vecs:

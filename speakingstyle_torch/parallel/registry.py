@@ -42,7 +42,11 @@ during the capture fails. So every device entry point holds the
 ``DEVICE_GATE`` shared (``dispatching``) and a preparation holds it
 exclusively: a miss waits for the dispatches in flight and holds new ones
 back until its capture is done, then the traffic resumes. (The JAX engine
-lets other buckets dispatch while one compiles; here they wait.)
+lets other buckets dispatch while one compiles; here they wait.) The gate
+is phase-fair: the dispatches that waited behind one preparation enter
+before the next preparation does, so a replica warming program after
+program (serving/fleet.py) holds another replica's dispatch back for at
+most one capture each, never for the whole warm-up.
 
 **Outputs of a shared pool.** Graphs of one registry share a memory pool
 and replay in any order, so one graph's outputs can sit in memory another
@@ -92,6 +96,10 @@ class DeviceGate:
     hold the gate shared (a dispatch), or one holds it exclusively (a
     preparation); a waiting preparation holds new shared entries back.
 
+    Phase-fair: the shared entries waiting when an exclusive hold ends are
+    admitted before the next exclusive entry, so back-to-back
+    preparations cannot starve the dispatches.
+
     Shared holds nest per thread, and a thread holding the gate
     exclusively passes its own shared entries. ``exclusive`` and
     ``released`` drop the calling thread's shared holds for their block
@@ -105,6 +113,11 @@ class DeviceGate:
         self._readers = 0
         self._writer: Optional[int] = None
         self._writers_waiting = 0
+        # phase fairness: shared entries waiting, and of those waiting when
+        # the last exclusive hold ended, how many are still to enter
+        self._readers_waiting = 0
+        self._admit = 0
+        self._admit_gen = 0
         self._local = threading.local()
 
     def _holds(self) -> Tuple[int, int]:
@@ -112,8 +125,17 @@ class DeviceGate:
 
     def _enter_shared(self) -> None:
         with self._cond:
-            while self._writer is not None or self._writers_waiting:
+            self._readers_waiting += 1
+            gen = self._admit_gen
+            while True:
+                if self._writer is None:
+                    # waited through an exclusive hold: enters before the next
+                    first = self._admit_gen != gen and self._admit > 0
+                    if first or not self._writers_waiting:
+                        self._admit -= int(first)
+                        break
                 self._cond.wait()
+            self._readers_waiting -= 1
             self._readers += 1
 
     def _leave_shared(self) -> None:
@@ -164,7 +186,7 @@ class DeviceGate:
             with self._cond:
                 self._writers_waiting += 1
                 try:
-                    while self._writer is not None or self._readers:
+                    while self._writer is not None or self._readers or self._admit:
                         self._cond.wait()
                 finally:
                     self._writers_waiting -= 1
@@ -176,6 +198,7 @@ class DeviceGate:
                 self._local.exclusive = 0
                 with self._cond:
                     self._writer = None
+                    self._admit, self._admit_gen = self._readers_waiting, self._admit_gen + 1
                     self._cond.notify_all()
 
 
@@ -371,6 +394,9 @@ class ProgramRegistry:
         self.prefix = prefix
         self._compiles = self.metrics.counter(
             counter_name, help="programs prepared (captured) through this ProgramRegistry")
+        # this registry's own preparations (the counter may be shared by
+        # several consumers of one MetricsRegistry, as a fleet's replicas)
+        self._prepared = 0
         self._lock = make_lock("ProgramRegistry._lock", kind="rlock")
         self._replay_lock = make_lock("ProgramRegistry._replay_lock")
         self._programs: Dict[Tuple, Program] = {}
@@ -380,7 +406,9 @@ class ProgramRegistry:
 
     @property
     def compile_count(self) -> int:
-        return int(self._compiles.value)
+        """Programs this registry prepared (its share of the counter)."""
+        with self._lock:
+            return self._prepared
 
     def __len__(self) -> int:
         with self._lock:
@@ -390,6 +418,16 @@ class ProgramRegistry:
         """The card table: one JSON-ready row per program, in preparation order."""
         with self._lock:
             return [dict(row) for row in self._cards]
+
+    def close(self) -> None:
+        """Drop every program, its graph and the graphs' memory pool (the
+        card memory goes back to the caching allocator once nothing else
+        holds the programs). The caller holds ``DEVICE_GATE`` exclusively,
+        so no replay and no capture runs meanwhile. The card table stays."""
+        with self._lock:
+            self._programs.clear()
+            self._pool = None
+            self._stream = None
 
     def prepare(self, fn: Callable, example: Mapping[str, torch.Tensor], *, name: str,
                 device, labels: Optional[Dict[str, str]] = None,
@@ -454,6 +492,7 @@ class ProgramRegistry:
                                argument_bytes=_nbytes(dev_in.values()),
                                output_bytes=_nbytes(out.values()))
             self._compiles.inc()
+            self._prepared += 1
             publish_program_gauges(self.metrics, card, self.prefix, labels=labels or {})
             row = card.as_dict()
             row["precision"] = precision

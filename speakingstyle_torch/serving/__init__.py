@@ -1,5 +1,5 @@
-"""Text -> wav serving on one engine (JAX counterpart:
-speakingstyle_tpu/serving/).
+"""Text -> wav serving on one engine or a fleet of replica engines (JAX
+counterpart: speakingstyle_tpu/serving/).
 
 Layering:
   lattice.py   -- the (batch, L_src, T_mel) bucket grid, and the style
@@ -11,10 +11,16 @@ Layering:
   batcher.py   -- admission queue, deadline coalescing, per-request futures
   frontend.py  -- G2P, speakers and style resolution, and its worker pool
   streaming.py -- overlap-trimmed wav windows over the vocoder lattice
-  server.py    -- the stdlib HTTP front end
+  resilience.py -- the structured failures and the replica circuit breaker
+  fleet.py     -- N replica engines behind one EDF admission queue, with
+                  supervision, re-warm and the rollout surface
+  lifecycle.py -- the canary-gated rolling rollout
+  autoscale.py -- the policy thread that drives the fleet's scale_to()
+  server.py    -- the stdlib HTTP front end over the batcher or the fleet
 
-The fleet router, the cluster and the long-form tiers are ROADMAP.md
-queue A items 5b and 5c.
+The package exports what the JAX package's does (the fleet's modules are
+imported by name). The tier router, probes, the long-form tier and the
+traffic model are ROADMAP.md queue A item 5b-ii; the cluster is 5c.
 """
 
 from speakingstyle_torch.serving.batcher import (  # noqa: F401

@@ -54,6 +54,12 @@ disarmed, or no traced request in the dispatch, no event is recorded.
 ``run(..., eager=True)`` runs one dispatch's prepared programs eagerly
 instead of replaying their graphs: the smoke test's comparison of replay
 against eager.
+
+A fleet (serving/fleet.py) builds several engines over one model's
+weights and hands each the same ``style=`` StyleService (JAX
+``serving/engine.py:247``, ``:358``): one embedding cache and one set of
+style programs for every replica. ``close()`` gives a retired engine's
+graphs and buffers back.
 """
 
 import dataclasses
@@ -88,7 +94,7 @@ from speakingstyle_torch.serving.resilience import InjectedFault
 from speakingstyle_torch.serving.style import StyleService, StyleVectors
 
 __all__ = ["StyleVectors", "SynthesisEngine", "SynthesisRequest", "SynthesisResult",
-           "VocodeHandle", "bucket_label", "load_engine"]
+           "VocodeHandle", "bucket_label", "load_engine", "load_engine_parts"]
 
 Control = Union[float, np.ndarray]  # scalar, or per-phoneme [src_len] array
 
@@ -209,12 +215,15 @@ class SynthesisEngine:
     tiers are cast from the model's weights here, once (as the JAX engine
     casts its variables): set the weights before building the engine. ``fault_plan``
     consumes ``vocoder_raise@N`` (the Nth ``vocode_dispatch``, 1-based) and
-    is handed to the StyleService (``style_encode_error@N``)."""
+    is handed to the StyleService (``style_encode_error@N``). ``style``
+    injects a StyleService shared with other engines (built over the same
+    model's reference encoder); without it the engine builds its own."""
 
     def __init__(self, cfg: Config, model=None, vocoder=None,
                  lattice: Optional[BucketLattice] = None, device=None, seed: int = 0,
                  registry: Optional[MetricsRegistry] = None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None,
+                 style: Optional[StyleService] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lattice = lattice or BucketLattice.from_config(cfg.serve)
@@ -246,14 +255,17 @@ class SynthesisEngine:
         carried = carried_leaves(self.model)
         # the constants the JAX package does not hold in its tree
         self._constants = {n: b for n, b in self.model.named_buffers() if n not in carried}
-        self._bf16_model = None
+        self._tier_models: Dict[str, torch.nn.Module] = {}
 
         self.registry = registry if registry is not None else MetricsRegistry()
         self.program_registry = ProgramRegistry(
             self.registry, counter_name="serve_compiles_total", prefix="serve")
-        self.style = StyleService(
-            cfg, self.model.reference_encoder, device=self.device, registry=self.registry,
-            fault_plan=fault_plan) if self._use_style else None
+        if style is not None and not self._use_style:
+            raise ValueError("style= needs model.use_reference_encoder=true")
+        if style is None and self._use_style:
+            style = StyleService(cfg, self.model.reference_encoder, device=self.device,
+                                 registry=self.registry, fault_plan=fault_plan)
+        self.style = style
         self._dispatches = self.registry.counter(
             "serve_dispatches_total", help="padded device dispatches executed")
         self._request_rows = self.registry.counter(
@@ -320,6 +332,24 @@ class SynthesisEngine:
         """The program registry's card table: one row per program."""
         return self.program_registry.programs()
 
+    def close(self) -> None:
+        """Give the engine's graphs, their memory pool and the staging
+        buffers back (a fleet replica that was retired: drained, replaced
+        by a rollout, or abandoned by the hang watchdog once its thread
+        returned). Takes ``DEVICE_GATE`` exclusively, so nothing replays or
+        captures meanwhile, and on the card returns the freed blocks to
+        the device. A shared StyleService is not the engine's to close.
+        The engine prepares again on its next dispatch."""
+        with DEVICE_GATE.exclusive():
+            with self._lock:
+                self._acoustic.clear()
+                self._vocoder_exe.clear()
+            self.program_registry.close()
+            self.pool = BufferPool(registry=self.registry, pin=self.device.type == "cuda")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+
     def encode_styles(self, mels: List[np.ndarray]) -> torch.Tensor:
         """Reference mels -> [n, 2, d_model] float32 FiLM (gamma, beta),
         through the StyleService (cache first)."""
@@ -355,23 +385,25 @@ class SynthesisEngine:
     # -- program preparation ------------------------------------------------
 
     def _model_for(self, precision: str):
-        """The module a tier runs: bf16 computes in bf16 (a module of the
-        same architecture with the compute dtype swapped, built on the meta
-        device, so it holds no weights of its own); f32 and int8 run the
-        base module."""
-        if precision != "bf16":
+        """The module a tier runs: f32 the base module; bf16 and int8 a
+        module of the same architecture built on the meta device (it holds
+        no weights of its own and runs on the tier's tree through
+        ``functional_call``), computing in bf16 for bf16. The base module,
+        which fleet replicas share, is never re-bound."""
+        if precision == "f32":
             return self.model
-        if self._bf16_model is None:
+        if precision not in self._tier_models:
             from speakingstyle_torch.models.fastspeech2 import FastSpeech2
 
-            bf16_cfg = dataclasses.replace(
-                self.cfg, model=dataclasses.replace(self.cfg.model, compute_dtype="bfloat16"))
+            dtype = "bfloat16" if precision == "bf16" else self.cfg.model.compute_dtype
+            tier_cfg = dataclasses.replace(
+                self.cfg, model=dataclasses.replace(self.cfg.model, compute_dtype=dtype))
             emb = self.model.speaker_emb
             with torch.device("meta"):
-                self._bf16_model = FastSpeech2(
-                    bf16_cfg, n_speakers=1 if emb is None else emb.weight.shape[0],
+                self._tier_models[precision] = FastSpeech2(
+                    tier_cfg, n_speakers=1 if emb is None else emb.weight.shape[0],
                     n_position=self.model.encoder.layer_stack.pe.shape[0]).eval()
-        return self._bf16_model
+        return self._tier_models[precision]
 
     def _acoustic_fn(self, t_mel: int, precision: str) -> Callable:
         module = self._model_for(precision)
@@ -854,19 +886,23 @@ class SynthesisEngine:
                             clock="cuda_event" if marks else "host")
 
 
-def load_engine(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = None,
-                griffin_lim: bool = False, device=None, vocoder_seed: int = 1, **engine_kwargs):
-    """An engine over trained weights (JAX counterpart: ``load_engine`` of
-    speakingstyle_tpu/cli/serve.py): the model built at the lattices'
-    n_position, its weights restored from ``cfg.train.path.ckpt_path`` at
-    ``restore_step`` (<= 0: the latest) after the manifest check, with
+def load_engine_parts(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = None,
+                      griffin_lim: bool = False, device=None, vocoder_seed: int = 1):
+    """Restore the acoustic checkpoint and the vocoder once (JAX
+    counterpart: ``load_engine_parts`` of speakingstyle_tpu/cli/serve.py):
+    (model, vocoder, lattice, {"step", "weights_digest"}), both modules on
+    ``device``. The model is built at the lattices' n_position, its
+    weights restored from ``cfg.train.path.ckpt_path`` at ``restore_step``
+    (<= 0: the latest) after the manifest check, with
     ``train.ignore_layers`` keeping their values drawn from
     ``train.seed``; the vocoder from ``vocoder_ckpt`` (a ``.pth.tar`` or a
     Flax ``.msgpack``; weights from ``vocoder_seed`` without one), or none
-    under ``griffin_lim``. Returns (engine, {"step", "weights_digest"})."""
+    under ``griffin_lim``. Engines built over these share the f32 weights:
+    one copy on the card for any number of fleet replicas."""
     from speakingstyle_torch.synthesis import get_vocoder
     from speakingstyle_torch.training.checkpoint import CheckpointManager
 
+    dev = resolve_device(device)
     lattice = BucketLattice.from_config(cfg.serve)
     model = init_weights(build_model(cfg, n_position=n_position_for(cfg, lattice)),
                          cfg.train.seed)
@@ -874,6 +910,20 @@ def load_engine(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = No
         model, step=restore_step if restore_step > 0 else None,
         ignore_layers=cfg.train.ignore_layers)
     vocoder = None if griffin_lim else get_vocoder(cfg, vocoder_ckpt, seed=vocoder_seed)
+    model = model.to(dev).eval()
+    if vocoder is not None:
+        vocoder = vocoder.to(dev).eval()
+    return model, vocoder, lattice, info
+
+
+def load_engine(cfg: Config, restore_step: int, vocoder_ckpt: Optional[str] = None,
+                griffin_lim: bool = False, device=None, vocoder_seed: int = 1, **engine_kwargs):
+    """An engine over trained weights (JAX counterpart: ``load_engine`` of
+    speakingstyle_tpu/cli/serve.py), from ``load_engine_parts``. Returns
+    (engine, {"step", "weights_digest"})."""
+    model, vocoder, lattice, info = load_engine_parts(
+        cfg, restore_step, vocoder_ckpt=vocoder_ckpt, griffin_lim=griffin_lim, device=device,
+        vocoder_seed=vocoder_seed)
     engine = SynthesisEngine(cfg, model=model, vocoder=vocoder, lattice=lattice, device=device,
                              **engine_kwargs)
     return engine, info

@@ -1,14 +1,18 @@
-"""Stdlib HTTP front end over the continuous batcher (JAX counterpart: the
-single-engine half of speakingstyle_tpu/serving/server.py).
+"""Stdlib HTTP front end over a dispatch backend (JAX counterpart:
+speakingstyle_tpu/serving/server.py): the continuous batcher over one
+engine (``engine=``), or the fleet router over N replica engines
+(``router=``, serving/fleet.py; JAX ``:433-478``).
 
 ``ThreadingHTTPServer`` gives one thread per connection. Each handler
 thread parses JSON, hands the G2P to the frontend pool (or runs it inline
-with ``serve.frontend_workers: 0``), submits the request to the batcher and
+with ``serve.frontend_workers: 0``), submits the request to the backend and
 blocks on its future, so concurrent clients coalesce into shared
-dispatches. Every synthesis runs on the batcher's one dispatch thread,
-which replays the engine's prepared CUDA graphs; the handlers prepare
-nothing. Style uploads encode through the StyleService on the handler or
-pool thread, on programs the precompile prepared.
+dispatches. Every synthesis runs on a dispatch thread (the batcher's one,
+or one a replica), which replays the engine's prepared CUDA graphs; the
+handlers prepare nothing. Style uploads encode through the StyleService (the
+router's shared one in fleet mode) on the handler or pool thread, on
+programs the precompile prepared. Behind a router a handler waits no longer
+than its class deadline plus ``fleet.deadline_grace_ms`` (JAX ``:1152``).
 
 API (every field of a synthesize payload but "text" optional):
   POST /synthesize     {"text", "speaker_id"/"speaker", "pitch_control",
@@ -23,7 +27,7 @@ API (every field of a synthesize payload but "text" optional):
                        records the first window
   POST /synthesize/longform
                        400 until the chunked long-form tier is ported
-                       (ROADMAP.md queue A item 5b), as the JAX server
+                       (ROADMAP.md queue A item 5b-ii), as the JAX server
                        answers without a long-form service
   POST /styles         a reference wav (audio/wav body, or JSON
                        {"ref_audio": <ref_dir path>}, "?speaker=NAME")
@@ -33,14 +37,22 @@ API (every field of a synthesize payload but "text" optional):
   GET  /styles         -> {"styles": [...], "capacity"}
   GET  /healthz        -> the registry snapshot's view, build identity,
                        the model block and the ``slo`` block; 503 until
-                       the engine's lattice is prepared
+                       the engine's lattice is prepared, or behind a
+                       router until one replica is ready (the body then
+                       carries each replica's lifecycle state)
   GET  /metrics        -> Prometheus text of the same registry
-  GET  /debug/programs -> one ProgramCard dict per prepared program
+  GET  /debug/programs -> one ProgramCard dict per prepared program (every
+                       replica's engine in index order, then the style
+                       programs once)
   GET  /debug/spans, /debug/trace/<trace_id>
                        -> the span ring, one assembled trace
   POST /debug/profile?seconds=N
                        -> a torch.profiler capture of the live process
                        (serve.debug_profile gates it)
+  POST /admin/rollout  {"step": N} -> the canary-gated rolling rollout
+                       (serving/lifecycle.py) to checkpoint N: 404 without
+                       a RolloutManager, 400 on a bad body, 409 while one
+                       runs, 200 with the outcome (committed or aborted)
 
 Status codes: 400 bad input, 413 a request past the lattice, 429 +
 Retry-After on shed (``serve_shed_total``), 503 on shutdown
@@ -48,8 +60,9 @@ Retry-After on shed (``serve_shed_total``), 503 on shutdown
 a wav that fails the quality gate. Every synthesize response, errors
 included, carries ``X-Request-Id`` and ``X-Trace-Id``.
 
-The fleet router, rollouts, probes and the cluster wait for ROADMAP.md
-queue A items 5b and 5c: the constructor refuses ``router=``.
+The tier router, probes and the long-form tier wait for ROADMAP.md queue
+A item 5b-ii, the cluster (and its span, metrics and profile fan-out
+hooks) for 5c.
 """
 
 import concurrent.futures
@@ -78,11 +91,11 @@ from speakingstyle_torch.serving.resilience import DeadlineExceeded, DispatchErr
 
 __all__ = ["SynthesisServer", "wav_bytes", "wav_stream_header"]
 
-# how long a handler waits on its request's future (the JAX server's
-# single-engine default: its class deadlines apply only behind a router)
+# how long a handler waits on its request's future (behind a router, no
+# longer than the class deadline and its grace either)
 REQUEST_TIMEOUT_S = 60.0
 LONGFORM_MISSING = ("long-form synthesis is not served by this server yet: the chunked "
-                    "long-form tier is ROADMAP.md queue A item 5b")
+                    "long-form tier is ROADMAP.md queue A item 5b-ii")
 
 
 def wav_bytes(wav: np.ndarray, sampling_rate: int) -> bytes:
@@ -132,32 +145,38 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class SynthesisServer:
-    """One engine behind the continuous batcher, served over HTTP.
+    """A dispatch backend served over HTTP: one engine behind the
+    continuous batcher (``engine``), or a ``FleetRouter`` (``router``;
+    ``engine`` may be None, the router's warm-up threads build the
+    replicas). Both expose ``submit(request) -> Future`` and ``close()``.
 
     ``host`` / ``port`` default to ``serve.host`` / ``serve.port`` (bind
     port 0 for a free one and read ``address``). ``model_info``
-    ({"version", "step", "weights_digest"}) is the /healthz model block
-    and the ``X-Model-Version`` header; ``slo`` an ``obs.slo.SloEngine``
+    ({"version", "step", "weights_digest"}) is the single engine's
+    /healthz model block and ``X-Model-Version`` header (a router publishes
+    its own, ``set_model_version``); ``lifecycle`` a ``RolloutManager``
+    that arms ``POST /admin/rollout``; ``slo`` an ``obs.slo.SloEngine``
     whose status is the /healthz ``slo`` block."""
 
     def __init__(self, engine: Optional[SynthesisEngine] = None,
                  frontend: Optional[TextFrontend] = None, host: Optional[str] = None,
                  port: Optional[int] = None, events: Optional[JsonlEventLog] = None,
-                 profile_dir: Optional[str] = None, router=None,
+                 profile_dir: Optional[str] = None, router=None, lifecycle=None,
                  model_info: Optional[Dict] = None, slo=None):
-        if router is not None:
-            raise ValueError("the fleet router is not ported yet (ROADMAP.md queue A item 5b): "
-                             "serve one engine with engine=")
-        if engine is None:
-            raise ValueError("SynthesisServer needs an engine")
+        if engine is None and router is None:
+            raise ValueError("SynthesisServer needs an engine or a router")
         self.engine = engine
-        self.cfg = engine.cfg
+        self.router = router
+        self.lifecycle = lifecycle
+        self.cfg = router.cfg if router is not None else engine.cfg
         serve = self.cfg.serve
         self.slo = slo
         self._model_info = model_info
         self.frontend = frontend
-        self.registry = engine.registry
-        self.style = engine.style
+        self.registry = router.registry if router is not None else engine.registry
+        # one style service for the whole deployment: the router's shared
+        # one in fleet mode, the engine's otherwise
+        self.style = router.style if router is not None else engine.style
         if frontend is not None and frontend.style is None:
             frontend.style = self.style
         self.events = events
@@ -165,7 +184,12 @@ class SynthesisServer:
         # X-Audio-Quality instead of shipping the bytes
         self.quality_gate = QualityGate(serve.quality, self.cfg.preprocess.preprocessing.audio
                                         .sampling_rate, registry=self.registry, events=events)
-        self.batcher = ContinuousBatcher(engine, events=events)
+        if router is not None:
+            self.batcher = None
+            self.backend = router
+        else:
+            self.batcher = ContinuousBatcher(engine, events=events)
+            self.backend = self.batcher
         self.frontend_pool = (FrontendPool(frontend, serve.frontend_workers,
                                            registry=self.registry, events=events)
                               if frontend is not None and serve.frontend_workers > 0 else None)
@@ -209,9 +233,28 @@ class SynthesisServer:
                 "max_phonemes": min(serve.src_buckets[-1],
                                     serve.mel_buckets[-1] // serve.frames_per_phoneme)}
 
+    def _result_timeout(self, request) -> float:
+        """How long a handler waits on its future: ``REQUEST_TIMEOUT_S``,
+        and behind a router no longer than the request's class budget (or
+        its ``deadline_ms`` override) plus ``fleet.deadline_grace_ms``, so
+        the router's own DeadlineExceeded arrives first."""
+        if self.router is None:
+            return REQUEST_TIMEOUT_S
+        fleet = self.cfg.serve.fleet
+        klass = request.priority or fleet.default_class
+        override = getattr(request, "deadline_ms", None)
+        if override is not None:
+            budget_ms = min(float(override), fleet.max_deadline_ms)
+        else:
+            budget_ms = fleet.class_deadline_ms.get(klass)
+        if budget_ms is None:
+            return REQUEST_TIMEOUT_S
+        deadline = request.arrival + (budget_ms + fleet.deadline_grace_ms) / 1e3
+        return max(0.001, min(REQUEST_TIMEOUT_S, deadline - time.monotonic()))
+
     def synthesize(self, payload: Dict, req_id: Optional[str] = None, stream: bool = False,
                    trace_id: Optional[str] = None):
-        """One request through the frontend and the batcher; returns its
+        """One request through the frontend and the backend; returns its
         SynthesisResult. The ``serve_request`` span is the trace's root."""
         if req_id is None:
             req_id = self.next_req_id()
@@ -221,18 +264,22 @@ class SynthesisServer:
                 # submit the handle first: a shed or shutdown wastes no G2P
                 pending = self.frontend_pool.prepare(req_id, payload, stream=stream)
                 pending.trace = sp.ctx
-                future = self.batcher.submit(pending)
+                future = self.backend.submit(pending)
                 self.frontend_pool.dispatch(pending)
-                return future.result(timeout=REQUEST_TIMEOUT_S)
+                return future.result(timeout=self._result_timeout(pending))
             request = self.frontend.request(req_id, payload)
             request.stream = stream
             request.trace = sp.ctx
-            future = self.batcher.submit(request)
-            return future.result(timeout=REQUEST_TIMEOUT_S)
+            future = self.backend.submit(request)
+            return future.result(timeout=self._result_timeout(request))
 
     # -- streaming ------------------------------------------------------------
 
     def streaming_available(self) -> bool:
+        """Streams need a vocoder (a --griffin_lim deployment has none)."""
+        if self.router is not None:
+            engines = self.router.engines()
+            return not engines or engines[0].vocoder is not None
         return self.engine.vocoder is not None
 
     @contextlib.contextmanager
@@ -252,7 +299,11 @@ class SynthesisServer:
     def stream_chunks(self, result, arrival: Optional[float] = None):
         """int16 wav chunks of a dispatched result, window by window over
         the prepared vocoder lattice; observes serve_ttfa_seconds at the
-        first."""
+        first. Behind a router the replica that produced the result vocodes
+        it (``router.stream``)."""
+        if self.router is not None:
+            yield from self.router.stream(result, arrival=arrival)
+            return
         fleet = self.cfg.serve.fleet
         if self.engine.vocoder is None:
             raise ValueError("streaming requires a vocoder engine")
@@ -270,12 +321,17 @@ class SynthesisServer:
     # -- readiness and introspection -------------------------------------------
 
     def is_ready(self) -> bool:
-        """The /healthz predicate: the engine's lattice is prepared."""
+        """The /healthz predicate: the engine's lattice is prepared, or one
+        replica of the router is ready."""
+        if self.router is not None:
+            return self.router.ready()
         return self.engine.is_ready
 
     def programs(self):
-        """The engine's program cards, then the style encoder's."""
-        out = list(self.engine.programs())
+        """The program cards of every live engine (replicas in index
+        order), then the shared style encoder's once."""
+        engines = self.router.engines() if self.router is not None else [self.engine]
+        out = [row for engine in engines for row in engine.programs()]
         if self.style is not None:
             out.extend(self.style.programs())
         return out
@@ -295,6 +351,12 @@ class SynthesisServer:
             self.events.emit("http_request", **fields)
 
     def model_info(self) -> Optional[Dict]:
+        """{version, step, weights_digest} of the serving model: the
+        router's published identity (rollouts move it), else the one the
+        server was started with."""
+        if self.router is not None and self.router.model_version is not None:
+            return {"version": self.router.model_version, "step": self.router.model_step,
+                    "weights_digest": self.router.model_digest}
         return self._model_info
 
     def model_version(self) -> Optional[str]:
@@ -308,7 +370,8 @@ class SynthesisServer:
         tier = getattr(result, "tier", None) if result is not None else None
         if tier:
             return tier
-        precisions = tuple(self.engine.lattice.precisions)
+        lattice = self.router.lattice if self.router is not None else self.engine.lattice
+        precisions = tuple(lattice.precisions)
         return None if precisions == ("f32",) else f"teacher-{precisions[0]}"
 
     def trace_view(self, trace_id: str) -> Dict:
@@ -325,8 +388,10 @@ class SynthesisServer:
         self._uptime_gauge.set(time.monotonic() - self.started)
 
     def stats(self) -> Dict:
-        """The /healthz payload: a view of ``registry.snapshot()``."""
-        self.batcher.refresh_gauges()
+        """The /healthz payload: a view of ``registry.snapshot()``, and
+        behind a router each replica's lifecycle state."""
+        if self.batcher is not None:
+            self.batcher.refresh_gauges()
         self.refresh_process_gauges()
         snap = self.registry.snapshot()
         counters, gauges = snap["counters"], snap["gauges"]
@@ -342,7 +407,8 @@ class SynthesisServer:
             "ready": self.is_ready(),
             "uptime_s": round(time.monotonic() - self.started, 1),
             "build": self.build,
-            "lattice_points": len(self.engine.lattice),
+            "lattice_points": len(self.router.lattice if self.router is not None
+                                  else self.engine.lattice),
             "compile_count": c("serve_compiles_total"),
             "dispatches": c("serve_dispatches_total"),
             "queue_depth": int(gauges.get("serve_queue_depth", 0)),
@@ -361,6 +427,8 @@ class SynthesisServer:
                 "encodes": c("serve_style_dispatches_total"),
             },
         }
+        if self.router is not None:
+            out["replicas"] = {str(i): s for i, s in sorted(self.router.states().items())}
         model = self.model_info()
         if model:
             out["model"] = dict(model)
@@ -392,7 +460,8 @@ class SynthesisServer:
             trace_dir = os.path.join(self.profile_dir, f"capture_{seq:04d}")
             os.makedirs(trace_dir, exist_ok=True)
             activities = [ProfilerActivity.CPU]
-            if self.engine.device.type == "cuda":
+            engines = self.router.engines() if self.router is not None else [self.engine]
+            if any(e.device.type == "cuda" for e in engines):
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
             prof.start()
@@ -433,7 +502,7 @@ class SynthesisServer:
 
     def shutdown(self):
         """Idempotent: stop accepting, drain in-flight streams, then close
-        the batcher (which flushes admitted requests) and the frontend
+        the backend (which flushes admitted requests) and the frontend
         pool. A second caller waits for the first to finish. A request
         that reaches a handler after this gets 503."""
         with self._shutdown_lock:
@@ -453,8 +522,8 @@ class SynthesisServer:
         if not self.drain_streams() and self.events is not None:
             self.events.emit("shutdown_drain_timeout",
                              active_streams=int(self._streams_gauge.value))
-        # the batcher first: its flush may still resolve pending handles
-        self.batcher.close()
+        # the backend first: its flush may still resolve pending handles
+        self.backend.close()
         if self.frontend_pool is not None:
             self.frontend_pool.close()
 
@@ -500,7 +569,8 @@ def _handler(outer: SynthesisServer):
             if path == "/healthz":
                 return self._json(200 if outer.is_ready() else 503, outer.stats())
             if path == "/metrics":
-                outer.batcher.refresh_gauges()
+                if outer.batcher is not None:
+                    outer.batcher.refresh_gauges()
                 outer.refresh_process_gauges()
                 return self._text(200, outer.registry.prometheus_text(),
                                   "text/plain; version=0.0.4; charset=utf-8")
@@ -529,6 +599,8 @@ def _handler(outer: SynthesisServer):
             parsed = urlparse(self.path)
             if parsed.path == "/debug/profile":
                 return self._profile(parsed)
+            if parsed.path == "/admin/rollout":
+                return self._rollout()
             if parsed.path == "/styles":
                 return self._post_style(parsed)
             if parsed.path == "/synthesize/longform":
@@ -538,6 +610,31 @@ def _handler(outer: SynthesisServer):
             if parsed.path == "/synthesize":
                 return self._synthesize(parsed, stream=False)
             return self._json(404, {"error": f"no route {self.path}"})
+
+        def _rollout(self):
+            """POST /admin/rollout {"step": N}: the RolloutManager runs the
+            whole state machine; this maps the request and the outcome (409
+            while another runs; committed and aborted are both 200s)."""
+            from speakingstyle_torch.serving.lifecycle import RolloutInProgress
+
+            if outer.lifecycle is None:
+                self._body()
+                return self._json(404, {
+                    "error": "rollout is not enabled on this server (start with "
+                             "--enable_rollout and a fleet)"})
+            try:
+                payload = json.loads(self._body() or b"{}")
+            except ValueError:
+                return self._json(400, {"error": "body must be JSON"})
+            step = payload.get("step") if isinstance(payload, dict) else None
+            if not isinstance(step, int) or isinstance(step, bool):
+                return self._json(400, {
+                    "error": 'rollout needs an integer "step" (the checkpoint to roll to)'})
+            try:
+                result = outer.lifecycle.rollout(step)
+            except RolloutInProgress as e:
+                return self._json(409, {"error": str(e)})
+            return self._json(200, result)
 
         def _post_style(self, parsed):
             """Register a reference style: wav bytes (audio/wav) or JSON

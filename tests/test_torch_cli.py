@@ -573,16 +573,85 @@ def test_serve_command_precompiles_serves_and_drains_on_sigterm(tmp_path, corpus
 
 
 def test_serve_command_refuses_a_fleet_and_runs_on_cuda_unless_told(monkeypatch):
-    """``--replicas 2`` exits non-zero naming ROADMAP queue A item 5b (it
-    never serves one engine silently), and without ``--device cpu`` the
-    command needs a card."""
+    """A fleet behind the distributed control plane (``--replicas 2
+    --cluster``) exits non-zero naming ROADMAP queue A item 5c (the
+    in-process fleet serves: the next test), and without ``--device cpu``
+    the command needs a card, one engine or a fleet."""
     from speakingstyle_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="queue A item 5b"):
-        main(["serve", "--restore_step", "1", "--replicas", "2"])
+    with pytest.raises(SystemExit, match="queue A item 5c"):
+        main(["serve", "--restore_step", "1", "--replicas", "2", "--cluster"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--restore_step", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--restore_step", "1", "--replicas", "2"])
+
+
+def test_serve_command_with_two_replicas_on_the_cpu(tmp_path, corpus):  # noqa: F811
+    """``serve --replicas 2 --device cpu --enable_rollout`` over a saved
+    checkpoint: it binds at once with /healthz answering 503 (each replica
+    still warming, or not yet ready) until a replica is ready, then 200
+    with both replicas' states and the model block; a /synthesize answers
+    200 through the fleet; POST /admin/rollout to the same step commits
+    over both replicas; SIGTERM drains and exits 0."""
+    import http.client
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    paths, _ = seeded_checkpoint(tmp_path, corpus, 3)
+    ref = _ref_wav(tmp_path / "ref.wav", seconds=0.3)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", "-p", paths["preprocess"],
+         "-m", paths["model"], "-t", paths["train"], "--restore_step", "3", "--device", "cpu",
+         "--griffin_lim", "--ref_audio", ref, "--host", "127.0.0.1", "--port", "0",
+         "--replicas", "2", "--enable_rollout"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                break
+        address = lines[-1].split("http://", 1)[1].split(" ", 1)[0]
+        host, port = address.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        statuses, deadline, health = [], time.monotonic() + 300, {}
+        while time.monotonic() < deadline:
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            health = json.loads(resp.read())
+            statuses.append(resp.status)
+            if resp.status == 200 and set(health["replicas"].values()) == {"ready"}:
+                break
+            time.sleep(0.05)
+        conn.request("POST", "/synthesize", body=json.dumps({"text": "hello world"}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.request("POST", "/admin/rollout", body=json.dumps({"step": 3}))
+        rolled = conn.getresponse()
+        rollout = json.loads(rolled.read())
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = "".join(lines) + rest
+    assert proc.returncode == 0, out
+    assert "warming 2 replicas" in out and "rollout enabled" in out
+    assert statuses[-1] == 200 and health["replicas"] == {"0": "ready", "1": "ready"}
+    assert health["model"]["step"] == 3
+    assert resp.status == 200 and body["mel_len"] > 0
+    assert resp.getheader("X-Model-Version").startswith("3:")
+    assert rolled.status == 200 and rollout["status"] == "committed", rollout
+    assert rollout["replicas"] == 2 and rollout["step"] == 3
+    assert "SIGTERM: draining" in out and "server stopped" in out
 
 
 @pytest.mark.parametrize("head_dim", [8, 12, 16, 24, 128, 136])

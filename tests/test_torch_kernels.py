@@ -299,6 +299,29 @@ def test_conv_ln_cluster_sizes_on_card(cuda_device, cout, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [1100, 1536, 2048])
+@pytest.mark.parametrize("T", [45, 300])
+def test_conv_ln_past_1024_channels_on_card(cuda_device, dtype, cout, T):
+    """The LN conv past 1024 channels: f32 in channel groups of one block,
+    bf16 with ``ln_tiles`` 128-channel tiles a block of a cluster of at
+    most 8 (a last tile of 76 channels at 1100): the output and ``act``
+    against the plain version, and one launch counted."""
+    g = torch.Generator().manual_seed(cout + T)
+    x = torch.randn((2, T, 256), generator=g).to(cuda_device, dtype)
+    w = (torch.randn((3, 256, cout), generator=g) / np.sqrt(3 * 256)).to(cuda_device, dtype)
+    b, s, sb = (torch.randn(cout, generator=g).to(cuda_device, dtype) for _ in range(3))
+    cluster = t_conv.conv_plan(2, T, cout, True, t_conv._sm_count(x.device))[1]
+    assert cluster <= t_conv.MAX_CLUSTER and cluster * t_conv.ln_tiles(cout) * 128 >= cout
+    before = t_conv.fused_conv1d.launches
+    y, act = t_conv.fused_conv_fwd(x, w, b, s, sb, relu=True, want_act=True)
+    assert t_conv.fused_conv1d.launches == before + 1
+    _assert_ln_close(y, x, w, b, s, sb, 1, dtype)
+    _, want_act = t_conv.fused_conv_plain_parts(x, w, b, s, sb, 1, True)
+    torch.testing.assert_close(act.float(), want_act.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_kernel_without_bias_or_relu_on_card(cuda_device, dtype):
     """The null-bias pointer and the linear epilogue; an even tap count."""
     g = torch.Generator().manual_seed(4)

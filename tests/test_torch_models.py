@@ -21,6 +21,17 @@ from speakingstyle_torch.compat.from_jax import expected_leaves, load_flax_varia
 
 from torch_threads import one_cpu_thread  # noqa: F401 (an autouse fixture)
 
+# The JAX trainer makes ``rbg`` the process-wide default PRNG on its first
+# call (``train.fast_prng``, on by default), so in a worker that runs many
+# modules the JAX package's tests drew their random weights from threefry
+# or from rbg, by which modules had run there before them; the tiny
+# serving fixtures of tests/test_latency.py and tests/test_fleet.py span
+# several stream windows only with the rbg draw. Pinning the default once,
+# as the port's test modules are collected, gives every test the same
+# draw whatever the schedule. The tests that hold the port against JAX
+# draws pin threefry themselves.
+jax.config.update("jax_default_prng_impl", "rbg")
+
 MODEL_YAML = {
     "transformer": {
         "encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 16,

@@ -467,6 +467,9 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'orbax', 'msgpack', 'matplotlib', 'speakingstyle_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('speakingstyle_torch')]))\n"
         "assert not bad, bad\n"
+        "fleet = {'speakingstyle_torch.serving.' + m for m in "
+        "('fleet', 'lifecycle', 'autoscale', 'resilience')}\n"
+        "assert fleet <= set(sys.modules), fleet - set(sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -514,11 +517,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ((x, w, torch.zeros(7)), ValueError),                  # bias shape
         ((x, w, vec, vec, None), ValueError),                  # LN pair
         ((torch.zeros((1, 5, 4)), torch.zeros((3, 4, 1025)), None,
-          torch.zeros(1025), torch.zeros(1025)), ValueError),  # LN width
+          torch.zeros(1024), torch.zeros(1024)), ValueError),  # LN vectors past 1024
         ((torch.zeros((5, 2, 4)).transpose(0, 1), w), ValueError),  # contiguity
     ]:
         with pytest.raises(err):
             t_conv.check_inputs(*args)
+    # the LN variant takes any width (tiles a block past 1024 channels)
+    wide = torch.zeros(1025)
+    t_conv.check_inputs(torch.zeros((1, 5, 4)), torch.zeros((3, 4, 1025)), None, wide, wide)
 
     # the backward kernels copy rows in 16-byte pieces: a tensor that does
     # not start on a 16-byte boundary is refused before any launch
@@ -566,7 +572,53 @@ def test_conv_plan_matches_the_kernels_tiles(B, T, cout, ln, want):
 
 
 def test_conv_plan_refuses_a_layernorm_wider_than_a_cluster():
+    """No cluster is wider than 8 blocks: past 1024 channels the LayerNorm
+    launch gives each block ``ln_tiles`` 128-channel tiles in turn instead
+    of refusing (the TPU kernel runs any 128-aligned Cout), and the
+    kernel's input checks take such a Cout."""
     assert t_conv.conv_plan(4, 100, 1024, True, 132)[1] == t_conv.MAX_CLUSTER
     assert t_conv.conv_plan(4, 100, 4096, False, 132)[1] == 1
-    with pytest.raises(ValueError, match="Cout <= 1024"):
-        t_conv.conv_plan(4, 100, 1025, True, 132)
+    for cout, cluster, tiles in ((1025, 5, 2), (4096, 8, 4), (8192, 8, 8)):
+        assert t_conv.conv_plan(4, 100, cout, True, 132)[1] == cluster <= t_conv.MAX_CLUSTER
+        assert t_conv.ln_tiles(cout) == tiles and cluster * tiles * 128 >= cout
+    x, w = torch.zeros((1, 4, 8)), torch.zeros((3, 8, 2048))
+    v = torch.zeros(2048)
+    t_conv.check_inputs(x, w, v, v, v)
+
+
+@pytest.mark.parametrize("cout,want", [
+    (256, (32, 2, 1)), (1024, (128, 8, 1)), (1536, (128, 6, 2)), (2048, (128, 8, 2)),
+])
+def test_conv_plan_of_the_layernorm_conv_past_1024_channels(cout, want):
+    """(time steps a block, blocks a cluster, tiles a block) of the bf16
+    LayerNorm conv at the reference encoder's serve shape (4 x 1000) on the
+    H100's 132 SMs: one 128-channel tile a block up to 1024 channels, two
+    past it, and the cluster never wider than 8; the blocks of one cluster
+    cover Cout with at least one tile each."""
+    bm, cluster = t_conv.conv_plan(4, 1000, cout, True, 132)
+    tiles = t_conv.ln_tiles(cout)
+    assert (bm, cluster, tiles) == want
+    n_tiles = -(-cout // 128)
+    assert (cluster - 1) * tiles < n_tiles <= cluster * tiles
+
+
+@pytest.mark.parametrize("cout", [1536, 2048])
+def test_plain_ln_conv_past_1024_channels_matches_pallas_interpret(cout):
+    """fused_conv_relu_ln on CPU tensors (the plain version a CUDA tensor's
+    kernel is held to) at Cout 1536 and 2048 == the JAX entry
+    ``fused_conv_relu_ln`` (pallas_conv.py:387), whose Pallas kernel runs
+    these 128-aligned widths, in interpret mode: f32, 1e-5 relative."""
+    from speakingstyle_tpu.ops.pallas_conv import fused_conv_relu_ln
+
+    rng = np.random.default_rng(cout)
+    cin = 16
+    x = rng.standard_normal((2, 23, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, cin, cout)) * 0.2).astype(np.float32)
+    b, s, sb = ((rng.standard_normal(cout) * 0.1).astype(np.float32) for _ in range(3))
+    want = np.asarray(fused_conv_relu_ln(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                         jnp.asarray(s), jnp.asarray(sb), interpret=True))
+    before = t_conv.fused_conv1d.launches
+    got = t_conv.fused_conv_relu_ln(*(torch.from_numpy(a) for a in (x, w, b, s, sb))).numpy()
+    assert t_conv.fused_conv1d.launches == before
+    assert got.shape == want.shape == (2, 23, cout)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())

@@ -30,6 +30,7 @@ import io
 import json
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -449,10 +450,12 @@ def test_longform_is_refused_until_5b(servers):
 
 
 def test_router_is_refused():
+    """The fleet router is a backend now (the tests below); what is refused
+    is a server with neither an engine nor a router."""
     from speakingstyle_torch.serving.server import SynthesisServer
 
-    with pytest.raises(ValueError, match="queue A item 5b"):
-        SynthesisServer(router=object())
+    with pytest.raises(ValueError, match="needs an engine or a router"):
+        SynthesisServer()
 
 
 def test_healthz_503_until_precompiled(tmp_path):
@@ -564,9 +567,8 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     shared = set(_fields(t)) & set(_fields(j))
     assert {k: _fields(t)[k] for k in shared} == {k: _fields(j)[k] for k in shared}
     assert set(_fields(t)) - set(_fields(j)) == set()
-    assert set(_fields(j)) - set(_fields(t)) == {"longform", "autoscale", "rollout", "cluster",
-                                                 "parallel"}
-    for name in ("fleet", "trace", "slo"):
+    assert set(_fields(j)) - set(_fields(t)) == {"longform", "cluster", "parallel"}
+    for name in ("fleet", "trace", "slo", "autoscale", "rollout"):
         assert _fields(getattr(tc.ServeConfig(), name)) == _fields(getattr(jc.ServeConfig(), name))
 
 
@@ -588,3 +590,112 @@ def test_serve_keys_are_validated_as_jax(tmp_path, bad):
     for load in (jc.load_config, tc.load_config):
         with pytest.raises((ValueError, TypeError)):
             load(train=str(path))
+
+
+def port_fleet(tmp, gate=None, replicas=2, serve=SERVE_ONE):
+    """A port FleetRouter of ``replicas`` CPU engines over one model (seed-0
+    weights, the duration bias raised by 1.1), one vocoder and one shared
+    StyleService; ``gate`` (an Event) holds every warm-up until set."""
+    from speakingstyle_torch.obs import MetricsRegistry
+    from speakingstyle_torch.serving.engine import SynthesisEngine
+    from speakingstyle_torch.serving.fleet import FleetRouter
+    from speakingstyle_torch.serving.style import StyleService
+
+    base = build_port_engine(tmp, serve=serve)
+    registry = MetricsRegistry()
+    style = StyleService(base.cfg, base.model.reference_encoder, device="cpu",
+                         registry=registry)
+
+    def factory(reg):
+        if gate is not None:
+            gate.wait(timeout=TIMEOUT)
+        return SynthesisEngine(base.cfg, model=base.model, vocoder=base.vocoder, device="cpu",
+                               registry=reg, style=style)
+
+    return FleetRouter(factory, base.cfg, replicas=replicas, registry=registry, style=style)
+
+
+def test_router_backend_healthz_states_programs_and_streams(tmp_path):
+    """A server over a 2-replica router: /healthz answers 503 with each
+    replica's lifecycle state while they warm, 200 once one is ready;
+    /synthesize answers through the router (X-Model-Version from the
+    router), /debug/programs covers every replica's engine and the shared
+    style programs once, a stream goes through ``router.stream`` and equals
+    the depth-1 stream of its result, and shutdown closes the router."""
+    from speakingstyle_torch.serving import streaming
+    from speakingstyle_torch.serving.frontend import TextFrontend
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    gate = threading.Event()
+    router = port_fleet(tmp_path, gate)
+    router.set_model_version("3:abcdef", 3, "abcdef0123")
+    ref = np.random.default_rng(0).standard_normal((20, 80)).astype(np.float32)
+    server = SynthesisServer(frontend=TextFrontend(router.cfg, ref), host="127.0.0.1", port=0,
+                             router=router)
+    thread = start(server)
+    try:
+        status, _, body = call(server, "GET", "/healthz")
+        health = json.loads(body)
+        assert status == 503 and health["ready"] is False
+        assert health["replicas"] == {"0": "warming", "1": "warming"}
+        gate.set()
+        assert router.wait_ready(timeout=TIMEOUT, n=2)
+        status, _, body = call(server, "GET", "/healthz")
+        health = json.loads(body)
+        assert status == 200 and health["replicas"] == {"0": "ready", "1": "ready"}
+        assert health["model"] == {"version": "3:abcdef", "step": 3,
+                                   "weights_digest": "abcdef0123"}
+        assert health["lattice_points"] == len(router.lattice)
+        status, headers, body = call(server, "POST", "/synthesize", {"text": "hello there"})
+        assert status == 200 and pcm(body).size > 0
+        assert headers["X-Model-Version"] == "3:abcdef"
+        status, _, body = call(server, "GET", "/debug/programs")
+        rows = json.loads(body)["programs"]
+        kinds = [r.get("label_kind") for r in rows]
+        assert kinds.count("acoustic") == 2 and kinds.count("vocoder") == 2
+        assert kinds.count("style") == len(router.style.lattice)
+        payload = {"text": "speak softly now"}
+        status, headers, body = call(server, "POST", "/synthesize/stream", payload)
+        assert status == 200 and headers["Transfer-Encoding"] == "chunked"
+        result = server.synthesize(payload, stream=True)
+        engine = router.engine_at(result.replica)
+        fleet = router.cfg.serve.fleet
+        overlap = streaming.resolve_overlap(fleet.stream_overlap, engine.vocoder)
+        depth1 = b"".join(c.tobytes() for c in streaming.stream_wav(
+            engine, result, fleet.stream_window, overlap, depth=1))
+        assert body[44:] == depth1
+        status, _, body = call(server, "POST", "/admin/rollout", {"step": 4})
+        assert status == 404
+    finally:
+        gate.set()
+        stop(server, thread)
+    assert all(s == "stopped" for s in router.states().values())
+
+
+def test_router_backend_waits_no_longer_than_the_class_deadline(tmp_path):
+    """Behind a router a handler waits for its request no longer than its
+    class budget plus the grace: with no replica ever ready, a request
+    answers 504 within about that."""
+    from speakingstyle_torch.serving.frontend import TextFrontend
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    gate = threading.Event()
+    serve = dict(SERVE_ONE, fleet={"stream_window": 8, "deadline_grace_ms": 50.0,
+                                   "class_deadline_ms": {"interactive": 100.0,
+                                                         "batch": 200.0}})
+    router = port_fleet(tmp_path, gate, replicas=1, serve=serve)
+    server = SynthesisServer(frontend=TextFrontend(router.cfg), host="127.0.0.1", port=0,
+                             router=router)
+    thread = start(server)
+    try:
+        t0 = time.monotonic()
+        status, headers, body = call(server, "POST", "/synthesize", {"text": "hello"})
+        # the router's DeadlineExceeded or the handler's own bound, a 504
+        # either way, long before REQUEST_TIMEOUT_S
+        assert status == 504 and json.loads(body)["id"] == headers["X-Request-Id"]
+        assert time.monotonic() - t0 < 5.0
+        assert server._result_timeout(SimpleNamespace(priority="batch", arrival=time.monotonic())) \
+            <= 0.25 + 1e-6
+    finally:
+        gate.set()
+        stop(server, thread)

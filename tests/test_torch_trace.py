@@ -346,3 +346,86 @@ def test_nothing_recorded_when_disarmed(tiny_server, monkeypatch):
         assert ring.spans("trace-off") == [] and calls == []
     finally:
         trace.set_tracing_enabled(True)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.37, 1.0])
+def test_tail_sampler_matches_jax(rate):
+    """The healthy-traffic dice (crc32 of the trace id) keep the same
+    traces as the JAX sampler at each rate, every keep reason is kept, and
+    the counts agree; a rate outside [0, 1] is refused by both."""
+    from speakingstyle_tpu.obs import trace as jt
+    from speakingstyle_torch.obs import trace as tt
+
+    ids = [f"req{i:08d}" for i in range(400)] + ["é-trace", ""]
+    j, t = jt.TailSampler(rate), tt.TailSampler(rate)
+    assert [t.keep(i) for i in ids] == [j.keep(i) for i in ids]
+    for reason in jt.TailSampler.KEEP_REASONS + ("healthy", None):
+        assert t.keep("req00000001", reason) == j.keep("req00000001", reason)
+    assert (t.kept, t.sampled_out) == (j.kept, j.sampled_out)
+    assert tt.TailSampler.KEEP_REASONS == jt.TailSampler.KEEP_REASONS
+    for bad in (-0.1, 1.5):
+        for mod in (jt, tt):
+            with pytest.raises(ValueError, match="sample_rate"):
+                mod.TailSampler(bad)
+
+
+def test_ambient_context_matches_jax():
+    """``ambient(ctx)`` installs an explicit context as the thread's
+    ambient one: a span opened inside parents under it, the stack is
+    restored on exit (also after an exception), ``None`` installs nothing,
+    and another thread does not see it, in both packages."""
+    from speakingstyle_tpu.obs import trace as jt
+    from speakingstyle_torch.obs import trace as tt
+
+    for mod in (jt, tt):
+        ring = mod.SpanRing(64)
+        ctx = mod.new_context("amb")
+        seen = {}
+        with mod.ambient(ctx) as got:
+            assert got is ctx and mod.current_context() is ctx
+            with mod.Span("inner", ring=ring) as sp:
+                assert sp.ctx.parent_span_id == ctx.span_id and sp.ctx.trace_id == "amb"
+            t = threading.Thread(target=lambda: seen.update(other=mod.current_context()))
+            t.start()
+            t.join(timeout=30)
+        assert mod.current_context() is None and seen == {"other": None}
+        with pytest.raises(RuntimeError):
+            with mod.ambient(ctx):
+                raise RuntimeError("boom")
+        assert mod.current_context() is None
+        with mod.ambient(None) as none:
+            assert none is None and mod.current_context() is None
+        assert [s["trace_id"] for s in ring.spans()] == ["amb"]
+
+
+def test_fleet_router_reads_the_sample_rate():
+    """``serve.trace.sample_rate`` now sets the fleet router's tail
+    sampler (healthy traces pinned at that rate; a shed is always pinned)."""
+    import dataclasses
+
+    from speakingstyle_torch.configs.config import Config, ServeConfig, TraceConfig
+    from speakingstyle_torch.serving.fleet import FleetRouter
+
+    cfg = Config(serve=ServeConfig(batch_buckets=[1], src_buckets=[16], mel_buckets=[64],
+                                   frames_per_phoneme=2, trace=TraceConfig(sample_rate=0.0)))
+    gate = threading.Event()
+
+    def factory(reg):
+        gate.wait(timeout=30)
+        raise RuntimeError("never warms")
+
+    router = FleetRouter(factory, cfg, replicas=1)
+    try:
+        assert router._tail_sampler.sample_rate == 0.0
+        assert not router._tail_sampler.keep("req00000001")
+        assert router._tail_sampler.keep("req00000001", "shed")
+    finally:
+        gate.set()
+        router.close()
+    cfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, trace=TraceConfig(sample_rate=1.0)))
+    router = FleetRouter(factory, cfg, replicas=0)
+    try:
+        assert router._tail_sampler.keep("any")
+    finally:
+        router.close()
