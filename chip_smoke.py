@@ -129,7 +129,8 @@ printing one JSON line:
    traffic. Client latency p50 / p90 / max, TTFA, batches and occupancy,
    sheds and the server's histograms are printed. Then ``python -m
    speakingstyle_torch serve`` in a subprocess on that checkpoint and a
-   one-point lattice answers a request and exits 0 on SIGTERM.
+   one-point lattice answers a request and a two-sentence chapter on
+   /synthesize/longform, and exits 0 on SIGTERM.
 17. ``serve_fleet`` (after ``serve_http``, from the same checkpoint): the
    fleet router on the one card, two replicas in this process, built by
    the serve command's fleet branch (``build_fleet``: the checkpoint
@@ -151,14 +152,38 @@ printing one JSON line:
    polled. Every 200 within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of
    one engine, streams within ``STREAM_LSB`` outside the overlap tail.
    Then ``serve --replicas 2`` in a subprocess: /healthz 503, then 200,
-   and one /synthesize 200.
+   and one /synthesize 200 and one /synthesize/longform 200.
+18. ``serve_tiers`` (after ``serve_fleet``, from the same checkpoint, kernel
+   path and lattice): the quality tiers teacher-f32 / teacher-bf16 /
+   teacher-int8 as three one-replica fleets (``serving.tiers.tier_fleets``:
+   an engine each over the weights loaded once, one StyleService) behind
+   one ``TierRouter`` (interactive -> bf16, batch -> int8) behind
+   ``SynthesisServer`` with a ``GoldenProber``; ``memory_reserved`` with
+   the three up. Under torch.profiler, every kernel count set to 0 just
+   before and read just after (the port's kernels counted by name in the
+   trace equal the credits): each narrower tier's ``tier_gate`` on the
+   card while the anchor serves 2 clients (both ship; ``mel_l2``, ms),
+   and a control, int8 with its scales perturbed, refused;
+   open-loop traffic from a ``TrafficModel`` schedule over 10 s, its
+   long_form events chapters on /synthesize/longform (200 or 429 +
+   Retry-After only, ``X-Model-Tier`` the class's tier, the tier dispatch
+   counters equal to the routed submits, nothing prepared; p50 / p90 /
+   max per class); anchors pinned and one probe round with zero
+   drift; a chapter of at least 8 chunks on /synthesize/longform beside 2
+   interactive clients (the tier and chunk headers, the stitcher's sample
+   arithmetic, each chunk outside the crossfades within
+   ``SERVE_HTTP_LSB`` of the chunk run alone, seam RMS, TTFA, the
+   clients' p50 with and without the chapter); ``tier_poison`` on the
+   int8 fleet: the prober pages on it alone, its gate refuses it and
+   ``batch`` falls back to teacher-f32.
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 A ``phase_seconds`` line gives each phase's seconds and the total.
 
 Then a summary line of every kernel (with its launches a distill step and
-in the traces of the ``serve_http`` and ``serve_fleet`` traffic),
+in the traces of the ``serve_http`` and ``serve_fleet`` traffic and the
+``serve_tiers`` phase),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -763,6 +788,28 @@ def reset_counts():
     fused_mha.launches = fused_mha_bwd.launches = attention_delta.launches = 0
     fused_mha.launches_bf16sm = fused_mha_bwd.launches_bf16sm = 0
     fused_conv1d.launches = fused_conv1d.act_launches = 0
+
+
+# plain kernels at the head of a trace (see prime_trace)
+TRACE_PRIMER_KERNELS = 256
+
+
+def prime_trace():
+    """Run just after a profiler starts, before any device work its trace
+    counts: ``TRACE_PRIMER_KERNELS`` plain PyTorch kernels (float64, a dtype
+    the model does not use), then wait for them. On the H100 a trace has
+    dropped the records of its first few kernels, however long after the
+    start they ran: ``serve_tiers`` lost the first one or two LayerNorm
+    convs of its first graph replay, which the registry credited, in 8
+    runs of 29 with at most 2 plain kernels (or a 1 s wait) ahead of it,
+    and in none of 8 with this primer; a plain kernel launched 1 s after
+    the start was missing from 3 traces of 7."""
+    import torch
+
+    x = torch.zeros(1, dtype=torch.float64, device="cuda")
+    for _ in range(TRACE_PRIMER_KERNELS):
+        x.add_(1.0)
+    torch.cuda.synchronize()
 
 
 def read_counts():
@@ -2973,8 +3020,9 @@ def remat_phase(cfg, batch, dev):
 
 SAVE_REPEATS = 3
 # the runs of the costs phase, each configuration twice, in turns (the
-# host's share of a step moves between runs more than these costs)
-COST_STEPS = 8
+# host's share of a step moves between runs more than these costs); 4
+# steps a run are measured, 8 a configuration
+COST_STEPS = 6
 COST_ORDER = ("prefetcher", "no_sentinel", "inline_copy", "inline_copy", "no_sentinel",
               "prefetcher")
 
@@ -3556,15 +3604,15 @@ def http_call(address, method, path, body=None, headers=None, conn=None, timeout
             conn.close()
 
 
-def stream_call(address, payload, timeout=300):
-    """One /synthesize/stream request: (status, headers, body, seconds to
-    the first PCM bytes, seconds in all)."""
+def stream_call(address, payload, timeout=300, path="/synthesize/stream"):
+    """One chunked-wav request (/synthesize/stream, or ``path``): (status,
+    headers, body, seconds to the first PCM bytes, seconds in all)."""
     import http.client
 
     conn = http.client.HTTPConnection(*address, timeout=timeout)
     try:
         t0 = time.perf_counter()
-        conn.request("POST", "/synthesize/stream", body=json.dumps(payload))
+        conn.request("POST", path, body=json.dumps(payload))
         resp = conn.getresponse()
         if resp.status != 200:
             return resp.status, dict(resp.getheaders()), resp.read(), None, None
@@ -3600,11 +3648,24 @@ def hist_view(registry, name, labels=None):
     return {k: snap.get(k) for k in ("count", "p50", "p95", "p99")}
 
 
+def longform_check(address):
+    """One two-sentence chapter on /synthesize/longform of a ``serve``
+    subprocess: its record, ``ok`` when it answered a chunked RIFF wav of
+    at least 2 chunks."""
+    status, headers, body, secs = http_call(
+        address, "POST", "/synthesize/longform", {"text": " ".join(TEXTS[:2])})
+    chunks = int(headers.get("X-Longform-Chunks", 0))
+    return {"status": status, "tier": headers.get("X-Longform-Tier"), "chunks": chunks,
+            "samples": max(0, len(body) - 44) // 2, "seconds": secs,
+            "ok": status == 200 and body[:4] == b"RIFF" and len(body) > 44 and chunks >= 2
+            and headers.get("X-Longform-Tier") == "chunked"}
+
+
 def serve_cli_check(tmp, step, seed, wav, dev):
     """``python -m speakingstyle_torch serve`` in a subprocess over the
     checkpoint ``restored_phase`` wrote, on a one-point lattice: it
-    precompiles, serves one request on the port it prints, and exits 0 on
-    SIGTERM. Returns its record."""
+    precompiles, serves one request and one chapter (``longform_check``) on
+    the port it prints, and exits 0 on SIGTERM. Returns its record."""
     import queue
     import signal
     import threading
@@ -3649,6 +3710,7 @@ def serve_cli_check(tmp, step, seed, wav, dev):
         status, headers, body, secs = http_call(address, "POST", "/synthesize",
                                                 {"text": TEXTS[0]})
         samples = len(body) - 44
+        longform = longform_check(address)
         proc.send_signal(signal.SIGTERM)
         code = proc.wait(timeout=120)
         reader.join(timeout=30)
@@ -3662,9 +3724,10 @@ def serve_cli_check(tmp, step, seed, wav, dev):
               "wav_samples": samples // 2, "request_s": secs,
               "model_version": headers.get("X-Model-Version"),
               "precompiled": [l for l in log if l.startswith("precompiled")],
-              "log_tail": log[-6:]}
+              "longform": longform, "log_tail": log[-6:]}
     if not (code == 0 and status == 200 and body[:4] == b"RIFF" and samples > 0
-            and record["precompiled"] and any("SIGTERM" in l for l in log)):
+            and record["precompiled"] and any("SIGTERM" in l for l in log)
+            and longform["ok"]):
         fail(f"serve_http: the serve command {record}")
     return record
 
@@ -3754,6 +3817,7 @@ def serve_http_phase(tmp, step, seed, dev, smi):
         reset_counts()
         prof.start()
         profiling = True
+        prime_trace()
         t_traffic = time.perf_counter()
         style_ids = []
         for w in wavs:
@@ -4056,8 +4120,9 @@ def fleet_cli_check(tmp, step, seed, wav, dev):
     """``python -m speakingstyle_torch serve --replicas 2`` in a subprocess
     over the phase's checkpoint, on the one-point lattice of
     ``serve_cli_check``: it binds at once, /healthz answers 503 while the
-    replicas warm and then 200 with both ready, one /synthesize answers 200,
-    and SIGTERM exits 0. Returns its record."""
+    replicas warm and then 200 with both ready, one /synthesize and one
+    chapter (``longform_check``) answer 200, and SIGTERM exits 0. Returns
+    its record."""
     import queue
     import signal
     import threading
@@ -4111,6 +4176,7 @@ def fleet_cli_check(tmp, step, seed, wav, dev):
         status, headers, body, secs = http_call(address, "POST", "/synthesize",
                                                 {"text": TEXTS[0]})
         samples = len(body) - 44
+        longform = longform_check(address)
         proc.send_signal(signal.SIGTERM)
         code = proc.wait(timeout=120)
         reader.join(timeout=30)
@@ -4124,8 +4190,10 @@ def fleet_cli_check(tmp, step, seed, wav, dev):
     record = {"exit_code": code, "bound_s": bound_s, "ready_s": ready_s,
               "healthz": healthz[:3] + healthz[-1:], "healthz_polls": len(healthz),
               "status": status, "wav_samples": samples // 2, "request_s": secs,
-              "model_version": headers.get("X-Model-Version"), "log_tail": log[-6:]}
+              "model_version": headers.get("X-Model-Version"), "longform": longform,
+              "log_tail": log[-6:]}
     if not (code == 0 and statuses and statuses[0] == 503 and statuses[-1] == 200
+            and longform["ok"]
             and healthz[-1][2] == {"0": "ready", "1": "ready"} and status == 200
             and body[:4] == b"RIFF" and samples > 0 and any("warming 2 replicas" in l for l in log)
             and any("SIGTERM" in l for l in log)):
@@ -4313,6 +4381,7 @@ def serve_fleet_phase(tmp, step, seed, dev, smi):
         reset_counts()
         prof.start()
         profiling = True
+        prime_trace()
         try:
             for w in wavs:
                 with open(w, "rb") as f:
@@ -4523,6 +4592,483 @@ def serve_fleet_phase(tmp, step, seed, dev, smi):
     return launches
 
 
+SERVE_TIERS_NAMES = ("teacher-f32", "teacher-bf16", "teacher-int8")
+SERVE_TIERS_CLASS_TIER = {"interactive": "teacher-bf16", "batch": "teacher-int8"}
+# the gate's bound: a narrower tier's worst golden-set mel_l2 against
+# teacher-f32 (random weights at full width), between what the sound
+# tiers read, 0.0 (bf16: the f32 tier computes in bf16 too) and 0.1418
+# (int8), and what the control below reads, 0.2232 (both the same on
+# every H100 run); the poisoned tier reads 3.1e9
+SERVE_TIERS_TOLERANCE = 0.18
+# the gate's control, a wrong int8 path: each output channel's int8 scale
+# off by a seeded factor in [1 - spread, 1 + spread]
+SERVE_TIERS_CONTROL_SPREAD = 0.05
+# the prober's mel drift bound (healthy drift is 0: the same programs on
+# the same inputs)
+SERVE_TIERS_PROBE_TOLERANCE = 1.0
+# the open-loop traffic: the traffic model's schedule over 10 s (a diurnal
+# cycle and a 3x flash crowd from 6 to 8 s), styles over the 4 uploads
+SERVE_TIERS_TRAFFIC = {"base_qps": 6.0, "duration_s": 10.0, "flash_windows": [(6.0, 8.0)],
+                       "flash_multiplier": 3.0, "n_styles": 4}
+SERVE_TIERS_LONGFORM = {"crossfade_frames": 8, "group_depth": 4, "max_chunks": 32}
+SERVE_TIERS_MIN_CHUNKS = 8
+SERVE_TIERS_LF_CLIENTS = 2   # closed-loop interactive clients beside the chapter
+SERVE_TIERS_LF_REQUESTS = 6  # each one's requests without the chapter
+
+
+@contextlib.contextmanager
+def perturbed_int8_scales(engine, spread, seed):
+    """The int8 tier of ``engine`` with every per-channel scale multiplied
+    in place by a seeded factor in [1 - spread, 1 + spread] (its captured
+    graphs read the perturbed scales); restored bit for bit on exit."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    scales = [v["int8_scale"] for v in engine._params_by_precision["int8"].values()
+              if isinstance(v, dict)]
+    saved = [t.clone() for t in scales]
+    with torch.no_grad():
+        for t in scales:
+            f = 1.0 + spread * (2.0 * torch.rand(t.shape, generator=gen) - 1.0)
+            t.mul_(f.to(t.device, t.dtype))
+    try:
+        yield len(scales)
+    finally:
+        with torch.no_grad():
+            for t, s in zip(scales, saved):
+                t.copy_(s)
+
+
+def serve_tiers_phase(tmp, step, seed, dev, smi):
+    """The rest of the fleet on one card: quality tiers, golden probes and
+    the chunked long-form tier, on ``serve_fleet``'s checkpoint, kernel
+    path and lattice (``SERVE_FLEET_LATTICE``). ``teacher-f32`` /
+    ``teacher-bf16`` / ``teacher-int8`` are three one-replica fleets
+    (``serving.tiers.tier_fleets``: an engine each over the weights loaded
+    once and one StyleService) behind one ``TierRouter`` (interactive ->
+    bf16, batch -> int8) behind ``SynthesisServer``; ``memory_reserved``
+    with the three up. Then, under torch.profiler with every kernel count
+    set to 0 just before and read just after (the port's kernels counted
+    by name in the trace must equal the credits):
+
+    1. the gates: ``tier_gate`` of bf16 and int8 against teacher-f32 on
+       the card while the anchor serves 2 closed-loop clients, each must
+       ship (``mel_l2``, ms); the control (int8 with its scales perturbed,
+       ``SERVE_TIERS_CONTROL_SPREAD``) must be refused, and int8 gated
+       again on its restored scales must read as before;
+    2. open-loop traffic from a ``TrafficModel`` schedule (10 s), its
+       long_form events chapters on /synthesize/longform: every answer a
+       200 (a valid wav; a chapter's tier and chunk headers) or a 429 with
+       Retry-After, ``X-Model-Tier`` its class's tier,
+       ``serve_tier_dispatch_total`` equal to the routed submits (a chunk
+       each), nothing prepared; client p50 / p90 / max per class;
+    3. the prober: anchors pinned, one round reads zero mel and style drift
+       on every tier;
+    4. a chapter of at least ``SERVE_TIERS_MIN_CHUNKS`` chunks on
+       /synthesize/longform while 2 closed-loop interactive clients run:
+       the tier and chunk headers, the stitcher's sample arithmetic, each
+       chunk outside the crossfades within ``SERVE_HTTP_LSB`` of the chunk
+       run alone (``run(eager=True)``), seam RMS, TTFA, and the clients'
+       p50 beside their p50 without the chapter;
+    5. ``tier_poison`` on the int8 fleet: the prober pages on teacher-int8
+       alone, the poisoned tier's gate refuses it, and ``batch`` falls back
+       to teacher-f32 (``X-Model-Tier``). Returns the trace's kernels."""
+    import http.client
+    import threading
+    import traceback
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import yaml
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.cli import config_from_args
+    from speakingstyle_torch.cli.serve import build_parser
+    from speakingstyle_torch.faults import FaultPlan
+    from speakingstyle_torch.obs import MetricsRegistry
+    from speakingstyle_torch.obs.quality import validate_wav
+    from speakingstyle_torch.serving.engine import load_engine_parts
+    from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
+    from speakingstyle_torch.serving.longform import LongformService, plan_chunks
+    from speakingstyle_torch.serving.probes import GoldenProber
+    from speakingstyle_torch.serving.server import SynthesisServer
+    from speakingstyle_torch.serving.tiers import TierRouter, tier_fleets, tier_gate
+    from speakingstyle_torch.serving.traffic import TrafficModel
+
+    out = os.path.join(tmp, "serve_tiers")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = dict(
+        SERVE_FLEET_LATTICE, fleet={"class_deadline_ms": SERVE_FLEET_DEADLINES},
+        tiers={"enabled": True, "precisions": ["f32", "bf16", "int8"],
+               "class_tier": SERVE_TIERS_CLASS_TIER, "tier_tolerance": SERVE_TIERS_TOLERANCE},
+        quality={"probe_mel_tolerance": SERVE_TIERS_PROBE_TOLERANCE,
+                 "anchor_dir": os.path.join(out, "anchors")},
+        longform=SERVE_TIERS_LONGFORM)
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    args = build_parser().parse_args(cli_args + ["--restore_step", str(step), "--seed",
+                                                 str(seed)])
+    cfg = config_from_args(args)
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    events, registry = EventLog(), MetricsRegistry()
+    plans = {name: FaultPlan() for name in SERVE_TIERS_NAMES}
+    server = prober = None
+    prof, profiling = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), False
+    try:
+        model, vocoder, _, _ = load_engine_parts(cfg, step, device=dev, vocoder_seed=seed + 1)
+        t0 = time.perf_counter()
+        fleets = tier_fleets(cfg, model, vocoder, SERVE_TIERS_NAMES, device=dev,
+                             registry=registry, fault_plans=plans, events=events)
+        for name, fleet in fleets.items():
+            if not fleet.wait_ready(timeout=300):
+                errors = [r.error for r in fleet._replicas if r.error is not None]
+                fail(f"serve_tiers: the {name} fleet did not warm: {fleet.states()}, "
+                     f"{events.of('replica_warm_failed')}: "
+                     + ("".join(traceback.format_exception(errors[0])) if errors else ""))
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reserved3 = torch.cuda.memory_reserved(dev)
+        engines = {name: fleet.engines()[0] for name, fleet in fleets.items()}
+        emit("serve_tiers_warmup", nvidia_smi=smi, tiers=list(SERVE_TIERS_NAMES),
+             lattice=SERVE_FLEET_LATTICE, model=SERVE_HTTP_MODEL, warm_s=warm_s,
+             programs={n: e.compile_count for n, e in engines.items()},
+             memory_reserved_bytes={"before": reserved0, "tiers_3": reserved3},
+             memory_reserved_tiers_bytes=reserved3 - reserved0)
+
+        router = TierRouter(cfg, registry=registry)
+        router.add_tier("teacher-f32", fleets["teacher-f32"])
+        wavs, _ = write_smoke_inputs(out, cfg, seed)
+        frontend = TextFrontend(cfg, load_ref_mel(cfg, wavs[-1]))
+        prober = GoldenProber(router, cfg, style=fleets["teacher-f32"].style, registry=registry,
+                              events=events, start=False)
+        server = SynthesisServer(frontend=frontend, host="127.0.0.1", port=0, events=events,
+                                 router=router, probes=prober)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        address = server.address[:2]
+        compiles = (registry.value("serve_compiles_total"),
+                    registry.value("serve_style_compiles_total"))
+        reset_counts()
+        prof.start()
+        profiling = True
+        prime_trace()
+
+        style_ids = []
+        for w in wavs:
+            with open(w, "rb") as f:
+                status, _, body, _ = http_call(address, "POST", "/styles", f.read(),
+                                               {"Content-Type": "audio/wav"})
+            if status != 200:
+                fail(f"serve_tiers: POST /styles answered {status}: {body[:300]!r}")
+            style_ids.append(json.loads(body)["style_id"])
+
+        def closed_loop(n, want_tier, stop=None):
+            """SERVE_TIERS_LF_CLIENTS interactive clients on kept-alive
+            connections, ``n`` requests each or until ``stop``; returns their
+            threads and latencies (a tuple for an answer that is not a 200
+            from ``want_tier``)."""
+            lat = []
+
+            def client(c):
+                conn = http.client.HTTPConnection(*address, timeout=300)
+                try:
+                    i = 0
+                    while (i < n) if stop is None else not stop.is_set():
+                        p = {"text": TEXTS[(c + i) % len(TEXTS)], "style_id": style_ids[c]}
+                        status, headers, _, secs = http_call(address, "POST", "/synthesize", p,
+                                                             conn=conn)
+                        ok = status == 200 and headers.get("X-Model-Tier") == want_tier
+                        with lock:
+                            lat.append(secs if ok else (status, headers.get("X-Model-Tier")))
+                        i += 1
+                finally:
+                    conn.close()
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_TIERS_LF_CLIENTS)]
+            for t in threads:
+                t.start()
+            return threads, lat
+
+        def join(threads):
+            for t in threads:
+                t.join(timeout=300)
+
+        # 1. the gates, on the card while the anchor tier serves 2 clients
+        lock = threading.Lock()
+        stop = threading.Event()
+        threads, during_gates = closed_loop(0, "teacher-f32", stop=stop)
+        gates = {}
+        try:
+            for name in SERVE_TIERS_NAMES[1:]:
+                gates[name] = tier_gate(engines[name], engines["teacher-f32"], cfg, name)
+            # the int8 tier is not routed yet: nothing else reads its scales
+            with perturbed_int8_scales(engines["teacher-int8"], SERVE_TIERS_CONTROL_SPREAD,
+                                       seed) as n_scales:
+                control = tier_gate(engines["teacher-int8"], engines["teacher-f32"], cfg,
+                                    "teacher-int8")
+            restored = tier_gate(engines["teacher-int8"], engines["teacher-f32"], cfg,
+                                 "teacher-int8")
+        finally:
+            stop.set()
+            join(threads)
+        for name, g in gates.items():
+            router.add_tier(name, fleets[name], gate=g)
+        emit("serve_tiers_gates", nvidia_smi=smi, tolerance=SERVE_TIERS_TOLERANCE,
+             gates={n: g.as_dict() for n, g in gates.items()},
+             control={"spread": SERVE_TIERS_CONTROL_SPREAD, "scales": n_scales,
+                      **control.as_dict()},
+             int8_restored_mel_l2=restored.mel_l2, routing=router.routing_table(),
+             requests_during_gates=len(during_gates))
+        if not all(g.shipped for g in gates.values()) or not during_gates or any(
+                not isinstance(x, float) for x in during_gates) or control.shipped \
+                or restored.mel_l2 != gates["teacher-int8"].mel_l2:
+            fail(f"serve_tiers: the gates { {n: g.as_dict() for n, g in gates.items()} }, "
+                 f"the control {control.as_dict()}, int8 restored {restored.mel_l2}, "
+                 f"the anchor's answers meanwhile {during_gates[:8]}")
+
+        # 2. open-loop mixed traffic; a long_form event is a chapter of
+        # length_frac x chunk_phoneme_cap phonemes or more, planned here
+        # (off the clock) and sent to /synthesize/longform
+        schedule = TrafficModel(seed=seed, **SERVE_TIERS_TRAFFIC).schedule()
+        cap = server.longform.chunk_phoneme_cap
+        chapters = {}
+        for i, e in enumerate(schedule):
+            if e.kind == "long_form":
+                sentences = []
+                while sum(len(c.sequence) for c in plan_chunks(
+                        " ".join(sentences), frontend.sequence, cap)) < e.length_frac * cap:
+                    sentences.append(TEXTS[(i + len(sentences)) % len(TEXTS)])
+                text = " ".join(sentences)
+                chapters[i] = (text, len(plan_chunks(text, frontend.sequence, cap)))
+        routed0 = {n: registry.value("serve_tier_dispatch_total", {"tier": n})
+                   for n in SERVE_TIERS_NAMES}
+        answers = []
+
+        def send(i, e):
+            if i in chapters:
+                p = {"text": chapters[i][0], "style_id": style_ids[e.style]}
+                status, headers, body, ttfa, secs = stream_call(
+                    address, p, timeout=120, path="/synthesize/longform")
+            else:
+                text = TEXTS[min(len(TEXTS) - 1, int(e.length_frac * len(TEXTS)))]
+                p = {"text": text, "style_id": style_ids[e.style], "priority": e.priority}
+                status, headers, body, secs = http_call(address, "POST", "/synthesize", p,
+                                                        timeout=120)
+            with lock:
+                answers.append((i, e, status, headers, body, secs))
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=64) as pool:
+            for i, e in enumerate(schedule):
+                wait = t0 + e.t - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                pool.submit(send, i, e)
+        traffic_s = time.perf_counter() - t0
+        routed = {n: registry.value("serve_tier_dispatch_total", {"tier": n}) - routed0[n]
+                  for n in SERVE_TIERS_NAMES}
+        after = (registry.value("serve_compiles_total"),
+                 registry.value("serve_style_compiles_total"))
+        # routed submits: one a /synthesize answer, a chunk an answered
+        # chapter; a shed chapter may have routed up to all its chunks
+        bad, by_class, n_routed, n_shed_chunks = [], {}, 0, 0
+        for i, e, status, headers, body, secs in answers:
+            klass = "long_form" if i in chapters else e.priority
+            want = router.tier_for(server.longform.klass if i in chapters else e.priority)
+            row = by_class.setdefault(klass, {"ok": [], "shed": 0})
+            if status == 200:
+                wav = pcm_of("serve_tiers traffic", body, sr)
+                verdict = validate_wav(wav, sr, cfg.serve.quality)
+                n = chapters[i][1] if i in chapters else 1
+                if headers.get("X-Model-Tier") != want or not len(wav) or not verdict.ok or (
+                        i in chapters and (headers.get("X-Longform-Tier") != "chunked" or int(
+                            headers.get("X-Longform-Chunks", -1)) != n)):
+                    bad.append({"class": klass, "tier": headers.get("X-Model-Tier"),
+                                "want": want, "samples": len(wav), "chunks": n,
+                                "headers": {k: v for k, v in headers.items()
+                                            if k.startswith("X-")},
+                                "quality": verdict.as_dict()})
+                row["ok"].append(secs)
+                n_routed += n
+            elif status == 429 and headers.get("Retry-After"):
+                row["shed"] += 1
+                if i in chapters:
+                    n_shed_chunks += chapters[i][1]
+                else:
+                    n_routed += 1
+            else:
+                bad.append({"class": klass, "status": status,
+                            "body": body[:200].decode(errors="replace")})
+        emit("serve_tiers_traffic", nvidia_smi=smi, schedule=dict(
+            SERVE_TIERS_TRAFFIC, seed=seed, events=len(schedule),
+            kinds={k: sum(e.kind == k for e in schedule) for k in ("interactive", "batch",
+                                                                   "long_form")},
+            chapter_chunks=[n for _, n in chapters.values()]),
+             traffic_s=traffic_s, latency_ms={k: quantiles_ms(v["ok"]) if v["ok"] else None
+                                              for k, v in by_class.items()},
+             shed={k: v["shed"] for k, v in by_class.items()}, routed=routed,
+             compiles={"before": compiles, "after": after})
+        if len(answers) != len(schedule) or bad:
+            fail(f"serve_tiers: {len(answers)} answers of {len(schedule)}; bad {bad[:8]}")
+        if not n_routed <= sum(routed.values()) <= n_routed + n_shed_chunks \
+                or after != compiles:
+            fail(f"serve_tiers: routed {routed} for {n_routed} routed submits (+ up to "
+                 f"{n_shed_chunks} of shed chapters); compiles {compiles} -> {after}")
+
+        # 3. the prober on the unchanged weights
+        t0 = time.perf_counter()
+        prober.pin()
+        pin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        healthy = prober.probe_once()
+        probe_s = time.perf_counter() - t0
+        emit("serve_tiers_probes", nvidia_smi=smi, pin_s=pin_s, probe_s=probe_s,
+             round=healthy, alerting=prober.alerting())
+        if any(t["mel_drift"] != 0.0 for t in healthy["tiers"].values()) \
+                or healthy["style_drift"] != 0.0 or set(healthy["tiers"]) != \
+                set(SERVE_TIERS_NAMES) or any(prober.alerting().values()):
+            fail(f"serve_tiers: the prober read drift on unchanged weights: {healthy}")
+
+        # 4. a chapter beside two interactive clients
+        fe_seq = frontend.sequence
+        sentences = []
+        while len(plan_chunks(" ".join(sentences), fe_seq, cap)) < SERVE_TIERS_MIN_CHUNKS:
+            sentences.append(TEXTS[len(sentences) % len(TEXTS)])
+        chapter = {"text": " ".join(sentences)}
+
+        threads, alone = closed_loop(SERVE_TIERS_LF_REQUESTS, "teacher-bf16")
+        join(threads)
+        stop = threading.Event()
+        threads, beside = closed_loop(0, "teacher-bf16", stop=stop)
+        try:
+            status, headers, body, ttfa, lf_s = stream_call(address, chapter,
+                                                            path="/synthesize/longform")
+        finally:
+            stop.set()
+            join(threads)
+        if status != 200:
+            fail(f"serve_tiers: /synthesize/longform answered {status}: {body[:300]!r}")
+        wav = pcm_of("serve_tiers longform", body, sr)
+        # each chunk alone on its tier's engine, from the same plan
+        svc = LongformService(cfg, frontend, None, registry=MetricsRegistry())
+        plan = svc.admit("alone", chapter)
+        lf_tier = router.tier_for(server.longform.klass)
+        engine = engines[lf_tier]
+        hop = engine.vocoder.hop_factor
+        fade = cfg.serve.longform.crossfade_frames * cfg.preprocess.preprocessing.stft.hop_length
+        pieces = [engine.run([svc._chunk_request(plan, c)], eager=True)[0].wav
+                  for c in plan.chunks]
+        n = len(pieces)
+        want_samples = sum(len(p) for p in pieces) - (n - 1) * fade
+        worst, at, chunk_lsb = 0, 0, []
+        for i, p in enumerate(pieces):
+            lo = fade if i else 0
+            hi = len(p) - (fade if i < n - 1 else 0)
+            got = wav[at + lo: at + hi] if len(wav) == want_samples else np.zeros(0, np.int16)
+            lsb = int(np.abs(got.astype(np.int32) - p[lo:hi].astype(np.int32)).max(initial=0)) \
+                if len(got) == hi - lo else None
+            chunk_lsb.append(lsb)
+            at += len(p) - fade
+        done = events.of("longform_done")
+        bad_lat = [x for x in alone + beside if not isinstance(x, float)]
+        emit("serve_tiers_longform", nvidia_smi=smi, chunks=int(headers.get(
+            "X-Longform-Chunks", -1)), plan_chunks=n, tier=headers.get("X-Longform-Tier"),
+             model_tier=headers.get("X-Model-Tier"), samples=len(wav),
+             want_samples=want_samples, fade_samples=fade, chunk_samples=[len(p) for p in pieces],
+             chunk_vs_alone_lsb=chunk_lsb, lsb_bound=SERVE_HTTP_LSB, ttfa_ms=ttfa * 1e3,
+             chapter_s=lf_s, seam_rms=hist_view(registry, "serve_longform_seam_rms"),
+             seam_rms_max=done[-1]["seam_rms_max"] if done else None,
+             interactive_latency_ms={
+                 "alone": quantiles_ms([x for x in alone if isinstance(x, float)]),
+                 "beside_the_chapter": quantiles_ms([x for x in beside if isinstance(x, float)])
+                 if any(isinstance(x, float) for x in beside) else None})
+        if not (headers.get("X-Longform-Tier") == "chunked"
+                and int(headers.get("X-Longform-Chunks", -1)) == n >= SERVE_TIERS_MIN_CHUNKS
+                and headers.get("X-Model-Tier") == lf_tier and len(wav) == want_samples
+                and all(len(p) > 2 * fade for p in pieces)
+                and all(lsb is not None and lsb <= SERVE_HTTP_LSB for lsb in chunk_lsb)
+                and not bad_lat and done and done[-1]["seams"] == n - 1):
+            fail(f"serve_tiers: the chapter: headers {headers}, samples {len(wav)} (want "
+                 f"{want_samples}), chunk LSB {chunk_lsb}, clients {bad_lat[:4]}")
+
+        # 5. tier_poison on the int8 fleet: the prober pages on it alone,
+        # its gate refuses it, and its class falls back to teacher-f32
+        poisoned = "teacher-int8"
+        alerts0 = len(events.of("probe_drift_alert"))
+        fail0 = registry.value("serve_quality_class_fail_total", {"class": "probe"})
+        plans[poisoned].arm("tier_poison", fleets[poisoned].dispatch_total + 1)
+        status, headers, _, _ = http_call(address, "POST", "/synthesize",
+                                          {"text": TEXTS[1], "priority": "batch"})
+        drill = prober.probe_once()
+        paged = [f["tier"] for f in events.of("probe_drift_alert")[alerts0:]]
+        gate = tier_gate(engines[poisoned], engines["teacher-f32"], cfg, poisoned)
+        router.add_tier(poisoned, fleets[poisoned], gate=gate)
+        fb_status, fb_headers, fb_body, _ = http_call(address, "POST", "/synthesize",
+                                                      {"text": TEXTS[1], "priority": "batch"})
+        _, _, health_body, _ = http_call(address, "GET", "/healthz")
+        health = json.loads(health_body)
+        torch.cuda.synchronize()
+    finally:
+        if profiling:
+            prof.stop()
+    try:
+        credited = read_counts()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        window_ms, busy_ms, by_name, ours = device_time("serve_tiers", kernels)
+        launches = check_trace("serve_tiers", by_name, credited)
+        final = (registry.value("serve_compiles_total"),
+                 registry.value("serve_style_compiles_total"))
+        emit("serve_tiers_poison", nvidia_smi=smi, poisoned=poisoned,
+             poisoning_status=status, poisoning_quality=headers.get("X-Audio-Quality"),
+             round=drill, paged=paged, alerting=prober.alerting(),
+             quality_fail_delta=registry.value("serve_quality_class_fail_total",
+                                               {"class": "probe"}) - fail0,
+             gate=gate.as_dict(), routing=router.routing_table(),
+             fallback={"status": fb_status, "tier": fb_headers.get("X-Model-Tier")},
+             healthz_tiers=health.get("tiers"), healthz_probes=health.get("quality", {}).get(
+                 "probes"))
+        if not (status in (200, 500) and paged == [poisoned] and registry.value(
+                "serve_quality_class_fail_total", {"class": "probe"}) > fail0
+                and prober.alerting() == {poisoned: True} and not gate.shipped
+                and router.routing_table()["batch"] == "teacher-f32" and fb_status == 200
+                and fb_headers.get("X-Model-Tier") == "teacher-f32"
+                and health.get("tiers", {}).get("gates", {}).get(poisoned, {}).get("shipped")
+                is False and "probes" in health.get("quality", {})):
+            fail(f"serve_tiers: the tier_poison drill: paged {paged}, alerting "
+                 f"{prober.alerting()}, gate {gate.as_dict()}, fallback {fb_status} "
+                 f"{fb_headers.get('X-Model-Tier')}")
+        emit("serve_tiers", nvidia_smi=smi, under_profiler=True,
+             compiles={"before": compiles, "after": final},
+             trace={"trace_window_ms": window_ms, "device_busy_ms": busy_ms,
+                    "idle_share": 1.0 - busy_ms / window_ms, "port_kernel_ms": ours,
+                    "kernels_in_trace": launches, "credited": credited})
+        if final != compiles:
+            fail(f"serve_tiers: programs were prepared in the phase: {compiles} -> {final}")
+        for name in ("fused_attention_fwd_bf16sm", "fused_conv1d_fwd"):
+            if launches[name] <= 0:
+                fail(f"serve_tiers: {name} ran no time in the phase's trace: {launches}")
+    finally:
+        if prober is not None:
+            prober.close()
+        if server is not None:
+            server.shutdown()
+    del server, prober, router, fleets, engines, model, vocoder, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def traced_replay(engine, requests):
     """One replayed dispatch under ``torch.profiler``: (results, {device
     busy ms and idle share in the traced window, the port's kernels counted
@@ -4633,13 +5179,16 @@ def main(argv=None) -> int:
                               smi)
         fleet_launches = timed("serve_fleet", serve_fleet_phase, restore_tmp, step, args.seed,
                                dev, smi)
+        tiers_launches = timed("serve_tiers", serve_tiers_phase, restore_tmp, step, args.seed,
+                               dev, smi)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
     train_counts, train_sm16_counts, train_cases, distill_per_step = timed(
         "train", train_phase, train_config, dev, args.seed)
     cases.update(train_cases)
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
-         serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"])
+         serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"],
+         serve_tiers_s=PHASE_S["serve_tiers"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -4683,6 +5232,10 @@ def main(argv=None) -> int:
             # the serve_fleet phase's steady traffic over both replicas,
             # counted by name in its trace
             "serve_fleet_launches": fleet_launches[name],
+            # the serve_tiers phase (gates, traffic, probes, the chapter,
+            # the poison drill over three tier fleets), counted by name in
+            # its trace
+            "serve_tiers_launches": tiers_launches[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -12,9 +12,15 @@ vocoder point and every style-encoder point: a CUDA graph each on the
 card) before the socket binds, then serves the API of
 serving/server.py:
 
-  POST /synthesize, POST /synthesize/stream, POST /styles, GET /styles,
-  GET /healthz, GET /metrics, GET /debug/programs,
-  POST /debug/profile?seconds=N
+  POST /synthesize, POST /synthesize/stream, POST /synthesize/longform,
+  POST /styles, GET /styles, GET /healthz, GET /metrics,
+  GET /debug/programs, POST /debug/profile?seconds=N
+
+``POST /synthesize/longform`` serves chapters on the chunked long-form tier
+(serving/longform.py) over the same backend, on one engine or behind
+``--replicas N``. ``serve.longform.mesh_seq > 1`` asks for the ring tier,
+which is multi-device work (ROADMAP.md queue A item 6): the command exits
+non-zero naming it.
 
 ``serve.trace`` sizes the span ring and arms span recording,
 ``serve.slo.enabled`` starts the SLO burn-rate engine, and one
@@ -49,6 +55,7 @@ import signal
 import threading
 
 from speakingstyle_torch.cli import add_config_args, config_from_args
+from speakingstyle_torch.serving.longform import RING_MISSING
 
 CLUSTER_MISSING = ("--cluster (replicas as separate processes behind the distributed control "
                    "plane) is not ported yet (ROADMAP.md queue A item 5c); serve the fleet "
@@ -172,6 +179,8 @@ def main(args):
     replicas = args.replicas if args.replicas is not None else cfg.serve.fleet.replicas
     if replicas > 1 and args.cluster:
         raise SystemExit(CLUSTER_MISSING)
+    if cfg.serve.longform.mesh_seq > 1:
+        raise SystemExit(RING_MISSING)
     if replicas <= 1 and args.enable_rollout:
         print("warning: --enable_rollout needs fleet mode (--replicas > 1); ignoring", flush=True)
     if replicas <= 1 and args.cluster:
@@ -237,8 +246,8 @@ def main(args):
     print(f"latency pipeline: frontend_workers={cfg.serve.frontend_workers} (0 = inline G2P), "
           f"stream_depth={cfg.serve.fleet.stream_depth} (1 = sequential vocode)", flush=True)
     print(f"serving on http://{host}:{port} (POST /synthesize, POST /synthesize/stream, "
-          "POST /styles, GET /styles, GET /healthz, GET /metrics, GET /debug/programs, "
-          "POST /debug/profile?seconds=N"
+          "POST /synthesize/longform, POST /styles, GET /styles, GET /healthz, GET /metrics, "
+          "GET /debug/programs, POST /debug/profile?seconds=N"
           + (", POST /admin/rollout" if server.lifecycle is not None else "") + ")", flush=True)
     try:
         server.serve_forever()

@@ -445,9 +445,10 @@ TIER_PRECISIONS = ("f32", "bf16", "int8")
 class TiersConfig:
     """Quality tiers (copied whole from the JAX package): precision
     variants of the acoustic lattice. A tier name is
-    ``<model>-<precision>`` (``teacher-f32``, ``student-int8``); the port's
-    engine reads ``enabled`` and ``precisions``, the rest waits for the
-    tier router (ROADMAP.md queue A item 5)."""
+    ``<model>-<precision>`` (``teacher-f32``, ``student-int8``); the
+    engine reads ``enabled`` and ``precisions``, serving/tiers.py the
+    routing, the gate's tolerance and the golden set, which the golden
+    prober (serving/probes.py) replays too."""
 
     enabled: bool = False
     # precision tiers the lattice prepares; the first is the default
@@ -490,7 +491,9 @@ class TiersConfig:
 @dataclass(frozen=True)
 class QualityConfig:
     """The audio-quality gate's thresholds (obs/quality.py), and the golden
-    prober's knobs, which wait for the prober (ROADMAP.md queue A item 5)."""
+    prober's knobs (serving/probes.py): its traffic class, which the fleet
+    keeps out of its shed, SLO and autoscaler accounting, its deadline,
+    cadence, drift tolerances and anchor directory."""
 
     enabled: bool = True
     # fraction of samples at >= 99.9% full scale before a wav fails
@@ -792,15 +795,79 @@ class SloConfig:
 
 
 @dataclass(frozen=True)
+class LongformConfig:
+    """Long-form (chapter-length) synthesis (copied whole from the JAX
+    package; serving/longform.py). The chunked tier splits a chapter at
+    sentence boundaries into utterances that each fit the interactive
+    lattice, synthesizes them as one deadline-sharing group of requests
+    through the batcher or the fleet, and joins them with an equal-power
+    crossfade, streamed chunk by chunk in bounded memory. The ring tier
+    (``mesh_seq > 1``: one chapter-length utterance as one ring-attention
+    program over a sequence mesh, at ``src_buckets`` / ``mel_buckets``)
+    is ROADMAP.md queue A item 6: its keys are accepted and validated, and
+    ``serve`` refuses ``mesh_seq > 1``."""
+
+    # sequence-mesh size of the ring tier; 0 or 1 = the chunked tier only
+    mesh_seq: int = 0
+    # padded text / mel lengths of the ring tier, above the interactive
+    # lattice; each divisible by mesh_seq
+    src_buckets: List[int] = field(default_factory=lambda: [512, 1024])
+    mel_buckets: List[int] = field(default_factory=lambda: [6144, 12288])
+    # mel frames of equal-power crossfade at each chunk seam (times the
+    # vocoder hop in samples)
+    crossfade_frames: int = 8
+    # admission cap on a chapter, in chunks after sentence packing
+    max_chunks: int = 64
+    # chunk requests in flight ahead of the stitch point
+    group_depth: int = 4
+    # the chapter's group budget is n_chunks * this, clamped to
+    # fleet.max_deadline_ms
+    deadline_ms_per_chunk: float = 2000.0
+    # "auto" rings when a ring tier is up and the chapter fits it, else
+    # chunks; "chunked" / "ring" force a tier ("ring" degrades to chunked)
+    tier: str = "auto"
+
+    def __post_init__(self):
+        if self.mesh_seq < 0:
+            raise ValueError(f"serve.longform.mesh_seq must be >= 0, got {self.mesh_seq}")
+        for name in ("src_buckets", "mel_buckets"):
+            vals = getattr(self, name)
+            if not vals:
+                raise ValueError(f"serve.longform.{name} must be non-empty")
+            if any(v <= 0 for v in vals):
+                raise ValueError(f"serve.longform.{name} must be positive, got {vals}")
+            if sorted(vals) != list(vals) or len(set(vals)) != len(vals):
+                raise ValueError(f"serve.longform.{name} must be strictly ascending, got {vals}")
+            if self.mesh_seq > 1 and any(v % self.mesh_seq for v in vals):
+                raise ValueError(
+                    f"serve.longform.{name} must be divisible by mesh_seq={self.mesh_seq} "
+                    f"(ring shards the length axis evenly), got {vals}")
+        if self.crossfade_frames < 0:
+            raise ValueError(
+                f"serve.longform.crossfade_frames must be >= 0, got {self.crossfade_frames}")
+        if self.max_chunks <= 0:
+            raise ValueError(f"serve.longform.max_chunks must be > 0, got {self.max_chunks}")
+        if self.group_depth < 1:
+            raise ValueError(f"serve.longform.group_depth must be >= 1, got {self.group_depth}")
+        if self.deadline_ms_per_chunk <= 0:
+            raise ValueError(
+                "serve.longform.deadline_ms_per_chunk must be > 0, got "
+                f"{self.deadline_ms_per_chunk}")
+        if self.tier not in ("auto", "chunked", "ring"):
+            raise ValueError(
+                f"serve.longform.tier must be 'auto'|'chunked'|'ring', got {self.tier!r}")
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """The synthesis engine's shape lattice (serving/lattice.py): every
     dispatch runs at a ``(batch, L_src, T_mel)`` drawn from the cross
     product of these buckets; ``T_mel`` is the free-run output buffer.
     The HTTP server's and the fleet's keys follow (serving/batcher.py,
     serving/server.py, serving/fleet.py, serving/autoscale.py,
-    serving/lifecycle.py, cli/serve.py). The JAX package's serve keys that
-    no ported module reads yet (``longform``, ``cluster``, ``parallel``)
-    are listed in ROADMAP.md queue A items 5b, 5c and 6."""
+    serving/lifecycle.py, serving/longform.py, cli/serve.py). The JAX
+    package's serve keys that no ported module reads yet (``cluster``,
+    ``parallel``) are listed in ROADMAP.md queue A items 5c and 6."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
@@ -834,6 +901,7 @@ class ServeConfig:
     quality: QualityConfig = field(default_factory=QualityConfig)
     autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
     rollout: RolloutConfig = field(default_factory=RolloutConfig)
+    longform: LongformConfig = field(default_factory=LongformConfig)
 
     def __post_init__(self):
         for name in ("batch_buckets", "src_buckets", "mel_buckets"):

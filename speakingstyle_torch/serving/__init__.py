@@ -16,11 +16,15 @@ Layering:
                   supervision, re-warm and the rollout surface
   lifecycle.py -- the canary-gated rolling rollout
   autoscale.py -- the policy thread that drives the fleet's scale_to()
-  server.py    -- the stdlib HTTP front end over the batcher or the fleet
+  tiers.py     -- class -> quality-tier routing over canary-gated tier fleets
+  probes.py    -- golden probes of the live fleet against pinned anchors
+  longform.py  -- chapter-length requests as deadline-sharing chunk groups
+  traffic.py   -- the seeded diurnal / flash-crowd load model
+  server.py    -- the stdlib HTTP front end over the batcher or a router
 
 The package exports what the JAX package's does (the fleet's modules are
-imported by name). The tier router, probes, the long-form tier and the
-traffic model are ROADMAP.md queue A item 5b-ii; the cluster is 5c.
+imported by name). The cluster is ROADMAP.md queue A item 5c, the ring
+long-form tier item 6.
 """
 
 from speakingstyle_torch.serving.batcher import (  # noqa: F401

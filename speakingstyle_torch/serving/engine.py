@@ -217,8 +217,14 @@ class SynthesisEngine:
     consumes ``vocoder_raise@N`` (the Nth ``vocode_dispatch``, 1-based) and
     is handed to the StyleService (``style_encode_error@N``). ``style``
     injects a StyleService shared with other engines (built over the same
-    model's reference encoder); without it the engine builds its own."""
+    model's reference encoder); without it the engine builds its own.
 
+    The constructor's device work (moving the modules, casting the tier
+    trees) holds ``DEVICE_GATE`` shared like a dispatch: an engine built
+    while another one's program is captured (a fleet or a tier warming)
+    would otherwise invalidate that capture."""
+
+    @dispatching
     def __init__(self, cfg: Config, model=None, vocoder=None,
                  lattice: Optional[BucketLattice] = None, device=None, seed: int = 0,
                  registry: Optional[MetricsRegistry] = None,

@@ -702,13 +702,17 @@ class FleetRouter:
         self._cond.notify_all()
 
     def _resolve_pending(self, p: _Pending) -> bool:
-        """Swap a frontend handle for its resolved request in place. False:
-        the frontend raised, the future carries the error, and the entry
-        leaves the batch."""
+        """Swap a frontend handle for its resolved request in place, keeping
+        a precision a tier router stamped on the handle (the JAX router
+        drops it here). False: the frontend raised, the future carries the
+        error, and the entry leaves the batch."""
         if not getattr(p.request, "pending", False):
             return True
         try:
             request = p.request.resolve()
+            precision = getattr(p.request, "precision", None)
+            if precision is not None:
+                request.precision = precision
             self._admit(request)  # geometry deferred from submit
         except BaseException as e:
             if not p.future.done():

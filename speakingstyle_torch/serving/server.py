@@ -26,9 +26,15 @@ API (every field of a synthesize payload but "text" optional):
                        vocoded (serving/streaming.py); serve_ttfa_seconds
                        records the first window
   POST /synthesize/longform
-                       400 until the chunked long-form tier is ported
-                       (ROADMAP.md queue A item 5b-ii), as the JAX server
-                       answers without a long-form service
+                       {"text" (a chapter), "speaker_id", scalar controls,
+                       "style_id" / "ref_audio", "tier"} -> chunked
+                       audio/wav: the chapter split at sentences into
+                       lattice-sized chunks, synthesized as one
+                       deadline-sharing group through the backend and
+                       joined by an equal-power crossfade
+                       (serving/longform.py); X-Longform-Tier,
+                       X-Longform-Chunks and X-Model-Tier headers; 413
+                       with "max_chunks" past serve.longform.max_chunks
   POST /styles         a reference wav (audio/wav body, or JSON
                        {"ref_audio": <ref_dir path>}, "?speaker=NAME")
                        -> {"style_id", "ref_frames", "speaker", "d_model",
@@ -36,10 +42,13 @@ API (every field of a synthesize payload but "text" optional):
                        runs no encoder work
   GET  /styles         -> {"styles": [...], "capacity"}
   GET  /healthz        -> the registry snapshot's view, build identity,
-                       the model block and the ``slo`` block; 503 until
-                       the engine's lattice is prepared, or behind a
-                       router until one replica is ready (the body then
-                       carries each replica's lifecycle state)
+                       the model block, the ``slo`` block, behind a tier
+                       router the ``tiers`` block (routing table, gate
+                       verdicts) and with a prober ``quality.probes``;
+                       503 until the engine's lattice is prepared, or
+                       behind a router until one replica (of the default
+                       tier) is ready (the body then carries each
+                       replica's lifecycle state)
   GET  /metrics        -> Prometheus text of the same registry
   GET  /debug/programs -> one ProgramCard dict per prepared program (every
                        replica's engine in index order, then the style
@@ -54,15 +63,15 @@ API (every field of a synthesize payload but "text" optional):
                        a RolloutManager, 400 on a bad body, 409 while one
                        runs, 200 with the outcome (committed or aborted)
 
-Status codes: 400 bad input, 413 a request past the lattice, 429 +
+Status codes: 400 bad input, 413 a request past the lattice (its body
+names the ceilings and ``/synthesize/longform``), 429 +
 Retry-After on shed (``serve_shed_total``), 503 on shutdown
 (``serve_rejected_total``), 504 on a timeout, 500 on a dispatch error or
 a wav that fails the quality gate. Every synthesize response, errors
 included, carries ``X-Request-Id`` and ``X-Trace-Id``.
 
-The tier router, probes and the long-form tier wait for ROADMAP.md queue
-A item 5b-ii, the cluster (and its span, metrics and profile fan-out
-hooks) for 5c.
+The cluster (and its span, metrics and profile fan-out hooks) waits for
+ROADMAP.md queue A item 5c, the ring long-form tier for item 6.
 """
 
 import concurrent.futures
@@ -87,6 +96,7 @@ from speakingstyle_torch.serving.batcher import ContinuousBatcher, Overloaded, S
 from speakingstyle_torch.serving.engine import SynthesisEngine
 from speakingstyle_torch.serving.frontend import FrontendPool, TextFrontend, confined_ref_path
 from speakingstyle_torch.serving.lattice import RequestTooLarge
+from speakingstyle_torch.serving.longform import LongformService
 from speakingstyle_torch.serving.resilience import DeadlineExceeded, DispatchError, ReplicaError
 
 __all__ = ["SynthesisServer", "wav_bytes", "wav_stream_header"]
@@ -94,8 +104,6 @@ __all__ = ["SynthesisServer", "wav_bytes", "wav_stream_header"]
 # how long a handler waits on its request's future (behind a router, no
 # longer than the class deadline and its grace either)
 REQUEST_TIMEOUT_S = 60.0
-LONGFORM_MISSING = ("long-form synthesis is not served by this server yet: the chunked "
-                    "long-form tier is ROADMAP.md queue A item 5b-ii")
 
 
 def wav_bytes(wav: np.ndarray, sampling_rate: int) -> bytes:
@@ -156,13 +164,16 @@ class SynthesisServer:
     /healthz model block and ``X-Model-Version`` header (a router publishes
     its own, ``set_model_version``); ``lifecycle`` a ``RolloutManager``
     that arms ``POST /admin/rollout``; ``slo`` an ``obs.slo.SloEngine``
-    whose status is the /healthz ``slo`` block."""
+    whose status is the /healthz ``slo`` block; ``probes`` a
+    ``GoldenProber`` whose status is the /healthz ``quality.probes`` block.
+    ``router`` may be a ``TierRouter`` (serving/tiers.py). With a frontend
+    the server builds the chunked ``LongformService`` over its backend."""
 
     def __init__(self, engine: Optional[SynthesisEngine] = None,
                  frontend: Optional[TextFrontend] = None, host: Optional[str] = None,
                  port: Optional[int] = None, events: Optional[JsonlEventLog] = None,
                  profile_dir: Optional[str] = None, router=None, lifecycle=None,
-                 model_info: Optional[Dict] = None, slo=None):
+                 model_info: Optional[Dict] = None, slo=None, probes=None):
         if engine is None and router is None:
             raise ValueError("SynthesisServer needs an engine or a router")
         self.engine = engine
@@ -171,6 +182,7 @@ class SynthesisServer:
         self.cfg = router.cfg if router is not None else engine.cfg
         serve = self.cfg.serve
         self.slo = slo
+        self.probes = probes
         self._model_info = model_info
         self.frontend = frontend
         self.registry = router.registry if router is not None else engine.registry
@@ -190,6 +202,12 @@ class SynthesisServer:
         else:
             self.batcher = ContinuousBatcher(engine, events=events)
             self.backend = self.batcher
+        # chapters (POST /synthesize/longform): the chunked tier needs only
+        # the frontend and the backend, so it is built whenever a frontend is
+        self.longform = (LongformService(self.cfg, frontend, self.backend,
+                                         registry=self.registry, events=events,
+                                         quality=self.quality_gate)
+                         if frontend is not None else None)
         self.frontend_pool = (FrontendPool(frontend, serve.frontend_workers,
                                            registry=self.registry, events=events)
                               if frontend is not None and serve.frontend_workers > 0 else None)
@@ -227,11 +245,13 @@ class SynthesisServer:
         return f"req{int(self._requests.inc()):08d}"
 
     def too_large_body(self) -> Dict:
-        """The 413 payload: the lattice's admissible ceiling per axis."""
+        """The 413 payload: the lattice's admissible ceiling per axis, and
+        the endpoint that takes chapters."""
         serve = self.cfg.serve
         return {"max_src": serve.src_buckets[-1], "max_mel": serve.mel_buckets[-1],
                 "max_phonemes": min(serve.src_buckets[-1],
-                                    serve.mel_buckets[-1] // serve.frames_per_phoneme)}
+                                    serve.mel_buckets[-1] // serve.frames_per_phoneme),
+                "longform": "/synthesize/longform"}
 
     def _result_timeout(self, request) -> float:
         """How long a handler waits on its future: ``REQUEST_TIMEOUT_S``,
@@ -363,13 +383,16 @@ class SynthesisServer:
         info = self.model_info()
         return info.get("version") if info else None
 
-    def model_tier(self, result=None) -> Optional[str]:
-        """The ``X-Model-Tier`` header: the result's tier, else
-        ``teacher-<precision>`` of the lattice's leading precision; None
-        for an f32-only lattice (nothing to tell apart)."""
+    def model_tier(self, result=None, klass: Optional[str] = None) -> Optional[str]:
+        """The ``X-Model-Tier`` header: the result's tier; else behind a
+        tier router the tier of ``klass`` (the default class when None);
+        else ``teacher-<precision>`` of the lattice's leading precision;
+        None for an f32-only lattice (nothing to tell apart)."""
         tier = getattr(result, "tier", None) if result is not None else None
         if tier:
             return tier
+        if self.router is not None and hasattr(self.router, "tier_for"):
+            return self.router.tier_for(klass)
         lattice = self.router.lattice if self.router is not None else self.engine.lattice
         precisions = tuple(lattice.precisions)
         return None if precisions == ("f32",) else f"teacher-{precisions[0]}"
@@ -435,12 +458,23 @@ class SynthesisServer:
             tier = self.model_tier()
             if tier is not None:
                 out["model"]["tier"] = tier
+        if self.router is not None and hasattr(self.router, "routing_table"):
+            # the effective class -> tier map and each tier's gate verdict
+            out["tiers"] = {
+                "default": self.router.default_tier,
+                "routing": self.router.routing_table(),
+                "gates": {name: (g.as_dict() if (g := self.router.gate_result(name)) is not None
+                                 else {"shipped": True, "detail": "ungated anchor"})
+                          for name in self.router.tiers()},
+            }
         if self.slo is not None:
             out["slo"] = self.slo.status()
         quality: Dict = {"validators": dict(self.quality_gate.status())}
         last = quality_last_fail()
         if last is not None:
             quality["last_fail"] = last
+        if self.probes is not None:
+            quality["probes"] = self.probes.status()
         if self.slo is not None:
             quality["slo"] = self.slo.quality_status()
         out["quality"] = quality
@@ -802,11 +836,93 @@ def _handler(outer: SynthesisServer):
             outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
 
         def _synthesize_longform(self, parsed):
+            """POST /synthesize/longform: a chapter in, one chunked audio/wav
+            out. The first stitched piece is pulled before any header goes
+            out, so an admission error or a failed first chunk is a clean
+            JSON error."""
             req_id = outer.next_req_id()
             trace_id = self.headers.get("X-Trace-Id") or req_id
-            self._body()
-            return self._fail(req_id, parsed, time.monotonic(), trace_id, 400,
-                              LONGFORM_MISSING)
+            t0 = time.monotonic()
+            try:
+                payload = json.loads(self._body() or b"{}")
+                if not isinstance(payload, dict):
+                    raise ValueError("payload must be a JSON object")
+                if outer.longform is None:
+                    raise ValueError("long-form synthesis needs a text frontend")
+                if not outer.streaming_available():
+                    raise ValueError("long-form synthesis requires a vocoder engine "
+                                     "(--griffin_lim serves mel JSON only)")
+                plan = outer.longform.admit(req_id, payload)
+                pieces = outer.longform.stream(plan)
+                first = next(pieces, None)
+            except Exception as e:
+                mapped = _error_status(e)
+                if mapped is None:
+                    raise
+                status, headers = mapped
+                extra = None
+                if status == 413:  # past even the chapter admission cap
+                    extra = dict(outer.too_large_body(),
+                                 max_chunks=outer.cfg.serve.longform.max_chunks)
+                return self._fail(req_id, parsed, t0, trace_id, status,
+                                  str(e) or "long-form synthesis timed out", headers, extra)
+            if first is not None:
+                # record=False: the stitcher's check already counted it
+                verdict = outer.quality_gate.check(first, klass=outer.longform.klass,
+                                                   source="server", record=False)
+                if not verdict.ok:
+                    reasons = ",".join(verdict.reasons)
+                    pieces.close()
+                    return self._fail(req_id, parsed, t0, trace_id, 500,
+                                      "audio quality check failed",
+                                      {"X-Audio-Quality": f"fail:{reasons}"},
+                                      {"reasons": list(verdict.reasons)})
+            sr = outer.cfg.preprocess.preprocessing.audio.sampling_rate
+
+            def write_chunk(data: bytes):
+                self.wfile.write(b"%X\r\n" % len(data))
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.send_header("X-Request-Id", req_id)
+            self.send_header("X-Trace-Id", trace_id)
+            self.send_header("X-Longform-Tier", plan.tier)
+            self.send_header("X-Longform-Chunks", str(len(plan.chunks)))
+            if plan.style_degraded:
+                self.send_header("X-Style-Degraded", "1")
+            version = outer.model_version()
+            if version is not None:
+                self.send_header("X-Model-Version", version)
+            tier = outer.model_tier(klass=outer.longform.klass)
+            if tier is not None:
+                self.send_header("X-Model-Tier", tier)
+            self.end_headers()
+            try:
+                with outer.stream_scope():
+                    write_chunk(wav_stream_header(sr))
+                    if first is not None:
+                        write_chunk(first.tobytes())
+                    for wav in pieces:
+                        write_chunk(wav.tobytes())
+                self.wfile.write(b"0\r\n\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                self.close_connection = True
+                outer.request_done(req_id, parsed.path, 499, t0, trace_id=trace_id)
+                return
+            except Exception as e:
+                # the headers are gone: a chunked body without its terminal
+                # chunk is the only honest signal
+                self.close_connection = True
+                outer.request_done(req_id, parsed.path, 500, t0, trace_id=trace_id)
+                if outer.events is not None:
+                    outer.events.emit("stream_abort", req_id=req_id, error=type(e).__name__)
+                return
+            finally:
+                pieces.close()
+            outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
 
         def _profile(self, parsed):
             if not outer.cfg.serve.debug_profile:

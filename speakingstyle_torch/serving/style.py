@@ -306,6 +306,17 @@ class StyleService:
                    speaker: Optional[str] = None) -> StyleVectors:
         return self.encode_mels([mel], keys=[key], speaker=speaker)[0]
 
+    def encode_live(self, mel: np.ndarray, speaker: Optional[str] = None) -> StyleVectors:
+        """A single-reference encode that bypasses the cache: always one
+        dispatch of the prepared ``(1, ref)`` program, never read from or
+        inserted into the cache (JAX ``style.py:464-482``). It is the
+        golden prober's style-drift path (serving/probes.py): a cached
+        vector would hide the very encoder drift the probe looks for.
+        Tenant traffic never uses it: it pays a dispatch on every call."""
+        m = np.asarray(mel, np.float32)
+        _, r = self.lattice.cover(1, m.shape[0])
+        return self._encode_chunk([m], r, speaker, [self.digest_mel(m)], insert=False)[0]
+
     def encode_wav_bytes(self, data: bytes, speaker: Optional[str] = None) -> StyleVectors:
         """Reference wav bytes -> StyleVectors, content-addressed by the
         bytes; a cache hit skips the mel extraction too."""
@@ -323,11 +334,12 @@ class StyleService:
 
     @dispatching
     def _encode_chunk(self, mels: List[np.ndarray], r: int, speaker: Optional[str],
-                      chunk_keys: List[str], eager: bool = False) -> List[StyleVectors]:
+                      chunk_keys: List[str], eager: bool = False,
+                      insert: bool = True) -> List[StyleVectors]:
         """One padded encoder dispatch: prepare on miss (counted; waiting
         for the compile lock with the device gate released), pad into pool
-        leases, run, read back, insert into the cache. A failed encode
-        never reaches the cache."""
+        leases, run, read back, insert into the cache (unless ``insert`` is
+        False). A failed encode never reaches the cache."""
         with self._attempts_lock:
             self._encode_attempts += 1
             attempt = self._encode_attempts
@@ -370,5 +382,5 @@ class StyleService:
         for i, (key, mel) in enumerate(zip(chunk_keys, mels)):
             entry = StyleVectors(gamma=gammas[i].copy(), beta=betas[i].copy(), key=key,
                                  ref_frames=int(mel.shape[0]), speaker=speaker)
-            out_entries.append(self._insert(entry))
+            out_entries.append(self._insert(entry) if insert else entry)
         return out_entries

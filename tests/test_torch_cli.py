@@ -588,6 +588,24 @@ def test_serve_command_refuses_a_fleet_and_runs_on_cuda_unless_told(monkeypatch)
         main(["serve", "--restore_step", "1", "--replicas", "2"])
 
 
+def test_serve_command_refuses_the_ring_long_form_tier(tmp_path):
+    """``serve.longform.mesh_seq > 1`` (the ring tier) exits non-zero naming
+    ROADMAP queue A item 6, on one engine and with a fleet, before anything
+    is loaded; mesh_seq 1 is the chunked tier and passes that check."""
+    import yaml
+
+    from speakingstyle_torch.__main__ import main
+
+    train = tmp_path / "train.yaml"
+    for mesh_seq, replicas in ((2, "1"), (4, "2")):
+        train.write_text(yaml.safe_dump({"serve": {"longform": {"mesh_seq": mesh_seq}}}))
+        with pytest.raises(SystemExit, match="queue A item 6"):
+            main(["serve", "-t", str(train), "--restore_step", "1", "--replicas", replicas])
+    train.write_text(yaml.safe_dump({"serve": {"longform": {"mesh_seq": 1}}}))
+    with pytest.raises(FileNotFoundError):  # past the check: no checkpoint to restore
+        main(["serve", "-t", str(train), "--restore_step", "1", "--device", "cpu"])
+
+
 def test_serve_command_with_two_replicas_on_the_cpu(tmp_path, corpus):  # noqa: F811
     """``serve --replicas 2 --device cpu --enable_rollout`` over a saved
     checkpoint: it binds at once with /healthz answering 503 (each replica

@@ -468,14 +468,15 @@ def test_port_imports_no_jax():
         "print(len([n for n in sys.modules if n.startswith('speakingstyle_torch')]))\n"
         "assert not bad, bad\n"
         "fleet = {'speakingstyle_torch.serving.' + m for m in "
-        "('fleet', 'lifecycle', 'autoscale', 'resilience')}\n"
+        "('fleet', 'lifecycle', 'autoscale', 'resilience', 'tiers', 'probes', 'longform', "
+        "'traffic')}\n"
         "assert fleet <= set(sys.modules), fleet - set(sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 72  # every submodule really imported (obs, faults, ...)
+    assert int(out.stdout.strip()) >= 76  # every submodule really imported (obs, faults, ...)
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

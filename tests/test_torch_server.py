@@ -19,7 +19,8 @@ gives real phonemes. Held:
 * 429 + ``Retry-After`` under shed, 503 after shutdown, ``X-Request-Id``
   and ``X-Trace-Id`` on every synthesize response;
 * the stream's PCM equal to the depth-1 stream of the same request;
-* ``/synthesize/longform`` answered 400, naming ROADMAP queue A item 5b.
+* ``/synthesize/longform``: a chapter answered 200 by both servers (the
+  stitched wavs within 4 LSB), a bad one 400; the 413 body's pointer to it.
 
 Every server is shut down in a fixture finalizer or a ``finally``, and
 every client call has a timeout.
@@ -320,10 +321,9 @@ def test_metrics_and_debug_programs(servers):
                 if line and not line.startswith("#")}
 
     texts = {k: call(s, "GET", "/metrics")[2].decode() for k, s in servers.items()}
-    # not the port's here: XLA's own counters, the long-form tier (ROADMAP
-    # queue A item 5b), and the programs' peak bytes, which the port
-    # measures from the card's graph capture only
-    want = {f for f in families(texts["jax"]) if not f.startswith(("jax_", "serve_longform_"))
+    # not the port's here: XLA's own counters, and the programs' peak
+    # bytes, which the port measures from the card's graph capture only
+    want = {f for f in families(texts["jax"]) if not f.startswith("jax_")
             and f != "serve_program_peak_bytes"}
     assert want - families(texts["torch"]) == set()
     text = texts["torch"]
@@ -429,23 +429,37 @@ def test_stream_equals_depth1_stream(servers):
 
 def test_request_past_the_lattice_is_413_as_jax(servers):
     """A text longer than the largest src bucket answers 413 in both
-    servers, the body stating the lattice's ceilings."""
+    servers, the body stating the lattice's ceilings and the endpoint that
+    takes chapters."""
     payload = {"text": " ".join(["hello there world"] * 4)}
     got = {k: call(s, "POST", "/synthesize", payload) for k, s in servers.items()}
     assert got["torch"][0] == got["jax"][0] == 413
     body, want = json.loads(got["torch"][2]), json.loads(got["jax"][2])
-    for key in ("max_src", "max_mel", "max_phonemes"):
+    for key in ("max_src", "max_mel", "max_phonemes", "longform"):
         assert body[key] == want[key]
+    assert body["longform"] == "/synthesize/longform"
     assert body["id"] == got["torch"][1]["X-Request-Id"]
 
 
 def test_longform_is_refused_until_5b(servers):
-    """Without the long-form tier the endpoint answers 400 with the request
-    id, and its message names ROADMAP queue A item 5b."""
-    status, headers, body = call(servers["torch"], "POST", "/synthesize/longform",
-                                 {"text": "hello there. speak now."})
+    """Since the chunked long-form tier is ported (queue A item 5b-ii) the
+    endpoint is refused only a bad chapter: a chapter answers 200 in both
+    servers, chunked the same way, the stitched wavs within 4 LSB (the
+    engines' 2 LSB through the crossfade's sin + cos <= sqrt(2) and its
+    rounding); an empty payload answers 400 with the request id. The name
+    is kept from when the whole endpoint was refused."""
+    chapter = {"text": "hello there. speak softly now. hello world. speak now."}
+    got = {k: call(s, "POST", "/synthesize/longform", chapter) for k, s in servers.items()}
+    assert got["torch"][0] == got["jax"][0] == 200, {k: v[2][:200] for k, v in got.items()}
+    (_, want_h, want_b), (_, headers, body) = got["jax"], got["torch"]
+    assert headers["X-Longform-Tier"] == want_h["X-Longform-Tier"] == "chunked"
+    assert headers["X-Longform-Chunks"] == want_h["X-Longform-Chunks"]
+    wav, want = pcm(body), pcm(want_b)
+    assert wav.shape == want.shape and wav.size > 0
+    assert np.abs(wav.astype(np.int32) - want.astype(np.int32)).max() <= 4
+    status, headers, body = call(servers["torch"], "POST", "/synthesize/longform", {})
     err = json.loads(body)
-    assert status == 400 and "queue A item 5b" in err["error"]
+    assert status == 400 and "text" in err["error"]
     assert err["id"] == headers["X-Request-Id"] and headers["X-Trace-Id"]
 
 
@@ -567,8 +581,8 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     shared = set(_fields(t)) & set(_fields(j))
     assert {k: _fields(t)[k] for k in shared} == {k: _fields(j)[k] for k in shared}
     assert set(_fields(t)) - set(_fields(j)) == set()
-    assert set(_fields(j)) - set(_fields(t)) == {"longform", "cluster", "parallel"}
-    for name in ("fleet", "trace", "slo", "autoscale", "rollout"):
+    assert set(_fields(j)) - set(_fields(t)) == {"cluster", "parallel"}
+    for name in ("fleet", "trace", "slo", "autoscale", "rollout", "longform"):
         assert _fields(getattr(tc.ServeConfig(), name)) == _fields(getattr(jc.ServeConfig(), name))
 
 
