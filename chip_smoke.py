@@ -176,14 +176,36 @@ printing one JSON line:
    clients' p50 with and without the chapter); ``tier_poison`` on the
    int8 fleet: the prober pages on it alone, its gate refuses it and
    ``batch`` falls back to teacher-f32.
+19. ``serve_cluster`` (after ``serve_tiers``, from the same checkpoint, kernel
+   path and lattice): the cluster, built through the serve command's
+   cluster branch (``serve.cluster.enabled``): the router, the StyleService
+   and ``SynthesisServer`` in this process, two ``python -m
+   speakingstyle_torch replica`` processes on the card, each with its own
+   engine and graphs. /healthz 503 until both are READY; each one's
+   spawn-to-lease seconds and ``memory_reserved``; neither rebuilt a kernel
+   library. Steady traffic (4 uploads, 4 closed-loop clients x 8) inside one
+   POST /debug/profile fan-out: in each process the port's kernels counted
+   by name in its window equal the launches it credited; X-Served-By names
+   both replicas; nothing prepared; latency, wire latency, hedges,
+   idempotent hits. One traced request joined across the processes; the
+   federated /metrics' wire dispatches add up to the router's. Drills under
+   8 concurrent requests (hedging off): ``replica_proc_kill`` (nothing
+   lost, a fresh process READY, the card's memory back), ``net_partition``
+   then heal (the same pid re-admitted, nothing captured again), a
+   replica's SIGTERM (its batch in flight answered, exit 0). Every 200
+   within ``SERVE_HTTP_LSB`` of ``run(eager=True)``. No replica process
+   outlives the phase. ``serve --replicas 2 --cluster`` in a subprocess
+   (started beside the partition and SIGTERM drills, which measure no time
+   or memory): /healthz 503 then 200, one request 200, exit 0 on SIGTERM,
+   its replicas gone.
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 A ``phase_seconds`` line gives each phase's seconds and the total.
 
 Then a summary line of every kernel (with its launches a distill step and
-in the traces of the ``serve_http`` and ``serve_fleet`` traffic and the
-``serve_tiers`` phase),
+in the traces of the ``serve_http`` and ``serve_fleet`` traffic, the
+``serve_tiers`` phase and the ``serve_cluster`` processes' windows),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -5069,6 +5091,779 @@ def serve_tiers_phase(tmp, step, seed, dev, smi):
     return launches
 
 
+SERVE_CLUSTER_REPLICAS = 2
+SERVE_CLUSTER_CLIENTS = 4
+SERVE_CLUSTER_REQUESTS = 8       # a closed-loop client's /synthesize requests
+SERVE_CLUSTER_DRILL_REQUESTS = 8  # concurrent requests under each drill
+# the POST /debug/profile fan-out's window: it opens before the steady
+# traffic and must outlast it (the traffic takes 0.9-1.3 s on an H100)
+SERVE_CLUSTER_PROFILE_S = 4.0
+# the survivor's probe while a killed replica respawns: one request, then
+# this pause, until the fresh process is READY
+SERVE_CLUSTER_PROBE_PAUSE_S = 0.05
+# the cluster block of the phase's serve.yaml: the quorum is both replicas,
+# 0.25 s heartbeats and a 2 s lease (a partitioned replica's lease expires
+# 2 s after its last beat)
+SERVE_CLUSTER_CFG = {"enabled": True, "quorum": SERVE_CLUSTER_REPLICAS,
+                     "heartbeat_interval_s": 0.25, "lease_miss_budget": 7,
+                     "spawn_grace_s": 300.0}
+# a SIGTERMed replica drains for at most this long
+SERVE_CLUSTER_FLEET = {"class_deadline_ms": SERVE_FLEET_DEADLINES, "drain_timeout_s": 5.0}
+# the clock of a replica's engine_acoustic / engine_vocode spans: CUDA events
+SERVE_CLUSTER_SPAN_CLOCK = "cuda_event"
+# parallel/registry.read_launches' names -> the launch counters' names
+LAUNCH_COUNTERS = {"fused_mha.launches": "fused_attention_fwd",
+                   "fused_mha.launches_bf16sm": "fused_attention_fwd_bf16sm",
+                   "fused_mha_bwd.launches": "fused_attention_bwd",
+                   "fused_mha_bwd.launches_bf16sm": "fused_attention_bwd_bf16sm",
+                   "attention_delta.launches": "fused_attention_bwd_delta",
+                   "fused_conv1d.launches": "fused_conv1d_fwd"}
+
+
+def check_window(what, summary):
+    """A profile window's summary (``serving.server.profile_window``: the
+    device kernels by name, the kernel wrappers' launches over the window)
+    held as ``check_trace`` holds a trace: the port's kernels counted by
+    name must equal the launches the same process credited. Returns the
+    trace's counts."""
+    credited = dict.fromkeys(TRACE_NAMES.values(), 0)
+    credited.update(fused_attention_fwd_bf16sm=0, fused_attention_bwd_bf16sm=0)
+    for name, n in summary["launches"].items():
+        if name in LAUNCH_COUNTERS:
+            credited[LAUNCH_COUNTERS[name]] += n
+    return check_trace(what, {n: (0.0, c) for n, c in summary["kernels"].items()}, credited)
+
+
+def pid_alive(pid):
+    """True while ``pid`` runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return False
+    return state not in ("Z", "X")
+
+
+def replica_children():
+    """Pids of this process's children that run the ``replica`` command."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == os.getpid() and b"replica" in cmd and b"speakingstyle_torch" in cmd:
+            pids.append(int(entry))
+    return pids
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: {pid: used} (the
+    container may show no pid), or the error."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"error": str(e)}
+    rows = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, used = line.partition(",")
+        if pid.strip().isdigit():
+            rows[int(pid)] = used.strip()
+    return rows
+
+
+def replica_health(router):
+    """{replica id: its /healthz body} of every lease of the router."""
+    from speakingstyle_torch.serving.cluster import _get_json
+
+    out = {}
+    for row in router.cluster_stats():
+        host, _, port = row["host"].rpartition(":")
+        try:
+            _, out[row["replica_id"]] = _get_json(host, int(port), "/healthz", timeout=10.0)
+        except OSError as e:
+            out[row["replica_id"]] = {"error": str(e)}
+    return out
+
+
+def state_value(state, name, labels=None):
+    """A counter's value in a replica's exported registry state."""
+    want = sorted((labels or {}).items())
+    return sum(rec.get("value") or 0.0 for rec in state.get("metrics", [])
+               if rec.get("name") == name and sorted(map(tuple, rec.get("labels") or [])) == want)
+
+
+def cluster_cli_start(tmp, step, seed, wav, dev):
+    """Start ``python -m speakingstyle_torch serve --replicas 2 --cluster`` in
+    a subprocess (a session of its own) over the phase's checkpoint on the
+    one-point lattice of ``serve_cli_check``, and a thread that reads its
+    output and, once it serves, polls /healthz until both replica
+    processes are READY; ``cluster_cli_check`` drives the rest. Returns its
+    handle."""
+    import threading
+
+    import yaml
+
+    out = os.path.join(tmp, "serve_cluster_cli")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = SERVE_CLI_LATTICE
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    cli = {"t0": time.perf_counter(), "log": [], "address": None, "healthz": [], "rows": [],
+           "pids": set()}
+    cli["proc"] = proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", *cli_args, "--restore_step",
+         str(step), "--seed", str(seed), "--host", "127.0.0.1", "--port", "0",
+         "--ref_audio", wav, "--device", dev.type, "--replicas", "2", "--cluster"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+    def read():
+        for line in proc.stdout:
+            cli["log"].append(line.rstrip())
+            if cli["address"] is None and line.startswith("serving on http://"):
+                host, port = line.split("http://", 1)[1].split(" ", 1)[0].rsplit(":", 1)
+                cli["address"] = (host, int(port))
+                threading.Thread(target=poll, daemon=True).start()
+
+    def poll():
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                st, _, hb, _ = http_call(cli["address"], "GET", "/healthz", timeout=30)
+            except OSError:
+                continue
+            h = json.loads(hb)
+            cli["rows"] = h.get("cluster", {}).get("replicas", [])
+            cli["pids"] |= {r["pid"] for r in cli["rows"]}
+            cli["healthz"].append((round(time.perf_counter() - cli["t0"], 3), st,
+                                   h.get("replicas")))
+            if st == 200 and len(cli["rows"]) == 2 and all(r["ready"] for r in cli["rows"]):
+                cli["ready_s"] = time.perf_counter() - cli["t0"]
+                return
+            time.sleep(0.25)
+
+    cli["reader"] = threading.Thread(target=read, daemon=True)
+    cli["reader"].start()
+    return cli
+
+
+def cluster_cli_kill(cli):
+    """Kill the ``serve --cluster`` subprocess's whole session (the command and
+    its replica processes) and reap the command."""
+    import signal
+
+    try:
+        os.killpg(cli["proc"].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    for p in cli["pids"]:
+        if pid_alive(p):
+            os.kill(p, signal.SIGKILL)
+    cli["proc"].wait(timeout=60)
+
+
+def cluster_cli_check(cli):
+    """Finish the subprocess ``cluster_cli_start`` started: /healthz
+    answered 503 until both replica processes were READY and then 200, one
+    /synthesize answers 200 with X-Served-By naming one of them, SIGTERM
+    exits 0, and every replica process it spawned is gone. Returns its
+    record."""
+    import signal
+
+    proc = cli["proc"]
+    code, status, headers, body, secs = None, None, {}, b"", None
+    try:
+        deadline = time.monotonic() + 300
+        while "ready_s" not in cli and time.monotonic() < deadline and proc.poll() is None:
+            time.sleep(0.1)
+        if "ready_s" not in cli:
+            fail(f"serve_cluster: the serve --cluster command did not get ready: "
+                 f"{cli['healthz'][-3:]} {cli['log'][-20:]}")
+        # the batch class (2 s budget): the first answer crosses the wire
+        status, headers, body, secs = http_call(cli["address"], "POST", "/synthesize",
+                                                {"text": TEXTS[0], "priority": "batch"})
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        cli["reader"].join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            cluster_cli_kill(cli)
+    pids, log, healthz = cli["pids"], cli["log"], cli["healthz"]
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(pid_alive(p) for p in pids):
+        time.sleep(0.2)
+    alive = sorted(p for p in pids if pid_alive(p))
+    if alive:  # a stray context would sit beside the next phases
+        cluster_cli_kill(cli)
+    hosts = {r["host"] for r in cli["rows"]}
+    statuses = [h[1] for h in healthz]
+    record = {"exit_code": code, "ready_s": cli["ready_s"],
+              "healthz": healthz[:2] + healthz[-1:], "healthz_polls": len(healthz),
+              "status": status, "request_s": secs, "served_by": headers.get("X-Served-By"),
+              "replica_pids": sorted(pids), "replica_pids_alive_after_exit": alive,
+              "wav_samples": max(0, len(body) - 44) // 2, "log_tail": log[-6:]}
+    if not (code == 0 and statuses and statuses[0] == 503 and statuses[-1] == 200
+            and len(pids) == 2 and not alive and status == 200 and body[:4] == b"RIFF"
+            and headers.get("X-Served-By") in hosts and any("replica processes" in l for l in log)
+            and any("cluster control plane" in l for l in log)):
+        fail(f"serve_cluster: the serve --replicas 2 --cluster command {record}")
+    return record
+
+
+def serve_cluster_phase(tmp, step, seed, dev, smi):
+    """The cluster on one card: the LJSpeech preset at full width on the
+    kernel path (bf16 compute, bf16 softmax), ``SERVE_FLEET_LATTICE``, from
+    ``restored_phase``'s checkpoint, built through the serve command's
+    cluster branch (``cli.serve.build_fleet(..., cluster=True)`` with
+    ``serve.cluster.enabled``): the router, the StyleService and
+    ``SynthesisServer`` in this process, two ``python -m speakingstyle_torch
+    replica`` processes on the card.
+
+    1. Spawn and warm: /healthz 503 until both are READY (the quorum), each
+       one's spawn-to-lease seconds, ``memory_reserved`` (its /healthz),
+       the card's free memory, ``nvidia-smi``'s compute apps; neither
+       process built a kernel library (``build_seconds`` 0).
+    2. Steady traffic (the 4 references uploaded, 4 closed-loop clients x 8
+       /synthesize) inside one POST /debug/profile fan-out: in each replica
+       process, and in this one (the StyleService), the port's kernels
+       counted by name in its window equal the launches that process
+       credited; X-Served-By names both replicas; no replica prepares
+       anything (their /healthz compile counts); client p50 / p90 / max,
+       the wire latency, hedges fired and won, idempotent hits.
+    3. One traced request: /debug/trace/<id> joins this process's spans and
+       the replica's (remote_dispatch, replica_dispatch, engine_run with its
+       CUDA-event children); the federated /metrics sums the replicas'
+       ``serve_wire_dispatches_total`` to the router's dispatches and the
+       extra legs the replicas ran.
+    4. Drills, hedging off so that a lost leg is requeued, each under
+       ``SERVE_CLUSTER_DRILL_REQUESTS`` concurrent requests:
+       ``replica_proc_kill`` (every request 200 and served once, the killed
+       pid gone, a fresh process READY, the survivor's latency meanwhile,
+       the card's free memory back within one replica's footprint);
+       ``net_partition`` then ``heal`` (the lease expires, work requeued,
+       the same pid re-admitted with its compile count unchanged); a
+       replica's SIGTERM (the batch in flight answered by it, the process
+       exits 0).
+    Every 200 is a RIFF wav of mel_len x hop samples passing the quality
+    gate and within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of an engine
+    in this process. Every replica process is stopped and reaped in a
+    ``finally``. ``serve --replicas 2 --cluster`` in a subprocess starts up
+    beside the partition and SIGTERM drills (``cluster_cli_start``) and is
+    then checked (``cluster_cli_check``). Returns the kernels counted in the profile
+    windows, summed over the processes."""
+    import dataclasses
+    import http.client
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from speakingstyle_torch.cli import config_from_args
+    from speakingstyle_torch.cli.serve import build_fleet, build_parser
+    from speakingstyle_torch.faults import FaultPlan
+    from speakingstyle_torch.obs.quality import validate_wav
+    from speakingstyle_torch.ops import kernels
+    from speakingstyle_torch.serving.engine import load_engine
+    from speakingstyle_torch.serving.fleet import READY
+    from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    out = os.path.join(tmp, "serve_cluster")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_HTTP_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = dict(SERVE_FLEET_LATTICE, fleet=SERVE_CLUSTER_FLEET,
+                          cluster=SERVE_CLUSTER_CFG)
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    args = build_parser().parse_args(cli_args + ["--restore_step", str(step), "--seed", str(seed),
+                                                 "--device", dev.type])
+    cfg = config_from_args(args)
+    if not cfg.serve.cluster.enabled:
+        fail("serve_cluster: serve.cluster.enabled did not load")
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    events, plan = EventLog(), FaultPlan()
+    server = router = cli = None
+    seen_pids = set()
+    answers, lock = [], threading.Lock()  # (what, payload, status, headers, body, seconds)
+    try:
+        # 1. spawn and warm, /healthz 503 until the quorum
+        t0 = time.perf_counter()
+        router, lifecycle, _ = build_fleet(cfg, args, SERVE_CLUSTER_REPLICAS, dev,
+                                           fault_plan=plan, events=events, cluster=True)
+        registry = router.registry
+        wavs, _ = write_smoke_inputs(out, cfg, seed)
+        frontend = TextFrontend(cfg, load_ref_mel(cfg, wavs[-1]))
+        server = SynthesisServer(frontend=frontend, host="127.0.0.1", port=0, events=events,
+                                 router=router, lifecycle=lifecycle,
+                                 profile_dir=os.path.join(out, "profile"))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        address = server.address[:2]
+        healthz, deadline = [], time.monotonic() + 600
+        while True:
+            status, _, body, _ = http_call(address, "GET", "/healthz")
+            h = json.loads(body)
+            rows = h.get("cluster", {}).get("replicas", [])
+            seen_pids |= {r["pid"] for r in rows}
+            n_ready = list(h.get("replicas", {}).values()).count(READY)
+            healthz.append((round(time.perf_counter() - t0, 3), status, n_ready))
+            if status == 200:
+                break
+            if time.monotonic() > deadline:
+                fail(f"serve_cluster: the replica processes did not warm: {h.get('replicas')}")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t0
+        if not (healthz[0][1] == 503 and all(n < SERVE_CLUSTER_REPLICAS for _, st, n in healthz
+                                             if st == 503)
+                and healthz[-1][2] >= SERVE_CLUSTER_REPLICAS):
+            fail(f"serve_cluster: /healthz was not 503 until the quorum: {healthz}")
+        torch.cuda.synchronize()
+        free1 = torch.cuda.mem_get_info(dev)[0]
+        footprint = (free0 - free1) / SERVE_CLUSTER_REPLICAS
+        health = replica_health(router)
+        spawn_s = {i: registry.value("serve_replica_precompile_seconds", {"replica": str(i)})
+                   for i in range(SERVE_CLUSTER_REPLICAS)}
+        builds = {rid: h.get("build_seconds") for rid, h in health.items()}
+        emit("serve_cluster_warmup", nvidia_smi=smi, entry="cli.serve.build_fleet(cluster=True)",
+             lattice=SERVE_FLEET_LATTICE, model=SERVE_HTTP_MODEL, cluster=SERVE_CLUSTER_CFG,
+             ready_s=ready_s, spawn_to_lease_s=spawn_s,
+             warmup_hist=hist_view(registry, "serve_replica_warmup_seconds"),
+             healthz=healthz[:2] + healthz[-1:], healthz_polls=len(healthz),
+             replicas={rid: {k: h.get(k) for k in ("pid", "compile_count",
+                                                   "memory_reserved_bytes",
+                                                   "memory_allocated_bytes", "build_seconds")}
+                       for rid, h in health.items()},
+             card_free_bytes={"before": free0, "replicas_ready": free1},
+             footprint_per_replica_bytes=footprint, compute_apps=compute_apps(),
+             router_memory_reserved_bytes=torch.cuda.memory_reserved(dev))
+        if len(health) != SERVE_CLUSTER_REPLICAS or any(
+                set(b or {}) != set(kernels.SOURCES) or any(v != 0.0 for v in (b or {}).values())
+                for b in builds.values()):
+            fail(f"serve_cluster: a replica process built its kernels (or reports none): {builds}")
+
+        def payload(i):
+            return {"text": TEXTS[i % len(TEXTS)], "style_id": style_ids[(i // 4) % 4]}
+
+        def clients(what, n_clients, per_client):
+            """Closed-loop clients on kept-alive connections."""
+            def client(c):
+                conn = http.client.HTTPConnection(*address, timeout=300)
+                try:
+                    for i in range(per_client):
+                        p = payload(c + n_clients * i)
+                        status, headers, body, secs = http_call(address, "POST", "/synthesize",
+                                                                p, conn=conn)
+                        with lock:
+                            answers.append((what, p, status, headers, body, secs))
+                finally:
+                    conn.close()
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+            for t in threads:
+                t.start()
+            return threads
+
+        def join(threads):
+            for t in threads:
+                t.join(timeout=600)
+
+        def of(what):
+            with lock:
+                return [a for a in answers if a[0] == what]
+
+        # 2. steady traffic inside one profile fan-out
+        style_ids = []
+        router.style.clear()  # the uploads encode afresh, in the window
+        engines = {e.replica_id: e for e in router.engines()}
+        compiles = ({rid: e.compile_count for rid, e in engines.items()},
+                    registry.value("serve_style_compiles_total"))
+        dispatched0 = [registry.value("serve_replica_dispatches_total", {"replica": str(i)})
+                       for i in range(SERVE_CLUSTER_REPLICAS)]
+        prof = {}
+        prof_thread = threading.Thread(target=lambda: prof.update(answer=http_call(
+            address, "POST", f"/debug/profile?seconds={SERVE_CLUSTER_PROFILE_S}",
+            timeout=600)))
+        prof_thread.start()
+        deadline = time.monotonic() + 60
+        while not (server.profile_window_open.is_set() and all(
+                h.get("profile_window_open") for h in replica_health(router).values())):
+            if time.monotonic() > deadline:
+                fail("serve_cluster: the profile windows did not open")
+            time.sleep(0.05)
+        t_traffic = time.perf_counter()
+        for w in wavs:
+            with open(w, "rb") as f:
+                status, _, body, _ = http_call(address, "POST", "/styles", f.read(),
+                                               {"Content-Type": "audio/wav"})
+            if status != 200:
+                fail(f"serve_cluster: POST /styles answered {status}: {body[:300]!r}")
+            style_ids.append(json.loads(body)["style_id"])
+        join(clients("steady", SERVE_CLUSTER_CLIENTS, SERVE_CLUSTER_REQUESTS))
+        traffic_s = time.perf_counter() - t_traffic
+        prof_thread.join(timeout=600)
+        status, _, body, _ = prof["answer"]
+        local = json.loads(body)
+        if status != 200 or traffic_s > SERVE_CLUSTER_PROFILE_S - 0.5:
+            fail(f"serve_cluster: the profile window ({status}) did not cover the "
+                 f"{traffic_s:.2f} s of traffic")
+        deadline = time.monotonic() + 120
+        while True:
+            health = replica_health(router)
+            if all(h.get("last_profile") and not h.get("profiling") for h in health.values()):
+                break
+            if time.monotonic() > deadline:
+                fail(f"serve_cluster: a replica's profile did not finish: {health}")
+            time.sleep(0.2)
+        windows = {rid: check_window(f"serve_cluster replica {rid}", h["last_profile"])
+                   for rid, h in health.items()}
+        windows["router"] = check_window("serve_cluster router (StyleService)", local)
+        dispatched = [registry.value("serve_replica_dispatches_total", {"replica": str(i)}) - d
+                      for i, d in enumerate(dispatched0)]
+        after = ({rid: e.compile_count for rid, e in engines.items()},
+                 registry.value("serve_style_compiles_total"))
+        steady = of("steady")
+        served_by = {a[3].get("X-Served-By") for a in steady}
+        hosts = {r["host"]: r["replica_id"] for r in router.cluster_stats()}
+        fed = router.federated_registry()
+        emit("serve_cluster", nvidia_smi=smi, profile_window_s=SERVE_CLUSTER_PROFILE_S,
+             traffic_s=traffic_s,
+             requests={"closed_loop": len(steady), "clients": SERVE_CLUSTER_CLIENTS},
+             latency_ms=quantiles_ms([a[5] for a in steady]),
+             wire_latency_s=hist_view(registry, "serve_wire_latency_seconds",
+                                      {"class": "interactive"}),
+             hedges={"fired": registry.value("serve_hedge_fired_total",
+                                             {"class": "interactive"}),
+                     "won": registry.value("serve_hedge_won_total", {"class": "interactive"})},
+             idempotent_hits=fed.value("fleet_serve_idempotent_hits_total"),
+             replica_dispatches=dispatched, served_by=sorted(served_by),
+             compiles={"before": compiles, "after": after},
+             server_queue_wait_s=hist_view(registry, "serve_queue_wait_seconds"),
+             kernels_in_windows=windows,
+             router_window={k: local.get(k) for k in ("trace", "seconds", "launches")})
+        if after != compiles:
+            fail(f"serve_cluster: the traffic prepared programs: {compiles} -> {after}")
+        if any(a[2] != 200 for a in steady) or served_by != set(hosts) or min(dispatched) <= 0:
+            fail(f"serve_cluster: the steady traffic: statuses "
+                 f"{sorted({a[2] for a in steady})}, X-Served-By {served_by}, replicas "
+                 f"{sorted(hosts)}, dispatches {dispatched}")
+        for rid, counts in windows.items():
+            names = ("fused_attention_fwd_bf16sm", "fused_conv1d_fwd")
+            if any(counts[n] <= 0 for n in names):
+                fail(f"serve_cluster: {rid}'s window ran no {names}: {counts}")
+
+        # 3. one traced request, the federation
+        tid = "serve-cluster-trace"
+        status, headers, body, _ = http_call(address, "POST", "/synthesize", payload(1),
+                                             {"X-Trace-Id": tid})
+        with lock:
+            answers.append(("traced", payload(1), status, headers, body, 0.0))
+        rid = hosts.get(headers.get("X-Served-By"))
+        pid = {r["replica_id"]: r["pid"] for r in router.cluster_stats()}.get(rid)
+        view = json.loads(http_call(address, "GET", f"/debug/trace/{tid}")[2])
+        spans = []
+
+        def walk(node, depth):
+            spans.append({"name": node["name"], "depth": depth,
+                          "pid": int(node["span_id"].split("-")[0], 16),
+                          "ms": (node.get("duration_s") or 0.0) * 1e3,
+                          "clock": (node.get("fields") or {}).get("clock")})
+            for child in node["children"]:
+                walk(child, depth + 1)
+
+        for root in view.get("roots", []):
+            walk(root, 0)
+        by = {}
+        for sp in spans:
+            by.setdefault(sp["name"], []).append(sp)
+        want_here = ("serve_request", "serve_queue", "fleet_dispatch", "remote_dispatch")
+        want_there = ("replica_dispatch", "engine_run", "engine_acoustic", "engine_vocode")
+        if not (status == 200 and pid is not None
+                and all(any(s["pid"] == os.getpid() for s in by.get(n, [])) for n in want_here)
+                and all(any(s["pid"] == pid for s in by.get(n, [])) for n in want_there)
+                and all(s["clock"] == SERVE_CLUSTER_SPAN_CLOCK
+                        for n in ("engine_acoustic", "engine_vocode") for s in by.get(n, []))):
+            fail(f"serve_cluster: the trace {tid} (served by {rid}, pid {pid}): {spans}")
+
+        def federation():
+            states = dict(router.federated_states())
+            wire = sum(state_value(st, "serve_wire_dispatches_total") for st in states.values())
+            legs = {leg: sum(state_value(st, "serve_wire_legs_total", {"leg": leg})
+                             for st in states.values()) for leg in ("primary", "hedge", "retry")}
+            routed = sum(registry.value("serve_replica_dispatches_total", {"replica": str(i)})
+                         for i in range(len(router.states())))
+            return {"replicas": sorted(states), "wire_dispatches": wire, "legs": legs,
+                    "router_dispatches": routed}
+
+        deadline = time.monotonic() + 30
+        while True:
+            fed_view = federation()
+            if (len(fed_view["replicas"]) == SERVE_CLUSTER_REPLICAS
+                    and fed_view["legs"]["primary"] == fed_view["router_dispatches"]
+                    and fed_view["wire_dispatches"] == sum(fed_view["legs"].values())):
+                break
+            if time.monotonic() > deadline:
+                fail(f"serve_cluster: the federated wire dispatches do not add up: {fed_view}")
+            time.sleep(0.2)
+        metrics = http_call(address, "GET", "/metrics")[2].decode()
+        fed_line = [l for l in metrics.splitlines()
+                    if l.startswith("fleet_serve_wire_dispatches_total ")]
+        if not fed_line or float(fed_line[0].split()[1]) < fed_view["wire_dispatches"]:
+            fail(f"serve_cluster: /metrics' federated wire dispatches {fed_line}, want "
+                 f"{fed_view['wire_dispatches']}")
+        emit("serve_cluster_trace", trace_id=tid, served_by=rid, replica_pid=pid,
+             router_pid=os.getpid(), spans=spans, federation=fed_view, metrics_line=fed_line[0])
+
+        # 4. drills, hedging off: a lost leg is requeued, not hedged
+        router.ccfg = dataclasses.replace(router.ccfg, hedge_quantile=0.0)
+
+        def burst(what):
+            threads = [threading.Thread(target=lambda i=i: _one(what, i))
+                       for i in range(SERVE_CLUSTER_DRILL_REQUESTS)]
+            for t in threads:
+                t.start()
+            return threads
+
+        def _one(what, i):
+            p = payload(i)
+            status, headers, body, secs = http_call(address, "POST", "/synthesize", p)
+            with lock:
+                answers.append((what, p, status, headers, body, secs))
+
+        def all_ready():
+            states = router.states()
+            return [i for i, s in states.items() if s == READY]
+
+        def served():
+            return sum(registry.value("serve_replica_requests_total", {"replica": str(i)})
+                       for i in range(len(router.states())))
+
+        def wait_until(pred, what, timeout=300):
+            deadline = time.monotonic() + timeout
+            while not pred():
+                if time.monotonic() > deadline:
+                    fail(f"serve_cluster: {what}: states {router.states()}, leases "
+                         f"{router.cluster_stats()}")
+                time.sleep(0.1)
+
+        drills = {}
+        # 4a. replica_proc_kill, then the respawn beside the survivor's traffic
+        gc.collect()
+        torch.cuda.synchronize()
+        free_pre = torch.cuda.mem_get_info(dev)[0]
+        pids_pre = {r["replica_id"]: r["pid"] for r in router.cluster_stats()}
+        requeued0, served0 = registry.value("serve_requeued_total"), served()
+        t0 = time.perf_counter()
+        plan.arm("replica_proc_kill", router.dispatch_total + 1)
+        join(burst("proc_kill"))
+        killed = events.of("chaos_proc_kill")
+        if len(killed) != 1:
+            fail(f"serve_cluster: replica_proc_kill fired {len(killed)} times")
+        killed_rid, killed_index = killed[0]["replica_id"], killed[0]["replica"]
+        killed_pid = pids_pre[killed_rid]
+        respawn_lat = []
+        k = 0
+        while len(all_ready()) < SERVE_CLUSTER_REPLICAS:
+            if time.perf_counter() - t0 > 300:
+                fail(f"serve_cluster: no fresh replica came back: {router.states()}")
+            p = payload(k)
+            status, headers, body, secs = http_call(address, "POST", "/synthesize", p)
+            with lock:
+                answers.append(("respawn", p, status, headers, body, secs))
+            respawn_lat.append((headers.get("X-Served-By"), secs))
+            k += 1
+            time.sleep(SERVE_CLUSTER_PROBE_PAUSE_S)
+        rows = {r["replica_id"]: r for r in router.cluster_stats()}
+        seen_pids |= {r["pid"] for r in rows.values()}
+        fresh = [rid for rid in rows if rid not in pids_pre]
+        gc.collect()
+        torch.cuda.synchronize()
+        free_post = torch.cuda.mem_get_info(dev)[0]
+        pk = of("proc_kill")
+        drills["replica_proc_kill"] = {
+            "seconds": time.perf_counter() - t0, "killed": killed_rid, "killed_pid": killed_pid,
+            "killed_pid_alive": pid_alive(killed_pid), "fresh": fresh,
+            "fresh_warmup_s": registry.value("serve_replica_precompile_seconds",
+                                             {"replica": str(killed_index)}),
+            "statuses": sorted(a[2] for a in pk), "latency_ms": quantiles_ms([a[5] for a in pk]),
+            "requeued": registry.value("serve_requeued_total") - requeued0,
+            "served": served() - served0 - len(respawn_lat),
+            "survivor_latency_ms_during_respawn": quantiles_ms([s for _, s in respawn_lat]),
+            "survivor_requests_during_respawn": len(respawn_lat),
+            "card_free_bytes": {"before": free_pre, "after": free_post},
+            "footprint_bytes": footprint}
+        d = drills["replica_proc_kill"]
+        if not (d["statuses"] == [200] * SERVE_CLUSTER_DRILL_REQUESTS and not d["killed_pid_alive"]
+                and len(fresh) == 1 and d["requeued"] >= 1
+                and d["served"] == SERVE_CLUSTER_DRILL_REQUESTS
+                and all(a[2] == 200 for a in of("respawn"))
+                and free_post >= free_pre - footprint):
+            fail(f"serve_cluster: the replica_proc_kill drill: {d}")
+
+        # the serve --cluster subprocess starts up beside the rest of the
+        # phase, which measures nothing more in time or memory
+        cli = cluster_cli_start(tmp, step, seed, wavs[-1], dev)
+
+        # 4b. net_partition, the lease expires, then heal: the same process back
+        t0 = time.perf_counter()
+        requeued0, served0 = registry.value("serve_requeued_total"), served()
+        compiled = {e.replica_id: e.compile_count for e in router.engines()}
+        plan.arm("net_partition", router.dispatch_total + 1)
+        join(burst("partition"))
+        parted = events.of("net_partition")
+        if len(parted) != 1:
+            fail(f"serve_cluster: net_partition fired {len(parted)} times")
+        prid = parted[0]["replica_id"]
+        before = {r["replica_id"]: r for r in router.cluster_stats()}[prid]
+        wait_until(lambda: {r["replica_id"]: r for r in router.cluster_stats()}[prid]["expired"],
+                   "the partitioned lease did not expire", timeout=60)
+        expired_s = time.perf_counter() - t0
+        router.heal(prid)
+        wait_until(lambda: len(all_ready()) == SERVE_CLUSTER_REPLICAS and not {
+            r["replica_id"]: r for r in router.cluster_stats()}[prid]["expired"],
+            "the healed replica was not re-admitted", timeout=120)
+        after_row = {r["replica_id"]: r for r in router.cluster_stats()}[prid]
+        engine_of = {e.replica_id: e for e in router.engines()}
+        pa = of("partition")
+        drills["net_partition"] = {
+            "seconds": time.perf_counter() - t0, "replica": prid, "lease_expired_after_s": expired_s,
+            "pid": [before["pid"], after_row["pid"]], "epoch": [before["epoch"], after_row["epoch"]],
+            "compile_count": [compiled.get(prid), engine_of[prid].compile_count
+                              if prid in engine_of else None],
+            "statuses": sorted(a[2] for a in pa), "requeued": registry.value(
+                "serve_requeued_total") - requeued0, "served": served() - served0,
+            "processes": sorted(router.processes())}
+        d = drills["net_partition"]
+        if not (d["statuses"] == [200] * SERVE_CLUSTER_DRILL_REQUESTS and d["requeued"] >= 1
+                and d["served"] == SERVE_CLUSTER_DRILL_REQUESTS
+                and d["pid"][0] == d["pid"][1] and d["epoch"][1] > d["epoch"][0]
+                and prid in engine_of and d["compile_count"][0] == d["compile_count"][1]
+                and prid in router.processes()):
+            fail(f"serve_cluster: the net_partition drill: {d}")
+
+        # 4c. a replica's SIGTERM while it runs a dispatch: the dispatch it
+        # admitted finishes there, nothing is lost, the process exits 0
+        from speakingstyle_torch.serving.cluster import _get_json
+
+        t0 = time.perf_counter()
+        procs = router.processes()
+        target = sorted(procs)[0]
+        target_host = next(r["host"] for r in router.cluster_stats()
+                           if r["replica_id"] == target)
+        host, _, port = target_host.rpartition(":")
+        admitted = None
+        for _ in range(3):  # a burst whose dispatches all went to the other replica: again
+            threads = burst("sigterm")
+            while admitted is None and any(t.is_alive() for t in threads):
+                try:
+                    _, h = _get_json(host, int(port), "/healthz", timeout=5.0)
+                except OSError:
+                    h = {}
+                if h.get("active_dispatches"):
+                    admitted = h
+            if admitted is not None:
+                break
+            join(threads)
+        if admitted is None:
+            fail(f"serve_cluster: no dispatch reached {target} for the SIGTERM drill")
+        procs[target].send_signal(signal.SIGTERM)
+        join(threads)
+        code = procs[target].wait(timeout=60)
+        st = of("sigterm")
+        drills["sigterm"] = {
+            "seconds": time.perf_counter() - t0, "replica": target, "exit_code": code,
+            "active_at_signal": admitted["active_dispatches"],
+            "wire_dispatches_at_signal": admitted["wire_dispatches"],
+            "served_by_it": sum(a[3].get("X-Served-By") == target_host for a in st),
+            "statuses": sorted(a[2] for a in st)}
+        d = drills["sigterm"]
+        if not (code == 0 and set(d["statuses"]) == {200} and d["served_by_it"] >= 1):
+            fail(f"serve_cluster: the SIGTERM drill: {d}")
+        emit("serve_cluster_drills", drills=drills,
+             replica_failures=[{k: f.get(k) for k in ("replica", "kind", "error", "requeued",
+                                                      "failed")}
+                               for f in events.of("replica_failure")])
+
+        # every answer against run(eager=True) of an engine in this process
+        engine, _ = load_engine(cfg, step, device=dev, vocoder_seed=seed + 1, style=router.style)
+        hop = engine.vocoder.hop_factor
+        refs, bad, worst, checked = {}, [], 0, 0
+        for what, p, status, headers, body, _ in answers:
+            if status != 200:
+                bad.append({"what": what, "status": status,
+                            "body": body[:200].decode(errors="replace")})
+                continue
+            key = (p["text"], p["style_id"])
+            if key not in refs:
+                refs[key] = engine.run([frontend.request("eager", p)], eager=True)[0]
+            ref = refs[key]
+            wav = pcm_of(f"serve_cluster {what}", body, sr)
+            verdict = validate_wav(wav, sr, cfg.serve.quality)
+            if len(wav) != ref.mel_len * hop or not verdict.ok:
+                bad.append({"what": what, "samples": len(wav), "want": ref.mel_len * hop,
+                            "quality": verdict.as_dict()})
+                continue
+            lsb = int(np.abs(wav.astype(np.int32) - ref.wav.astype(np.int32)).max(initial=0))
+            worst, checked = max(worst, lsb), checked + 1
+            if lsb > SERVE_HTTP_LSB:
+                bad.append({"what": what, "text": p["text"][:20], "max_lsb": lsb})
+        emit("serve_cluster_answers", checked_wavs=checked,
+             wav_vs_eager_lsb={"max": worst, "bound": SERVE_HTTP_LSB},
+             by_phase={w: sum(1 for a in answers if a[0] == w)
+                       for w in sorted({a[0] for a in answers})})
+        engine.close()
+        del engine, refs
+        if bad:
+            fail(f"serve_cluster: answers that fail their checks: {bad[:8]}")
+    except BaseException:
+        if cli is not None:
+            cluster_cli_kill(cli)
+        raise
+    finally:
+        if router is not None:
+            seen_pids |= {r["pid"] for r in router.cluster_stats()}
+        if server is not None:
+            server.shutdown()
+        elif router is not None:
+            router.close()
+        for pid in replica_children():  # whatever failed: no stray context stays
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+    alive = sorted(p for p in seen_pids if pid_alive(p))
+    emit("serve_cluster_cleanup", replica_pids=sorted(seen_pids), alive=alive)
+    if alive:
+        fail(f"serve_cluster: replica processes outlived the phase: {alive}")
+    del server, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_cluster_cli", **cluster_cli_check(cli))
+    launches = dict.fromkeys(next(iter(windows.values())), 0)
+    for counts in windows.values():
+        for name, n in counts.items():
+            launches[name] += n
+    return launches
+
+
 def traced_replay(engine, requests):
     """One replayed dispatch under ``torch.profiler``: (results, {device
     busy ms and idle share in the traced window, the port's kernels counted
@@ -5181,6 +5976,8 @@ def main(argv=None) -> int:
                                dev, smi)
         tiers_launches = timed("serve_tiers", serve_tiers_phase, restore_tmp, step, args.seed,
                                dev, smi)
+        cluster_launches = timed("serve_cluster", serve_cluster_phase, restore_tmp, step,
+                                 args.seed, dev, smi)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
     train_counts, train_sm16_counts, train_cases, distill_per_step = timed(
@@ -5188,7 +5985,7 @@ def main(argv=None) -> int:
     cases.update(train_cases)
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
          serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"],
-         serve_tiers_s=PHASE_S["serve_tiers"])
+         serve_tiers_s=PHASE_S["serve_tiers"], serve_cluster_s=PHASE_S["serve_cluster"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -5236,6 +6033,10 @@ def main(argv=None) -> int:
             # the poison drill over three tier fleets), counted by name in
             # its trace
             "serve_tiers_launches": tiers_launches[name],
+            # the serve_cluster phase's steady traffic, counted by name in
+            # the profile windows of the two replica processes and of this
+            # one (the StyleService), each equal to its process's credits
+            "serve_cluster_launches": cluster_launches[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -4,7 +4,8 @@ import argparse
 import importlib
 import sys
 
-COMMANDS = ("synthesize", "serve", "train", "convert", "train_vocoder", "distill", "vocode")
+COMMANDS = ("synthesize", "serve", "replica", "train", "convert", "train_vocoder", "distill",
+            "vocode")
 
 
 def main(argv=None):

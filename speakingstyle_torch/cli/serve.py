@@ -1,7 +1,7 @@
 """``serve`` command: the text -> wav HTTP server, on one engine behind the
-continuous batcher or on a fleet of replica engines (JAX counterpart:
-speakingstyle_tpu/cli/serve.py, its fleet branch ``:229-380`` without the
-cluster).
+continuous batcher, on a fleet of replica engines, or on a cluster of
+replica processes (JAX counterpart: speakingstyle_tpu/cli/serve.py, its
+fleet branch ``:229-380`` with the cluster ``:262-305``).
 
 Restores the acoustic model from ``train.path.ckpt_path`` at
 ``--restore_step`` (<= 0: the latest; the port's own checkpoints, or a
@@ -37,10 +37,23 @@ one card the replicas share the device: each holds its own CUDA graphs
 (memory grows with N) and a replica's warm-up holds the others' dispatches
 back for one capture at a time. ``--enable_rollout`` (or
 ``serve.rollout.enabled``) arms ``POST /admin/rollout``;
-``serve.autoscale.enabled`` arms the autoscaler. ``--cluster`` with a
-fleet (the distributed control plane) is ROADMAP.md queue A item 5c and
-exits non-zero; ``--cluster`` and ``--enable_rollout`` without a fleet
-print the JAX command's warnings and are ignored.
+``serve.autoscale.enabled`` arms the autoscaler. ``--cluster`` and
+``--enable_rollout`` without a fleet print the JAX command's warnings and
+are ignored.
+
+``--cluster`` (or ``serve.cluster.enabled``) with a fleet serves through
+the cluster (serving/cluster.py): the router runs here, with the
+StyleService (styles resolve here and cross the wire as gamma / beta), and
+each replica is a ``python -m speakingstyle_torch replica`` process that
+restores the same checkpoint (``--device``, the config files,
+``--vocoder_ckpt``, ``--griffin_lim`` and ``--seed`` passed on) and
+prepares its own lattice; it registers with a heartbeat lease and is
+dispatched to over HTTP, hedged. ``/healthz`` answers 503 until
+``serve.cluster.quorum`` replicas are READY. On one card each process owns
+a CUDA context and its graphs, and the card time-slices between them. A
+rollout's canary is a replica process restoring the candidate step, after
+the candidate's verify load here. Streams need a vocoder in this process
+and answer 400 in cluster mode, as in the JAX package.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails rather than
 fall back when no card is present.
@@ -54,12 +67,12 @@ import dataclasses
 import signal
 import threading
 
+import os
+import subprocess
+import sys
+
 from speakingstyle_torch.cli import add_config_args, config_from_args
 from speakingstyle_torch.serving.longform import RING_MISSING
-
-CLUSTER_MISSING = ("--cluster (replicas as separate processes behind the distributed control "
-                   "plane) is not ported yet (ROADMAP.md queue A item 5c); serve the fleet "
-                   "in-process without --cluster")
 
 
 def build_parser(parser=None):
@@ -82,8 +95,11 @@ def build_parser(parser=None):
                         help='override serve.style.ref_dir: the allowlist directory of request '
                              '"ref_audio" paths (unset = uploads via POST /styles only)')
     parser.add_argument("--cluster", action="store_true",
-                        help="the distributed control plane (ROADMAP.md queue A item 5c: "
-                             "exits non-zero with a fleet, ignored without)")
+                        help="serve the fleet through the cluster (overrides "
+                             "serve.cluster.enabled): each replica a separate process spawned "
+                             "as `python -m speakingstyle_torch replica`, registered with a "
+                             "heartbeat lease, dispatched to with hedged retries (fleet mode "
+                             "only: needs --replicas > 1)")
     parser.add_argument("--enable_rollout", action="store_true",
                         help="enable POST /admin/rollout (canary-gated rolling model upgrade; "
                              "fleet mode only, overrides serve.rollout.enabled)")
@@ -99,13 +115,49 @@ def model_version_string(info) -> str:
     return f"{info.get('step')}:{digest[:12]}"
 
 
-def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None):
-    """The fleet branch's backend (JAX ``cli/serve.py:229-380`` without the
-    cluster): the checkpoint loaded once, one StyleService, a
-    ``FleetRouter`` of ``replicas`` engines over a factory that shares the
-    loaded weights, the model version published, and the rollout manager
-    (``--enable_rollout`` / ``serve.rollout.enabled``) and autoscaler
-    (``serve.autoscale.enabled``) when armed. Returns (router, lifecycle or
+def replica_spawner(args):
+    """The cluster's spawn callable: ``spawn(replica_id, router_addr,
+    extra)`` starts ``python -m speakingstyle_torch replica`` with
+    ``subprocess.Popen`` (fork and exec: this process holds a CUDA context)
+    on the serve command's ``--preset`` / ``-p`` / ``-m`` / ``-t``,
+    ``--device``, ``--vocoder_ckpt``, ``--griffin_lim``, ``--seed`` and the
+    restore step (``extra["restore_step"]``, a rollout canary's, else
+    ``--restore_step``)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cfg_args = []
+    for flag, value in (("--preset", args.preset), ("-p", args.preprocess_config),
+                        ("-m", args.model_config), ("-t", args.train_config)):
+        if value:
+            cfg_args += [flag, value]
+
+    def spawn(replica_id, router_addr, extra):
+        step = (extra or {}).get("restore_step", args.restore_step)
+        cmd = [sys.executable, "-m", "speakingstyle_torch", "replica", *cfg_args,
+               "--replica_id", replica_id, "--router", router_addr, "--restore_step", str(step),
+               "--device", args.device, "--seed", str(args.seed)]
+        if args.vocoder_ckpt:
+            cmd += ["--vocoder_ckpt", args.vocoder_ckpt]
+        if args.griffin_lim:
+            cmd += ["--griffin_lim"]
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, PYTHONPATH=root + (os.pathsep + path if path else ""))
+        return subprocess.Popen(cmd, env=env)
+
+    return spawn
+
+
+def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None,
+                cluster: bool = False):
+    """The fleet branch's backend (JAX ``cli/serve.py:229-380``): the
+    checkpoint loaded once, one StyleService, a ``FleetRouter`` of
+    ``replicas`` engines over a factory that shares the loaded weights, the
+    model version published, and the rollout manager (``--enable_rollout``
+    / ``serve.rollout.enabled``) and autoscaler (``serve.autoscale.enabled``)
+    when armed. With ``cluster`` a ``ClusterRouter`` of ``replica``
+    processes instead (``replica_spawner``), spawned first, so that their
+    start-up runs beside this process's load: the checkpoint is loaded here
+    for the model's identity and the StyleService only, without a vocoder,
+    and the style lattice is prepared here. Returns (router, lifecycle or
     None, autoscaler or None). The replicas warm in the background."""
     from speakingstyle_torch.obs import MetricsRegistry
     from speakingstyle_torch.serving.engine import SynthesisEngine, load_engine_parts
@@ -113,14 +165,31 @@ def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None):
     from speakingstyle_torch.serving.style import StyleService
 
     registry = MetricsRegistry()
-    model, vocoder, lattice, info = load_engine_parts(
-        cfg, args.restore_step, vocoder_ckpt=args.vocoder_ckpt, griffin_lim=args.griffin_lim,
-        device=device, vocoder_seed=args.seed + 1)
-    # one style service for every replica: one embedding cache, one set of
-    # style programs (the first replica's warm-up prepares them)
-    style = (StyleService(cfg, model.reference_encoder, device=device, registry=registry,
-                          fault_plan=fault_plan)
-             if cfg.model.use_reference_encoder else None)
+    router = None
+    if cluster:
+        from speakingstyle_torch.serving.cluster import ClusterRouter
+
+        router = ClusterRouter(replica_spawner(args), cfg, replicas=replicas, registry=registry,
+                               events=events, fault_plan=fault_plan)
+        ccfg = cfg.serve.cluster
+        print(f"cluster control plane on http://{router.control_addr} (lease ttl "
+              f"{ccfg.lease_ttl_s:g}s, quorum {ccfg.quorum})", flush=True)
+    try:
+        model, vocoder, lattice, info = load_engine_parts(
+            cfg, args.restore_step, vocoder_ckpt=args.vocoder_ckpt,
+            griffin_lim=args.griffin_lim or cluster, device=device, vocoder_seed=args.seed + 1)
+        # one style service for every replica: one embedding cache, one set
+        # of style programs (the first replica's warm-up prepares them; in a
+        # cluster, where styles resolve here, this process does)
+        style = (StyleService(cfg, model.reference_encoder, device=device, registry=registry,
+                              fault_plan=fault_plan)
+                 if cfg.model.use_reference_encoder else None)
+        if cluster and style is not None:
+            style.precompile()
+    except BaseException:
+        if router is not None:
+            router.close(flush=False)
+        raise
 
     def factory_for(model, vocoder, lattice):
         def factory(reg):
@@ -129,8 +198,12 @@ def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None):
                                    style=style)
         return factory
 
-    router = FleetRouter(factory_for(model, vocoder, lattice), cfg, replicas=replicas,
-                         registry=registry, events=events, style=style, fault_plan=fault_plan)
+    if cluster:
+        router.style = style
+    else:
+        router = FleetRouter(factory_for(model, vocoder, lattice), cfg, replicas=replicas,
+                             registry=registry, events=events, style=style,
+                             fault_plan=fault_plan)
     router.set_model_version(model_version_string(info), info.get("step"),
                              info.get("weights_digest"))
     autoscaler = None
@@ -151,8 +224,14 @@ def build_fleet(cfg, args, replicas: int, device, fault_plan=None, events=None):
             # style service keeps encoding with the live weights' encoder,
             # as the JAX fleet's shared service does.
             m2, v2, l2, info2 = load_engine_parts(
-                cfg, step, vocoder_ckpt=args.vocoder_ckpt, griffin_lim=args.griffin_lim,
+                cfg, step, vocoder_ckpt=args.vocoder_ckpt, griffin_lim=args.griffin_lim or cluster,
                 device=device, vocoder_seed=args.seed + 1)
+            if cluster:
+                # the canary is a replica process restoring the candidate;
+                # the load above stays the verify gate
+                del m2, v2
+                return (router.remote_factory({"restore_step": step}),
+                        model_version_string(info2), info2)
             return factory_for(m2, v2, l2), model_version_string(info2), info2
 
         lifecycle = RolloutManager(router, verify_and_build, autoscaler=autoscaler,
@@ -177,8 +256,7 @@ def main(args):
 
     cfg = config_from_args(args)
     replicas = args.replicas if args.replicas is not None else cfg.serve.fleet.replicas
-    if replicas > 1 and args.cluster:
-        raise SystemExit(CLUSTER_MISSING)
+    cluster = replicas > 1 and (args.cluster or cfg.serve.cluster.enabled)
     if cfg.serve.longform.mesh_seq > 1:
         raise SystemExit(RING_MISSING)
     if replicas <= 1 and args.enable_rollout:
@@ -207,9 +285,12 @@ def main(args):
     router = autoscaler = None
     if replicas > 1:
         router, lifecycle, autoscaler = build_fleet(cfg, args, replicas, device,
-                                                    fault_plan=fault_plan, events=events)
-        print(f"warming {replicas} replicas x {len(router.lattice)} lattice points on {device} "
-              "in the background (healthz: 503 until one is ready) ...", flush=True)
+                                                    fault_plan=fault_plan, events=events,
+                                                    cluster=cluster)
+        what = "replica processes" if cluster else "replicas"
+        ready = f"a quorum of {cfg.serve.cluster.quorum} is" if cluster else "one is"
+        print(f"warming {replicas} {what} x {len(router.lattice)} lattice points on {device} "
+              f"in the background (healthz: 503 until {ready} ready) ...", flush=True)
         registry = router.registry
         server_kwargs = dict(router=router, lifecycle=lifecycle)
     else:

@@ -859,15 +859,81 @@ class LongformConfig:
 
 
 @dataclass(frozen=True)
+class ClusterConfig:
+    """The cluster: replica processes behind the fleet router (copied whole
+    from the JAX package; serving/cluster.py). Disabled by default: the
+    fleet keeps its in-process replicas. Enabled (or ``serve --cluster``),
+    every replica is a ``python -m speakingstyle_torch replica`` process that
+    owns a whole engine and registers with the router over HTTP; liveness
+    is a heartbeat lease, dispatch is hedged within the class budgets."""
+
+    enabled: bool = False
+    # the router's /register + /heartbeat server (port 0: a free one, passed
+    # to the spawned replicas as --router)
+    control_host: str = "127.0.0.1"
+    control_port: int = 0
+    # heartbeat cadence; a lease lasts heartbeat_interval_s *
+    # (lease_miss_budget + 1) and every beat renews it
+    heartbeat_interval_s: float = 0.5
+    lease_miss_budget: int = 3
+    # a hedge leg goes to another host once the first has been out longer
+    # than this quantile of the class's wire latency, clamped into
+    # [hedge_min_ms, hedge_max_ms]; 0 disables hedging
+    hedge_quantile: float = 0.95
+    hedge_min_ms: float = 50.0
+    hedge_max_ms: float = 2000.0
+    # connect timeout of every control and dispatch connection (a dispatch's
+    # read timeout comes from its class deadline)
+    connect_timeout_s: float = 2.0
+    # a spawned replica must hold a live, ready lease within this budget
+    spawn_grace_s: float = 120.0
+    # /healthz answers 503 until this many replicas are READY
+    quorum: int = 1
+    # executed dispatch batches a replica keeps for duplicate legs (LRU)
+    idempotency_cache: int = 256
+
+    def __post_init__(self):
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(f"serve.cluster.heartbeat_interval_s must be > 0, got "
+                             f"{self.heartbeat_interval_s}")
+        if self.lease_miss_budget < 1:
+            raise ValueError(f"serve.cluster.lease_miss_budget must be >= 1, got "
+                             f"{self.lease_miss_budget}")
+        if not 0.0 <= self.hedge_quantile < 1.0:
+            raise ValueError(f"serve.cluster.hedge_quantile must be in [0, 1) (0 disables "
+                             f"hedging), got {self.hedge_quantile}")
+        if self.hedge_min_ms < 0:
+            raise ValueError(f"serve.cluster.hedge_min_ms must be >= 0, got {self.hedge_min_ms}")
+        if self.hedge_max_ms < self.hedge_min_ms:
+            raise ValueError("serve.cluster.hedge_max_ms must be >= hedge_min_ms, got "
+                             f"{self.hedge_max_ms} < {self.hedge_min_ms}")
+        if self.connect_timeout_s <= 0:
+            raise ValueError(f"serve.cluster.connect_timeout_s must be > 0, got "
+                             f"{self.connect_timeout_s}")
+        if self.spawn_grace_s <= 0:
+            raise ValueError(f"serve.cluster.spawn_grace_s must be > 0, got {self.spawn_grace_s}")
+        if self.quorum < 1:
+            raise ValueError(f"serve.cluster.quorum must be >= 1, got {self.quorum}")
+        if self.idempotency_cache < 1:
+            raise ValueError(f"serve.cluster.idempotency_cache must be >= 1, got "
+                             f"{self.idempotency_cache}")
+
+    @property
+    def lease_ttl_s(self) -> float:
+        """A lease's duration: ``lease_miss_budget`` beats may be missed."""
+        return self.heartbeat_interval_s * (self.lease_miss_budget + 1)
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """The synthesis engine's shape lattice (serving/lattice.py): every
     dispatch runs at a ``(batch, L_src, T_mel)`` drawn from the cross
     product of these buckets; ``T_mel`` is the free-run output buffer.
     The HTTP server's and the fleet's keys follow (serving/batcher.py,
     serving/server.py, serving/fleet.py, serving/autoscale.py,
-    serving/lifecycle.py, serving/longform.py, cli/serve.py). The JAX
-    package's serve keys that no ported module reads yet (``cluster``,
-    ``parallel``) are listed in ROADMAP.md queue A items 5c and 6."""
+    serving/lifecycle.py, serving/longform.py, serving/cluster.py,
+    cli/serve.py). The JAX package's serve key that no ported module reads
+    yet (``parallel``) is listed in ROADMAP.md queue A item 6."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
@@ -894,6 +960,7 @@ class ServeConfig:
     # G2P threads overlapped with the batcher's coalescing wait; 0 = inline
     frontend_workers: int = 2
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
     style: StyleConfig = field(default_factory=StyleConfig)
     tiers: TiersConfig = field(default_factory=TiersConfig)
     trace: TraceConfig = field(default_factory=TraceConfig)

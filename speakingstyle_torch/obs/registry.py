@@ -1,6 +1,5 @@
 """Zero-dependency, thread-safe metrics registry (a copy of the JAX
-package's ``speakingstyle_tpu/obs/registry.py`` without its federation
-merge; plain Python, no torch).
+package's ``speakingstyle_tpu/obs/registry.py``; plain Python, no torch).
 
 Three metric kinds, all plain Python + one lock each:
 
@@ -16,6 +15,13 @@ Metrics are identified by ``(name, labels)``; calling the factory again
 with the same identity returns the same object. Export surfaces:
 ``registry.snapshot()`` (one nested plain dict) and
 ``registry.prometheus_text()`` (Prometheus exposition format).
+
+Federation (the cluster, serving/cluster.py): ``registry.export_state()``
+is the raw, JSON-safe state a replica process serves at ``GET /metrics``
+(histograms as per-bin counts), and ``merge_states`` folds the replicas'
+states into one ``fleet_``-prefixed registry: counters summed, histogram
+buckets merged, gauges labeled by replica. A fleet percentile therefore
+comes from merged buckets, never from an average of per-replica ones.
 
 A process-global default registry (``get_registry()``) exists for call
 sites with no natural owner (``retry_io``); a training run constructs its
@@ -191,6 +197,28 @@ class Histogram:
                 return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
         return hi_seen
 
+    def export_state(self) -> Dict:
+        """Raw mergeable state: per-bin (not cumulative) counts and the
+        running sum, min and max, what crosses the federation wire."""
+        counts, count, total, lo, hi = self._state()
+        return {"edges": list(self.edges), "counts": counts, "count": count, "sum": total,
+                "min": lo, "max": hi}
+
+    def _absorb_state(self, state: Mapping) -> None:
+        """Merge an exported state into this histogram (the caller checked
+        that the edges are the same)."""
+        counts = state.get("counts") or []
+        with self._lock:
+            for i, c in enumerate(counts[: len(self._counts)]):
+                self._counts[i] += int(c)
+            self._count += int(state.get("count") or 0)
+            self._sum += float(state.get("sum") or 0.0)
+            lo, hi = state.get("min"), state.get("max")
+            if lo is not None:
+                self._min = lo if self._min is None else min(self._min, lo)
+            if hi is not None:
+                self._max = hi if self._max is None else max(self._max, hi)
+
     def snapshot(self) -> Dict:
         counts, count, total, lo, hi = self._state()
         cum, buckets = 0, {}
@@ -327,6 +355,51 @@ class MetricsRegistry:
                     )
         return "\n".join(lines) + "\n"
 
+    def export_state(self) -> Dict:
+        """JSON-safe raw state of every metric (a replica's ``GET
+        /metrics``): counters and gauges their value, histograms their
+        per-bin counts, so the router merges buckets."""
+        metrics = []
+        for (name, labels), m in self._items():
+            rec: Dict = {"name": name, "kind": m.kind, "labels": [list(kv) for kv in labels]}
+            if isinstance(m, (Counter, Gauge)):
+                rec["value"] = m.value
+            else:
+                rec["hist"] = m.export_state()
+            metrics.append(rec)
+        return {"metrics": metrics}
+
+
+def merge_states(states: Sequence[Tuple[str, Mapping]], prefix: str = "fleet_") -> MetricsRegistry:
+    """Fold ``(replica_id, export_state())`` pairs into one registry whose
+    families carry ``prefix``: counters summed under one (name, labels);
+    histogram bucket counts added elementwise (a replica whose edges differ
+    keeps a ``replica=``-labeled copy); gauges, being levels, kept per
+    replica under a ``replica=`` label."""
+    merged = MetricsRegistry()
+    for rid, state in states:
+        for rec in (state or {}).get("metrics", []):
+            name = prefix + str(rec.get("name", ""))
+            labels = {k: v for k, v in (rec.get("labels") or [])}
+            kind = rec.get("kind")
+            if kind == "counter":
+                merged.counter(name, labels=labels).inc(float(rec.get("value") or 0.0))
+            elif kind == "gauge":
+                merged.gauge(name, labels={**labels, "replica": rid}).set(
+                    float(rec.get("value") or 0.0))
+            elif kind == "histogram":
+                hist_state = rec.get("hist") or {}
+                edges = tuple(float(e) for e in (hist_state.get("edges") or ()))
+                if not edges:
+                    continue
+                try:
+                    h = merged.histogram(name, edges=edges, labels=labels)
+                except TypeError:
+                    continue  # the name is another kind's: skip
+                if h.edges != edges:
+                    h = merged.histogram(name, edges=edges, labels={**labels, "replica": rid})
+                h._absorb_state(hist_state)
+    return merged
 
 
 _default_lock = threading.Lock()

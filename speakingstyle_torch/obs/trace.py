@@ -31,9 +31,16 @@ by ``TailSampler``'s deterministic dice (the fleet router builds one).
 ``ambient(ctx)`` installs an explicit context as the thread's ambient one
 (JAX counterpart ``:120-166``; ``TailSampler`` ``:303-338``).
 ``GET /debug/spans`` serves the ring; ``GET /debug/trace/<req_id>``
-assembles one trace with ``assemble_trace`` + ``critical_path``. The
-cluster wire headers come with the cluster slice (ROADMAP.md queue A item
-5c).
+assembles one trace with ``assemble_trace`` + ``critical_path``.
+
+Across processes (the cluster, serving/cluster.py) a context rides the
+wire as ``as_dict()`` in each request's body (and ``X-Trace-Id`` /
+``X-Parent-Span`` headers); the replica rebuilds it with
+``TraceContext.from_dict`` and records its spans after the fact with
+``Span.record(..., parent=ctx)``. A span's ``start_ts`` is the wall clock
+(comparable between processes), its ``duration_s`` the monotonic clock;
+span ids carry the process id, so the router's and the replicas' rings
+join without collisions.
 
 Device-side timing comes from the engine's CUDA events (the
 ``engine_acoustic`` / ``engine_vocode`` spans, serving/engine.py) and the
@@ -101,6 +108,14 @@ class TraceContext:
             "span_id": self.span_id,
             "parent_span_id": self.parent_span_id,
         }
+
+    @classmethod
+    def from_dict(cls, d: Optional[Mapping]) -> Optional["TraceContext"]:
+        """The context ``as_dict()`` sent over the wire; None without a
+        trace id."""
+        if not d or not d.get("trace_id"):
+            return None
+        return cls(d["trace_id"], d.get("span_id"), d.get("parent_span_id"))
 
     def __repr__(self) -> str:
         return (f"TraceContext({self.trace_id!r}, {self.span_id!r}, "
@@ -443,12 +458,16 @@ class Span:
         duration_s: float,
         parent=None,
         ring: Optional[SpanRing] = None,
+        events: Optional[List[Dict[str, Any]]] = None,
         **fields,
     ) -> Optional[TraceContext]:
         """Append an already-measured span to the ring — the path for
         stages whose timing is reconstructed after the fact (EDF queue
         wait is only known at dispatch time, on a different thread than
-        submit). Returns the span's context so children can chain."""
+        submit; a replica's dispatch under a context that crossed the
+        wire). ``start_ts`` is a wall-clock stamp, ``duration_s`` a
+        monotonic one; ``events`` are the span's point events. Returns the
+        span's context so children can chain."""
         if isinstance(parent, Span):
             parent = parent.ctx
         if parent is None or not _tracing_enabled:
@@ -462,6 +481,8 @@ class Span:
         }
         if fields:
             rec["fields"] = dict(fields)
+        if events:
+            rec["events"] = list(events)
         (ring if ring is not None else get_span_ring()).add(rec)
         return ctx
 

@@ -20,11 +20,13 @@ Layering:
   probes.py    -- golden probes of the live fleet against pinned anchors
   longform.py  -- chapter-length requests as deadline-sharing chunk groups
   traffic.py   -- the seeded diurnal / flash-crowd load model
+  cluster.py   -- replica processes behind the router: leases, the hedged
+                  wire dispatch, metrics and trace federation
   server.py    -- the stdlib HTTP front end over the batcher or a router
 
-The package exports what the JAX package's does (the fleet's modules are
-imported by name). The cluster is ROADMAP.md queue A item 5c, the ring
-long-form tier item 6.
+The package exports what the JAX package's does (the fleet's and the
+cluster's modules are imported by name). The ring long-form tier is
+ROADMAP.md queue A item 6.
 """
 
 from speakingstyle_torch.serving.batcher import (  # noqa: F401

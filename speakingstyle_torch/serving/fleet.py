@@ -56,9 +56,10 @@ adds what the JAX package leaves to XLA:
   once its worker returned and no stream still reads it: its graphs, their
   memory pool and its staging buffers go back to the device.
 
-The base router's chaos hooks for the cluster's ``replica_proc_kill`` and
-``net_partition`` return False (the dispatch raises ``InjectedFault``, as
-in the JAX package); ``tier=`` stamps results for a tier router.
+The chaos hooks of ``replica_proc_kill`` and ``net_partition`` return False
+here (the dispatch raises ``InjectedFault``, as in the JAX package); the
+cluster router (serving/cluster.py) overrides them to kill a replica's
+process or cut its wire. ``tier=`` stamps results for a tier router.
 """
 
 import heapq
@@ -845,11 +846,13 @@ class FleetRouter:
 
     def _chaos_proc_kill(self, rep: Replica) -> bool:
         """The ``replica_proc_kill`` drill's hook: in-process replicas have
-        no process to kill, so False (the dispatch raises InjectedFault)."""
+        no process to kill, so False (the dispatch raises InjectedFault);
+        ``ClusterRouter`` kills the replica's process."""
         return False
 
     def _chaos_partition(self, rep: Replica) -> bool:
-        """The ``net_partition`` drill's hook: no wire to cut, so False."""
+        """The ``net_partition`` drill's hook: no wire to cut, so False;
+        ``ClusterRouter`` partitions the replica."""
         return False
 
     def _replica_failed(self, rep: Replica, batch: List[_Pending], error: BaseException,

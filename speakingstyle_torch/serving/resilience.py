@@ -1,7 +1,8 @@
 """The structured failure types the serving core raises, and the replica
 circuit breaker (copied from speakingstyle_tpu/serving/resilience.py,
-``:54-86`` and ``:95-160``; plain Python). The cluster's ``LeaseExpired``
-and ``WireError`` wait for the cluster slice (ROADMAP.md queue A item 5c).
+``:54-160``; plain Python). ``LeaseExpired`` and ``WireError`` are the
+cluster's (serving/cluster.py): the lease sweeper and the wire dispatch
+raise them into the fleet's ordinary replica-failure path.
 
 Each terminal state has a fixed HTTP mapping in the server:
 ``DeadlineExceeded`` 504, ``ReplicaError`` 503, ``DispatchError`` 500;
@@ -16,7 +17,7 @@ re-warm thread and the ``serve_replica_breaker_state`` gauge).
 from speakingstyle_torch.obs import make_lock
 
 __all__ = ["BREAKER_CODE", "CircuitBreaker", "DeadlineExceeded", "DispatchError",
-           "InjectedFault", "ReplicaError"]
+           "InjectedFault", "LeaseExpired", "ReplicaError", "WireError"]
 
 # serve_replica_breaker_state gauge values, mirroring fleet.STATE_CODE
 BREAKER_CODE = {"closed": 0, "open": 1, "half_open": 2}
@@ -45,6 +46,25 @@ class ReplicaError(RuntimeError):
 class DispatchError(RuntimeError):
     """An unexpected exception in a dispatch loop's bookkeeping (not the
     engine call itself)."""
+
+
+class LeaseExpired(RuntimeError):
+    """A remote replica missed its heartbeat lease's miss budget (process
+    death, partition, a wedged host). The cluster router's lease sweeper
+    raises it into the fleet's ``_replica_failed``: the breaker opens and
+    the in-flight work requeues at its original deadline, as for an
+    in-process raise."""
+
+    def __init__(self, message: str, replica_id: str = "", age_s: float = 0.0):
+        super().__init__(message)
+        self.replica_id = replica_id
+        self.age_s = age_s
+
+
+class WireError(RuntimeError):
+    """A dispatch over the wire failed for good within its class budget (a
+    connect or read timeout after the retry, a partitioned host, a bad
+    answer). The router requeues the batch as for an in-process raise."""
 
 
 class CircuitBreaker:

@@ -1,7 +1,8 @@
 """Stdlib HTTP front end over a dispatch backend (JAX counterpart:
 speakingstyle_tpu/serving/server.py): the continuous batcher over one
 engine (``engine=``), or the fleet router over N replica engines
-(``router=``, serving/fleet.py; JAX ``:433-478``).
+(``router=``, serving/fleet.py; JAX ``:433-478``), whose replicas may be
+processes (a ``ClusterRouter``, serving/cluster.py).
 
 ``ThreadingHTTPServer`` gives one thread per connection. Each handler
 thread parses JSON, hands the G2P to the frontend pool (or runs it inline
@@ -54,10 +55,13 @@ API (every field of a synthesize payload but "text" optional):
                        replica's engine in index order, then the style
                        programs once)
   GET  /debug/spans, /debug/trace/<trace_id>
-                       -> the span ring, one assembled trace
+                       -> the span ring, one assembled trace (in cluster
+                       mode joined with the replica processes' spans)
   POST /debug/profile?seconds=N
                        -> a torch.profiler capture of the live process
-                       (serve.debug_profile gates it)
+                       (serve.debug_profile gates it); in cluster mode
+                       fanned out to every replica process first
+                       ("replicas" in the answer)
   POST /admin/rollout  {"step": N} -> the canary-gated rolling rollout
                        (serving/lifecycle.py) to checkpoint N: 404 without
                        a RolloutManager, 400 on a bad body, 409 while one
@@ -70,8 +74,15 @@ Retry-After on shed (``serve_shed_total``), 503 on shutdown
 a wav that fails the quality gate. Every synthesize response, errors
 included, carries ``X-Request-Id`` and ``X-Trace-Id``.
 
-The cluster (and its span, metrics and profile fan-out hooks) waits for
-ROADMAP.md queue A item 5c, the ring long-form tier for item 6.
+Cluster mode (JAX ``:601-608``, ``:829-833``, ``:1113-1114``,
+``:1339-1371``, ``:1444-1452``): a response names the replica process that
+served it in ``X-Served-By`` (and its ``http_request`` event in
+``served_by``); ``/metrics`` appends the ``fleet_*`` federation, every
+replica's counters summed and histogram buckets merged; ``/healthz`` has a
+``cluster`` block (quorum, control address, a lease row a replica) and
+answers 503 until the quorum is READY. A stream (and so a chapter) needs a
+vocoder in this process, which a cluster router has not: 400, as in JAX.
+The ring long-form tier is ROADMAP.md queue A item 6.
 """
 
 import concurrent.futures
@@ -99,7 +110,7 @@ from speakingstyle_torch.serving.lattice import RequestTooLarge
 from speakingstyle_torch.serving.longform import LongformService
 from speakingstyle_torch.serving.resilience import DeadlineExceeded, DispatchError, ReplicaError
 
-__all__ = ["SynthesisServer", "wav_bytes", "wav_stream_header"]
+__all__ = ["SynthesisServer", "profile_window", "wav_bytes", "wav_stream_header"]
 
 # how long a handler waits on its request's future (behind a router, no
 # longer than the class deadline and its grace either)
@@ -122,6 +133,57 @@ def wav_stream_header(sampling_rate: int) -> bytes:
     hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sampling_rate, sampling_rate * 2, 2, 16)
     hdr += b"data" + struct.pack("<I", 0xFFFFFFFF)
     return hdr
+
+
+# plain kernels at the head of a profile window on the card: a torch.profiler
+# trace on the H100 has dropped the records of its first few kernels
+# (ROADMAP.md queue C item 8), and these carry no name the port's count
+TRACE_PRIMER_KERNELS = 256
+
+
+def profile_window(seconds: float, trace_path: str, cuda: bool, wait=None,
+                   opened: Optional[threading.Event] = None) -> Dict:
+    """One ``torch.profiler`` window of ``seconds`` over this process (CUDA
+    activity when ``cuda``; ``wait(seconds)`` is the window, ``time.sleep``
+    by default, and a stop-aware wait may end it early), its chrome trace written to ``trace_path``. Returns the window's
+    summary: the trace path, the device kernels by name with their calls
+    (``kernels``), and the launches the hand-written kernels' wrappers
+    counted over the window (``launches``, parallel/registry.py's names),
+    so that a trace is held to the credits of the process that ran it.
+    ``opened`` is set once the window counts (the profiler started, the
+    primer done, the first launch count read) and cleared when it ends."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.parallel.registry import read_launches
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        if cuda:
+            x = torch.zeros(1, dtype=torch.float64, device="cuda")
+            for _ in range(TRACE_PRIMER_KERNELS):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        before = read_launches()
+        if opened is not None:
+            opened.set()
+        (wait or time.sleep)(seconds)
+        after = read_launches()
+    finally:
+        if opened is not None:
+            opened.clear()
+        prof.stop()
+    kernels: Dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    prof.export_chrome_trace(trace_path)
+    return {"trace": trace_path, "seconds": seconds, "kernels": kernels,
+            "launches": {k: v - before[k] for k, v in after.items() if v != before[k]},
+            "primer_kernels": TRACE_PRIMER_KERNELS if cuda else 0}
 
 
 def _error_status(e: BaseException):
@@ -225,6 +287,8 @@ class SynthesisServer:
         self._shut_down = False
         self._shutdown_done = threading.Event()
         self._profile_lock = make_lock("SynthesisServer._profile_lock")
+        # set while a capture's window counts (``profile_window``)
+        self.profile_window_open = threading.Event()
         # the request-id sequence is the request counter
         self._requests = self.registry.counter(
             "serve_http_requests_total", help="synthesize requests admitted")
@@ -349,15 +413,17 @@ class SynthesisServer:
 
     def programs(self):
         """The program cards of every live engine (replicas in index
-        order), then the shared style encoder's once."""
+        order; a replica process keeps its own), then the shared style
+        encoder's once."""
         engines = self.router.engines() if self.router is not None else [self.engine]
-        out = [row for engine in engines for row in engine.programs()]
+        out = [row for engine in engines if hasattr(engine, "programs")
+               for row in engine.programs()]
         if self.style is not None:
             out.extend(self.style.programs())
         return out
 
     def request_done(self, req_id: str, path: str, status: int, t0: float,
-                     trace_id: Optional[str] = None) -> None:
+                     trace_id: Optional[str] = None, served_by: Optional[str] = None) -> None:
         dur = time.monotonic() - t0
         if status >= 400:
             self._http_errors.inc()
@@ -366,6 +432,9 @@ class SynthesisServer:
             help="HTTP handler wall time (parse + G2P + batcher wait)").observe(dur)
         if self.events is not None:
             fields = dict(req_id=req_id, path=path, status=status, duration_s=dur)
+            if served_by:
+                # cluster mode: the replica process joins the req_id trail
+                fields["served_by"] = served_by
             if trace_id:
                 fields["trace_id"] = trace_id
             self.events.emit("http_request", **fields)
@@ -398,11 +467,36 @@ class SynthesisServer:
         return None if precisions == ("f32",) else f"teacher-{precisions[0]}"
 
     def trace_view(self, trace_id: str) -> Dict:
-        """GET /debug/trace/<id>: the ring's spans of one trace assembled
-        into a tree with its critical path."""
+        """GET /debug/trace/<id>: the ring's spans of one trace, joined in
+        cluster mode with every live replica process's (best effort),
+        assembled into a tree with its critical path."""
         ring = get_span_ring()
         spans = {s["span_id"]: s for s in ring.spans(trace_id) if s.get("span_id")}
+        if self.router is not None and hasattr(self.router, "fetch_remote_spans"):
+            for s in self.router.fetch_remote_spans(trace_id):
+                spans.setdefault(s.get("span_id"), s)
         return assemble_trace(list(spans.values()), trace_id)
+
+    def federated_text(self) -> str:
+        """The ``fleet_*`` Prometheus section (cluster mode): the router's
+        federation cache merged into one registry; "" otherwise. A bad
+        scrape never breaks /metrics: it is counted and left out."""
+        if self.router is None or not hasattr(self.router, "federated_registry"):
+            return ""
+        try:
+            return self.router.federated_registry().prometheus_text()
+        except Exception as e:
+            self.registry.counter(
+                "serve_federation_render_errors_total", labels={"error": type(e).__name__},
+                help="federated /metrics sections dropped by error type").inc()
+            return ""
+
+    def profile_fanout(self, seconds: float) -> Optional[Dict]:
+        """Start a ``torch.profiler`` capture in every live replica process
+        (cluster mode); None without processes to fan out to."""
+        if self.router is None or not hasattr(self.router, "profile_fanout"):
+            return None
+        return self.router.profile_fanout(seconds)
 
     def refresh_process_gauges(self) -> None:
         rss = process_rss_bytes()
@@ -452,6 +546,11 @@ class SynthesisServer:
         }
         if self.router is not None:
             out["replicas"] = {str(i): s for i, s in sorted(self.router.states().items())}
+            if hasattr(self.router, "cluster_stats"):
+                # the control plane's view; ready above is quorum-gated
+                out["cluster"] = {"quorum": self.router.ccfg.quorum,
+                                  "control_addr": self.router.control_addr,
+                                  "replicas": self.router.cluster_stats()}
         model = self.model_info()
         if model:
             out["model"] = dict(model)
@@ -481,11 +580,11 @@ class SynthesisServer:
         return out
 
     def capture_profile(self, seconds: float):
-        """A ``torch.profiler`` window over the live process, one at a
-        time; the chrome trace lands in a numbered directory under
-        ``profile_dir``. The profiler is stopped whatever happens."""
-        from torch.profiler import ProfilerActivity, profile
-
+        """A ``torch.profiler`` window over the live process
+        (``profile_window``), one at a time; the chrome trace lands in a
+        numbered directory under ``profile_dir``, and the answer carries
+        the window's kernels by name and the wrappers' launches. The
+        profiler is stopped whatever happens."""
         if not self._profile_lock.acquire(blocking=False):
             return False, {"error": "a profile capture is already running"}
         try:
@@ -493,25 +592,20 @@ class SynthesisServer:
                 "serve_profile_captures_total", help="on-demand torch.profiler captures").inc())
             trace_dir = os.path.join(self.profile_dir, f"capture_{seq:04d}")
             os.makedirs(trace_dir, exist_ok=True)
-            activities = [ProfilerActivity.CPU]
             engines = self.router.engines() if self.router is not None else [self.engine]
-            if any(e.device.type == "cuda" for e in engines):
-                activities.append(ProfilerActivity.CUDA)
-            prof = profile(activities=activities)
-            prof.start()
-            try:
-                # the sleep is the capture window; a second capture is
-                # refused without waiting on the lock
-                time.sleep(seconds)
-            finally:
-                prof.stop()
-            path = os.path.join(trace_dir, "trace.json")
-            prof.export_chrome_trace(path)
+            devices = [getattr(e, "device", None) for e in engines]
+            if self.style is not None:
+                devices.append(self.style.device)  # a cluster router's own device work
+            cuda = any(d is not None and d.type == "cuda" for d in devices)
+            # the wait is the capture window; a second capture is refused
+            # without waiting on the lock
+            summary = profile_window(seconds, os.path.join(trace_dir, "trace.json"), cuda,
+                                     opened=self.profile_window_open)
         finally:
             self._profile_lock.release()
         if self.events is not None:
             self.events.emit("profile_capture", trace_dir=trace_dir, seconds=seconds)
-        return True, {"trace_dir": trace_dir, "trace": path, "seconds": seconds}
+        return True, dict(summary, trace_dir=trace_dir)
 
     @property
     def address(self):
@@ -606,7 +700,9 @@ def _handler(outer: SynthesisServer):
                 if outer.batcher is not None:
                     outer.batcher.refresh_gauges()
                 outer.refresh_process_gauges()
-                return self._text(200, outer.registry.prometheus_text(),
+                # cluster mode appends the fleet_* federation (merged
+                # buckets, never averaged percentiles)
+                return self._text(200, outer.registry.prometheus_text() + outer.federated_text(),
                                   "text/plain; version=0.0.4; charset=utf-8")
             if path == "/debug/programs":
                 return self._json(200, {"programs": outer.programs(), "build": outer.build})
@@ -706,8 +802,10 @@ def _handler(outer: SynthesisServer):
                 return self._json(400, {"error": str(e)})
             return self._json(200, dict(entry.as_dict(), cached=cached))
 
-        def _fail(self, req_id, parsed, t0, trace_id, status, err, headers=None, extra=None):
-            outer.request_done(req_id, parsed.path, status, t0, trace_id=trace_id)
+        def _fail(self, req_id, parsed, t0, trace_id, status, err, headers=None, extra=None,
+                  served_by=None):
+            outer.request_done(req_id, parsed.path, status, t0, trace_id=trace_id,
+                               served_by=served_by)
             body = {"error": err, "id": req_id}
             body.update(extra or {})
             return self._json(status, body, req_id=req_id, headers=headers, trace_id=trace_id)
@@ -722,6 +820,9 @@ def _handler(outer: SynthesisServer):
             tier = outer.model_tier(result)
             if tier is not None:
                 hdr["X-Model-Tier"] = tier
+            # cluster mode: the replica process that served it
+            if getattr(result, "served_by", None):
+                hdr["X-Served-By"] = result.served_by
             return hdr
 
         def _synthesize(self, parsed, stream: bool):
@@ -750,8 +851,10 @@ def _handler(outer: SynthesisServer):
             if stream:
                 return self._stream_response(result, req_id, parsed, t0, trace_id)
             hdr = self._model_headers(result)
+            served_by = result.served_by
             if result.wav is None:  # a vocoder-less engine: the mel as JSON
-                outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
+                outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id,
+                                   served_by=served_by)
                 return self._json(200, {"id": result.id, "mel_len": result.mel_len,
                                         "mel": result.mel.tolist()},
                                   req_id=req_id, headers=hdr or None, trace_id=trace_id)
@@ -760,9 +863,10 @@ def _handler(outer: SynthesisServer):
                 reasons = ",".join(verdict.reasons)
                 return self._fail(req_id, parsed, t0, trace_id, 500, "audio quality check failed",
                                   {"X-Audio-Quality": f"fail:{reasons}"},
-                                  {"reasons": list(verdict.reasons)})
+                                  {"reasons": list(verdict.reasons)}, served_by=served_by)
             body = wav_bytes(result.wav, outer.cfg.preprocess.preprocessing.audio.sampling_rate)
-            outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id)
+            outer.request_done(req_id, parsed.path, 200, t0, trace_id=trace_id,
+                               served_by=served_by)
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
             self.send_header("Content-Length", str(len(body)))
@@ -934,7 +1038,12 @@ def _handler(outer: SynthesisServer):
                 return self._json(400, {"error": f"seconds={raw!r} is not a number"})
             if not 0 < seconds <= 60:
                 return self._json(400, {"error": "seconds must be in (0, 60]"})
+            # the fan-out first (the replicas capture off-thread), so their
+            # windows overlap the local one
+            fanout = outer.profile_fanout(seconds)
             ok, out = outer.capture_profile(seconds)
+            if fanout is not None:
+                out["replicas"] = fanout
             return self._json(200 if ok else 409, out)
 
     return Handler

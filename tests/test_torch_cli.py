@@ -573,19 +573,28 @@ def test_serve_command_precompiles_serves_and_drains_on_sigterm(tmp_path, corpus
 
 
 def test_serve_command_refuses_a_fleet_and_runs_on_cuda_unless_told(monkeypatch):
-    """A fleet behind the distributed control plane (``--replicas 2
-    --cluster``) exits non-zero naming ROADMAP queue A item 5c (the
-    in-process fleet serves: the next test), and without ``--device cpu``
-    the command needs a card, one engine or a fleet."""
+    """Without ``--device cpu`` the serve command needs a card, on one
+    engine, a fleet or the cluster (``--replicas 2 --cluster``: the router
+    process needs one before it spawns a replica); so does the replica
+    command. A replica spanning hosts (``--coordinator_address``,
+    ``--num_processes``, ``--process_id``) is refused naming ROADMAP queue A
+    item 6."""
     from speakingstyle_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="queue A item 5c"):
-        main(["serve", "--restore_step", "1", "--replicas", "2", "--cluster"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--restore_step", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--restore_step", "1", "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--restore_step", "1", "--replicas", "2", "--cluster"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["replica", "--restore_step", "1", "--replica_id", "r1", "--router", "127.0.0.1:9"])
+    for extra in (["--coordinator_address", "10.0.0.1:1234"], ["--num_processes", "2"],
+                  ["--process_id", "0"]):
+        with pytest.raises(SystemExit, match="queue A item 6"):
+            main(["replica", "--restore_step", "1", "--replica_id", "r1", "--router",
+                  "127.0.0.1:9", *extra])
 
 
 def test_serve_command_refuses_the_ring_long_form_tier(tmp_path):

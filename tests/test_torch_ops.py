@@ -469,7 +469,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "fleet = {'speakingstyle_torch.serving.' + m for m in "
         "('fleet', 'lifecycle', 'autoscale', 'resilience', 'tiers', 'probes', 'longform', "
-        "'traffic')}\n"
+        "'traffic', 'cluster')}\n"
+        "fleet |= {'speakingstyle_torch.cli.replica', 'speakingstyle_torch.obs.cli'}\n"
         "assert fleet <= set(sys.modules), fleet - set(sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -560,7 +560,8 @@ def _fields(obj):
 
 def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     """A train.yaml with the HTTP path's serve keys and whole ``fleet``,
-    ``trace`` and ``slo`` blocks loads in both packages to the same values;
+    ``cluster``, ``trace`` and ``slo`` blocks loads in both packages to the
+    same values;
     the port's defaults of every key it shares with the JAX package are
     the JAX package's."""
     from speakingstyle_tpu.configs import config as jc
@@ -573,6 +574,11 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
                        "shed_retry_after_s": 3.0, "class_deadline_ms": {"a": 100.0},
                        "default_class": "a", "stream_window": 16, "stream_depth": 1,
                        "drain_timeout_s": 2.0},
+             "cluster": {"enabled": True, "control_host": "0.0.0.0", "control_port": 7100,
+                         "heartbeat_interval_s": 0.25, "lease_miss_budget": 5,
+                         "hedge_quantile": 0.9, "hedge_min_ms": 10.0, "hedge_max_ms": 500.0,
+                         "connect_timeout_s": 1.5, "spawn_grace_s": 60.0, "quorum": 2,
+                         "idempotency_cache": 32},
              "trace": {"enabled": False, "ring_capacity": 64, "sample_rate": 0.5},
              "slo": {"objectives": {"a": 0.9}, "fast_window_s": 10.0, "slow_window_s": 50.0}}
     path = tmp_path / "train.yaml"
@@ -581,8 +587,9 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     shared = set(_fields(t)) & set(_fields(j))
     assert {k: _fields(t)[k] for k in shared} == {k: _fields(j)[k] for k in shared}
     assert set(_fields(t)) - set(_fields(j)) == set()
-    assert set(_fields(j)) - set(_fields(t)) == {"cluster", "parallel"}
-    for name in ("fleet", "trace", "slo", "autoscale", "rollout", "longform"):
+    assert set(_fields(j)) - set(_fields(t)) == {"parallel"}
+    assert t.cluster.lease_ttl_s == j.cluster.lease_ttl_s == 1.5
+    for name in ("fleet", "cluster", "trace", "slo", "autoscale", "rollout", "longform"):
         assert _fields(getattr(tc.ServeConfig(), name)) == _fields(getattr(jc.ServeConfig(), name))
 
 
@@ -593,6 +600,11 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     {"fleet": {"max_deadline_ms": 10.0}}, {"trace": {"sample_rate": 1.5}},
     {"trace": {"ring_capacity": 0}}, {"slo": {"objectives": {"a": 1.0}}},
     {"slo": {"fast_window_s": 60.0, "slow_window_s": 30.0}}, {"fleet": {"bogus": 1}},
+    {"cluster": {"quorum": 0}}, {"cluster": {"hedge_quantile": 1.0}},
+    {"cluster": {"hedge_min_ms": 10.0, "hedge_max_ms": 5.0}}, {"cluster": {"bogus": 1}},
+    {"cluster": {"heartbeat_interval_s": 0.0}}, {"cluster": {"lease_miss_budget": 0}},
+    {"cluster": {"hedge_min_ms": -1.0}}, {"cluster": {"connect_timeout_s": 0.0}},
+    {"cluster": {"spawn_grace_s": 0.0}}, {"cluster": {"idempotency_cache": 0}},
 ])
 def test_serve_keys_are_validated_as_jax(tmp_path, bad):
     """Each bad value (or unknown key) is refused by both packages."""
