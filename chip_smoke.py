@@ -151,8 +151,9 @@ printing one JSON line:
    the new version and digest, no request failed, the surge's memory
    polled. Every 200 within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of
    one engine, streams within ``STREAM_LSB`` outside the overlap tail.
-   Then ``serve --replicas 2`` in a subprocess: /healthz 503, then 200,
-   and one /synthesize 200 and one /synthesize/longform 200.
+   ``serve --replicas 2`` in a subprocess (started at the end of
+   ``serve_http``, beside its ``serve``): /healthz 503, then 200, and one
+   /synthesize 200 and one /synthesize/longform 200.
 18. ``serve_tiers`` (after ``serve_fleet``, from the same checkpoint, kernel
    path and lattice): the quality tiers teacher-f32 / teacher-bf16 /
    teacher-int8 as three one-replica fleets (``serving.tiers.tier_fleets``:
@@ -198,6 +199,28 @@ printing one JSON line:
    (started beside the partition and SIGTERM drills, which measure no time
    or memory): /healthz 503 then 200, one request 200, exit 0 on SIGTERM,
    its replicas gone.
+
+20. ``train_dp`` (inside phase 6, on its corpus): data-parallel training on
+   the one card, 2 rank processes sharing it over gloo (NCCL refuses two
+   ranks on one device), LJSpeech_paper at full width on the kernel path,
+   global batch 48 (24 rows a rank), hash dropout. The ranks
+   (``--train_dp_worker``, started by ``parallel/launch.py``) take 3 steps
+   at strict float32 from the same seeded weights; before each, rank 0
+   takes one process's step on the whole global batch from a copy of the
+   same state, and the two are held to the train phase's bounds
+   (``dp_judge``: losses, every gradient, the parameters and BatchNorm
+   statistics after the step); the ranks' weights digests are equal after
+   every step and each rank launches 14 / 14 / 14 / 42 kernels a step; a
+   rank's traced step counts them by name (as credited), its all-reduce
+   ms and its idle share; both steps' ms, ``memory_reserved`` a rank.
+   Then at once: ``train --data_parallel 2 --max_steps 3 --faults
+   nan_grads@3`` (rank 0's rows poisoned: both ranks roll back to step 2,
+   one writer of log.txt), its dp = 2 checkpoint restored at dp = 1 (every
+   leaf as saved) and stepped; one NCCL rank at world size 1 in this
+   process (a step, its gradients all-reduced and parameters broadcast on
+   the card); ``train_vocoder --data_parallel 2`` (3 steps, equal digests
+   on both ranks). Every number is labelled "2 ranks sharing one card over
+   gloo": a check of the path, not a multi-card measurement.
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
@@ -2171,9 +2194,10 @@ def train_sm16_run(cfg, dev, attn):
 
 def train_phase(cfg_of, dev, seed):
     """Phase 6 on a synthetic corpus in a temporary directory, then the
-    distillation phases from its checkpoint; returns (the kernel path's
-    counts, those of its run under the bf16 softmax, the kernel cases, the
-    launches per distill step)."""
+    distillation phases from its checkpoint and the data-parallel phase on
+    its corpus; returns (the kernel path's counts, those of its run under
+    the bf16 softmax, the kernel cases, the launches per distill step, the
+    launches per data-parallel rank step)."""
     from speakingstyle_torch.data.synthetic import generate_corpus
     from speakingstyle_torch.training.trainer import batch_streams
 
@@ -2214,7 +2238,8 @@ def train_phase(cfg_of, dev, seed):
             fail(f"train gradient parity: {bad}")
         distill_launches, distill_cases = distill_phase(cfg, tmp, dev, seed)
         cases.update(distill_cases)
-    return counts, sm16_counts, cases, distill_launches
+        dp_launches = timed("train_dp", train_dp_phase, cfg_of, corpus, tmp, seed, dev)
+    return counts, sm16_counts, cases, distill_launches, dp_launches
 
 
 
@@ -4071,7 +4096,15 @@ def serve_http_phase(tmp, step, seed, dev, smi):
     del server, engine, style, refs
     gc.collect()
     torch.cuda.empty_cache()
-    emit("serve_http_cli", **serve_cli_check(tmp, step, seed, wavs[-1], dev))
+    # the serve command and its fleet form (serve_fleet's check) at once: two
+    # subprocesses that time nothing, side by side for the script's time
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        checks = [pool.submit(fn, tmp, step, seed, wavs[-1], dev)
+                  for fn in (serve_cli_check, fleet_cli_check)]
+        emit("serve_http_cli", **checks[0].result())
+        emit("serve_fleet_cli", **checks[1].result())
     return launches
 
 
@@ -4254,9 +4287,9 @@ def serve_fleet_phase(tmp, step, seed, dev, smi):
     Every 200 is a RIFF wav of mel_len x hop samples passing the quality
     gate and within ``SERVE_HTTP_LSB`` of ``run(eager=True)`` of one engine
     on the same request; each stream within ``STREAM_LSB`` of its full wav
-    outside the overlap tail. Then ``serve --replicas 2`` in a subprocess
-    (``fleet_cli_check``). Returns the kernels counted in the traffic's
-    trace."""
+    outside the overlap tail. (``serve --replicas 2`` in a subprocess,
+    ``fleet_cli_check``, runs at the end of ``serve_http_phase``.) Returns
+    the kernels counted in the traffic's trace."""
     import http.client
     import threading
 
@@ -4610,7 +4643,6 @@ def serve_fleet_phase(tmp, step, seed, dev, smi):
     del server, router, engine, refs, lifecycle
     gc.collect()
     torch.cuda.empty_cache()
-    emit("serve_fleet_cli", **fleet_cli_check(tmp, step, seed, wavs[-1], dev))
     return launches
 
 
@@ -5864,6 +5896,511 @@ def serve_cluster_phase(tmp, step, seed, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 20: data-parallel training
+
+TRAIN_DP_RANKS = 2
+TRAIN_DP_LABEL = "2 ranks sharing one card over gloo"
+TRAIN_DP_STEPS = 3   # the parity steps (strict float32); the first is a warm-up for times
+# the train command's drill: nan_grads on step 3's batch (rank 0's rows), a
+# log line and the sentinel every step, a checkpoint at step 2 (the
+# rollback's target) and the final flush at step 3
+TRAIN_DP_DRILL = "nan_grads@3"
+TRAIN_DP_DRILL_CFG = {"log_step": 1, "save_step": 2, "val_step": 10 ** 6}
+TRAIN_DP_DRILL_STEPS = 3
+# the drill without the one-time program card: its flop counter sends every
+# op of the first step through Python (a tiny config's first step on the CPU:
+# 2.3 s against 0.1 s), and the train phase already builds the card
+TRAIN_DP_DRILL_OBS = {"program_card": False}
+TRAIN_DP_VOC = {"batch": 4, "steps": 3, "wavs": 4, "seconds": 1.0}
+TRAIN_DP_TIMEOUT_S = 300  # each process of the phase
+# the ranks' step against one process's step from the same state: Adam's
+# first-moment step moves a parameter by lr g / (|g| + eps), so where the
+# two gradients straddle 0 at rounding level the parameters land up to 2 lr
+# apart (tests/test_torch_training.py's allowance); elsewhere they agree
+TRAIN_DP_ADAM_FLIP = 2.0
+# the BatchNorm running statistics after the step, relative to each
+# buffer's largest element: the same batch's statistics summed in another
+# order (3.2e-6 measured at step 1 on the H100)
+TRAIN_DP_STATS_RTOL = 1e-4
+
+
+def dp_per_step(cfg):
+    """{kernel: launches a train step}: 14 attention forwards, backwards and
+    delta pre-passes, 42 convs of which the reference encoder's LN convs
+    write ``act``."""
+    tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+    attn = re_.encoder_layer + tr.encoder_layer + tr.decoder_layer
+    return {"fused_attention_fwd": attn, "fused_attention_bwd": attn,
+            "fused_attention_bwd_delta": attn,
+            "fused_conv1d_fwd": sum(c[-1] for c in conv_cases(cfg)),
+            "fused_conv1d_fwd_act": re_.conv_layer}
+
+
+def dp_state(cfg, weights, dev, optimizer_state=None):
+    """A TrainState on ``dev`` holding ``weights`` (a state dict, or the
+    file of one) and, when given, the optimizer's state."""
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model
+    from speakingstyle_torch.training.optim import Optimizer
+    from speakingstyle_torch.training.state import TrainState
+    from speakingstyle_torch.training.trainer import trainable
+
+    if isinstance(weights, str):
+        weights = torch.load(weights, map_location="cpu", weights_only=True)
+    model = build_model(cfg)
+    model.load_state_dict(weights)
+    model = model.to(dev)
+    state = TrainState(0, model, Optimizer(trainable(model), cfg.train))
+    if optimizer_state is not None:
+        state.optimizer.load_state_dict(optimizer_state)
+    return state
+
+
+def dp_snapshot(model, grads):
+    """(every trainable parameter's gradient, every parameter and buffer) on
+    the host, by name, as copies (never the live tensors)."""
+    named = [n for n, p in model.named_parameters() if p.requires_grad]
+    copy = lambda t: t.detach().float().cpu().clone()  # noqa: E731
+    return ({n: copy(g) for n, g in zip(named, grads)},
+            {n: copy(t) for n, t in model.state_dict().items()})
+
+
+def dp_parity_steps(cfg, state, batches, dev, mesh):
+    """TRAIN_DP_STEPS chained data-parallel steps at strict float32, each
+    (on rank 0) beside one process's step on the whole global batch from a
+    copy of the same state, which runs while rank 1 waits at a barrier, so
+    the card is the one process's: per step the logged
+    losses, the agreed flag, the weights digest, the launches of the rank's
+    step, its rows' valid frames, both steps' wall ms (a host clock around
+    a step that ends in a synchronise) and, on rank 0, both steps'
+    gradients and states after them on the host."""
+    import torch
+
+    from speakingstyle_torch.models.loss import loss_counts
+    from speakingstyle_torch.obs.buildinfo import weights_digest
+    from speakingstyle_torch.parallel.mesh import shard_batch
+    from speakingstyle_torch.training.trainer import global_losses, make_train_step, to_device
+
+    step, one_step = make_train_step(cfg, mesh), make_train_step(cfg)
+    rows = []
+    with strict_float32():
+        for batch in batches:
+            row = {}
+            if mesh.is_main:
+                one = dp_state(cfg, state.model.state_dict(), dev, state.optimizer.state_dict())
+                one.step = state.step
+                arrays = to_device(batch.arrays(), dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses, grads = one_step(one, arrays)
+                torch.cuda.synchronize()
+                row["one"] = {"losses": global_losses(losses)[0], "lr": one.optimizer.schedule(
+                    one.optimizer.count - 1), "ms": (time.perf_counter() - t0) * 1e3}
+                row["one"]["grads"], row["one"]["state"] = dp_snapshot(one.model, grads)
+                del one, losses, grads
+            arrays = to_device(shard_batch(batch.arrays(), mesh), dev)
+            torch.cuda.synchronize()
+            mesh.barrier()  # rank 1 waited out rank 0's reference step
+            reset_counts()
+            t0 = time.perf_counter()
+            losses, grads = step(state, arrays, loss_counts(batch.arrays()))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            host, finite = global_losses(losses, mesh)
+            row.update(losses=host, finite=finite, launches=read_counts(), ms=ms,
+                       digest=weights_digest(state.model.state_dict()),
+                       frames=int(arrays["mel_lens"].sum()))
+            if mesh.is_main:
+                row["grads"], row["state"] = dp_snapshot(state.model, grads)
+            rows.append(row)
+    return rows
+
+
+def dp_traced_step(cfg, state, batch, dev, mesh):
+    """One rank step under torch.profiler (primed, see prime_trace): the
+    port's kernels counted by name in its ``train.step`` range against the
+    launches the wrappers credited, the host ms inside ``dp.all_reduce``
+    ranges (the reduce itself and the wait for the other rank), and the
+    device's idle share within the step (the trace holds this process's
+    kernels only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from speakingstyle_torch.models.loss import loss_counts
+    from speakingstyle_torch.parallel.mesh import shard_batch
+    from speakingstyle_torch.training.trainer import make_train_step, to_device
+
+    step = make_train_step(cfg, mesh)
+    arrays = to_device(shard_batch(batch.arrays(), mesh), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_trace()
+        mesh.barrier()  # both ranks' traces open before either steps
+        reset_counts()
+        with record_function("train.step"):
+            step(state, arrays, loss_counts(batch.arrays()))
+        torch.cuda.synchronize()
+    credited = read_counts()
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range for e in on_device
+             if e.is_user_annotation and e.name == "train.step"]
+    if len(spans) != 1:
+        fail(f"train_dp rank {mesh.rank}: {len(spans)} train.step ranges on the device")
+    r = spans[0]
+    kernels = [e for e in on_device
+               if not e.is_user_annotation and r.start <= e.time_range.start < r.end]
+    window, busy, by_name, ours = device_time(f"train_dp rank {mesh.rank}", kernels)
+    in_trace = check_trace(f"train_dp rank {mesh.rank}", by_name, credited)
+    reduces = [e for e in events if e.device_type == DeviceType.CPU
+               and e.name == "dp.all_reduce"]
+    return {"trace_window_ms": window, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / window, "port_kernel_ms": ours,
+            "kernels_in_trace": in_trace, "credited": credited,
+            "all_reduce_calls": len(reduces),
+            "all_reduce_ms": sum(e.time_range.elapsed_us() for e in reduces) / 1e3}
+
+
+def dp_nccl_rank(cfg, weights, dev):
+    """One NCCL rank at world size 1 in this process (a rendezvous on a free
+    port, left again after): one train step, then its gradients all-reduced
+    and its parameters broadcast through the mesh on the card (at world
+    size 1 both leave every bit as it was), and a host value over the gloo
+    side group."""
+    import torch
+
+    from speakingstyle_torch.parallel.launch import free_port, worker_env
+    from speakingstyle_torch.parallel.mesh import ENV_KEYS, init_distributed, leave_group
+    from speakingstyle_torch.training.trainer import make_train_step, to_device, train_batcher
+
+    saved = {k: os.environ.get(k) for k in ENV_KEYS}
+    os.environ.update({k: worker_env(0, 1, free_port())[k] for k in ENV_KEYS})
+    try:
+        mesh = init_distributed(dev.type, verbose=False)
+        state = dp_state(cfg, weights, mesh.device)
+        losses, grads = make_train_step(cfg)(state, to_device(
+            next(iter(train_batcher(cfg))).arrays(), mesh.device))
+        before = [g.clone() for g in grads]
+        mesh.all_reduce_(grads)
+        params = list(state.model.parameters())
+        kept = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            mesh.broadcast_(params)
+        torch.cuda.synchronize()
+        return {"backend": mesh.backend, "reason": mesh.backend_reason, "step": state.step,
+                "total_loss": float(losses["total_loss"]),
+                "grads_equal": all(torch.equal(a, b) for a, b in zip(grads, before)),
+                "params_equal": all(torch.equal(a, b) for a, b in zip(params, kept)),
+                "host_sum": mesh.host_all_reduce([1.5])[0], "tensors": len(grads)}
+    finally:
+        leave_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_resume(cfg, dev):
+    """The train command's last checkpoint (saved at dp = 2) restored in one
+    process: every leaf and Adam moment as saved, its digest the manifest's,
+    then one step."""
+    import torch
+
+    from speakingstyle_torch.obs.buildinfo import weights_digest
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.trainer import (
+        build_state, make_train_step, to_device, train_batcher,
+    )
+
+    saved = CheckpointManager(cfg.train.path.ckpt_path)
+    state = build_state(cfg, dev)
+    saved.restore(state, step=TRAIN_DP_DRILL_STEPS)
+    _, host, manifest = saved.load_verified(TRAIN_DP_DRILL_STEPS)
+    out = {"digest": weights_digest(state.model.state_dict()),
+           "manifest_digest": manifest["weights_digest"],
+           "leaves_equal": all(torch.equal(t.cpu(), host["model"][k])
+                               for k, t in state.model.state_dict().items()),
+           "moments_equal": all(torch.equal(t.cpu(), h) for t, h in zip(
+               state.optimizer.mu + state.optimizer.nu,
+               host["optimizer"]["mu"] + host["optimizer"]["nu"])),
+           "count": state.optimizer.count}
+    losses, _ = make_train_step(cfg)(state, to_device(next(iter(train_batcher(cfg))).arrays(),
+                                                      dev))
+    out.update(total_loss=float(losses["total_loss"]), step=state.step)
+    return out
+
+
+def train_dp_worker(job_path):
+    """One rank of the ``train_dp`` phase (``chip_smoke.py --train_dp_worker
+    JOB``, started by ``parallel/launch.py::run_workers``): the parity
+    steps, the timed steps and a traced step."""
+    import torch
+
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.models.postnet import sync_batch_stats
+    from speakingstyle_torch.parallel.mesh import init_distributed, leave_group
+    from speakingstyle_torch.training.trainer import broadcast_state, train_batcher
+
+    with open(job_path, encoding="utf-8") as fh:
+        job = json.load(fh)
+    mesh = init_distributed(job["device"])
+    dev = mesh.device
+    out = {"rank": mesh.rank, "backend": mesh.backend, "reason": mesh.backend_reason,
+           "device": str(dev)}
+    try:
+        cfg = load_config(*job["yamls"][1::2])
+        batches = iter(train_batcher(cfg, pad_multiple=TRAIN_DP_RANKS))
+        state = dp_state(cfg, job["weights"], dev)
+        sync_batch_stats(state.model, mesh)
+        broadcast_state(state, mesh)
+        parity = dp_parity_steps(
+            cfg, state, [next(batches) for _ in range(TRAIN_DP_STEPS)], dev, mesh)
+        if mesh.is_main:  # judged here: the snapshots stay in this process
+            out["judged"] = dp_judge(parity)
+        out["parity"] = [{k: v for k, v in p.items() if k not in ("one", "grads", "state")}
+                         | {"one_ms": p.get("one", {}).get("ms")} for p in parity]
+        traced = next(batches)
+        if dev.type == "cuda":  # a CPU rehearsal has no device trace
+            out["traced"] = dp_traced_step(cfg, state, traced, dev, mesh)
+            out["memory_reserved_bytes"] = torch.cuda.memory_reserved(dev)
+        torch.save(out, f"{job_path}.rank{mesh.rank}.pt")
+    finally:
+        leave_group()
+
+
+def dp_judge(parity):
+    """Rank 0's parity steps against its one-process steps from the same
+    states, by the train phase's bounds: the losses (F32_LOSS_RTOL), each
+    gradient (F32_GRAD_RTOL of its largest element; a leaf at NOISE_SHARE
+    of the step's largest held below ZERO_GRAD_SHARE of it), each parameter
+    after the step (TRAIN_DP_ADAM_FLIP lr), each BatchNorm statistic
+    (TRAIN_DP_STATS_RTOL of its largest). Returns (a summary a step, the
+    failed checks)."""
+    bad, rows = [], []
+    for s, got in enumerate(parity):
+        want, tag = got["one"], f"step {s + 1}"
+        loss_err = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in want["losses"].items()}
+        bad += [f"{tag} {k}: {got['losses'][k]} vs {want['losses'][k]}"
+                for k, e in loss_err.items() if not e <= F32_LOSS_RTOL]
+        top = max(g.abs().max().item() for g in want["grads"].values())
+        grad_err, noise = 0.0, 0
+        for name, w in want["grads"].items():
+            g, scale = got["grads"][name], w.abs().max().item()
+            if scale <= NOISE_SHARE * top:
+                noise += 1
+                if max(scale, g.abs().max().item()) > ZERO_GRAD_SHARE * top:
+                    bad.append(f"{tag} {name}: |grad| above {ZERO_GRAD_SHARE} of the largest "
+                               "with zero exact gradient")
+                continue
+            err = (g - w).abs().max().item() / scale
+            grad_err = max(grad_err, err)
+            if not err <= F32_GRAD_RTOL:
+                bad.append(f"{tag} grad {name}: {err} of its max |grad| {scale}")
+        param_err, apart, stats_err = 0.0, 0, 0.0
+        for name, w in want["state"].items():
+            d = (got["state"][name] - w).abs()
+            if name.endswith((".mean", ".var")):  # the postnet's BatchNorm statistics
+                err = d.max().item() / max(w.abs().max().item(), 1e-30)
+                stats_err = max(stats_err, err)
+                if not err <= TRAIN_DP_STATS_RTOL:
+                    bad.append(f"{tag} {name}: {err} of its largest")
+                continue
+            param_err = max(param_err, d.max().item())
+            apart += int((d > 0.5 * want["lr"]).sum())
+            if not d.max().item() <= TRAIN_DP_ADAM_FLIP * want["lr"]:
+                bad.append(f"{tag} {name}: {d.max().item()} apart after the step")
+        rows.append({"step": s + 1, "loss_rel_err": max(loss_err.values()),
+                     "grad_worst_rel_err": grad_err, "noise_leaves": noise,
+                     "param_max_abs_diff": param_err, "params_over_half_lr": apart,
+                     "param_bound": TRAIN_DP_ADAM_FLIP * want["lr"],
+                     "batch_stats_rel_err": stats_err})
+    return rows, bad
+
+
+def dp_wavs(tmp, sr, seed):
+    """TRAIN_DP_VOC["wavs"] seeded int16 wavs for the vocoder command."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    os.makedirs(tmp, exist_ok=True)
+    for i in range(TRAIN_DP_VOC["wavs"]):
+        wav = reference_wav(seed + 100 + i, sr, TRAIN_DP_VOC["seconds"])
+        wavfile.write(os.path.join(tmp, f"dp{i}.wav"), sr, (wav * 32767).astype(np.int16))
+    return tmp
+
+
+def dp_processes(procs):
+    """Wait for {name: Popen}; returns ({name: output}, {name: seconds from
+    now to its exit}). A process past TRAIN_DP_TIMEOUT_S is killed."""
+    t0, outs, seconds = time.perf_counter(), {}, {}
+    pending = dict(procs)
+    while pending:
+        for name, p in list(pending.items()):
+            if p.poll() is not None:
+                outs[name] = p.stdout.read()
+                seconds[name] = time.perf_counter() - t0
+                del pending[name]
+        if time.perf_counter() - t0 > TRAIN_DP_TIMEOUT_S:
+            for p in pending.values():
+                p.kill()
+            fail(f"train_dp: {sorted(pending)} ran past {TRAIN_DP_TIMEOUT_S} s")
+        time.sleep(0.2)
+    return outs, seconds
+
+
+def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
+    """Phase 20 (see the module docstring); returns the launches of a
+    rank's train step."""
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model, init_weights
+    from speakingstyle_torch.parallel import launch
+
+    root = os.path.join(tmp, "train_dp")
+    os.makedirs(root, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels_kw = dict(TRAIN_PATHS)["kernels"]
+    cfg32 = cfg_of(corpus, os.path.join(root, "f32"), seed, compute_dtype="float32",
+                   **kernels_kw)
+    if cfg32.model.dropout_impl != "hash" or cfg32.train.optimizer.batch_size % TRAIN_DP_RANKS:
+        fail(f"train_dp: the config has dropout {cfg32.model.dropout_impl}, batch "
+             f"{cfg32.train.optimizer.batch_size}")
+    drill = cfg_of(corpus, os.path.join(root, "drill"), seed, **kernels_kw)
+    drill = dataclasses.replace(drill, train=dataclasses.replace(
+        drill.train, step=dataclasses.replace(drill.train.step, **TRAIN_DP_DRILL_CFG),
+        obs=dataclasses.replace(drill.train.obs, **TRAIN_DP_DRILL_OBS)))
+    weights = os.path.join(root, "weights.pt")
+    torch.save(init_weights(build_model(cfg32), seed).state_dict(), weights)
+    job = {"device": dev.type, "weights": weights,
+           "yamls": config_yamls(cfg32, os.path.join(root, "y32"))}
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w", encoding="utf-8") as fh:
+        json.dump(job, fh)
+    # every kernel by name: those off this path (the bf16-softmax ones)
+    # must stay at 0
+    per_step = {k: 0 for k in read_counts()} | dp_per_step(cfg32)
+
+    # the ranks, alone on the card
+    t0 = time.perf_counter()
+    launch.run_workers([os.path.abspath(__file__), "--train_dp_worker", job_path],
+                       TRAIN_DP_RANKS)
+    ranks = [torch.load(f"{job_path}.rank{r}.pt", weights_only=False)
+             for r in range(TRAIN_DP_RANKS)]
+    ranks_s = time.perf_counter() - t0
+
+    # then at once: the train command with --data_parallel 2 and the drill,
+    # and the vocoder command with --data_parallel 2; here meanwhile one NCCL
+    # rank at world size 1, then (once the train command is done) its dp = 2
+    # checkpoint restored at dp = 1 and stepped
+    t0 = time.perf_counter()
+    pp = cfg32.preprocess.preprocessing
+    wav_dir = dp_wavs(os.path.join(root, "wavs"), pp.audio.sampling_rate, seed)
+    run = lambda argv: subprocess.Popen(  # noqa: E731
+        [sys.executable, "-m", "speakingstyle_torch", *argv, "--device", dev.type,
+         "--data_parallel", str(TRAIN_DP_RANKS)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    procs = {
+        "command": run(["train", *config_yamls(drill, os.path.join(root, "ydrill")),
+                        "--max_steps", str(TRAIN_DP_DRILL_STEPS), "--faults", TRAIN_DP_DRILL]),
+        # no checkpoint path: the GAN state's pure-Python msgpack write
+        # (train_vocoder_resilience drills it) is not this check's
+        "vocoder": run(["train_vocoder", "--input_wavs_dir", wav_dir, "--checkpoint_path", "",
+                        "--batch_size", str(TRAIN_DP_VOC["batch"]),
+                        "--training_steps", str(TRAIN_DP_VOC["steps"]), "--log_every", "1",
+                        "--save_every", "1000"]),
+    }
+    try:
+        nccl = dp_nccl_rank(drill, weights, dev)
+        outs, seconds = dp_processes({"command": procs["command"]})
+        if procs["command"].returncode != 0:
+            fail(f"train_dp: the train command exited {procs['command'].returncode}: "
+                 f"{outs['command'][-3000:]}")
+        resume = dp_resume(drill, dev)
+        more, more_s = dp_processes({"vocoder": procs["vocoder"]})
+        outs.update(more)
+        seconds.update({k: seconds["command"] + v for k, v in more_s.items()})
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    wave_s = time.perf_counter() - t0
+    if procs["vocoder"].returncode != 0:
+        fail(f"train_dp: the vocoder command exited {procs['vocoder'].returncode}: "
+             f"{outs['vocoder'][-3000:]}")
+    voc_digests = dict(re.findall(r"\[vocoder\] rank (\d+): step \d+, weights_digest (\w+)",
+                                  outs["vocoder"]))
+    voc_rows = vocoder_log(outs["vocoder"])
+    with open(os.path.join(drill.train.path.log_path, "log.txt"), encoding="utf-8") as fh:
+        drill_log = fh.read()
+    rollbacks = re.findall(r"\[rank (\d)\] \[resilience\] non-finite losses/grads at step 3; "
+                           r"rollback 1/3 to checkpoint step 2", outs["command"])
+
+    parity, bad = ranks[0]["judged"]
+    for s in range(TRAIN_DP_STEPS):
+        if len({r["parity"][s]["digest"] for r in ranks}) != 1:
+            bad.append(f"step {s + 1}: the ranks' weights digests differ")
+        for r in ranks:
+            p = r["parity"][s]
+            if not p["finite"] or p["launches"] != per_step:
+                bad.append(f"rank {r['rank']} step {s + 1}: finite {p['finite']}, launches "
+                           f"{p['launches']}")
+    frames = [r["parity"][0]["frames"] for r in ranks]
+    if len(set(frames)) == 1:
+        bad.append(f"the ranks' first rows hold equal valid frames {frames}")
+    for r in ranks:
+        t = r.get("traced", {})
+        if t.get("credited") != per_step:
+            bad.append(f"rank {r['rank']} traced step: credited {t.get('credited')}, want "
+                       f"{per_step}")
+        if r["backend"] != "gloo":
+            bad.append(f"rank {r['rank']}: backend {r['backend']}, want gloo on a shared card")
+    if sorted(rollbacks) != ["0", "1"] or drill_log.count("[train] Step 1,") != 1 or \
+            "rollback 1/3 to checkpoint step 2" not in drill_log:
+        bad.append(f"the drill: rollbacks by rank {rollbacks}, or log.txt has two writers")
+    if not (resume["leaves_equal"] and resume["moments_equal"]
+            and resume["digest"] == resume["manifest_digest"]
+            and resume["step"] == TRAIN_DP_DRILL_STEPS + 1
+            and math.isfinite(resume["total_loss"])):
+        bad.append(f"the dp = 2 checkpoint at dp = 1: {resume}")
+    if not (nccl["backend"] == "nccl" and nccl["grads_equal"] and nccl["params_equal"]
+            and nccl["host_sum"] == 1.5 and math.isfinite(nccl["total_loss"])):
+        bad.append(f"the NCCL rank: {nccl}")
+    if sorted(voc_digests) != ["0", "1"] or len(set(voc_digests.values())) != 1 or sorted(
+            voc_rows) != list(range(1, TRAIN_DP_VOC["steps"] + 1)) or not all(
+            math.isfinite(v) for row in voc_rows.values() for v in row.values()):
+        bad.append(f"the vocoder command: digests {voc_digests}, steps {sorted(voc_rows)}")
+    emit("train_dp", label=TRAIN_DP_LABEL, ranks=TRAIN_DP_RANKS,
+         backend=ranks[0]["backend"], backend_reason=ranks[0]["reason"],
+         devices=[r["device"] for r in ranks], batch=cfg32.train.optimizer.batch_size,
+         rows_a_rank=cfg32.train.optimizer.batch_size // TRAIN_DP_RANKS,
+         first_batch_valid_frames_a_rank=frames, parity=parity,
+         total_loss=[r["losses"]["total_loss"] for r in ranks[0]["parity"]],
+         digests_equal=[len({r["parity"][s]["digest"] for r in ranks}) == 1
+                        for s in range(TRAIN_DP_STEPS)],
+         launches_a_step=per_step,
+         step_ms_one_process=[p["one_ms"] for p in ranks[0]["parity"]],
+         step_ms_a_rank=[[p["ms"] for p in r["parity"]] for r in ranks],
+         traced_step=[{k: v for k, v in r.get("traced", {}).items() if k != "credited"}
+                      for r in ranks],
+         memory_reserved_bytes_a_rank=[r.get("memory_reserved_bytes") for r in ranks],
+         command={"argv": f"train --data_parallel {TRAIN_DP_RANKS} --max_steps "
+                          f"{TRAIN_DP_DRILL_STEPS} --faults {TRAIN_DP_DRILL}",
+                  "rollbacks_by_rank": rollbacks},
+         resume_dp1=resume, nccl=nccl,
+         vocoder_digests=voc_digests,
+         vocoder_mel_l1={s: r.get("mel_l1") for s, r in voc_rows.items()},
+         seconds={"ranks": ranks_s, "commands": wave_s, **seconds})
+    if bad:
+        fail(f"train_dp: {bad}")
+    # what the run counted (equal on every rank and step, checked above)
+    return ranks[0]["parity"][-1]["launches"]
+
+
 def traced_replay(engine, requests):
     """One replayed dispatch under ``torch.profiler``: (results, {device
     busy ms and idle share in the traced window, the port's kernels counted
@@ -5891,7 +6428,12 @@ def traced_replay(engine, requests):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train_dp_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.train_dp_worker:  # one rank of the train_dp phase
+        sys.path.insert(0, REPO)
+        train_dp_worker(args.train_dp_worker)
+        return 0
 
     if not os.path.isdir(os.path.join(REPO, "speakingstyle_torch", "csrc")):
         fail(f"{REPO} holds no speakingstyle_torch/csrc: run from a checkout of the repository")
@@ -5980,12 +6522,13 @@ def main(argv=None) -> int:
                                  args.seed, dev, smi)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
-    train_counts, train_sm16_counts, train_cases, distill_per_step = timed(
+    train_counts, train_sm16_counts, train_cases, distill_per_step, dp_per_rank_step = timed(
         "train", train_phase, train_config, dev, args.seed)
     cases.update(train_cases)
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
          serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"],
-         serve_tiers_s=PHASE_S["serve_tiers"], serve_cluster_s=PHASE_S["serve_cluster"])
+         serve_tiers_s=PHASE_S["serve_tiers"], serve_cluster_s=PHASE_S["serve_cluster"],
+         train_dp_s=PHASE_S["train_dp"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -6037,6 +6580,10 @@ def main(argv=None) -> int:
             # the profile windows of the two replica processes and of this
             # one (the StyleService), each equal to its process's credits
             "serve_cluster_launches": cluster_launches[name],
+            # a train step of each data-parallel rank (train_dp: 2 ranks
+            # sharing the card over gloo), by the wrappers' counts and, in
+            # a traced step, by name in the trace
+            "train_dp_launches_per_rank_step": dp_per_rank_step[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

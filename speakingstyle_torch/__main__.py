@@ -18,6 +18,9 @@ def main(argv=None):
         modules[name] = mod
         mod.build_parser(sub.add_parser(name, help=mod.__doc__.splitlines()[0]))
     args = parser.parse_args(argv)
+    # the command line again, for a command that starts copies of itself
+    # (train --data_parallel N)
+    args.argv = ["-m", "speakingstyle_torch", *argv]
     return modules[args.command].main(args)
 
 

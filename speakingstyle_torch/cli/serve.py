@@ -19,7 +19,7 @@ serving/server.py:
 ``POST /synthesize/longform`` serves chapters on the chunked long-form tier
 (serving/longform.py) over the same backend, on one engine or behind
 ``--replicas N``. ``serve.longform.mesh_seq > 1`` asks for the ring tier,
-which is multi-device work (ROADMAP.md queue A item 6): the command exits
+which is multi-device work (ROADMAP.md queue A item 6c): the command exits
 non-zero naming it.
 
 ``serve.trace`` sizes the span ring and arms span recording,

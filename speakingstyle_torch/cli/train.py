@@ -1,5 +1,5 @@
-"""``train`` command: FastSpeech2 training on one device (JAX counterpart:
-speakingstyle_tpu/cli/train.py).
+"""``train`` command: FastSpeech2 training, on one device or data-parallel
+over rank processes (JAX counterpart: speakingstyle_tpu/cli/train.py).
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails rather than
 fall back when no card is present. The weights start from ``train.seed``;
@@ -7,13 +7,23 @@ fall back when no card is present. The weights start from ``train.seed``;
 ``--faults`` arms resilience drills (``SPEAKINGSTYLE_FAULTS``), e.g.
 ``nan_grads@7,loader_ioerror@3`` or ``sigterm@8``.
 
+The mesh resolves as the JAX command's does: ``--data_parallel`` /
+``--model_parallel`` first, then the ``train.parallel`` block (``mesh: [dp,
+1]``), then the legacy ``train.sharding`` (``data_axis: -1`` = every card).
+With ``dp > 1`` the command starts ``dp`` rank processes of itself on this
+host (``parallel/launch.py``; ranks sharing a card use gloo, else NCCL) and
+exits with their code; under torchrun, or with ``SPEAKINGSTYLE_MULTIHOST``
+set, it trains as the rank the environment names. ``tp > 1`` (ROADMAP.md
+queue A item 6b) and ``seq > 1`` (item 6c) exit non-zero naming them.
+
     python -m speakingstyle_torch train -p preprocess.yaml -m model.yaml \\
         -t train.yaml [--max_steps N] [--restore_step -1] [--device cpu] \\
-        [--faults SPEC] [--deterministic] [--synth [--vocoder_ckpt PATH]] \\
-        [--profile_dir DIR] [--profile_at N]
+        [--data_parallel N] [--faults SPEC] [--deterministic] \\
+        [--synth [--vocoder_ckpt PATH]] [--profile_dir DIR] [--profile_at N]
 """
 
 import argparse
+import dataclasses
 import os
 
 
@@ -29,6 +39,12 @@ def build_parser(parser=None):
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override train.step.total_step")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--data_parallel", type=int, default=None,
+                        help="data-parallel ranks (one process each); overrides "
+                             "train.parallel.mesh (default: the train.parallel block, "
+                             "falling back to the legacy train.sharding derivation)")
+    parser.add_argument("--model_parallel", type=int, default=None,
+                        help="tensor-parallel degree; only 1 (ROADMAP.md queue A item 6b)")
     parser.add_argument("--synth", action="store_true",
                         help="render a ground-truth vs predicted sample every synth_step")
     parser.add_argument("--vocoder_ckpt", default=None,
@@ -48,8 +64,51 @@ def build_parser(parser=None):
     return parser
 
 
+def resolve_dp(args, cfg) -> int:
+    """The data-parallel ranks of this run (speakingstyle_tpu/cli/train.py:
+    84-110): the flags, then ``train.parallel``, then ``train.sharding``
+    (``data_axis: -1`` = every visible device: the cards, or 1 on the
+    CPU); exits naming the ROADMAP
+    item for ``tp > 1`` or ``seq > 1``, and on a batch ``dp`` does not
+    divide, before any rank starts."""
+    from speakingstyle_torch.configs.config import check_train_supported
+    from speakingstyle_torch.parallel.mesh import (
+        BatchShardingError, local_batch_size, make_mesh, resolve_mesh, visible_devices,
+    )
+
+    par, sh = cfg.train.parallel, cfg.train.sharding
+    n_devices = visible_devices(args.device)
+    flags_given = args.data_parallel is not None or args.model_parallel is not None
+    try:
+        if not par.is_single() and not flags_given:
+            check_train_supported(cfg.train, n_devices)
+            mesh = resolve_mesh(par, n_devices=n_devices)
+        else:
+            tp = args.model_parallel if args.model_parallel is not None else sh.model_axis
+            if tp > 1:
+                raise NotImplementedError(
+                    f"--model_parallel {tp}: the port trains data-parallel only; tensor "
+                    "parallelism over the mesh's model axis is ROADMAP.md queue A item 6b")
+            if par.seq > 1:
+                check_train_supported(cfg.train)
+            if args.data_parallel:
+                dp = args.data_parallel
+            elif sh.data_axis > 0:
+                dp = sh.data_axis
+            else:
+                dp = n_devices
+            mesh = make_mesh(data=dp, model=1)
+        dp = mesh.dp if mesh is not None else 1
+        if dp > 1:
+            local_batch_size(cfg.train.optimizer.batch_size, mesh)
+    except (NotImplementedError, BatchShardingError) as e:
+        raise SystemExit(f"train: {e}") from e
+    return dp
+
+
 def main(args):
-    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.configs.config import ParallelConfig, load_config
+    from speakingstyle_torch.parallel import launch
     from speakingstyle_torch.training.faults import ENV_VAR, FaultPlan
     from speakingstyle_torch.training.trainer import run_training
 
@@ -66,6 +125,16 @@ def main(args):
         os.environ[ENV_VAR] = spec
     cfg = load_config(args.preprocess_config, args.model_config, args.train_config,
                       preset=args.preset)
+    dp = resolve_dp(args, cfg)
+    try:
+        code = launch.launch_if_needed(dp, args.device, getattr(args, "argv", None))
+    except launch.WorkerFailed as e:
+        raise SystemExit(f"train: {e}") from e
+    if code is not None:
+        return None
+    # this process trains: alone, or as the rank its environment names
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, parallel=ParallelConfig(mesh=[dp, 1])))
     vocoder = None
     if args.synth and args.vocoder_ckpt:
         from speakingstyle_torch.device import resolve_device
@@ -76,12 +145,19 @@ def main(args):
     if args.profile_at is not None:
         profile_steps = (args.profile_at, args.profile_at + 10)
         profile_dir = profile_dir or os.path.join(cfg.train.path.log_path, "profile")
-    state = run_training(cfg, device=args.device,
-                         restore_step=args.restore_step if args.restore_step != 0 else None,
-                         max_steps=args.max_steps,
-                         synth_callback="default" if args.synth else None, vocoder=vocoder,
-                         profile_dir=profile_dir, profile_steps=profile_steps)
-    print(f"training finished at step {state.step}")
+    try:
+        state = run_training(cfg, device=args.device,
+                             restore_step=args.restore_step if args.restore_step != 0 else None,
+                             max_steps=args.max_steps,
+                             synth_callback="default" if args.synth else None, vocoder=vocoder,
+                             profile_dir=profile_dir, profile_steps=profile_steps)
+    finally:
+        if dp > 1:
+            from speakingstyle_torch.parallel.mesh import leave_group
+
+            leave_group()
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"training finished at step {state.step}")
     return state
 
 

@@ -387,17 +387,26 @@ class TrainConfig:
 
 
 def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
-    """Raise ``NotImplementedError`` for more than one device: the port
-    trains on one (multi-device training is ROADMAP.md queue A item 6).
-    ``n_devices`` is what ``sharding.data_axis = -1`` resolves to."""
+    """Raise ``NotImplementedError`` for a mesh the port does not train on:
+    data parallelism (``dp > 1``, rank processes over ``torch.distributed``)
+    is ported, tensor parallelism (``tp > 1``: ROADMAP.md queue A item 6b)
+    and the sequence axis (``seq > 1``: item 6c) are not. ``n_devices`` is
+    what ``sharding.data_axis = -1`` ("every device") resolves to."""
     par, sh = train.parallel, train.sharding
-    dp = n_devices if sh.data_axis == -1 else sh.data_axis
-    if not par.is_single() or sh.model_axis != 1 or dp != 1:
+    if par.mesh[1] > 1 or sh.model_axis > 1:
         raise NotImplementedError(
-            f"train.parallel.mesh {par.mesh} (seq {par.seq}) / train.sharding "
-            f"data_axis {sh.data_axis}, model_axis {sh.model_axis}: the port trains "
-            "on one device; multi-device training is ROADMAP.md queue A item 6"
+            f"train.parallel.mesh {par.mesh} / train.sharding model_axis {sh.model_axis}: "
+            "the port trains data-parallel only; tensor parallelism over the mesh's model "
+            "axis is ROADMAP.md queue A item 6b"
         )
+    if par.seq > 1:
+        raise NotImplementedError(
+            f"train.parallel.seq {par.seq}: the sequence axis (ring attention) is "
+            "ROADMAP.md queue A item 6c"
+        )
+    dp = n_devices if sh.data_axis == -1 else sh.data_axis
+    if dp < 1:
+        raise ValueError(f"train.sharding.data_axis must be >= 1 or -1, got {sh.data_axis}")
 
 
 # ---------------------------------------------------------------------------
@@ -804,7 +813,7 @@ class LongformConfig:
     crossfade, streamed chunk by chunk in bounded memory. The ring tier
     (``mesh_seq > 1``: one chapter-length utterance as one ring-attention
     program over a sequence mesh, at ``src_buckets`` / ``mel_buckets``)
-    is ROADMAP.md queue A item 6: its keys are accepted and validated, and
+    is ROADMAP.md queue A item 6c: its keys are accepted and validated, and
     ``serve`` refuses ``mesh_seq > 1``."""
 
     # sequence-mesh size of the ring tier; 0 or 1 = the chunked tier only
@@ -933,7 +942,7 @@ class ServeConfig:
     serving/server.py, serving/fleet.py, serving/autoscale.py,
     serving/lifecycle.py, serving/longform.py, serving/cluster.py,
     cli/serve.py). The JAX package's serve key that no ported module reads
-    yet (``parallel``) is listed in ROADMAP.md queue A item 6."""
+    yet (``parallel``) is listed in ROADMAP.md queue A items 6b and 6c."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])

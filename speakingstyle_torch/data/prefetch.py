@@ -72,7 +72,11 @@ def bounded_put(q: "queue.Queue", item, stopped: threading.Event,
 
 
 class DevicePrefetcher:
-    """Wrap a host batch iterator; yield (Batch, tensors on ``device``)."""
+    """Wrap a host batch iterator; yield (Batch, tensors on ``device``).
+    ``mesh`` (a data-parallel ``parallel.mesh.Mesh``): the Batch stays the
+    global one and only this rank's rows are copied, at the global batch's
+    padded lengths (the JAX package's multi-host contract: every host cuts
+    the same global batch and feeds its own shard)."""
 
     def __init__(
         self,
@@ -82,8 +86,10 @@ class DevicePrefetcher:
         transfer_retries: int = 0,
         transfer_backoff: float = 0.05,
         registry: Optional[MetricsRegistry] = None,
+        mesh=None,
     ):
         self.batches = batches
+        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         if self.cuda and self.device.index is None:  # the worker thread sets it
@@ -109,7 +115,9 @@ class DevicePrefetcher:
         self.thread.start()
 
     def _put(self, batch):
-        host = host_tensors(batch.arrays(), pin=self.cuda)
+        from speakingstyle_torch.parallel.mesh import shard_batch
+
+        host = host_tensors(shard_batch(batch.arrays(), self.mesh), pin=self.cuda)
         if not self.cuda:
             return batch, host, None
         with torch.cuda.stream(self.stream):

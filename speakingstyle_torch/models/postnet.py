@@ -23,6 +23,14 @@ class BatchNorm(nn.Module):
       collection after a ``mutable=["batch_stats"]`` apply).
 
     Both normalise in float32 and cast the output to the compute dtype.
+
+    ``sync`` (a joined ``parallel.mesh.Mesh`` with ``dp > 1``, set by the
+    trainer): train-mode statistics over the GLOBAL batch, the JAX
+    package's GSPMD semantics. The per-channel sum, sum of squares and count
+    of the rank's rows are all-reduced inside the graph (``AllReduceSum``,
+    whose backward all-reduces the incoming gradient), so the running
+    statistics are the same on every rank and the backward is the global
+    batch's. Without it (one rank) the code path is the one above.
     """
 
     MOMENTUM = 0.9
@@ -30,6 +38,7 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
         self.eps, self.dtype = eps, dtype
+        self.sync = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -40,13 +49,47 @@ class BatchNorm(nn.Module):
         if deterministic:
             mean, var = self.mean, self.var
         else:
-            mean = xf.mean(dim=(0, 1))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
+            if self.sync is not None and self.sync.dp > 1:
+                count = torch.full_like(xf[0, 0], float(xf.shape[0] * xf.shape[1]))
+                sums = AllReduceSum.apply(torch.stack(
+                    [xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1)), count]), self.sync)
+                mean = sums[0] / sums[2]
+                var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(dim=(0, 1))
+                var = torch.clamp((xf * xf).mean(dim=(0, 1)) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
                 self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over the mesh's ranks of a tensor, differentiable: the
+    gradient of each rank's input is the sum of every rank's output
+    gradient (each rank's loss reads the global sums)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = x.clone()
+        mesh.all_reduce_([out])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        ctx.mesh.all_reduce_([grad])
+        return grad, None
+
+
+def sync_batch_stats(model: nn.Module, mesh) -> None:
+    """Point every ``BatchNorm`` of ``model`` at ``mesh`` (None: local
+    statistics again)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = mesh if mesh is not None and mesh.dp > 1 else None
 
 
 class PostNet(nn.Module):

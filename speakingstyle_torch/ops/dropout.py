@@ -15,6 +15,16 @@ mask's bits differ by impl:
 
 The last two draw from a ``torch.Generator`` on the tensor's device and
 cannot give JAX's bits: their tests compare statistics.
+
+Data parallelism (``parallel/mesh.py``): a rank holds rows ``[r b, (r + 1)
+b)`` of the global batch, and its ``DropoutRNG`` carries ``row_offset = r
+b``. The hash mask of a batch-leading tensor then hashes the flat index of
+the GLOBAL layout (``offset + arange(n)``, offset = ``row_offset`` times the
+elements of a row), so rank r's mask is those rows of the one-process mask
+bit for bit, as the JAX package's GSPMD step hashes the global shape; the
+salts are the same on every rank (one CPU generator seeded alike). The
+random-bit impls draw per rank from a device generator seeded by (seed,
+rank).
 """
 
 from typing import Optional
@@ -27,13 +37,17 @@ _M32 = 0xFFFFFFFF
 
 class DropoutRNG:
     """Where a training step's dropout masks come from: a CPU generator for
-    the hash salts and one on ``device`` for the random bits, both seeded
-    from ``seed``."""
+    the hash salts, seeded from ``seed``, and one on ``device`` for the
+    random bits, seeded from (``seed``, ``rank``). ``row_offset``: the
+    global batch row of this rank's first row (0 without data
+    parallelism)."""
 
-    def __init__(self, seed: int, device=None):
+    def __init__(self, seed: int, device=None, rank: int = 0, row_offset: int = 0):
         device = torch.device("cpu" if device is None else device)
+        self.row_offset = row_offset
         self.cpu = torch.Generator().manual_seed(seed)
-        self.device = torch.Generator(device=device).manual_seed(seed)
+        dseed = seed if rank == 0 else (seed + rank * 0x9E3779B97F4A7C15) % (1 << 63)
+        self.device = torch.Generator(device=device).manual_seed(dseed)
 
     def salt(self) -> int:
         """A fresh uint32 salt, drawn on the host."""
@@ -55,6 +69,7 @@ class ReplayRNG:
         self.rng = rng
         self.salts: list = []
         self.device = getattr(rng, "device", None)  # a stand-in may give salts only
+        self.row_offset = getattr(rng, "row_offset", 0)
         self.device_state = None if self.device is None else self.device.get_state()
         self.runs = self.pos = 0
 
@@ -90,10 +105,11 @@ def _fmix32(h):
 
 def keep_mask(rate: float, shape, impl: str = "bernoulli",
               rng: Optional[DropoutRNG] = None, device=None,
-              salt: Optional[int] = None):
+              salt: Optional[int] = None, row_offset: int = 0):
     """Boolean keep mask with P(True) = 1 - rate. ``"hash"`` takes ``salt``
-    or draws one from ``rng``; the other impls draw bits from
-    ``rng.device``."""
+    or draws one from ``rng``, and hashes the flat index of rows
+    ``[row_offset, row_offset + shape[0])`` of the global batch; the other
+    impls draw bits from ``rng.device``."""
     if impl not in DROPOUT_IMPLS:
         raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, got {impl!r}")
     shape = tuple(shape)
@@ -107,7 +123,8 @@ def keep_mask(rate: float, shape, impl: str = "bernoulli",
     if impl == "hash":
         if salt is None:
             salt = rng.salt()
-        idx = torch.arange(n, dtype=torch.int64, device=device)
+        offset = row_offset * (n // shape[0]) if shape and shape[0] else 0
+        idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
         bits = _fmix32(_mul32(idx, 0x9E3779B9) ^ (salt & _M32))
         return (bits >= min(_M32, int(round(rate * 2 ** 32)))).reshape(shape)
     gen = rng.device
@@ -127,7 +144,8 @@ def dropout(x, rate: float, rng: Optional[DropoutRNG], impl: str = "bernoulli"):
         return torch.zeros_like(x)
     if rng is None:
         raise ValueError("dropout with rate > 0 needs a DropoutRNG")
-    mask = keep_mask(rate, x.shape, impl, rng, x.device)
+    mask = keep_mask(rate, x.shape, impl, rng, x.device,
+                     row_offset=getattr(rng, "row_offset", 0))
     return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -86,11 +86,27 @@ def _finish_build(name: str, job) -> None:
     build_seconds[name] = time.monotonic() - t0
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """An exclusive lock on the build directory across processes: the rank
+    processes of a data-parallel run never compile into it at once."""
+    import fcntl
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Build every named library in parallel (one nvcc each); returns the
-    per-library build seconds (0.0 for one that was already built)."""
+    """Build every named library in parallel (one nvcc each), under the
+    build directory's lock; returns the per-library build seconds (0.0 for
+    one that was already built)."""
     names = list(names)
-    with _lock:
+    with _lock, _build_dir_lock():
         jobs = {n: _start_build(n) for n in names}
         for n, job in jobs.items():
             if job is None:

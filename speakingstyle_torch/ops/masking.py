@@ -29,8 +29,13 @@ def mask_fill(x: torch.Tensor, pad_mask: torch.Tensor, value: float = 0.0) -> to
     return x.masked_fill(pad_mask[..., None], value)
 
 
-def masked_mean(values: torch.Tensor, keep_mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(values: torch.Tensor, keep_mask: torch.Tensor, count=None) -> torch.Tensor:
     """Mean of ``values`` over the positions where ``keep_mask`` is True (the
-    reference's ``masked_select(...).mean()``); 0 when none is."""
+    reference's ``masked_select(...).mean()``); 0 when none is. ``count``
+    (a host number) replaces the mask's own count of kept positions: a
+    data-parallel rank divides its rows' sum by the global batch's count."""
     keep = keep_mask.to(values.dtype)
-    return (values * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    total = (values * keep).sum()
+    if count is not None:
+        return total / max(float(count), 1.0)
+    return total / torch.clamp(keep.sum(), min=1.0)

@@ -26,7 +26,7 @@ Layering:
 
 The package exports what the JAX package's does (the fleet's and the
 cluster's modules are imported by name). The ring long-form tier is
-ROADMAP.md queue A item 6.
+ROADMAP.md queue A item 6c.
 """
 
 from speakingstyle_torch.serving.batcher import (  # noqa: F401

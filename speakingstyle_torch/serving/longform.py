@@ -53,7 +53,7 @@ __all__ = ["Chunk", "LongformPlan", "LongformService", "Stitcher", "plan_chunks"
 
 RING_MISSING = ("serve.longform.mesh_seq > 1 asks for the ring long-form tier (one chapter as "
                 "one ring-attention program over a sequence mesh), which is not ported yet "
-                "(ROADMAP.md queue A item 6); set mesh_seq to 0 or 1 to serve chapters on the "
+                "(ROADMAP.md queue A item 6c); set mesh_seq to 0 or 1 to serve chapters on the "
                 "chunked tier")
 
 # sentence-final punctuation (ASCII, CJK, ellipsis) and the whitespace
@@ -218,7 +218,7 @@ class LongformPlan:
 
     req_id: str
     chunks: List[Chunk]
-    tier: str  # always "chunked" here (the ring tier is queue A item 6)
+    tier: str  # always "chunked" here (the ring tier is queue A item 6c)
     deadline_ms: float  # the group's shared budget, clamped
     total_phonemes: int
     speaker: int = 0
@@ -243,7 +243,7 @@ class LongformService:
     wav pieces in order, in bounded memory. ``backend`` is anything with
     ``submit(request) -> Future``: the batcher or a (fleet or tier)
     router. The service prepares nothing: every chunk rides the
-    interactive lattice. ``ring`` must be None (queue A item 6); the
+    interactive lattice. ``ring`` must be None (queue A item 6c); the
     metrics go to ``registry``, else ``engine``'s."""
 
     def __init__(self, cfg: Config, frontend, backend, engine=None, ring=None,

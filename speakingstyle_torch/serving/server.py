@@ -82,7 +82,7 @@ replica's counters summed and histogram buckets merged; ``/healthz`` has a
 ``cluster`` block (quorum, control address, a lease row a replica) and
 answers 503 until the quorum is READY. A stream (and so a chapter) needs a
 vocoder in this process, which a cluster router has not: 400, as in JAX.
-The ring long-form tier is ROADMAP.md queue A item 6.
+The ring long-form tier is ROADMAP.md queue A item 6c.
 """
 
 import concurrent.futures

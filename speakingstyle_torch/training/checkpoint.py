@@ -31,6 +31,12 @@ step directory exists only once it is complete.
   event. The ``checkpoint_corrupt@N`` and ``manifest_missing@N`` fault
   kinds drill both, counted on the manager's 1-based ``verify_count``.
 
+* **Data parallelism** (``mesh``): the state is replicated, so the format
+  is the one-process one and a step saved at one dp restores at any other
+  bit for bit. Rank 0 alone writes; before any rank reads a step (a
+  restore, the sentinel's rollback) every rank waits on a barrier until
+  rank 0's writes are in place.
+
 ``restore_weights`` does the same for inference, filling a model's
 parameters and BatchNorm statistics without an optimizer. A step
 directory of the JAX package (an Orbax checkpoint: no ``state.pt``) is
@@ -135,8 +141,11 @@ def _unflatten(template, flat: Dict, prefix: str = ""):
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None,
                  async_save: bool = False, keep_best: bool = False, fault_plan=None,
-                 events=None, registry=None):
+                 events=None, registry=None, mesh=None):
         self.directory = os.path.abspath(directory)
+        # a data-parallel rank other than 0 writes nothing
+        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
+        self.writer = self.mesh is None or self.mesh.is_main
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep or None
         self.async_save, self.keep_best = async_save, keep_best
@@ -161,7 +170,10 @@ class CheckpointManager:
         """Save ``state`` (a TrainState) under ``step``; returns its
         directory. With ``async_save`` (and not ``block``) this returns once
         the host snapshot is taken, and the write finishes on a background
-        thread. ``val_loss`` goes into the manifest for keep-best."""
+        thread. ``val_loss`` goes into the manifest for keep-best. On a
+        data-parallel rank other than 0 this writes nothing."""
+        if not self.writer:
+            return self._step_dir(step)
         self.wait()  # one write in flight; its buffers are the snapshot's
         host = self._snapshot.take(state.state_dict(copy=False))
         if self.async_save and not block:
@@ -328,6 +340,8 @@ class CheckpointManager:
         newest-first past absent and corrupt ones (each corrupt one noted);
         an explicit step fails loudly."""
         self.wait()  # never read around an in-flight write
+        if self.mesh is not None:
+            self.mesh.barrier()  # nor around rank 0's
         if step is not None:
             return (step, *self._load_step(step, strict))
         names = sorted((int(n) for n in os.listdir(self.directory) if n.isdigit()),

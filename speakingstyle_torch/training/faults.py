@@ -21,13 +21,17 @@ from speakingstyle_torch.faults import (  # noqa: F401  (re-export)
 )
 
 
-def poison_batch(arrays: dict, dp: int = 1) -> dict:
+def poison_batch(arrays: dict, dp: int = 1, rank=None) -> dict:
     """NaN-poison a training batch (the ``nan_grads`` fault): multiplying
     the mel targets by NaN drives every loss and every gradient non-finite
     through the real loss and gradient path, as a diverged model or a
     corrupt feature file would. The input dict and its tensors are left
     as they are. ``dp`` > 1 poisons only the first data shard's rows
-    (``dp_poison_rows``), for a data-parallel drill."""
+    (``dp_poison_rows``) of a global batch, for a data-parallel drill.
+    ``rank`` (not None): ``arrays`` are that data-parallel rank's rows, the
+    shard the drill poisons on rank 0 and leaves alone elsewhere."""
+    if rank is not None and rank != 0:
+        return arrays
     out = dict(arrays)
     mels = out["mels"]
     rows = dp_poison_rows(mels.shape[0], dp)

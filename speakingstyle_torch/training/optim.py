@@ -19,6 +19,11 @@ The update is the JAX package's optax chain, step for step:
 * ``grad_acc_step = k > 1`` is ``optax.MultiSteps``: the running mean of k
   micro-batch gradients (``acc + (g - acc) / (n + 1)``), then one update;
   the other k - 1 calls leave the parameters as they are.
+* ``update(grads, reduce)``: a data-parallel rank passes its all-reduce,
+  which the update applies to the gradients it is about to clip: this
+  call's with k = 1, the accumulated mean at the last micro-step with k > 1
+  (the ranks' accumulators are local until then; they sum to the global
+  one, which is what a checkpoint stores: ``training/trainer.py``).
 
 ``train.fused_optimizer`` names three layouts of this one update in the
 JAX package (the per-leaf optax chain, a flat raveled vector, per-leaf
@@ -83,7 +88,7 @@ class Optimizer:
         return self.schedule(self.count)
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+    def update(self, grads: Sequence[torch.Tensor], reduce=None) -> bool:
         grads = [g.float() for g in grads]
         if self.k > 1:
             n = self.mini_step
@@ -95,6 +100,8 @@ class Optimizer:
             if self.mini_step != 0:
                 return False
             grads, self.acc = self.acc, [torch.zeros_like(a) for a in self.acc]
+        if reduce is not None:
+            reduce(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
         grads = torch._foreach_mul(grads, scale)

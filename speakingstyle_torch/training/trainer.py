@@ -37,8 +37,25 @@ and the restored checkpoint's ``weights_digest``. With
 (``build_train_step_card``): a one-time ``program_card`` event records its
 card, whose FLOPs over each step's wall time feed
 ``train_achieved_flops_per_sec``.
+
+Data parallelism (``mesh``: a joined ``parallel.mesh.Mesh`` with ``dp > 1``,
+one rank a process; ``parallel/launch.py`` starts them) computes what the
+one-process step computes on the global batch, as the JAX package's GSPMD
+step does: every rank cuts the same global batch (padded to a multiple of
+``dp``) and copies its rows; each masked mean is divided by the global
+count (``models/loss.py::loss_counts``) and the FiLM term enters on rank 0
+only, so the SUM all-reduce of the ranks' gradients (flat buckets) is the
+global gradient; the postnet's BatchNorm takes global statistics; the hash
+dropout masks are the global batch's rows. The initial state is broadcast
+from rank 0, rank 0 alone logs, writes events, TensorBoard, the program
+card and checkpoints (``CheckpointManager(mesh=...)``), and the ranks agree
+over the group on the losses they log, the sentinel's flag (MIN) and a
+SIGTERM stop, so every rank rolls back or flushes at the same step. Rank 0's
+registry carries ``train_achieved_flops_per_sec`` and
+``device_memory_watermark_bytes`` with a ``device`` label a rank.
 """
 
+import math
 import os
 import time
 from typing import Dict, List, Optional
@@ -50,7 +67,7 @@ from torch.profiler import record_function
 from speakingstyle_torch import obs
 from speakingstyle_torch.configs.config import Config, check_train_supported
 from speakingstyle_torch.data.prefetch import host_tensors
-from speakingstyle_torch.models.loss import fastspeech2_loss
+from speakingstyle_torch.models.loss import fastspeech2_loss, loss_counts
 from speakingstyle_torch.obs.cost import FLOPS_PER_SEC_BUCKETS
 from speakingstyle_torch.ops.dropout import DropoutRNG
 from speakingstyle_torch.training import faults, resilience
@@ -86,103 +103,202 @@ def model_kwargs(arrays: Dict) -> Dict:
 
 
 def compute_losses(model, cfg: Config, arrays: Dict, deterministic: bool,
-                   rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
-    """The teacher-forced forward and the loss dict."""
+                   rng: Optional[DropoutRNG] = None, counts: Optional[Dict] = None,
+                   param_terms: bool = True) -> Dict[str, torch.Tensor]:
+    """The teacher-forced forward and the loss dict (``counts`` and
+    ``param_terms``: a data-parallel rank's share, ``models/loss.py``)."""
     pp = cfg.preprocess.preprocessing
     out = model(**model_kwargs(arrays), deterministic=deterministic, rng=rng)
     return fastspeech2_loss(
         out, arrays["mels"], arrays["pitches"], arrays["energies"], arrays["durations"],
         model, lambda_f=cfg.train.loss.lambda_f,
         pitch_feature_level=pp.pitch.feature, energy_feature_level=pp.energy.feature,
+        counts=counts, param_terms=param_terms,
     )
+
+
+def _dp(mesh) -> bool:
+    return mesh is not None and mesh.dp > 1
+
+
+def rank_rng(seed: int, arrays: Dict, mesh=None) -> DropoutRNG:
+    """A step's dropout draws: seeded alike on every rank, offset to this
+    rank's first row of the global batch."""
+    rank = mesh.rank if _dp(mesh) else 0
+    return DropoutRNG(seed, arrays["texts"].device, rank=rank,
+                      row_offset=rank * arrays["texts"].shape[0])
 
 
 def trainable(model) -> List[torch.nn.Parameter]:
     return [p for p in model.parameters() if p.requires_grad]
 
 
-def apply_gradients(state: TrainState, losses: Dict, nan_sentinel: bool):
+def apply_gradients(state: TrainState, losses: Dict, nan_sentinel: bool, mesh=None):
     """The gradients of ``losses["total_loss"]`` over
     ``trainable(state.model)``, one optimizer update and the step count, in
     place; returns (the detached losses, with ``_finite`` under
     ``nan_sentinel``, the gradients). A parameter the loss does not reach
     (a distilled student's grafted reference encoder) gets a zero
-    gradient, as JAX's ``value_and_grad`` gives it."""
+    gradient, as JAX's ``value_and_grad`` gives it. Under data parallelism
+    the gradients are all-reduced (SUM) before the update (at the last
+    micro-step under gradient accumulation), and the losses stay this
+    rank's shares (``global_losses`` sums them)."""
     grads = torch.autograd.grad(losses["total_loss"], trainable(state.model),
                                 materialize_grads=True)
+    reduce = None
+    if _dp(mesh):
+        if state.optimizer.k == 1:
+            mesh.all_reduce_(grads)
+        else:
+            reduce = mesh.all_reduce_
     losses = {k: v.detach() for k, v in losses.items()}
     if nan_sentinel:
         losses["_finite"] = resilience.all_finite(losses, grads)
-    state.optimizer.update(grads)
+    state.optimizer.update(grads, reduce=reduce)
     state.step += 1
     return losses, grads
 
 
-def make_train_step(cfg: Config):
-    """fn(state, arrays) -> (losses, grads): one step in place on
-    ``state``. The losses stay on the device (no host sync); the
+def global_losses(losses: Dict, mesh=None):
+    """(the logged losses as host floats, the sentinel's flag) of a step's
+    losses; under data parallelism the ranks' shares summed and the flag's
+    MIN over the ranks (one rank's non-finite value trips every rank). The
+    one host synchronisation of a log boundary."""
+    finite = bool(losses.get("_finite", True))
+    host = {k: float(v) for k, v in public_losses(losses).items()}
+    if _dp(mesh):
+        keys = [k for k in host if k != "film_gate_l2"]  # a value, not a share
+        host.update(zip(keys, mesh.host_all_reduce([host[k] for k in keys], "sum")))
+        finite = mesh.host_all_reduce([1.0 if finite else 0.0], "min")[0] > 0
+    return host, finite
+
+
+def make_train_step(cfg: Config, mesh=None):
+    """fn(state, arrays, counts=None) -> (losses, grads): one step in place
+    on ``state``. The losses stay on the device (no host sync); the
     gradients, in ``trainable(state.model)`` order, are the ones the
     update applied. Under ``nan_sentinel`` the losses carry ``_finite``,
-    computed from the losses and the gradients before the update."""
+    computed from the losses and the gradients the update applied. With a
+    data-parallel ``mesh``, ``arrays`` are this rank's rows and ``counts``
+    (``loss_counts`` of the global batch) is required."""
     seed = cfg.train.seed + 1
     nan_sentinel = cfg.train.resilience.nan_sentinel
 
-    def step(state: TrainState, arrays: Dict):
-        rng = DropoutRNG(seed * 1_000_003 + state.step, arrays["texts"].device)
-        losses = compute_losses(state.model, cfg, arrays, deterministic=False, rng=rng)
-        return apply_gradients(state, losses, nan_sentinel)
+    def step(state: TrainState, arrays: Dict, counts: Optional[Dict] = None):
+        if _dp(mesh) and counts is None:
+            raise ValueError("a data-parallel step needs the global batch's loss counts")
+        rng = rank_rng(seed * 1_000_003 + state.step, arrays, mesh)
+        losses = compute_losses(state.model, cfg, arrays, deterministic=False, rng=rng,
+                                counts=counts if _dp(mesh) else None,
+                                param_terms=not _dp(mesh) or mesh.is_main)
+        return apply_gradients(state, losses, nan_sentinel, mesh)
 
     return step
 
 
-def make_eval_step(cfg: Config):
-    """fn(state, arrays) -> losses: the teacher-forced loss, deterministic."""
+def make_eval_step(cfg: Config, mesh=None):
+    """fn(state, arrays, counts=None) -> losses: the teacher-forced loss,
+    deterministic (a rank's shares under data parallelism)."""
 
     @torch.no_grad()
-    def step(state: TrainState, arrays: Dict):
-        return compute_losses(state.model, cfg, arrays, deterministic=True)
+    def step(state: TrainState, arrays: Dict, counts: Optional[Dict] = None):
+        return compute_losses(state.model, cfg, arrays, deterministic=True,
+                              counts=counts if _dp(mesh) else None,
+                              param_terms=not _dp(mesh) or mesh.is_main)
 
     return step
 
 
-def evaluate(eval_step, state, batches) -> Dict[str, float]:
+def evaluate(eval_step, state, batches, mesh=None) -> Dict[str, float]:
     """Batch-size-weighted mean of every loss over a val pass of
-    (Batch, tensors) pairs (reference: evaluate.py:39-58)."""
+    (Batch, tensors) pairs (reference: evaluate.py:39-58); under data
+    parallelism over the global val batches (the ranks' sums added)."""
     sums: Dict[str, torch.Tensor] = {}
     count = 0
     for batch, arrays in batches:
-        losses = eval_step(state, arrays)
+        losses = eval_step(state, arrays, loss_counts(batch.arrays()) if _dp(mesh) else None)
         count += batch.n_real
         for k, v in losses.items():
             sums[k] = sums.get(k, 0.0) + v * batch.n_real
+    if _dp(mesh):
+        keys = sorted(sums)
+        local = [0.0 if (k == "film_gate_l2" and not mesh.is_main) else float(sums[k])
+                 for k in keys]
+        sums = dict(zip(keys, mesh.host_all_reduce(local, "sum")))
     return {k: float(v) / count for k, v in sums.items()} if count else {}
 
 
 def train_batcher(cfg: Config, start_step: int = 0, retry: int = 0, dataset=None,
-                  quarantine=None):
+                  quarantine=None, pad_multiple: int = 1):
     """The training batches (``train.txt``, sorted, last partial batch
     dropped), cut as the JAX package's loop cuts them, from the seed
     ``train.seed + start_step + 7919 * retry``: a resumed run does not
     replay its stream from the start, and a rolled-back run diverges past
-    the batches that tripped the sentinel."""
+    the batches that tripped the sentinel. ``pad_multiple``: the batch
+    rows padded to a multiple of the data-parallel ranks."""
     from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
 
     max_len = cfg.model.max_seq_len
     dataset = dataset or SpeechDataset("train.txt", cfg, sort=True, drop_last=True)
     return BucketedBatcher(dataset, max_src=max_len, max_mel=max_len,
+                           batch_pad_multiple=pad_multiple,
                            seed=cfg.train.seed + start_step + 7919 * retry,
                            quarantine=quarantine)
 
 
-def batch_streams(cfg: Config, start_step: int = 0):
-    """(the endless stream of training batches from ``start_step``, the val
-    batcher), as ``run_training`` cuts them before any rollback."""
+def val_batcher(cfg: Config, pad_multiple: int = 1):
     from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
 
     max_len = cfg.model.max_seq_len
-    val = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
-                          max_src=max_len, max_mel=max_len, seed=0)
-    return iter(train_batcher(cfg, start_step)), val
+    return BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
+                           max_src=max_len, max_mel=max_len, batch_pad_multiple=pad_multiple,
+                           seed=0)
+
+
+def batch_streams(cfg: Config, start_step: int = 0, pad_multiple: int = 1):
+    """(the endless stream of training batches from ``start_step``, the val
+    batcher), as ``run_training`` cuts them before any rollback."""
+    return (iter(train_batcher(cfg, start_step, pad_multiple=pad_multiple)),
+            val_batcher(cfg, pad_multiple))
+
+
+def broadcast_state(state: TrainState, mesh) -> None:
+    """Rank 0's parameters, buffers and Adam moments on every rank (flat
+    buckets). A rank's gradient accumulator stays its own."""
+    if not _dp(mesh):
+        return
+    opt = state.optimizer
+    with torch.no_grad():
+        mesh.broadcast_(list(state.model.parameters()) + list(state.model.buffers())
+                        + opt.mu + opt.nu)
+
+
+def local_accumulator(state: TrainState, mesh) -> None:
+    """After a restore: the checkpoint's accumulator (the global one) stays
+    on rank 0 and the other ranks' start at 0, so the ranks' accumulators
+    still sum to the global one."""
+    if _dp(mesh) and not mesh.is_main and state.optimizer.acc is not None:
+        for a in state.optimizer.acc:
+            a.zero_()
+
+
+class _SavedState:
+    """What a data-parallel checkpoint stores: the state with the ranks'
+    accumulators summed (between micro-steps under gradient accumulation),
+    so that it restores at any dp."""
+
+    def __init__(self, state: TrainState, mesh):
+        self.state, self.acc = state, None
+        opt = state.optimizer
+        if _dp(mesh) and opt.acc is not None and opt.mini_step:
+            self.acc = [a.clone() for a in opt.acc]
+            mesh.all_reduce_(self.acc)
+
+    def state_dict(self, copy: bool = True) -> Dict:
+        d = self.state.state_dict(copy)
+        if self.acc is not None:
+            d["optimizer"]["acc"] = self.acc
+        return d
 
 
 def build_state(cfg: Config, device) -> TrainState:
@@ -342,6 +458,40 @@ def _profile_stop(prof, profile_dir: str, step: int) -> None:
     prof.export_chrome_trace(os.path.join(profile_dir, f"trace_to_step{step}.json"))
 
 
+def resolve_run_mesh(cfg: Config, device):
+    """The mesh a run on ``device`` trains on: ``train.parallel`` resolved
+    (the batch gate first, before any process group), then joined. A mesh
+    of dp > 1 needs rank processes: this process joins the rendezvous of
+    its environment (``torchrun``, or the workers ``parallel/launch.py``
+    starts) or the group already started."""
+    from speakingstyle_torch.parallel.mesh import (
+        init_distributed, local_batch_size, resolve_mesh, visible_devices,
+    )
+
+    n_devices = visible_devices(device)
+    check_train_supported(cfg.train, n_devices)
+    mesh = resolve_mesh(cfg.train.parallel, n_devices=n_devices)
+    if mesh is None:
+        return None
+    if mesh.tp > 1:
+        raise NotImplementedError(
+            f"a mesh of tp={mesh.tp}: the port trains data-parallel only; tensor "
+            "parallelism over the mesh's model axis is ROADMAP.md queue A item 6b")
+    # the startup gate: the batch and the nearest valid sizes named,
+    # before any transfer or collective
+    local_batch_size(cfg.train.optimizer.batch_size, mesh)
+    if mesh.dp == 1:
+        return None
+    if not os.environ.get("WORLD_SIZE"):
+        raise RuntimeError(
+            f"a data-parallel mesh of dp={mesh.dp} trains as {mesh.dp} rank processes: run "
+            f"`python -m speakingstyle_torch train ... --data_parallel {mesh.dp}` (which "
+            "starts them), or start them with torchrun (under SPEAKINGSTYLE_MULTIHOST the "
+            "environment must name the rendezvous: RANK, WORLD_SIZE, MASTER_ADDR, "
+            "MASTER_PORT)")
+    return init_distributed(device, dp=mesh.dp)
+
+
 def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                  max_steps: Optional[int] = None, synth_callback=None, log: bool = True,
                  vocoder=None, profile_dir: Optional[str] = None,
@@ -354,15 +504,21 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     ``synth_step`` ("default": the ground-truth vs predicted sample of
     ``default_synth_callback``). ``profile_dir``: a ``torch.profiler`` trace
     of steps [profile_steps) of this run, exported as a chrome trace. Each
-    train step runs inside a ``train.step`` profiler range."""
-    from speakingstyle_torch.data.dataset import BucketedBatcher, SpeechDataset
+    train step runs inside a ``train.step`` profiler range. The mesh is
+    ``train.parallel`` resolved (``resolve_run_mesh``): with dp > 1 this
+    process trains as the rank its environment names."""
+    from speakingstyle_torch.data.dataset import SpeechDataset
     from speakingstyle_torch.data.prefetch import DevicePrefetcher
     from speakingstyle_torch.device import resolve_device
+    from speakingstyle_torch.models.postnet import sync_batch_stats
     from speakingstyle_torch.training.checkpoint import CheckpointManager
 
     device = resolve_device(device)
-    check_train_supported(cfg.train,
-                          torch.cuda.device_count() if device.type == "cuda" else 1)
+    mesh = resolve_run_mesh(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    main = mesh is None or mesh.is_main
+    pad_mult = mesh.dp if mesh is not None else 1
     steps, res = cfg.train.step, cfg.train.resilience
     total_step = max_steps if max_steps is not None else steps.total_step
     plan = faults.FaultPlan.from_env()
@@ -381,18 +537,22 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
         help="ProgramCard train-step FLOPs / per-step wall time (host-dispatch-based)")
     launches0 = kernel_launches()
 
+    log = log and main
     events = (obs.JsonlEventLog(cfg.train.path.log_path, max_bytes=cfg.train.obs.events_max_bytes,
                                 keep=cfg.train.obs.events_keep)
               if log and cfg.train.obs.events else None)
     logger = TrainLogger(cfg.train.path.log_path, registry=registry, events=events) if log else None
     state = build_state(cfg, device)
+    sync_batch_stats(state.model, mesh)
     ckpt = CheckpointManager(cfg.train.path.ckpt_path, max_to_keep=res.max_to_keep or None,
                              async_save=res.async_checkpointing, keep_best=res.keep_best,
-                             fault_plan=plan, events=events, registry=registry)
+                             fault_plan=plan, events=events, registry=registry, mesh=mesh)
     if restore_step is not None:
         ckpt.restore(state, step=restore_step if restore_step > 0 else None,
                      ignore_layers=cfg.train.ignore_layers)
-    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    broadcast_state(state, mesh)
+    local_accumulator(state, mesh)
+    train_step, eval_step = make_train_step(cfg, mesh), make_eval_step(cfg, mesh)
     train_ds = SpeechDataset("train.txt", cfg, sort=True, drop_last=True,
                              retries=res.loader_retries, backoff=res.loader_backoff,
                              fault_plan=plan, registry=registry)
@@ -400,20 +560,23 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     step = start_step = state.step  # the profile window is relative to start_step
 
     def make_stream(retry: int) -> DevicePrefetcher:
-        batcher = train_batcher(cfg, start_step, retry, train_ds, quarantine)
+        batcher = train_batcher(cfg, start_step, retry, train_ds, quarantine, pad_mult)
         return DevicePrefetcher(iter(batcher), device, transfer_retries=res.loader_retries,
-                                transfer_backoff=res.loader_backoff, registry=registry)
+                                transfer_backoff=res.loader_backoff, registry=registry,
+                                mesh=mesh)
+
+    def save(step: int, **kw) -> None:
+        ckpt.save(step, _SavedState(state, mesh), val_loss=last_val, **kw)
 
     prefetch = make_stream(0)
-    max_len = cfg.model.max_seq_len
-    val_batcher = BucketedBatcher(SpeechDataset("val.txt", cfg, sort=False, drop_last=False),
-                                  max_src=max_len, max_mel=max_len, seed=0)
+    val_batches = val_batcher(cfg, pad_mult)
     if logger:
         logger.event("train_start", **dict(
             obs.build_info(), step=step, total_step=total_step, device=str(device),
             device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
-            device_count=1, checkpoint_step=ckpt.last_restored_step,
-            weights_digest=ckpt.last_weights_digest))
+            device_count=pad_mult, mesh_shape={"data": pad_mult, "model": 1},
+            dp_backend=mesh.backend if mesh is not None else None,
+            checkpoint_step=ckpt.last_restored_step, weights_digest=ckpt.last_weights_digest))
     # the train step's card is built once, on the first step (one
     # attempt, success or not)
     program_card, card_pending = None, cfg.train.obs.program_card
@@ -424,11 +587,18 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     last_saved: Optional[int] = None
     window_t0, window_step0, window_frames = time.perf_counter(), step, 0
     window_wait = window_compute = 0.0
+    step_time = 0.0
     prof = None
+    profile_dir = profile_dir if main else None
     shutdown = resilience.GracefulShutdown()
+
+    def stop_requested() -> bool:
+        # every rank stops at the same step: a signal seen by one is seen by all
+        return mesh.any(shutdown.requested) if mesh is not None else shutdown.requested
+
     try:
         with shutdown:
-            while step < total_step and not shutdown.requested:
+            while step < total_step and not stop_requested():
                 t_iter = time.perf_counter()
                 try:
                     batch, arrays = next(prefetch)
@@ -438,7 +608,9 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                 wait_hist.observe(data_wait)
                 window_wait += data_wait
                 if plan.fire("nan_grads", step + 1):
-                    arrays = faults.poison_batch(arrays)
+                    # under data parallelism one shard's rows only (rank 0's):
+                    # the sentinel's MIN over the ranks must trip them all
+                    arrays = faults.poison_batch(arrays, rank=mesh.rank if mesh else None)
                     fault_ctr.inc()
                     if logger:
                         logger.event("fault_fire", kind="nan_grads", step=step + 1)
@@ -446,15 +618,16 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                         and profile_steps[0] <= step - start_step < profile_steps[1]):
                     prof = _profile_start(profile_dir)
                 lr = state.optimizer.lr()
+                counts = loss_counts(batch.arrays()) if mesh is not None else None
                 with record_function("train.step"):
                     if card_pending:
                         card_pending = False
                         (losses, _), program_card = build_train_step_card(
-                            train_step, state, arrays, device)
+                            lambda st, a: train_step(st, a, counts), state, arrays, device)
                         if logger:
                             logger.event("program_card", **program_card.as_dict())
                     else:
-                        losses, _ = train_step(state, arrays)
+                        losses, _ = train_step(state, arrays, counts)
                 step = state.step
                 steps_ctr.inc()
                 step_time = time.perf_counter() - t_iter - data_wait
@@ -474,21 +647,27 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
 
                 if step % steps.log_step == 0:
                     # the loop's one synchronisation: the sentinel's flag and
-                    # the losses come to the host together
+                    # the losses come to the host together (and are agreed
+                    # over the ranks)
                     t_sync = time.perf_counter()
-                    finite = bool(losses.get("_finite", True))
-                    host = {k: float(v) for k, v in public_losses(losses).items()}
+                    host, finite = global_losses(losses, mesh)
                     window_compute += time.perf_counter() - t_sync
                     if not finite:
                         n = guard.trip(step)  # raises past max_rollbacks
                         ckpt.wait()
+                        if mesh is not None:
+                            mesh.barrier()  # rank 0's last write is in place
                         good = ckpt.latest_step()
+                        if mesh is not None:
+                            good = int(mesh.host_broadcast(-1 if good is None else good))
+                            good = None if good < 0 else good
                         rollback_ctr.inc()
                         msg = (f"[resilience] non-finite losses/grads at step {step}; "
                                f"rollback {n}/{res.max_rollbacks} to "
                                + (f"checkpoint step {good}" if good is not None
                                   else "fresh init (no checkpoint yet)"))
-                        print(msg)
+                        # every rank says it rolls back (rank 0 alone logs it)
+                        print(msg if mesh is None else f"[rank {mesh.rank}] {msg}", flush=True)
                         if logger:
                             logger.note(msg)
                             logger.event("rollback", step=step, rollback_n=n, restore_step=good)
@@ -497,12 +676,14 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                             ckpt.restore(state, step=good)
                         else:  # deterministic re-init: the same seed
                             state.load_state_dict(build_state(cfg, device).state_dict())
+                        local_accumulator(state, mesh)
                         step = state.step
                         prefetch = make_stream(guard.count)
                         window_t0, window_step0, window_frames = time.perf_counter(), step, 0
                         window_wait = window_compute = 0.0
                         continue
                     guard.ok()
+                    device_gauges(registry, program_card, step_time, device, mesh)
                     if logger:
                         n_window = step - window_step0
                         dt = time.perf_counter() - window_t0
@@ -515,17 +696,17 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                                               timing["mel_frames_per_sec"])
                     window_t0, window_step0, window_frames = time.perf_counter(), step, 0
                     window_wait = window_compute = 0.0
-                if synth_callback is not None and step % steps.synth_step == 0:
+                if main and synth_callback is not None and step % steps.synth_step == 0:
                     synth_callback(state, batch, arrays, step, state.model)
                 if step % steps.val_step == 0:
-                    with DevicePrefetcher(val_batcher.epoch(shuffle=False), device,
-                                          registry=registry) as val_prefetch:
-                        val = evaluate(eval_step, state, val_prefetch)
+                    with DevicePrefetcher(val_batches.epoch(shuffle=False), device,
+                                          registry=registry, mesh=mesh) as val_prefetch:
+                        val = evaluate(eval_step, state, val_prefetch, mesh)
                     last_val = val.get("total_loss", last_val)
                     if logger:
                         logger.log(step, val, prefix="val")
                 if step % steps.save_step == 0:
-                    ckpt.save(step, state, val_loss=last_val)
+                    save(step)
                     save_ctr.inc()
                     if logger:
                         logger.event("checkpoint_save", step=step)
@@ -534,18 +715,19 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
             # always flush a final checkpoint: the tail steps past the last
             # save_step, and the SIGTERM/SIGINT preemption path
             if step > start_step and last_saved != step:
-                ckpt.save(step, state, val_loss=last_val, block=True)
+                save(step, block=True)
                 save_ctr.inc()
                 if logger:
                     logger.event("checkpoint_save", step=step, final=True)
                 last_saved = step
-            if shutdown.requested:
-                msg = (f"[resilience] {shutdown.signame}: checkpoint flushed at step {step}; "
-                       "exiting")
-                print(msg)
+            if stop_requested():
+                signame = shutdown.signame or "SIGTERM"
+                msg = f"[resilience] {signame}: checkpoint flushed at step {step}; exiting"
+                print(msg if mesh is None else f"[rank {mesh.rank}] "
+                      + (msg if main else f"stopped at step {step}"), flush=True)
                 if logger:
                     logger.note(msg)
-                    logger.event("preempt_flush", signal=shutdown.signame, step=step)
+                    logger.event("preempt_flush", signal=signame, step=step)
     finally:
         if prof is not None:  # the run ended inside the profile window
             _profile_stop(prof, profile_dir, step)
@@ -560,7 +742,43 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                          kernel_launches=launches)
             logger.close()
         ckpt.close()
+    if _dp(mesh):
+        from speakingstyle_torch.obs.buildinfo import weights_digest
+        from speakingstyle_torch.parallel.mesh import check_replicas
+
+        check_replicas(weights_digest(state.model.state_dict()), mesh, f"train step {step}")
     return state
+
+
+def device_gauges(registry, program_card, step_time: float, device, mesh=None) -> None:
+    """``train_achieved_flops_per_sec`` (the step card's FLOPs over the last
+    step's wall time) and ``device_memory_watermark_bytes``
+    (``obs.cost.device_memory_watermark``: the card's allocation peak, on
+    the CPU the step card's argument and temp bytes), with a
+    ``device`` label; under data parallelism every rank's values land in
+    rank 0's registry (a host gather at the log boundary)."""
+    from speakingstyle_torch.obs.cost import device_memory_watermark
+
+    flops = math.nan
+    if program_card is not None and program_card.flops and step_time > 0:
+        flops = program_card.flops / step_time
+    memory = device_memory_watermark(program_card, device.index or 0) \
+        if device.type == "cuda" or program_card is not None else None
+    memory = math.nan if memory is None else float(memory)
+    rows = {str(device): (flops, memory)}
+    if _dp(mesh):  # labelled rank<r>/<device>: ranks may share a card
+        ranks = mesh.host_gather([flops, memory, -1 if device.index is None else device.index])
+        if not mesh.is_main:
+            return
+        dev = lambda i: device.type if i < 0 else f"{device.type}:{int(i)}"  # noqa: E731
+        rows = {f"rank{r}/{dev(i)}": (f, m) for r, (f, m, i) in enumerate(ranks)}
+    for label, (flops, memory) in rows.items():
+        if math.isfinite(flops):
+            registry.gauge("train_achieved_flops_per_sec", labels={"device": label},
+                           help="per-device achieved FLOP/s of the train step").set(flops)
+        if math.isfinite(memory):
+            registry.gauge("device_memory_watermark_bytes", labels={"device": label},
+                           help="per-device memory watermark").set(memory)
 
 
 def default_synth_callback(cfg: Config, logger: Optional[TrainLogger], vocoder=None):

@@ -1,5 +1,5 @@
 """HiFi-GAN vocoder training: a discriminator step, then a generator step
-(JAX counterpart: speakingstyle_tpu/training/vocoder_trainer.py, one device).
+(JAX counterpart: speakingstyle_tpu/training/vocoder_trainer.py).
 
 Reference: hifigan/train.py:24-267. Each step:
 
@@ -24,6 +24,16 @@ spectral-norm state and the optax states in their ``to_state_dict``
 layout) through compat/flax_msgpack.py, and a generator-only
 ``.generator.msgpack`` beside it; ``restore_vocoder`` reads either
 package's.
+
+Data parallelism (``mesh``: a joined ``parallel.mesh.Mesh``, one rank a
+process) is the JAX step with a replicated state and data-sharded wavs and
+mels: every rank draws the same global batch of crops and takes its rows,
+and each of the two updates all-reduces its gradients into the global
+batch's mean (every loss is a mean over equal shards) before it applies
+them, so the discriminators the generator step scores against, and the
+spectral-norm state, are the same on every rank. Rank 0 alone logs and
+writes checkpoints; the ranks agree on the logged metrics, a rollback and
+a SIGTERM stop, and check at the end that their states are equal.
 """
 
 import contextlib
@@ -187,9 +197,20 @@ def frozen(*modules: nn.Module):
             p.requires_grad_(True)
 
 
-def make_vocoder_train_step(cfg: Config, hp: VocoderHParams = VocoderHParams()):
+def _global_mean(grads, mesh):
+    """The ranks' mean gradients (in place, flat buckets) where ``mesh``
+    has more than one rank."""
+    if mesh is not None and mesh.dp > 1:
+        grads = list(grads)
+        mesh.all_reduce_(grads)
+        torch._foreach_div_(grads, float(mesh.dp))
+    return grads
+
+
+def make_vocoder_train_step(cfg: Config, hp: VocoderHParams = VocoderHParams(), mesh=None):
     """fn(state, wavs [B, S], mels [B, S / hop, M]) -> metrics: one GAN
-    step in place on ``state``; the metrics stay on the device."""
+    step in place on ``state``; the metrics stay on the device (a rank's
+    under data parallelism, where ``wavs`` and ``mels`` are its rows)."""
     mel_fn = differentiable_mel(cfg)
 
     def step(state: VocoderState, wavs: torch.Tensor, mels: torch.Tensor) -> Dict:
@@ -201,7 +222,8 @@ def make_vocoder_train_step(cfg: Config, hp: VocoderHParams = VocoderHParams()):
         pr, pg, _, _ = mpd(wavs, y_d)
         sr, sg, _, _ = msd(wavs, y_d, update_stats=True)
         d_loss = discriminator_loss(pr, pg) + discriminator_loss(sr, sg)
-        state.disc_opt.update(torch.autograd.grad(d_loss, state.disc_opt.params))
+        state.disc_opt.update(_global_mean(
+            torch.autograd.grad(d_loss, state.disc_opt.params), mesh))
 
         # the generator step, against the updated discriminators
         with frozen(mpd, msd):
@@ -215,7 +237,7 @@ def make_vocoder_train_step(cfg: Config, hp: VocoderHParams = VocoderHParams()):
             loss_fm = feature_matching_loss(pf_r, pf_g) + feature_matching_loss(sf_r, sf_g)
             g_loss = loss_adv + loss_fm + hp.mel_loss_weight * loss_mel
             g_grads = torch.autograd.grad(g_loss, state.gen_opt.params)
-        state.gen_opt.update(g_grads)
+        state.gen_opt.update(_global_mean(g_grads, mesh))
         state.step += 1
         return {"disc_loss": d_loss.detach(), "gen_loss": g_loss.detach(),
                 "mel_l1": loss_mel.detach(), "adv_loss": loss_adv.detach(),
@@ -382,6 +404,26 @@ def restore_vocoder(path: str, state: VocoderState) -> VocoderState:
 # ---------------------------------------------------------------- the loop
 
 
+def vocoder_tensors(state: VocoderState) -> List[torch.Tensor]:
+    """Every tensor of the GAN state in a fixed order: the networks'
+    parameters and buffers (the spectral-norm state), the optimizers'
+    moments."""
+    out = []
+    for m in (state.gen, state.mpd, state.msd):
+        out += list(m.parameters()) + list(m.buffers())
+    for opt in (state.gen_opt, state.disc_opt):
+        out += opt.mu + opt.nu
+    return out
+
+
+def vocoder_digest(state: VocoderState) -> str:
+    """One sha256 over the networks' parameters and buffers."""
+    from speakingstyle_torch.obs.buildinfo import weights_digest
+
+    return weights_digest({k: m.state_dict() for k, m in
+                           (("gen", state.gen), ("mpd", state.mpd), ("msd", state.msd))})
+
+
 def train_vocoder(cfg: Config, wav_paths, hp: VocoderHParams = VocoderHParams(),
                   max_steps: int = 1000, batch_size: int = 16,
                   ckpt_path: Optional[str] = None, save_every: int = 1000,
@@ -389,9 +431,10 @@ def train_vocoder(cfg: Config, wav_paths, hp: VocoderHParams = VocoderHParams(),
                   gen_params: Optional[Dict] = None, seed: int = 1234,
                   restore_path: Optional[str] = None, gen: Optional[Generator] = None,
                   mpd: Optional[MultiPeriodDiscriminator] = None,
-                  msd: Optional[MultiScaleDiscriminator] = None, device=None):
+                  msd: Optional[MultiScaleDiscriminator] = None, device=None, mesh=None):
     """The vocoder GAN loop (reference: hifigan/train.py:24-267); returns
-    (state, the last step's metrics).
+    (state, the last step's metrics: the global batch's under data
+    parallelism).
 
     ``restore_path`` resumes from a full-state checkpoint up to
     ``max_steps`` in all. The batch stream's seed is ``seed + step + 7919
@@ -402,27 +445,53 @@ def train_vocoder(cfg: Config, wav_paths, hp: VocoderHParams = VocoderHParams(),
     boundary roll back to the last saved ``.msgpack`` (or the initial
     state, kept on the host) and raise past ``max_rollbacks`` consecutive
     trips; ``SPEAKINGSTYLE_FAULTS`` drills ``nan_grads`` (the step's wavs
-    poisoned) and ``sigterm``. Each log line carries ``step_ms``, the
-    mean wall time of the steps since the last line."""
+    poisoned: rank 0's rows under data parallelism) and ``sigterm``. Each
+    log line carries ``step_ms``, the mean wall time of the steps since the
+    last line. ``mesh``: a joined data-parallel ``parallel.mesh.Mesh``
+    (``batch_size`` is the global batch; the module docstring)."""
     from speakingstyle_torch.data.mel_dataset import MelWavDataset
     from speakingstyle_torch.device import resolve_device
+    from speakingstyle_torch.parallel.mesh import check_replicas
     from speakingstyle_torch.training import faults, resilience
 
-    device = resolve_device(device)
+    mesh = mesh if mesh is not None and mesh.dp > 1 else None
+    rows = slice(None)
+    if mesh is not None:
+        device = mesh.device
+        rows = mesh.rows(batch_size)
+    else:
+        device = resolve_device(device)
+    main = mesh is None or mesh.is_main
+    say = print if main else (lambda *a, **k: None)
     res = cfg.train.resilience
     plan = faults.FaultPlan.from_env()
     state = init_vocoder_state(cfg, hp, seed, gen_params=gen_params, gen=gen, mpd=mpd,
                                msd=msd, device=device)
     if restore_path:
         restore_vocoder(restore_path, state)
-        print(f"[vocoder] restored step {state.step} from {restore_path}")
+        say(f"[vocoder] restored step {state.step} from {restore_path}")
+    if mesh is not None:
+        with torch.no_grad():
+            mesh.broadcast_(vocoder_tensors(state))
     template = state_tree(state)  # the host copy a rollback without a checkpoint returns to
-    train_step = make_vocoder_train_step(cfg, hp)
+    train_step = make_vocoder_train_step(cfg, hp, mesh)
 
     def make_stream(retry: int):
         return iter(MelWavDataset(wav_paths, cfg, segment_size=hp.segment_size,
                                   batch_size=batch_size, fine_tune_mel_dir=fine_tune_mel_dir,
                                   seed=seed + state.step + 7919 * retry))
+
+    def stop(shutdown) -> bool:
+        return mesh.any(shutdown.requested) if mesh is not None else shutdown.requested
+
+    def save(path: str) -> None:
+        if main:
+            save_vocoder(path, state)
+
+    def restore(path: str) -> None:
+        if mesh is not None:
+            mesh.barrier()  # rank 0's write is in place
+        restore_vocoder(path, state)
 
     stream = make_stream(0)
     guard = resilience.RollbackGuard(res.max_rollbacks)
@@ -432,29 +501,33 @@ def train_vocoder(cfg: Config, wav_paths, hp: VocoderHParams = VocoderHParams(),
     metrics: Dict = {}
     t_window, n_window = time.perf_counter(), 0
     with resilience.GracefulShutdown() as shutdown:
-        while step < max_steps and not shutdown.requested:
+        while step < max_steps and not stop(shutdown):
             try:
                 wavs, mels = next(stream)
             except StopIteration:
                 break
-            wavs = torch.from_numpy(wavs).to(device)
-            if plan.fire("nan_grads", step + 1):
+            wavs = torch.from_numpy(wavs[rows]).to(device)
+            if plan.fire("nan_grads", step + 1) and main:
                 wavs = wavs * float("nan")
-            metrics = train_step(state, wavs, torch.from_numpy(mels).to(device))
+            metrics = train_step(state, wavs, torch.from_numpy(mels[rows]).to(device))
             step = state.step
             n_window += 1
             if plan.fire("sigterm", step):
                 faults.deliver_sigterm()
             if step % log_every == 0:
                 vals = {k: float(v) for k, v in metrics.items()}  # syncs
+                if mesh is not None:
+                    keys = sorted(vals)
+                    vals = {k: v / mesh.dp for k, v in zip(
+                        keys, mesh.host_all_reduce([vals[k] for k in keys], "sum"))}
                 step_ms = (time.perf_counter() - t_window) * 1e3 / n_window
                 if res.nan_sentinel and not all(np.isfinite(v) for v in vals.values()):
                     n = guard.trip(step)  # raises past max_rollbacks
-                    print(f"[vocoder] non-finite metrics at step {step}; rollback "
-                          f"{n}/{res.max_rollbacks} to "
-                          + (last_ckpt_file or "fresh init (no checkpoint yet)"))
+                    say(f"[vocoder] non-finite metrics at step {step}; rollback "
+                        f"{n}/{res.max_rollbacks} to "
+                        + (last_ckpt_file or "fresh init (no checkpoint yet)"))
                     if last_ckpt_file:
-                        restore_vocoder(last_ckpt_file, state)
+                        restore(last_ckpt_file)
                     else:
                         load_state_tree(state, template)
                     step = state.step
@@ -463,19 +536,25 @@ def train_vocoder(cfg: Config, wav_paths, hp: VocoderHParams = VocoderHParams(),
                     continue
                 guard.ok()
                 msg = ", ".join(f"{k}: {v:.4f}" for k, v in vals.items())
-                print(f"[vocoder] step {step}: {msg}, step_ms: {step_ms:.6g}", flush=True)
+                say(f"[vocoder] step {step}: {msg}, step_ms: {step_ms:.6g}", flush=True)
+                if mesh is not None:
+                    metrics = vals
                 t_window, n_window = time.perf_counter(), 0
             if ckpt_path and step % save_every == 0:
                 last_ckpt_file = f"{ckpt_path}/vocoder_{step:08d}.msgpack"
-                save_vocoder(last_ckpt_file, state)
+                save(last_ckpt_file)
                 last_saved_step = step
         # always flush a final checkpoint: the tail steps past the last
         # save, and the SIGTERM/SIGINT preemption path
         if ckpt_path and step > 0 and last_saved_step != step:
             last_ckpt_file = f"{ckpt_path}/vocoder_{step:08d}.msgpack"
-            save_vocoder(last_ckpt_file, state)
+            save(last_ckpt_file)
             last_saved_step = step
-        if shutdown.requested:
-            print(f"[vocoder] {shutdown.signame}: checkpoint flushed at step {step} "
-                  f"({last_ckpt_file or 'no ckpt_path set'}); exiting", flush=True)
+        if stop(shutdown):
+            say(f"[vocoder] {shutdown.signame or 'SIGTERM'}: checkpoint flushed at step "
+                f"{step} ({last_ckpt_file or 'no ckpt_path set'}); exiting", flush=True)
+    if mesh is not None:
+        digest = vocoder_digest(state)
+        check_replicas(digest, mesh, f"vocoder step {step}")
+        print(f"[vocoder] rank {mesh.rank}: step {step}, weights_digest {digest}", flush=True)
     return state, metrics

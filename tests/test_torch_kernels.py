@@ -875,3 +875,59 @@ def test_http_load_from_two_threads_prepares_nothing_on_card(cuda_device, tmp_pa
     assert [a[0] for a in answers] == [200] * 12
     assert all(body[:4] == b"RIFF" for _, body in answers)
     assert (engine.compile_count, engine.style.compile_count) == compiles
+
+
+def _flat_tree(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.cuda
+def test_data_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_path):
+    """Two rank processes on the card over gloo (they share it: NCCL refuses
+    two ranks on one device), three chained data-parallel steps of a tiny
+    model in full float32 on the kernel path (fused attention, fused conv)
+    and on the plain path (einsum attention, cuDNN convs): both ranks equal
+    after every step, the kernels launched on every step of the kernel
+    path and never on the plain path, the losses within 1e-5 and each
+    gradient within 2e-2 of its largest element (chip_smoke.py's
+    F32_GRAD_RTOL: the L1 mel losses flip where two forwards straddle a
+    target), a leaf whose gradient is zero in exact arithmetic held below
+    1e-3 of the step's largest."""
+    from speakingstyle_torch.data.synthetic import generate_corpus
+
+    from torch_dp import run_ranks, tiny_configs
+
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=14, val_utts=3,
+                             n_phones_per_utt=(6, 11), duration_range=(1, 3), seed=5)
+    runs = {}
+    for path, model in (("kernels", {"attention_kernel": "fused", "conv_impl": "pallas"}),
+                        ("plain", {"attention_kernel": "einsum", "conv_impl": "xla"})):
+        (tmp_path / path).mkdir()
+        paths = tiny_configs(tmp_path / path, corpus, **model)
+        runs[path] = run_ranks("train_steps", 2, tmp_path / path, paths=paths, steps=3,
+                               device="cuda")
+    for path, ranks in runs.items():
+        for s in range(3):
+            assert ranks[0][s]["digest"] == ranks[1][s]["digest"], (path, s)
+            launched = ranks[0][s]["launches"]["fused_attention_fwd"]
+            assert (launched > 0) == (path == "kernels"), (path, s, launched)
+    for s, (k, p) in enumerate(zip(runs["kernels"][0], runs["plain"][0])):
+        for name, want in p["losses"].items():
+            np.testing.assert_allclose(k["losses"][name], want, rtol=1e-5, err_msg=name)
+        if s:  # the later steps start from parameters Adam moved apart
+            continue
+        got, want = _flat_tree(k["grads"]), _flat_tree(p["grads"])
+        top = max(np.abs(w).max() for w in want.values())
+        for name, w in want.items():
+            scale = np.abs(w).max()
+            if scale <= 3e-7 * top:
+                assert np.abs(got[name]).max() <= 1e-3 * top, name
+            else:
+                assert np.abs(got[name] - w).max() <= 2e-2 * scale, name

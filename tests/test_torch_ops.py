@@ -470,7 +470,8 @@ def test_port_imports_no_jax():
         "fleet = {'speakingstyle_torch.serving.' + m for m in "
         "('fleet', 'lifecycle', 'autoscale', 'resilience', 'tiers', 'probes', 'longform', "
         "'traffic', 'cluster')}\n"
-        "fleet |= {'speakingstyle_torch.cli.replica', 'speakingstyle_torch.obs.cli'}\n"
+        "fleet |= {'speakingstyle_torch.cli.replica', 'speakingstyle_torch.obs.cli',\n"
+        "          'speakingstyle_torch.parallel.mesh', 'speakingstyle_torch.parallel.launch'}\n"
         "assert fleet <= set(sys.modules), fleet - set(sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

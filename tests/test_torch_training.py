@@ -228,8 +228,10 @@ def test_batchnorm_train_mode_matches_flax():
 
 
 def test_unported_settings_raise(monkeypatch):
-    """Only more than one device is refused now; remat, fault injection and
-    the resilience defaults (the JAX package's) are ported."""
+    """Only tensor parallelism and the sequence axis are refused now; data
+    parallelism (any dp, and ``sharding.data_axis = -1`` on several
+    devices), remat, fault injection and the resilience defaults (the JAX
+    package's) are ported."""
     from speakingstyle_torch.configs.config import (
         ParallelConfig, ResilienceConfig, ShardingConfig, TrainConfig, check_train_supported,
     )
@@ -239,14 +241,15 @@ def test_unported_settings_raise(monkeypatch):
     monkeypatch.setenv("SPEAKINGSTYLE_FAULTS", "nan_grads@3")
     for ok in (TrainConfig(), TrainConfig(sharding=ShardingConfig(remat=True)),
                TrainConfig(resilience=ResilienceConfig(nan_sentinel=True, keep_best=True,
-                                                       async_checkpointing=True))):
+                                                       async_checkpointing=True)),
+               TrainConfig(parallel=ParallelConfig(mesh=[2, 1]))):
         check_train_supported(ok)
-    for bad in (TrainConfig(parallel=ParallelConfig(mesh=[2, 1])),
-                TrainConfig(sharding=ShardingConfig(model_axis=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
+    check_train_supported(TrainConfig(), n_devices=4)
+    for bad in (TrainConfig(parallel=ParallelConfig(mesh=[2, 2])),
+                TrainConfig(sharding=ShardingConfig(model_axis=2)),
+                TrainConfig(parallel=ParallelConfig(seq=2))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6[bc]"):
             check_train_supported(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_train_supported(TrainConfig(), n_devices=4)
 
 
 def test_train_yaml_asking_for_the_nan_sentinel_raises(tmp_path, corpus):

@@ -403,9 +403,16 @@ def test_one_gan_step_matches_jax():
     j_step = j_make(jcfg, hp, gen, mpd, msd, gen_tx, disc_tx)
     j_state, j_metrics = j_step(j_state, jnp.asarray(wavs), jnp.asarray(mels))
     t_metrics = t_make(tcfg, hp)(t_state, torch.from_numpy(wavs), torch.from_numpy(mels))
+    assert_gan_step_matches(t_metrics, state_tree(t_state), j_metrics, jax_tree(j_state),
+                            before, hp)
+
+
+def assert_gan_step_matches(t_metrics, t_tree, j_metrics, j_tree, before, hp):
+    """One GAN step's metrics and state (``t_*`` the port's, ``j_*`` the
+    JAX package's, both from ``before``) at this module's tolerances."""
     for k, v in j_metrics.items():
         assert float(t_metrics[k]) == pytest.approx(float(v), rel=1e-5), k
-    want, got = flat(jax_tree(j_state)), flat(state_tree(t_state))
+    want, got = flat(j_tree), flat(t_tree)
     assert got.keys() == want.keys()
     b = flat(before)
     moved = 0
