@@ -204,7 +204,7 @@ printing one JSON line:
    the one card, 2 rank processes sharing it over gloo (NCCL refuses two
    ranks on one device), LJSpeech_paper at full width on the kernel path,
    global batch 48 (24 rows a rank), hash dropout. The ranks
-   (``--train_dp_worker``, started by ``parallel/launch.py``) take 3 steps
+   (``--train_dp_worker``, started by ``parallel/launch.py``) take 2 steps
    at strict float32 from the same seeded weights; before each, rank 0
    takes one process's step on the whole global batch from a copy of the
    same state, and the two are held to the train phase's bounds
@@ -221,6 +221,22 @@ printing one JSON line:
    the card); ``train_vocoder --data_parallel 2`` (3 steps, equal digests
    on both ranks). Every number is labelled "2 ranks sharing one card over
    gloo": a check of the path, not a multi-card measurement.
+21. ``train_tp`` (inside phase 20's rank processes, after their
+   data-parallel steps): the same two processes re-formed as dp = 1 x
+   tp = 2 (new groups), each keeping its shards of a fresh state of the
+   same weights (the JAX rules' layout), the global batch of 48 on both:
+   2 steps at strict float32, each held (``dp_judge``) against one
+   process's step from the same state gathered whole; the whole state and
+   the replicated leaves digest equal on both ranks after every step, 14 /
+   14 / 14 / 42 launches a rank step (0 for the bf16-softmax kernels) and
+   as many by name in a traced step, with its ``tp.all_reduce`` ms.
+   ``train_tp_command``: beside phase 20's commands, ``train
+   --model_parallel 2 --max_steps 2`` at the preset's widths cut to 1
+   encoder and 1 decoder layer (bf16): each step logged once, rank 0's
+   launches those of 2 steps of the cut model, its whole checkpoint
+   restored at tp = 1 (every leaf and Adam moment as saved) and stepped.
+   The train phase's kernel cases also run each kernel at the local
+   shapes of tp = 2 and 4 (``*_tp2_*``, ``*_tp4_*``).
 
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
@@ -228,7 +244,8 @@ A ``phase_seconds`` line gives each phase's seconds and the total.
 
 Then a summary line of every kernel (with its launches a distill step and
 in the traces of the ``serve_http`` and ``serve_fleet`` traffic, the
-``serve_tiers`` phase and the ``serve_cluster`` processes' windows),
+``serve_tiers`` phase and the ``serve_cluster`` processes' windows, and a
+data-parallel and a tensor-parallel rank's train step),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -627,7 +644,10 @@ def attention_case(case, lengths, dtype, g, dev, train=False, softmax=None):
     })
 
 
-def conv_case(case, lengths, dtype, g, dev, prefix="conv"):
+def conv_case(case, lengths, dtype, g, dev, prefix="conv", bias=True):
+    """One conv of the path against its plain version (``bias`` False: the
+    conv without one, as a tensor-parallel rank's row slice of ``w_2``
+    runs)."""
     import torch
     import torch.nn.functional as F
 
@@ -644,6 +664,8 @@ def conv_case(case, lengths, dtype, g, dev, prefix="conv"):
     s = 1.0 + 0.1 * torch.randn(cout, generator=g)
     sb = 0.1 * torch.randn(cout, generator=g)
     x, w, b, s, sb = (t.to(dev, dtype) for t in (x, w, b, s, sb))
+    if not bias:
+        b = None
     if ln:
         run = lambda: fused_conv_relu_ln(x, w, b, s, sb)
         plain = lambda: fused_conv_plain(x, w, b, s, sb, 1, True)
@@ -657,11 +679,13 @@ def conv_case(case, lengths, dtype, g, dev, prefix="conv"):
     err, tol, ok = compare(got, want, "conv", dname, ln_parts)
     xt, wt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
     itemsize = x.element_size()
-    nbytes = (x.numel() + w.numel() + got.numel() + (3 if ln else 1) * cout) * itemsize
+    nbytes = (x.numel() + w.numel() + got.numel() + ((3 if ln else 1) if bias else 0) * cout) \
+        * itemsize
     bound_ms, bound_by = bound(nbytes, 2.0 * B * T * K * cin * cout, dname)
     return shares({
         "case": f"{prefix}_{name}_{dname}", "kernel": "fused_conv1d_fwd", "dtype": dname,
-        "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout, "relu": relu, "ln": ln},
+        "shape": {"B": B, "T": T, "K": K, "Cin": cin, "Cout": cout, "relu": relu, "ln": ln,
+                  "bias": bias},
         "lengths": list(lens), "launches_per_dispatch": per_dispatch,
         "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": time_ms(run), "plain_ms": time_ms(plain),
@@ -1780,6 +1804,16 @@ NOISE_SHARE = 3e-7
 ZERO_GRAD_SHARE = 1e-3
 
 
+def without_card(cfg):
+    """``cfg`` without the train step's one-time program card: its flop
+    counter sends every op of a run's first step through Python (~15-19 s
+    at full width), and no check of this script reads it beyond the train
+    phase's kernel-path run, which keeps it (a cut for the script's
+    time)."""
+    rep = dataclasses.replace
+    return rep(cfg, train=rep(cfg.train, obs=rep(cfg.train.obs, program_card=False)))
+
+
 def train_config(corpus, out, seed, **model):
     from speakingstyle_torch.configs.config import load_config
 
@@ -1846,7 +1880,7 @@ def train_run(tag, cfg, dev, want, n_val):
     peak = torch.cuda.max_memory_allocated()
     del state
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        resumed = run_training(cfg, device=dev, restore_step=-1,
+        resumed = run_training(without_card(cfg), device=dev, restore_step=-1,
                                max_steps=TRAIN_STEPS + TRAIN_TRACED).step
         torch.cuda.synchronize()
     traced = trace_last_step(f"train profile of {tag}", prof.events())
@@ -2067,7 +2101,61 @@ def train_kernel_cases(cfg, batch, dev, seed):
         c["launches_per_step"] = c.pop("launches_per_dispatch")
         cases.append(c)
         emit("train_kernels", **c)
+    cases += tp_kernel_cases(cfg, lengths, dev, g)
     return {c["case"]: c for c in cases}
+
+
+# the tensor-parallel degrees whose local shapes the kernel cases cover
+TP_CASE_DEGREES = (2, 4)
+
+
+def tp_kernel_cases(cfg, lengths, dev, g):
+    """The kernels at a tensor-parallel rank's local shapes of the train
+    step, each against its plain version: the attention forward, backward
+    and delta pre-pass on ``n_head / tp`` heads where tp divides the heads
+    (the encoder's and decoder's 1 head of d128, the reference encoder's 4
+    or 2 of d32; 2 heads of d128 do not split at tp = 4: they gather and run
+    the whole shape, a case above), in float32 (the tensor-parallel parity
+    steps) and bfloat16; each FFN's ``w_1`` on its ``d_inner / tp`` filters
+    with ReLU and ``w_2`` on its ``d_inner / tp`` input channels without a
+    bias, in bfloat16 and, at tp = 2, float32."""
+    import torch
+
+    tr, re_ = cfg.model.transformer, cfg.model.reference_encoder
+    attn = (("ref_encoder", "ref", re_.encoder_head, re_.encoder_hidden, re_.encoder_layer),
+            ("encoder", "src", tr.encoder_head, tr.encoder_hidden, tr.encoder_layer),
+            ("decoder", "mel", tr.decoder_head, tr.decoder_hidden, tr.decoder_layer))
+    ffn = (("ref", "ref", re_.conv_kernel_size, re_.conv_kernel_size, re_.encoder_hidden,
+            re_.conv_filter_size, re_.encoder_layer),
+           ("enc", "src", *tr.conv_kernel_size, tr.encoder_hidden, tr.conv_filter_size,
+            tr.encoder_layer),
+           ("dec", "mel", *tr.conv_kernel_size, tr.decoder_hidden, tr.conv_filter_size,
+            tr.decoder_layer))
+    cases = []
+    for tp in TP_CASE_DEGREES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, axis, H, d_model, layers in attn:
+                if H % tp:
+                    continue
+                tag, (B, L, lens) = f"tp{tp}_{name}", lengths[axis]
+                c = attention_case((tag, axis, H // tp, d_model // H, layers), lengths, dtype, g,
+                                   dev, train=True)
+                c["launches_per_step"] = c.pop("launches_per_dispatch")
+                cases.append(c)
+                cases += attention_bwd_case(tag, B, L, H // tp, d_model // H, lens, dtype, g, dev)
+            dtypes = (torch.bfloat16, torch.float32) if tp == 2 else (torch.bfloat16,)
+            if dtype not in dtypes:
+                continue
+            for name, axis, k1, k2, d, d_inner, layers in ffn:
+                w1 = (f"tp{tp}_{name}_ffn_w1", axis, k1, d, d_inner // tp, True, False, layers)
+                w2 = (f"tp{tp}_{name}_ffn_w2", axis, k2, d_inner // tp, d, False, False, layers)
+                for case, bias in ((w1, True), (w2, False)):
+                    c = conv_case(case, lengths, dtype, g, dev, prefix="train_conv", bias=bias)
+                    c["launches_per_step"] = c.pop("launches_per_dispatch")
+                    cases.append(c)
+    for c in cases:
+        emit("train_kernels", **c)
+    return cases
 
 
 def grad_parity(cfg, batch, dev, seed):
@@ -2220,14 +2308,15 @@ def train_phase(cfg_of, dev, seed):
                 "fused_attention_bwd_delta": (attn, 0),
                 "fused_conv1d_fwd": (convs, convs), "fused_conv1d_fwd_act": (re_.conv_layer, 0)}
         counts = train_run("kernels", cfg, dev, want, n_val)
-        train_run("library", runs["library"], dev, {k: (0, 0) for k in want}, n_val)
+        train_run("library", without_card(runs["library"]), dev, {k: (0, 0) for k in want},
+                  n_val)
         resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val)
         remat_phase(cfg_of(corpus, os.path.join(tmp, "remat"), seed,
                            **dict(TRAIN_PATHS)["kernels"]), first, dev)
         costs_phase(cfg_of, corpus, tmp, seed, dev, first)
-        sm16_counts = train_sm16_run(
+        sm16_counts = train_sm16_run(without_card(
             cfg_of(corpus, os.path.join(tmp, "bf16_softmax"), seed, **dict(
-                TRAIN_PATHS)["kernels"], attention_softmax_dtype="bfloat16"), dev, attn)
+                TRAIN_PATHS)["kernels"], attention_softmax_dtype="bfloat16")), dev, attn)
         with strict_float32():
             cases = train_kernel_cases(cfg, first, dev, seed)
         bad = [c["case"] for c in cases.values() if not c["ok"]]
@@ -2249,8 +2338,8 @@ def train_phase(cfg_of, dev, seed):
 # (src = min(serve.src_buckets[0], 12), mel = 12 x 12 = 144 frames) and the
 # train phase's size (mel = min(128 x 12, max_seq_len) = 1000 frames)
 DISTILL_RUNS = (("defaults", 8, 12), ("train_size", 48, 128))
-DISTILL_STEPS = 30
-DISTILL_TIMED = 30  # steps of the timed loop after each run
+DISTILL_STEPS = 20
+DISTILL_TIMED = 10  # steps of the timed loop after each run
 DISTILL_TRACED = 3  # then steps under torch.profiler: device busy ms, idle share
 # the gradient parity: one student per seed (weights, batch, dropout), and
 # the first seed again, which must give the same gradients bit for bit
@@ -2851,7 +2940,7 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
 
     kernels = dict(TRAIN_PATHS)["kernels"]
     rep = dataclasses.replace
-    cfg = cfg_of(corpus, os.path.join(tmp, "drill_a"), seed, **kernels)
+    cfg = without_card(cfg_of(corpus, os.path.join(tmp, "drill_a"), seed, **kernels))
     cfg = rep(cfg, train=rep(cfg.train, resilience=rep(cfg.train.resilience, max_to_keep=1)))
     res = cfg.train.resilience
     chains = {"a": [("train_resilience (a)", config_yamls(cfg, os.path.join(
@@ -2860,13 +2949,14 @@ def resilience_phase(cfg_of, corpus, tmp, seed, dev, want, n_val):
     # uninterrupted runs repeat bit for bit (the default backward sums with
     # atomics: two runs' losses part by ~1e-2 within 9 steps)
     det = ["--deterministic", "--max_steps", str(DRILL_STEPS)]
-    cfg_b = cfg_of(corpus, os.path.join(tmp, "drill_b"), seed, **kernels)
+    cfg_b = without_card(cfg_of(corpus, os.path.join(tmp, "drill_b"), seed, **kernels))
     args = config_yamls(cfg_b, os.path.join(tmp, "drill_b", "yaml")) + det
     chains["b"] = [("train_resilience (b)", args + ["--faults", DRILL_SIGTERM]),
                    ("train_resilience (b) resume", args + ["--restore_step", "-1"])]
     base_cfgs = []
     for i in range(2):  # stop at 8 without a signal, then resume: the same batches
-        c = cfg_of(corpus, os.path.join(tmp, f"drill_b_uninterrupted_{i}"), seed, **kernels)
+        c = without_card(cfg_of(corpus, os.path.join(tmp, f"drill_b_uninterrupted_{i}"), seed,
+                                **kernels))
         a = config_yamls(c, os.path.join(tmp, f"drill_b_uninterrupted_{i}", "yaml")) + det
         chains[f"uninterrupted_{i}"] = [
             ("train_resilience (b) uninterrupted", a[:-1] + ["8"]),
@@ -3066,12 +3156,11 @@ def remat_phase(cfg, batch, dev):
 # ---------------------------------------------------------------- phase 10: costs
 
 SAVE_REPEATS = 3
-# the runs of the costs phase, each configuration twice, in turns (the
-# host's share of a step moves between runs more than these costs); 4
-# steps a run are measured, 8 a configuration
-COST_STEPS = 6
-COST_ORDER = ("prefetcher", "no_sentinel", "inline_copy", "inline_copy", "no_sentinel",
-              "prefetcher")
+# the runs of the costs phase, each configuration once (a cut for the
+# script's time: twice, in turns, and one step more a run before); 3 steps
+# a run are measured
+COST_STEPS = 5
+COST_ORDER = ("prefetcher", "no_sentinel", "inline_copy")
 
 
 class InlineCopy:
@@ -3190,7 +3279,7 @@ def costs_phase(cfg_of, corpus, tmp, seed, dev, batch):
     kernels = dict(TRAIN_PATHS)["kernels"]
 
     def variant(tag, out):
-        cfg = cfg_of(corpus, out, seed, **kernels)
+        cfg = without_card(cfg_of(corpus, out, seed, **kernels))
         if tag == "no_sentinel":
             cfg = rep(cfg, train=rep(cfg.train, resilience=rep(cfg.train.resilience,
                                                                 nan_sentinel=False)))
@@ -5900,17 +5989,13 @@ def serve_cluster_phase(tmp, step, seed, dev, smi):
 
 TRAIN_DP_RANKS = 2
 TRAIN_DP_LABEL = "2 ranks sharing one card over gloo"
-TRAIN_DP_STEPS = 3   # the parity steps (strict float32); the first is a warm-up for times
+TRAIN_DP_STEPS = 2   # the parity steps (strict float32); the first is a warm-up for times
 # the train command's drill: nan_grads on step 3's batch (rank 0's rows), a
 # log line and the sentinel every step, a checkpoint at step 2 (the
 # rollback's target) and the final flush at step 3
 TRAIN_DP_DRILL = "nan_grads@3"
 TRAIN_DP_DRILL_CFG = {"log_step": 1, "save_step": 2, "val_step": 10 ** 6}
 TRAIN_DP_DRILL_STEPS = 3
-# the drill without the one-time program card: its flop counter sends every
-# op of the first step through Python (a tiny config's first step on the CPU:
-# 2.3 s against 0.1 s), and the train phase already builds the card
-TRAIN_DP_DRILL_OBS = {"program_card": False}
 TRAIN_DP_VOC = {"batch": 4, "steps": 3, "wavs": 4, "seconds": 1.0}
 TRAIN_DP_TIMEOUT_S = 300  # each process of the phase
 # the ranks' step against one process's step from the same state: Adam's
@@ -5922,6 +6007,15 @@ TRAIN_DP_ADAM_FLIP = 2.0
 # buffer's largest element: the same batch's statistics summed in another
 # order (3.2e-6 measured at step 1 on the H100)
 TRAIN_DP_STATS_RTOL = 1e-4
+# the tensor-parallel check inside the phase's two processes: (dp = 1, tp =
+# TRAIN_TP), its parity steps; then `train --model_parallel TRAIN_TP` at a
+# cut depth (TRAIN_TP_CMD_LAYERS encoder and decoder layers, full widths)
+# for TRAIN_TP_CMD_STEPS steps, its checkpoint resumed at tp = 1
+TRAIN_TP = 2
+TRAIN_TP_STEPS = 2
+TRAIN_TP_CMD_STEPS = 2
+TRAIN_TP_CMD_LAYERS = 1
+TRAIN_TP_CMD_CFG = {"log_step": 1, "save_step": 10 ** 6, "val_step": 10 ** 6}
 
 
 def dp_per_step(cfg):
@@ -6020,10 +6114,12 @@ def dp_parity_steps(cfg, state, batches, dev, mesh):
 def dp_traced_step(cfg, state, batch, dev, mesh):
     """One rank step under torch.profiler (primed, see prime_trace): the
     port's kernels counted by name in its ``train.step`` range against the
-    launches the wrappers credited, the host ms inside ``dp.all_reduce``
-    ranges (the reduce itself and the wait for the other rank), and the
-    device's idle share within the step (the trace holds this process's
-    kernels only)."""
+    launches the wrappers credited, the host ms inside the mesh's
+    ``<group>.all_reduce`` ranges (the reduce itself and the wait for the
+    other rank), and the device's idle share within the step (the trace
+    holds this process's kernels only). The window runs from the first to
+    the last of the device's ``train.step`` ranges: a tp step's range came
+    back as two device ranges on the H100."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -6047,20 +6143,132 @@ def dp_traced_step(cfg, state, batch, dev, mesh):
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     spans = [e.time_range for e in on_device
              if e.is_user_annotation and e.name == "train.step"]
-    if len(spans) != 1:
-        fail(f"train_dp rank {mesh.rank}: {len(spans)} train.step ranges on the device")
-    r = spans[0]
+    if not spans:
+        fail(f"train_dp rank {mesh.rank}: no train.step range on the device")
+    start, end = min(r.start for r in spans), max(r.end for r in spans)
     kernels = [e for e in on_device
-               if not e.is_user_annotation and r.start <= e.time_range.start < r.end]
+               if not e.is_user_annotation and start <= e.time_range.start < end]
     window, busy, by_name, ours = device_time(f"train_dp rank {mesh.rank}", kernels)
     in_trace = check_trace(f"train_dp rank {mesh.rank}", by_name, credited)
-    reduces = [e for e in events if e.device_type == DeviceType.CPU
-               and e.name == "dp.all_reduce"]
-    return {"trace_window_ms": window, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / window, "port_kernel_ms": ours,
-            "kernels_in_trace": in_trace, "credited": credited,
-            "all_reduce_calls": len(reduces),
-            "all_reduce_ms": sum(e.time_range.elapsed_us() for e in reduces) / 1e3}
+    out = {"device_ranges": len(spans), "trace_window_ms": window, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / window, "port_kernel_ms": ours,
+           "kernels_in_trace": in_trace, "credited": credited}
+    for group in ("dp", "tp"):
+        reduces = [e for e in events if e.device_type == DeviceType.CPU
+                   and e.name == f"{group}.all_reduce"]
+        prefix = "" if group == "dp" else "tp_"
+        out[f"{prefix}all_reduce_calls"] = len(reduces)
+        out[f"{prefix}all_reduce_ms"] = sum(e.time_range.elapsed_us() for e in reduces) / 1e3
+    return out
+
+
+def tp_state(cfg, weights, dev, mesh):
+    """A TrainState of ``weights`` (a state-dict file) on ``dev``, this
+    rank's shards of the tensor-parallel layout."""
+    import torch
+
+    from speakingstyle_torch.models.factory import build_model
+    from speakingstyle_torch.training.trainer import shard_model
+
+    model = build_model(cfg)
+    model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    return shard_model(model.to(dev), cfg, mesh)
+
+
+def tp_snapshot(state, grads, mesh):
+    """(the gradients by name, the parameters and buffers by name), each
+    gathered whole over tp on every rank (a collective), as host copies;
+    and the digests of the whole state and of this rank's replicated
+    leaves."""
+    from speakingstyle_torch.obs.buildinfo import weights_digest
+    from speakingstyle_torch.parallel.tensor import gather_whole
+
+    lay = state.layout
+    whole = lambda n, t: t if lay.dim(n) is None else gather_whole(t.detach(), lay.dim(n), mesh)  # noqa: E731
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    copy = lambda t: t.detach().float().cpu().clone()  # noqa: E731
+    sd = state.model.state_dict()
+    full = {n: whole(n, t) for n, t in sd.items()}
+    return ({n: copy(whole(n, g)) for n, g in zip(names, grads)},
+            {n: copy(t) for n, t in full.items()}, weights_digest(full),
+            weights_digest({n: t for n, t in sd.items() if lay.dim(n) is None}))
+
+
+def tp_parity_steps(cfg, state, batches, dev, mesh):
+    """TRAIN_TP_STEPS chained tensor-parallel steps at strict float32 (the
+    dp = 1 x tp = 2 mesh: each rank its shards and the whole global batch),
+    each beside (on rank 0) one process's step on the same batch from the
+    same state gathered whole, run while rank 1 waits at a barrier: per step
+    the losses, the agreed flag, the digests of the whole state and of the
+    replicated leaves, the launches of the rank's step, both steps' wall ms
+    and, on rank 0, both steps' gradients and states (whole) on the host."""
+    import torch
+
+    from speakingstyle_torch.training.trainer import (
+        _SavedState, global_losses, make_train_step, to_device,
+    )
+
+    step, one_step = make_train_step(cfg, mesh), make_train_step(cfg)
+    rows = []
+    with strict_float32():
+        for batch in batches:
+            row = {}
+            whole = _SavedState(state, mesh).state_dict(copy=False)  # gathered on both ranks
+            if mesh.is_main:
+                one = dp_state(cfg, whole["model"], dev, whole["optimizer"])
+                one.step = state.step
+                arrays = to_device(batch.arrays(), dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses, grads = one_step(one, arrays)
+                torch.cuda.synchronize()
+                row["one"] = {"losses": global_losses(losses)[0], "lr": one.optimizer.schedule(
+                    one.optimizer.count - 1), "ms": (time.perf_counter() - t0) * 1e3}
+                row["one"]["grads"], row["one"]["state"] = dp_snapshot(one.model, grads)
+                del one, losses, grads
+            del whole
+            arrays = to_device(batch.arrays(), dev)
+            torch.cuda.synchronize()
+            mesh.barrier()  # rank 1 waited out rank 0's reference step
+            reset_counts()
+            t0 = time.perf_counter()
+            losses, grads = step(state, arrays)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            host, finite = global_losses(losses, mesh)
+            got_grads, got_state, digest, replicated = tp_snapshot(state, grads, mesh)
+            row.update(losses=host, finite=finite, launches=read_counts(), ms=ms,
+                       digest=digest, replicated_digest=replicated)
+            if mesh.is_main:
+                row["grads"], row["state"] = got_grads, got_state
+            rows.append(row)
+            del got_grads, got_state
+    return rows
+
+
+def tp_worker(cfg, job, batches, mesh, out):
+    """The tensor-parallel half of a ``train_dp`` rank: the same processes
+    re-formed as (dp = 1, tp = TRAIN_TP), a fresh state of the job's
+    weights cut to this rank's shards, the parity steps (judged on rank 0),
+    then a traced tp step."""
+    import torch
+
+    from speakingstyle_torch.parallel.mesh import regroup
+
+    tp_mesh = regroup(mesh, TRAIN_TP)
+    state = tp_state(cfg, job["weights"], mesh.device, tp_mesh)
+    out["tp_split_leaves"] = sum(d is not None for d in state.layout.dims.values())
+    rows = tp_parity_steps(cfg, state, [next(batches) for _ in range(TRAIN_TP_STEPS)],
+                           mesh.device, tp_mesh)
+    if tp_mesh.is_main:
+        out["tp_judged"] = dp_judge(rows)
+    out["tp_parity"] = [{k: v for k, v in p.items() if k not in ("one", "grads", "state")}
+                        | {"one_ms": p.get("one", {}).get("ms")} for p in rows]
+    del rows
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+        out["tp_traced"] = dp_traced_step(cfg, state, next(batches), mesh.device, tp_mesh)
+        out["tp_memory_reserved_bytes"] = torch.cuda.memory_reserved(mesh.device)
 
 
 def dp_nccl_rank(cfg, weights, dev):
@@ -6103,10 +6311,10 @@ def dp_nccl_rank(cfg, weights, dev):
                 os.environ[k] = v
 
 
-def dp_resume(cfg, dev):
-    """The train command's last checkpoint (saved at dp = 2) restored in one
-    process: every leaf and Adam moment as saved, its digest the manifest's,
-    then one step."""
+def dp_resume(cfg, dev, step=TRAIN_DP_DRILL_STEPS):
+    """A train command's last checkpoint (``step``, saved at dp = 2 or tp =
+    2, whole) restored in one process: every leaf and Adam moment as saved,
+    its digest the manifest's, then one step."""
     import torch
 
     from speakingstyle_torch.obs.buildinfo import weights_digest
@@ -6117,8 +6325,8 @@ def dp_resume(cfg, dev):
 
     saved = CheckpointManager(cfg.train.path.ckpt_path)
     state = build_state(cfg, dev)
-    saved.restore(state, step=TRAIN_DP_DRILL_STEPS)
-    _, host, manifest = saved.load_verified(TRAIN_DP_DRILL_STEPS)
+    saved.restore(state, step=step)
+    _, host, manifest = saved.load_verified(step)
     out = {"digest": weights_digest(state.model.state_dict()),
            "manifest_digest": manifest["weights_digest"],
            "leaves_equal": all(torch.equal(t.cpu(), host["model"][k])
@@ -6136,7 +6344,8 @@ def dp_resume(cfg, dev):
 def train_dp_worker(job_path):
     """One rank of the ``train_dp`` phase (``chip_smoke.py --train_dp_worker
     JOB``, started by ``parallel/launch.py::run_workers``): the parity
-    steps, the timed steps and a traced step."""
+    steps, the timed steps and a traced step; then the same at (dp = 1, tp
+    = 2) (``tp_worker``)."""
     import torch
 
     from speakingstyle_torch.configs.config import load_config
@@ -6166,6 +6375,8 @@ def train_dp_worker(job_path):
         if dev.type == "cuda":  # a CPU rehearsal has no device trace
             out["traced"] = dp_traced_step(cfg, state, traced, dev, mesh)
             out["memory_reserved_bytes"] = torch.cuda.memory_reserved(dev)
+        del state, parity
+        tp_worker(cfg, job, batches, mesh, out)
         torch.save(out, f"{job_path}.rank{mesh.rank}.pt")
     finally:
         leave_group()
@@ -6221,6 +6432,54 @@ def dp_judge(parity):
     return rows, bad
 
 
+def tp_command_launches(cfg):
+    """Rank 0's kernel launches over the tensor-parallel command's run (its
+    ``train_end`` record), and what TRAIN_TP_CMD_STEPS steps of its cut
+    model launch."""
+    run = runs_of(cfg.train.path.log_path)[-1]
+    end = of(run, "train_end")
+    want = {k: 0 for k in read_counts()} | {
+        k: TRAIN_TP_CMD_STEPS * n for k, n in dp_per_step(cfg).items()}
+    return {"counted": end[0]["kernel_launches"] if end else None, "want": want,
+            "mesh_shape": of(run, "train_start")[0].get("mesh_shape")}
+
+
+def tp_checks(ranks, per_step, tpcmd, launches, resume, command_out):
+    """The failed checks of the tensor-parallel half of the phase: the parity
+    steps (rank 0's judge), equal whole-state and replicated-leaf digests on
+    both ranks after every step, every kernel's launches a rank step (0 for
+    the bf16-softmax ones) and in the traced step, by name, equal to its
+    credits; the command's steps, rank 0's launches, its mesh, and its
+    checkpoint resumed at tp = 1."""
+    bad = [f"tp {b}" for b in ranks[0]["tp_judged"][1]]
+    for s in range(TRAIN_TP_STEPS):
+        for key in ("digest", "replicated_digest"):
+            if len({r["tp_parity"][s][key] for r in ranks}) != 1:
+                bad.append(f"tp step {s + 1}: the ranks' {key}s differ")
+        for r in ranks:
+            p = r["tp_parity"][s]
+            if not p["finite"] or p["launches"] != per_step:
+                bad.append(f"tp rank {r['rank']} step {s + 1}: finite {p['finite']}, launches "
+                           f"{p['launches']}")
+    for r in ranks:
+        t = r.get("tp_traced", {})
+        if t.get("credited") != per_step or not t.get("tp_all_reduce_calls"):
+            bad.append(f"tp rank {r['rank']} traced step: credited {t.get('credited')}, "
+                       f"tp all-reduces {t.get('tp_all_reduce_calls')}")
+    with open(os.path.join(tpcmd.train.path.log_path, "log.txt"), encoding="utf-8") as fh:
+        log = fh.read()
+    steps_logged = [log.count(f"[train] Step {s + 1},") for s in range(TRAIN_TP_CMD_STEPS)]
+    if launches["counted"] != launches["want"] or steps_logged != [1] * TRAIN_TP_CMD_STEPS \
+            or launches["mesh_shape"] != {"data": 1, "model": TRAIN_TP}:
+        bad.append(f"the tp command: launches {launches}, steps logged {steps_logged}: "
+                   f"{command_out[-1500:]}")
+    if not (resume["leaves_equal"] and resume["moments_equal"]
+            and resume["digest"] == resume["manifest_digest"]
+            and resume["step"] == TRAIN_TP_CMD_STEPS + 1 and math.isfinite(resume["total_loss"])):
+        bad.append(f"the tp = 2 checkpoint at tp = 1: {resume}")
+    return bad
+
+
 def dp_wavs(tmp, sr, seed):
     """TRAIN_DP_VOC["wavs"] seeded int16 wavs for the vocoder command."""
     import numpy as np
@@ -6254,7 +6513,7 @@ def dp_processes(procs):
 
 def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
     """Phase 20 (see the module docstring); returns the launches of a
-    rank's train step."""
+    data-parallel and of a tensor-parallel rank's train step."""
     import torch
 
     from speakingstyle_torch.models.factory import build_model, init_weights
@@ -6270,10 +6529,17 @@ def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
     if cfg32.model.dropout_impl != "hash" or cfg32.train.optimizer.batch_size % TRAIN_DP_RANKS:
         fail(f"train_dp: the config has dropout {cfg32.model.dropout_impl}, batch "
              f"{cfg32.train.optimizer.batch_size}")
+    rep = dataclasses.replace
     drill = cfg_of(corpus, os.path.join(root, "drill"), seed, **kernels_kw)
-    drill = dataclasses.replace(drill, train=dataclasses.replace(
-        drill.train, step=dataclasses.replace(drill.train.step, **TRAIN_DP_DRILL_CFG),
-        obs=dataclasses.replace(drill.train.obs, **TRAIN_DP_DRILL_OBS)))
+    drill = without_card(rep(drill, train=rep(drill.train, step=rep(drill.train.step,
+                                                                    **TRAIN_DP_DRILL_CFG))))
+    # the tensor-parallel command: the preset's widths at a cut depth
+    tpcmd = cfg_of(corpus, os.path.join(root, "tp_cmd"), seed, **kernels_kw)
+    tpcmd = rep(tpcmd, model=rep(tpcmd.model, transformer=rep(
+        tpcmd.model.transformer, encoder_layer=TRAIN_TP_CMD_LAYERS,
+        decoder_layer=TRAIN_TP_CMD_LAYERS)), train=rep(
+        tpcmd.train, step=rep(tpcmd.train.step, **TRAIN_TP_CMD_CFG)))
+    tpcmd = without_card(tpcmd)
     weights = os.path.join(root, "weights.pt")
     torch.save(init_weights(build_model(cfg32), seed).state_dict(), weights)
     job = {"device": dev.type, "weights": weights,
@@ -6300,11 +6566,13 @@ def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
     t0 = time.perf_counter()
     pp = cfg32.preprocess.preprocessing
     wav_dir = dp_wavs(os.path.join(root, "wavs"), pp.audio.sampling_rate, seed)
-    run = lambda argv: subprocess.Popen(  # noqa: E731
-        [sys.executable, "-m", "speakingstyle_torch", *argv, "--device", dev.type,
-         "--data_parallel", str(TRAIN_DP_RANKS)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    run = lambda argv, mesh=("--data_parallel", str(TRAIN_DP_RANKS)): subprocess.Popen(  # noqa: E731
+        [sys.executable, "-m", "speakingstyle_torch", *argv, "--device", dev.type, *mesh],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     procs = {
+        "tp_command": run(["train", *config_yamls(tpcmd, os.path.join(root, "ytp")),
+                           "--max_steps", str(TRAIN_TP_CMD_STEPS)],
+                          ("--model_parallel", str(TRAIN_TP))),
         "command": run(["train", *config_yamls(drill, os.path.join(root, "ydrill")),
                         "--max_steps", str(TRAIN_DP_DRILL_STEPS), "--faults", TRAIN_DP_DRILL]),
         # no checkpoint path: the GAN state's pure-Python msgpack write
@@ -6321,9 +6589,17 @@ def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
             fail(f"train_dp: the train command exited {procs['command'].returncode}: "
                  f"{outs['command'][-3000:]}")
         resume = dp_resume(drill, dev)
-        more, more_s = dp_processes({"vocoder": procs["vocoder"]})
+        more, more_s = dp_processes({"tp_command": procs["tp_command"]})
         outs.update(more)
         seconds.update({k: seconds["command"] + v for k, v in more_s.items()})
+        if procs["tp_command"].returncode != 0:
+            fail(f"train_dp: the tensor-parallel command exited "
+                 f"{procs['tp_command'].returncode}: {outs['tp_command'][-3000:]}")
+        tp_resume = dp_resume(tpcmd, dev, TRAIN_TP_CMD_STEPS)
+        t_voc = time.perf_counter() - t0
+        more, more_s = dp_processes({"vocoder": procs["vocoder"]})
+        outs.update(more)
+        seconds.update({k: t_voc + v for k, v in more_s.items()})
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -6374,6 +6650,8 @@ def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
             voc_rows) != list(range(1, TRAIN_DP_VOC["steps"] + 1)) or not all(
             math.isfinite(v) for row in voc_rows.values() for v in row.values()):
         bad.append(f"the vocoder command: digests {voc_digests}, steps {sorted(voc_rows)}")
+    tp_launches = tp_command_launches(tpcmd)
+    tp_bad = tp_checks(ranks, per_step, tpcmd, tp_launches, tp_resume, outs["tp_command"])
     emit("train_dp", label=TRAIN_DP_LABEL, ranks=TRAIN_DP_RANKS,
          backend=ranks[0]["backend"], backend_reason=ranks[0]["reason"],
          devices=[r["device"] for r in ranks], batch=cfg32.train.optimizer.batch_size,
@@ -6395,10 +6673,31 @@ def train_dp_phase(cfg_of, corpus, tmp, seed, dev):
          vocoder_digests=voc_digests,
          vocoder_mel_l1={s: r.get("mel_l1") for s, r in voc_rows.items()},
          seconds={"ranks": ranks_s, "commands": wave_s, **seconds})
+    emit("train_tp", label=TRAIN_DP_LABEL, mesh={"data": 1, "model": TRAIN_TP},
+         batch=cfg32.train.optimizer.batch_size, split_leaves=ranks[0].get("tp_split_leaves"),
+         parity=ranks[0]["tp_judged"][0],
+         total_loss=[p["losses"]["total_loss"] for p in ranks[0]["tp_parity"]],
+         digests_equal=[len({r["tp_parity"][s]["digest"] for r in ranks}) == 1
+                        for s in range(TRAIN_TP_STEPS)],
+         replicated_digests_equal=[len({r["tp_parity"][s]["replicated_digest"]
+                                        for r in ranks}) == 1 for s in range(TRAIN_TP_STEPS)],
+         launches_a_step=ranks[0]["tp_parity"][-1]["launches"],
+         step_ms_one_process=[p["one_ms"] for p in ranks[0]["tp_parity"]],
+         step_ms_a_rank=[[p["ms"] for p in r["tp_parity"]] for r in ranks],
+         traced_step=[{k: v for k, v in r.get("tp_traced", {}).items() if k != "credited"}
+                      for r in ranks],
+         memory_reserved_bytes_a_rank=[r.get("tp_memory_reserved_bytes") for r in ranks])
+    emit("train_tp_command", argv=f"train --model_parallel {TRAIN_TP} --max_steps "
+                                  f"{TRAIN_TP_CMD_STEPS}",
+         depth={"encoder_layer": TRAIN_TP_CMD_LAYERS, "decoder_layer": TRAIN_TP_CMD_LAYERS},
+         launches=tp_launches, resume_tp1=tp_resume,
+         seconds=seconds.get("tp_command"))
+    bad += tp_bad
     if bad:
         fail(f"train_dp: {bad}")
-    # what the run counted (equal on every rank and step, checked above)
-    return ranks[0]["parity"][-1]["launches"]
+    # what the runs counted (equal on every rank and step, checked above):
+    # a data-parallel rank step's, a tensor-parallel rank step's
+    return ranks[0]["parity"][-1]["launches"], ranks[0]["tp_parity"][-1]["launches"]
 
 
 def traced_replay(engine, requests):
@@ -6522,7 +6821,8 @@ def main(argv=None) -> int:
                                  args.seed, dev, smi)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
-    train_counts, train_sm16_counts, train_cases, distill_per_step, dp_per_rank_step = timed(
+    train_counts, train_sm16_counts, train_cases, distill_per_step, (
+        dp_per_rank_step, tp_per_rank_step) = timed(
         "train", train_phase, train_config, dev, args.seed)
     cases.update(train_cases)
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
@@ -6584,6 +6884,9 @@ def main(argv=None) -> int:
             # sharing the card over gloo), by the wrappers' counts and, in
             # a traced step, by name in the trace
             "train_dp_launches_per_rank_step": dp_per_rank_step[name],
+            # a train step of each tensor-parallel rank (train_tp: the same
+            # two processes as dp = 1 x tp = 2), at the local shapes
+            "train_tp_launches_per_rank_step": tp_per_rank_step[name],
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -32,7 +32,8 @@ card: it never registers, and the router's spawn fails on
 ``serve.cluster.spawn_grace_s``. A replica spanning hosts
 (``--coordinator_address`` / ``--num_processes`` / ``--process_id``) is
 ROADMAP.md queue A item 6c (``torch.distributed``): the command exits
-non-zero when they are set. Usually ``serve --cluster`` spawns it:
+non-zero when they are set, as it does for ``serve.parallel`` past ``mesh:
+[1, 1]``. Usually ``serve --cluster`` spawns it:
 
     python -m speakingstyle_torch replica --preset LJSpeech --restore_step 900000 \\
         --replica_id r1 --router 127.0.0.1:41234
@@ -83,6 +84,7 @@ def main(args):
     if (args.coordinator_address is not None or args.num_processes is not None
             or args.process_id is not None):
         raise SystemExit(MULTIHOST_MISSING)
+    from speakingstyle_torch.configs.config import check_serve_supported
     from speakingstyle_torch.device import resolve_device
     from speakingstyle_torch.faults import FaultPlan
     from speakingstyle_torch.obs import MetricsRegistry
@@ -91,6 +93,10 @@ def main(args):
     from speakingstyle_torch.serving.engine import load_engine
 
     cfg = config_from_args(args)
+    try:
+        check_serve_supported(cfg.serve)
+    except NotImplementedError as e:
+        raise SystemExit(f"replica: {e}") from e
     # the replica's half of the trace plane: the router's serve.trace block
     tcfg = cfg.serve.trace
     configure_span_ring(tcfg.ring_capacity, keep_traces=tcfg.keep_traces)

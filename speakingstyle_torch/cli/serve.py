@@ -20,7 +20,8 @@ serving/server.py:
 (serving/longform.py) over the same backend, on one engine or behind
 ``--replicas N``. ``serve.longform.mesh_seq > 1`` asks for the ring tier,
 which is multi-device work (ROADMAP.md queue A item 6c): the command exits
-non-zero naming it.
+non-zero naming it, as it does for ``serve.parallel`` past ``mesh: [1, 1]``
+(one replica across devices, the same item).
 
 ``serve.trace`` sizes the span ring and arms span recording,
 ``serve.slo.enabled`` starts the SLO burn-rate engine, and one
@@ -72,6 +73,7 @@ import subprocess
 import sys
 
 from speakingstyle_torch.cli import add_config_args, config_from_args
+from speakingstyle_torch.configs.config import check_serve_supported
 from speakingstyle_torch.serving.longform import RING_MISSING
 
 
@@ -259,6 +261,10 @@ def main(args):
     cluster = replicas > 1 and (args.cluster or cfg.serve.cluster.enabled)
     if cfg.serve.longform.mesh_seq > 1:
         raise SystemExit(RING_MISSING)
+    try:
+        check_serve_supported(cfg.serve)
+    except NotImplementedError as e:
+        raise SystemExit(f"serve: {e}") from e
     if replicas <= 1 and args.enable_rollout:
         print("warning: --enable_rollout needs fleet mode (--replicas > 1); ignoring", flush=True)
     if replicas <= 1 and args.cluster:

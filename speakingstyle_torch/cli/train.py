@@ -1,5 +1,6 @@
-"""``train`` command: FastSpeech2 training, on one device or data-parallel
-over rank processes (JAX counterpart: speakingstyle_tpu/cli/train.py).
+"""``train`` command: FastSpeech2 training, on one device or data- and
+tensor-parallel over rank processes (JAX counterpart:
+speakingstyle_tpu/cli/train.py).
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and fails rather than
 fall back when no card is present. The weights start from ``train.seed``;
@@ -9,22 +10,25 @@ fall back when no card is present. The weights start from ``train.seed``;
 
 The mesh resolves as the JAX command's does: ``--data_parallel`` /
 ``--model_parallel`` first, then the ``train.parallel`` block (``mesh: [dp,
-1]``), then the legacy ``train.sharding`` (``data_axis: -1`` = every card).
-With ``dp > 1`` the command starts ``dp`` rank processes of itself on this
-host (``parallel/launch.py``; ranks sharing a card use gloo, else NCCL) and
-exits with their code; under torchrun, or with ``SPEAKINGSTYLE_MULTIHOST``
-set, it trains as the rank the environment names. ``tp > 1`` (ROADMAP.md
-queue A item 6b) and ``seq > 1`` (item 6c) exit non-zero naming them.
+tp]``, ``partition_rules``), then the legacy ``train.sharding``
+(``model_axis``; ``data_axis: -1`` = every card not claimed by tp, at least
+one). With ``dp x tp > 1`` the command starts that many rank processes of
+itself on this host (``parallel/launch.py``; ranks sharing a card use gloo,
+else NCCL) and exits with their code; under torchrun, or with
+``SPEAKINGSTYLE_MULTIHOST`` set, it trains as the rank the environment
+names. ``seq > 1`` or a partition rule naming ``seq`` (ROADMAP.md queue A
+item 6c) and a rule naming ``data`` (item 6d) exit non-zero naming them.
 
     python -m speakingstyle_torch train -p preprocess.yaml -m model.yaml \\
         -t train.yaml [--max_steps N] [--restore_step -1] [--device cpu] \\
-        [--data_parallel N] [--faults SPEC] [--deterministic] \\
+        [--data_parallel N] [--model_parallel N] [--faults SPEC] [--deterministic] \\
         [--synth [--vocoder_ckpt PATH]] [--profile_dir DIR] [--profile_at N]
 """
 
 import argparse
 import dataclasses
 import os
+from typing import Tuple
 
 
 def build_parser(parser=None):
@@ -44,7 +48,8 @@ def build_parser(parser=None):
                              "train.parallel.mesh (default: the train.parallel block, "
                              "falling back to the legacy train.sharding derivation)")
     parser.add_argument("--model_parallel", type=int, default=None,
-                        help="tensor-parallel degree; only 1 (ROADMAP.md queue A item 6b)")
+                        help="tensor-parallel ranks over the mesh's model axis (one process "
+                             "each); overrides train.parallel.mesh and train.sharding")
     parser.add_argument("--synth", action="store_true",
                         help="render a ground-truth vs predicted sample every synth_step")
     parser.add_argument("--vocoder_ckpt", default=None,
@@ -64,13 +69,13 @@ def build_parser(parser=None):
     return parser
 
 
-def resolve_dp(args, cfg) -> int:
-    """The data-parallel ranks of this run (speakingstyle_tpu/cli/train.py:
-    84-110): the flags, then ``train.parallel``, then ``train.sharding``
-    (``data_axis: -1`` = every visible device: the cards, or 1 on the
-    CPU); exits naming the ROADMAP
-    item for ``tp > 1`` or ``seq > 1``, and on a batch ``dp`` does not
-    divide, before any rank starts."""
+def resolve_shape(args, cfg) -> Tuple[int, int]:
+    """(dp, tp) of this run (speakingstyle_tpu/cli/train.py:84-115): the
+    flags, then ``train.parallel``, then ``train.sharding`` (``data_axis:
+    -1`` = the visible devices not claimed by tp, at least 1: the cards, or
+    1 on the CPU); exits naming the ROADMAP item for ``seq`` and for a
+    partition rule naming ``seq`` or ``data``, and on a batch ``dp`` does
+    not divide, before any rank starts."""
     from speakingstyle_torch.configs.config import check_train_supported
     from speakingstyle_torch.parallel.mesh import (
         BatchShardingError, local_batch_size, make_mesh, resolve_mesh, visible_devices,
@@ -80,30 +85,29 @@ def resolve_dp(args, cfg) -> int:
     n_devices = visible_devices(args.device)
     flags_given = args.data_parallel is not None or args.model_parallel is not None
     try:
+        check_train_supported(cfg.train, n_devices)
         if not par.is_single() and not flags_given:
-            check_train_supported(cfg.train, n_devices)
             mesh = resolve_mesh(par, n_devices=n_devices)
         else:
             tp = args.model_parallel if args.model_parallel is not None else sh.model_axis
-            if tp > 1:
-                raise NotImplementedError(
-                    f"--model_parallel {tp}: the port trains data-parallel only; tensor "
-                    "parallelism over the mesh's model axis is ROADMAP.md queue A item 6b")
-            if par.seq > 1:
-                check_train_supported(cfg.train)
             if args.data_parallel:
                 dp = args.data_parallel
             elif sh.data_axis > 0:
                 dp = sh.data_axis
             else:
-                dp = n_devices
-            mesh = make_mesh(data=dp, model=1)
-        dp = mesh.dp if mesh is not None else 1
-        if dp > 1:
+                dp = max(1, n_devices // tp)
+            mesh = make_mesh(data=dp, model=tp)
+        dp, tp = (mesh.dp, mesh.tp) if mesh is not None else (1, 1)
+        if dp * tp > 1:
             local_batch_size(cfg.train.optimizer.batch_size, mesh)
-    except (NotImplementedError, BatchShardingError) as e:
+    except (NotImplementedError, BatchShardingError, ValueError) as e:
         raise SystemExit(f"train: {e}") from e
-    return dp
+    return dp, tp
+
+
+def resolve_dp(args, cfg) -> int:
+    """The data-parallel ranks of this run (``resolve_shape``'s dp)."""
+    return resolve_shape(args, cfg)[0]
 
 
 def main(args):
@@ -125,16 +129,17 @@ def main(args):
         os.environ[ENV_VAR] = spec
     cfg = load_config(args.preprocess_config, args.model_config, args.train_config,
                       preset=args.preset)
-    dp = resolve_dp(args, cfg)
+    dp, tp = resolve_shape(args, cfg)
     try:
-        code = launch.launch_if_needed(dp, args.device, getattr(args, "argv", None))
+        code = launch.launch_if_needed(dp, args.device, getattr(args, "argv", None), tp=tp)
     except launch.WorkerFailed as e:
         raise SystemExit(f"train: {e}") from e
     if code is not None:
         return None
     # this process trains: alone, or as the rank its environment names
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, parallel=ParallelConfig(mesh=[dp, 1])))
+        cfg.train, parallel=ParallelConfig(
+            mesh=[dp, tp], partition_rules=cfg.train.parallel.partition_rules)))
     vocoder = None
     if args.synth and args.vocoder_ckpt:
         from speakingstyle_torch.device import resolve_device
@@ -152,7 +157,7 @@ def main(args):
                              synth_callback="default" if args.synth else None, vocoder=vocoder,
                              profile_dir=profile_dir, profile_steps=profile_steps)
     finally:
-        if dp > 1:
+        if dp * tp > 1:
             from speakingstyle_torch.parallel.mesh import leave_group
 
             leave_group()

@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -316,9 +317,22 @@ class ParallelConfig:
                     f"parallel.partition_rules entries must be [path_regex, axes] "
                     f"string pairs, got {rule!r}"
                 )
+            try:
+                re.compile(rule[0])
+            except re.error as e:
+                raise ValueError(f"parallel.partition_rules regex {rule[0]!r}: {e}") from e
+            for tok in rule[1].split(","):
+                if tok.strip().lower() not in ("", "none", "data", "model", "seq"):
+                    raise ValueError(f"parallel.partition_rules axes token {tok!r} is not "
+                                     "one of none, data, model, seq")
 
     def is_single(self) -> bool:
         return tuple(self.mesh) == (1, 1) and self.seq == 1
+
+    def rule_axes(self) -> List[str]:
+        """The mesh axes the partition-rule overrides name."""
+        return sorted({tok.strip().lower() for _, axes in self.partition_rules
+                       for tok in axes.split(",")} - {"", "none"})
 
 
 @dataclass(frozen=True)
@@ -386,27 +400,44 @@ class TrainConfig:
             )
 
 
+SEQ_MISSING = "the sequence axis (ring attention) is ROADMAP.md queue A item 6c"
+DATA_RULE_MISSING = ("parameters sharded over the mesh's data axis (a partition rule naming "
+                     "'data', which GSPMD takes) are ROADMAP.md queue A item 6d; the port "
+                     "splits parameters over the model axis only")
+
+
 def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
     """Raise ``NotImplementedError`` for a mesh the port does not train on:
-    data parallelism (``dp > 1``, rank processes over ``torch.distributed``)
-    is ported, tensor parallelism (``tp > 1``: ROADMAP.md queue A item 6b)
-    and the sequence axis (``seq > 1``: item 6c) are not. ``n_devices`` is
-    what ``sharding.data_axis = -1`` ("every device") resolves to."""
+    data parallelism (``dp > 1``) and tensor parallelism (``tp > 1``, the
+    partition rules over the ``model`` axis) run as rank processes over
+    ``torch.distributed``; the sequence axis (``seq > 1``, or a partition
+    rule naming ``seq``: ROADMAP.md queue A item 6c) and a partition rule
+    naming ``data`` (item 6d) do not. ``n_devices`` is what
+    ``sharding.data_axis = -1`` ("every device") resolves to."""
     par, sh = train.parallel, train.sharding
-    if par.mesh[1] > 1 or sh.model_axis > 1:
-        raise NotImplementedError(
-            f"train.parallel.mesh {par.mesh} / train.sharding model_axis {sh.model_axis}: "
-            "the port trains data-parallel only; tensor parallelism over the mesh's model "
-            "axis is ROADMAP.md queue A item 6b"
-        )
     if par.seq > 1:
-        raise NotImplementedError(
-            f"train.parallel.seq {par.seq}: the sequence axis (ring attention) is "
-            "ROADMAP.md queue A item 6c"
-        )
+        raise NotImplementedError(f"train.parallel.seq {par.seq}: {SEQ_MISSING}")
+    axes = par.rule_axes()
+    if "seq" in axes:
+        raise NotImplementedError(f"train.parallel.partition_rules name 'seq': {SEQ_MISSING}")
+    if "data" in axes:
+        raise NotImplementedError(f"train.parallel.partition_rules: {DATA_RULE_MISSING}")
+    if sh.model_axis < 1:
+        raise ValueError(f"train.sharding.model_axis must be >= 1, got {sh.model_axis}")
     dp = n_devices if sh.data_axis == -1 else sh.data_axis
     if dp < 1:
         raise ValueError(f"train.sharding.data_axis must be >= 1 or -1, got {sh.data_axis}")
+
+
+def check_serve_supported(serve) -> None:
+    """Raise ``NotImplementedError`` for a replica mesh the port does not
+    serve on: ``serve.parallel`` past ``mesh: [1, 1]``, ``seq: 1`` is one
+    replica across devices, ROADMAP.md queue A item 6c."""
+    par = serve.parallel
+    if not par.is_single():
+        raise NotImplementedError(
+            f"serve.parallel (mesh {par.mesh}, seq {par.seq}): a replica across devices is "
+            "ROADMAP.md queue A item 6c; the port serves a replica on one device (mesh [1, 1])")
 
 
 # ---------------------------------------------------------------------------
@@ -941,8 +972,10 @@ class ServeConfig:
     The HTTP server's and the fleet's keys follow (serving/batcher.py,
     serving/server.py, serving/fleet.py, serving/autoscale.py,
     serving/lifecycle.py, serving/longform.py, serving/cluster.py,
-    cli/serve.py). The JAX package's serve key that no ported module reads
-    yet (``parallel``) is listed in ROADMAP.md queue A items 6b and 6c."""
+    cli/serve.py). ``parallel`` is one replica's mesh: ``[1, 1]`` (the
+    default) is the one-device engine; ``serve`` and ``replica`` refuse
+    more, which is serving across devices (ROADMAP.md queue A item 6c), as
+    they refuse ``longform.mesh_seq > 1``."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
@@ -978,6 +1011,7 @@ class ServeConfig:
     autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
     rollout: RolloutConfig = field(default_factory=RolloutConfig)
     longform: LongformConfig = field(default_factory=LongformConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def __post_init__(self):
         for name in ("batch_buckets", "src_buckets", "mel_buckets"):

@@ -26,6 +26,7 @@ from speakingstyle_torch.models.reference_encoder import ReferenceEncoder
 from speakingstyle_torch.models.transformer import Decoder, Encoder
 from speakingstyle_torch.models.variance_adaptor import VarianceAdaptor
 from speakingstyle_torch.ops.masking import length_to_mask
+from speakingstyle_torch.parallel.tensor import param
 
 
 class FastSpeech2(nn.Module):
@@ -104,7 +105,7 @@ class FastSpeech2(nn.Module):
 
         x = self.encoder(texts, src_pad_mask, gammas, betas, deterministic, rng)
         if self.speaker_emb is not None:
-            x = x + self.speaker_emb.weight.to(self.dtype)[speakers][:, None, :]
+            x = x + param(self.speaker_emb, "weight").to(self.dtype)[speakers][:, None, :]
         va = self.variance_adaptor(
             x, src_pad_mask, max_mel_len, p_targets, e_targets, d_targets,
             p_control, e_control, d_control, gammas, betas, deterministic, rng,

@@ -9,6 +9,14 @@ output, as Flax's does. Dropout sits where the JAX package's does (after
 the attention's ``fc`` and after the conv FFN); ``deterministic=True``
 (the default, as in Flax) makes it the identity, and ``rng`` (an
 ``ops.dropout.DropoutRNG``) feeds its masks in training.
+
+Tensor parallelism (``parallel/partition.py``'s layout applied): every
+parameter is read through ``parallel.tensor.param``, whole, gathered where
+the layout splits it. Where the layout splits a Megatron pair, the
+attention runs its ``n_head / tp`` heads on the rank's column slices of
+q/k/v and its row slice of ``fc``, and the conv FFN its ``d_inner / tp``
+filters, each ending in one all-reduce over ``tp`` before the replicated
+bias; the dropout after either sees the replicated tensor.
 """
 
 import math
@@ -22,20 +30,30 @@ from speakingstyle_torch.ops.conv import Conv1d
 from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.fused_attention import fused_mha
 from speakingstyle_torch.ops.masking import attention_bias, mask_fill
+from speakingstyle_torch.parallel.tensor import (
+    copy_to_tp, pair_mesh, param, reduce_from_tp, split_of,
+)
 
 LN_EPS = 1e-5
 
 
 def linear(layer: nn.Linear, x, dtype):
     """``nn.Dense(dtype=...)``: input, weight and bias all in ``dtype``."""
-    b = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+    b = param(layer, "bias")
+    b = None if b is None else b.to(dtype)
+    return F.linear(x.to(dtype), param(layer, "weight").to(dtype), b)
 
 
 def layer_norm(layer: nn.LayerNorm, x, dtype):
     """``nn.LayerNorm(dtype=...)``: statistics and affine in float32."""
-    y = F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps)
+    y = F.layer_norm(x.float(), layer.normalized_shape, param(layer, "weight"),
+                     param(layer, "bias"), layer.eps)
     return y.to(dtype)
+
+
+def add_bias(x, layer: nn.Module, dtype):
+    """``x`` plus ``layer``'s (replicated) bias in ``dtype``, if it has one."""
+    return x if layer.bias is None else x + layer.bias.to(dtype)
 
 
 class FiLM(nn.Module):
@@ -47,8 +65,8 @@ class FiLM(nn.Module):
         self.s_beta = nn.Parameter(torch.ones(1))
 
     def forward(self, x, gammas, betas):
-        g = (self.s_gamma * gammas).to(x.dtype)
-        b = (self.s_beta * betas).to(x.dtype)
+        g = (param(self, "s_gamma") * gammas).to(x.dtype)
+        b = (param(self, "s_beta") * betas).to(x.dtype)
         return (g + 1.0) * x + b
 
 
@@ -77,14 +95,32 @@ class MultiHeadSelfAttention(nn.Module):
             self.add_module(name, nn.Linear(d_model, d_model))
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
+    def _head_mesh(self):
+        """The mesh when the layout splits whole heads as a column / row
+        pair (q/k/v by output, ``fc`` by input) and ``tp`` divides the
+        heads; else None."""
+        mesh = pair_mesh([(getattr(self, n), "weight", 0) for n in ("w_qs", "w_ks", "w_vs")],
+                         (self.fc, "weight", 1))
+        return mesh if mesh is not None and self.n_head % mesh.tp == 0 else None
+
     def forward(self, x, pad_mask, deterministic: bool = True, rng=None):
         B, L, _ = x.shape
         d_head = self.d_model // self.n_head
         residual = x
-        q, k, v = (
-            linear(getattr(self, n), x, self.dtype).reshape(B, L, self.n_head, d_head)
-            for n in ("w_qs", "w_ks", "w_vs")
-        )
+        mesh = self._head_mesh()
+        if mesh is None:
+            n_head = self.n_head
+            q, k, v = (
+                linear(getattr(self, n), x, self.dtype).reshape(B, L, n_head, d_head)
+                for n in ("w_qs", "w_ks", "w_vs")
+            )
+        else:  # this rank's heads, from its column slices
+            n_head, xin = self.n_head // mesh.tp, copy_to_tp(x, mesh).to(self.dtype)
+            q, k, v = (
+                F.linear(xin, getattr(self, n).weight.to(self.dtype),
+                         getattr(self, n).bias.to(self.dtype)).reshape(B, L, n_head, d_head)
+                for n in ("w_qs", "w_ks", "w_vs")
+            )
         if self.attention_kernel == "fused":
             out = fused_mha(q, k, v, pad_mask, softmax_dtype=self.softmax_dtype)
         else:
@@ -98,7 +134,12 @@ class MultiHeadSelfAttention(nn.Module):
             )
             attn = torch.softmax(logits, dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        out = linear(self.fc, out.reshape(B, L, self.d_model), self.dtype)
+        out = out.reshape(B, L, n_head * d_head)
+        if mesh is None:
+            out = linear(self.fc, out, self.dtype)
+        else:  # the row slice of fc, summed over tp, then its bias once
+            out = reduce_from_tp(F.linear(out, self.fc.weight.to(self.dtype)), mesh)
+            out = add_bias(out, self.fc, self.dtype)
         out = maybe_dropout(out, self.dropout, deterministic, rng, self.dropout_impl)
         return layer_norm(self.layer_norm, out + residual, self.dtype)
 
@@ -118,7 +159,13 @@ class ConvFFN(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, deterministic: bool = True, rng=None):
-        h = self.w_2(self.w_1(x))
+        mesh = pair_mesh([(self.w_1, "kernel", 2)], (self.w_2, "kernel", 1))
+        if mesh is None:
+            h = self.w_2(self.w_1(x))
+        else:  # this rank's d_inner / tp filters, then the row slice of w_2
+            h = self.w_1.run(copy_to_tp(x, mesh), self.w_1.kernel, self.w_1.bias)
+            h = reduce_from_tp(self.w_2.run(h, self.w_2.kernel, None), mesh)
+            h = add_bias(h, self.w_2, self.dtype)
         h = maybe_dropout(h, self.dropout, deterministic, rng, self.dropout_impl)
         return layer_norm(self.layer_norm, h + x, self.dtype)
 
@@ -165,7 +212,10 @@ class ConvNorm(nn.Module):
 
 
 class LinearNorm(nn.Module):
-    """Projection without bias, as a child named ``linear``."""
+    """Projection without bias, as a child named ``linear``. Where the
+    tensor-parallel layout splits its kernel by input (row parallel), each
+    rank projects its slice of the input channels and the partial sums are
+    all-reduced over ``tp``."""
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = False,
                  dtype=torch.float32):
@@ -174,7 +224,13 @@ class LinearNorm(nn.Module):
         self.linear = nn.Linear(in_features, out_features, bias=use_bias)
 
     def forward(self, x):
-        return linear(self.linear, x, self.dtype)
+        lin = self.linear
+        if split_of(lin, "weight") != 1 or split_of(lin, "bias") is not None:
+            return linear(lin, x, self.dtype)
+        mesh, n = lin.tp_mesh, lin.weight.shape[1]
+        xl = copy_to_tp(x, mesh).narrow(-1, mesh.tp_rank * n, n).to(self.dtype)
+        y = reduce_from_tp(F.linear(xl, lin.weight.to(self.dtype)), mesh)
+        return add_bias(y, lin, self.dtype)
 
 
 def position_table(n_position: int, d: int) -> torch.Tensor:

@@ -8,8 +8,10 @@ names.
 Under data parallelism each rank passes ``counts``, the global batch's
 valid positions (``loss_counts`` of the global arrays, known on every rank
 without a collective), so that its masked means are its rows' share of the
-global means, and only rank 0 adds the parameter-only FiLM term
-(``param_terms``): the sum of the ranks' losses, and of their gradients, is
+global means, and only data-parallel rank 0 adds the parameter-only FiLM
+term (``param_terms``; every tensor-parallel rank of it, since each
+tensor-parallel rank's gradients are summed over its own ``dp`` group):
+the sum of the data-parallel ranks' losses, and of their gradients, is
 then the one-process value of the global batch.
 """
 

@@ -7,6 +7,7 @@ from torch import nn
 
 from speakingstyle_torch.ops.conv import Conv1d
 from speakingstyle_torch.ops.dropout import maybe_dropout
+from speakingstyle_torch.parallel.tensor import param
 
 
 class BatchNorm(nn.Module):
@@ -27,10 +28,12 @@ class BatchNorm(nn.Module):
     ``sync`` (a joined ``parallel.mesh.Mesh`` with ``dp > 1``, set by the
     trainer): train-mode statistics over the GLOBAL batch, the JAX
     package's GSPMD semantics. The per-channel sum, sum of squares and count
-    of the rank's rows are all-reduced inside the graph (``AllReduceSum``,
-    whose backward all-reduces the incoming gradient), so the running
-    statistics are the same on every rank and the backward is the global
-    batch's. Without it (one rank) the code path is the one above.
+    of the rank's rows are all-reduced over the mesh's ``dp`` group inside
+    the graph (``AllReduceSum``, whose backward all-reduces the incoming
+    gradient), so the running statistics are the same on every rank and the
+    backward is the global batch's. (The ``tp`` ranks of a data-parallel
+    group hold the same rows: a sum over the world would count each row
+    ``tp`` times.) Without it (one rank) the code path is the one above.
     """
 
     MOMENTUM = 0.9
@@ -61,26 +64,26 @@ class BatchNorm(nn.Module):
             with torch.no_grad():
                 self.mean.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * mean)
                 self.var.mul_(self.MOMENTUM).add_((1 - self.MOMENTUM) * var)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((xf - mean) * mul + self.bias).to(self.dtype)
+        mul = torch.rsqrt(var + self.eps) * param(self, "scale")
+        return ((xf - mean) * mul + param(self, "bias")).to(self.dtype)
 
 
 class AllReduceSum(torch.autograd.Function):
-    """The sum over the mesh's ranks of a tensor, differentiable: the
-    gradient of each rank's input is the sum of every rank's output
-    gradient (each rank's loss reads the global sums)."""
+    """The sum over the mesh's data-parallel ranks of a tensor,
+    differentiable: the gradient of each rank's input is the sum of every
+    rank's output gradient (each rank's loss reads the global sums)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
         out = x.clone()
-        mesh.all_reduce_([out])
+        mesh.all_reduce_([out], group="dp")
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        ctx.mesh.all_reduce_([grad])
+        ctx.mesh.all_reduce_([grad], group="dp")
         return grad, None
 
 

@@ -7,6 +7,13 @@
 ``conv_impl="pallas"`` each conv -> ReLU -> LN runs as one fused kernel
 with the LN affine in the compute dtype, as in the JAX package.
 
+Under tensor parallelism the mel convs' kernels and biases are split by
+output channel in storage, as in the JAX package, and gathered here: each
+rank runs the whole conv + ReLU + LN kernel (the LN needs every channel),
+so its dropout mask and everything after it are replicated, as GSPMD's
+gather of the Pallas conv's operands makes them. ``fftb_linear`` is row
+parallel (``LinearNorm``).
+
 The mean-pool divides by the PADDED length (the JAX package's
 ``true_length_mean=False``, its only setting in use), the reference's
 quirk: padded frames are zeros but count in the denominator.
@@ -22,6 +29,7 @@ from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.fused_conv import fused_conv_relu_ln
 from speakingstyle_torch.ops.masking import mask_fill
 from speakingstyle_torch.ops.positional import add_position_encoding
+from speakingstyle_torch.parallel.tensor import param
 
 
 class ReferenceEncoder(nn.Module):
@@ -61,9 +69,9 @@ class ReferenceEncoder(nn.Module):
             conv = getattr(self, f"conv_{i}").conv
             ln = getattr(self, f"ln_{i}")
             if self.conv_impl == "pallas":
-                x = fused_conv_relu_ln(
-                    x, *(p.to(self.dtype) for p in (conv.kernel, conv.bias, ln.weight, ln.bias))
-                )
+                x = fused_conv_relu_ln(x, *(
+                    param(m, n).to(self.dtype)
+                    for m, n in ((conv, "kernel"), (conv, "bias"), (ln, "weight"), (ln, "bias"))))
             else:
                 x = layer_norm(ln, torch.relu(conv(x)), self.dtype)
             x = maybe_dropout(x, self.dropout, deterministic, rng, self.dropout_impl)

@@ -7,7 +7,9 @@ FFT block of a stack in training: its activations are dropped after the
 forward and recomputed in the backward (``torch.utils.checkpoint``,
 non-reentrant), trading the block's forward FLOPs for its activation
 memory, as ``nn.remat`` does in the JAX package. The recompute replays the
-forward's dropout masks (``ops.dropout.ReplayRNG``).
+forward's dropout masks (``ops.dropout.ReplayRNG``) and, under tensor
+parallelism, its collectives (every tp rank recomputes the same blocks in
+the same order).
 """
 
 from typing import Tuple
@@ -21,6 +23,7 @@ from speakingstyle_torch.ops.dropout import ReplayRNG
 
 from speakingstyle_torch.models.layers import FFTBlock, position_table
 from speakingstyle_torch.ops.positional import add_position_encoding
+from speakingstyle_torch.parallel.tensor import param
 from speakingstyle_torch.text.symbols import VOCAB_SIZE
 
 
@@ -82,7 +85,7 @@ class Encoder(nn.Module):
 
     def forward(self, token_ids, pad_mask, gammas=None, betas=None,
                 deterministic: bool = True, rng=None):
-        x = F.embedding(token_ids, self.src_word_emb.weight.to(self.dtype))
+        x = F.embedding(token_ids, param(self.src_word_emb, "weight").to(self.dtype))
         return self.layer_stack(x, pad_mask, gammas, betas, deterministic, rng)
 
 

@@ -17,6 +17,7 @@ from speakingstyle_torch.ops.conv import Conv1d
 from speakingstyle_torch.ops.dropout import maybe_dropout
 from speakingstyle_torch.ops.length_regulator import length_regulate, predicted_durations
 from speakingstyle_torch.ops.quantize import bucketize, make_bins
+from speakingstyle_torch.parallel.tensor import param
 
 
 class VariancePredictor(nn.Module):
@@ -79,7 +80,7 @@ class VarianceAdaptor(nn.Module):
         if target is None:
             pred = pred * control
             target = pred
-        emb = getattr(self, f"{kind}_embedding").weight.to(self.dtype)
+        emb = param(getattr(self, f"{kind}_embedding"), "weight").to(self.dtype)
         return pred, F.embedding(bucketize(target, getattr(self, f"{kind}_bins")), emb)
 
     def forward(self, x, src_pad_mask, max_mel_len: Optional[int] = None,

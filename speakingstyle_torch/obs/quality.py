@@ -22,9 +22,9 @@ prefix is the most expensive):
 
 Verdicts land as ``serve_quality_*`` counters and histograms per class
 and tier. ``trace`` stays duck-typed (anything with a ``trace_id``, or a
-string): the trace ring and tail sampler the gate can pin a failing wav's
-trace in wait for the tracing plane (ROADMAP.md queue A item 5), and the
-gate pins nothing while they are unbound.
+string): the fleet binds the trace ring and tail sampler the gate pins a
+failing wav's trace in (``bind``, from ``serving/fleet.py`` when it warms a
+replica), and a gate outside a fleet, unbound, pins nothing.
 """
 
 import threading

@@ -9,7 +9,9 @@ speakingstyle_tpu/ops/conv.py).
 Every impl holds the same parameters, ``kernel`` [K, Cin, Cout] and
 ``bias`` [Cout], so ``conv_impl`` can change on loaded weights. As in the
 JAX package, a K=1 conv under "xla" or "unfold" is a plain matmul; under
-"pallas" it still goes through the fused kernel.
+"pallas" it still goes through the fused kernel. ``run`` applies the
+module's conv to other weights of its layout (a tensor-parallel rank's
+slices, ``models/layers.py``).
 """
 
 from typing import Optional
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from speakingstyle_torch.ops.fused_conv import conv1d_unfold, fused_conv1d
+from speakingstyle_torch.parallel.tensor import param
 
 CONV_IMPLS = ("xla", "unfold", "pallas")
 
@@ -40,9 +43,14 @@ class Conv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
+        return self.run(x, param(self, "kernel"), param(self, "bias"))
+
+    def run(self, x, kernel, bias=None):
+        """This module's conv (impl, dilation, activation, dtype) with
+        ``kernel`` [K, Cin', Cout'] and ``bias`` [Cout'] or None."""
         x = x.to(self.dtype)
-        kernel = self.kernel.to(self.dtype)
-        bias = None if self.bias is None else self.bias.to(self.dtype)
+        kernel = kernel.to(self.dtype)
+        bias = None if bias is None else bias.to(self.dtype)
         relu = self.activation == "relu"
         K = kernel.shape[0]
         if self.impl == "pallas":

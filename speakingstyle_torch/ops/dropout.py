@@ -17,8 +17,9 @@ The last two draw from a ``torch.Generator`` on the tensor's device and
 cannot give JAX's bits: their tests compare statistics.
 
 Data parallelism (``parallel/mesh.py``): a rank holds rows ``[r b, (r + 1)
-b)`` of the global batch, and its ``DropoutRNG`` carries ``row_offset = r
-b``. The hash mask of a batch-leading tensor then hashes the flat index of
+b)`` of the global batch (r its data-parallel rank: the tensor-parallel
+ranks of a group share r, so they draw the same bits), and its
+``DropoutRNG`` carries ``row_offset = r b``. The hash mask of a batch-leading tensor then hashes the flat index of
 the GLOBAL layout (``offset + arange(n)``, offset = ``row_offset`` times the
 elements of a row), so rank r's mask is those rows of the one-process mask
 bit for bit, as the JAX package's GSPMD step hashes the global shape; the

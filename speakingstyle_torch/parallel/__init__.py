@@ -1,8 +1,9 @@
-"""Parallelism: the data-parallel process group (``mesh.py``), the launcher
-of its rank processes (``launch.py``), program preparation and the
-precision casts (``registry.py``) (JAX counterpart:
-speakingstyle_tpu/parallel). Tensor parallelism and the sequence axis wait
-for ROADMAP.md queue A items 6b and 6c."""
+"""Parallelism: the (data, model) process group (``mesh.py``), the launcher
+of its rank processes (``launch.py``), the tensor-parallel layout
+(``partition.py``) and its collectives (``tensor.py``), program preparation
+and the precision casts (``registry.py``) (JAX counterpart:
+speakingstyle_tpu/parallel). The sequence axis waits for ROADMAP.md queue A
+item 6c."""
 
 from speakingstyle_torch.parallel.mesh import (
     BatchShardingError,

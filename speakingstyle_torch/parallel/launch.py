@@ -1,10 +1,12 @@
-"""Start the rank processes of a data-parallel command on this host (the
-port's counterpart of the JAX package's one process driving every device).
+"""Start the rank processes of a data- or tensor-parallel command on this
+host (the port's counterpart of the JAX package's one process driving every
+device).
 
-``train`` and ``train_vocoder`` call ``launch_if_needed(dp, device)`` once
-they have resolved ``dp``. Outside a rendezvous (no ``WORLD_SIZE``, no
-``SPEAKINGSTYLE_MULTIHOST``) and with ``dp > 1`` it builds the kernels once
-(on the card), then starts ``dp`` workers of the same command with
+``train`` and ``train_vocoder`` call ``launch_if_needed(dp, device, tp=...)``
+once they have resolved the mesh. Outside a rendezvous (no ``WORLD_SIZE``,
+no ``SPEAKINGSTYLE_MULTIHOST``) and with ``dp x tp > 1`` it builds the
+kernels once (on the card), then starts ``dp x tp`` workers of the same
+command with
 ``subprocess.Popen`` (fork and exec: nothing is forked after CUDA is up),
 each with torchrun's variables and a rendezvous on a free port of
 127.0.0.1, and returns their exit code; the command then exits with it.
@@ -39,7 +41,7 @@ class WorkerFailed(RuntimeError):
 
     def __init__(self, rank: int, code: int):
         self.rank, self.code = rank, code
-        super().__init__(f"data-parallel rank {rank} exited with code {code}; "
+        super().__init__(f"rank {rank} exited with code {code}; "
                          "the other ranks were stopped")
 
 
@@ -123,13 +125,15 @@ def stop_all(procs: Sequence[subprocess.Popen]) -> None:
             p.wait()
 
 
-def launch_if_needed(dp: int, device, argv: Optional[Sequence[str]] = None) -> Optional[int]:
-    """Start ``dp`` rank processes of this command when ``dp > 1`` and this
-    process is not already a rank; returns their exit code (0), or None
-    when this process should train itself. ``argv`` defaults to
-    ``python -m speakingstyle_torch`` and this process's arguments (a
-    command run in-process passes its own)."""
-    if dp <= 1 or in_rendezvous():
+def launch_if_needed(dp: int, device, argv: Optional[Sequence[str]] = None,
+                     tp: int = 1) -> Optional[int]:
+    """Start ``dp x tp`` rank processes of this command when that is more
+    than one and this process is not already a rank; returns their exit
+    code (0), or None when this process should train itself. ``argv``
+    defaults to ``python -m speakingstyle_torch`` and this process's
+    arguments (a command run in-process passes its own)."""
+    world = dp * tp
+    if world <= 1 or in_rendezvous():
         return None
     if str(device).startswith("cuda"):
         from speakingstyle_torch.ops import kernels
@@ -138,5 +142,5 @@ def launch_if_needed(dp: int, device, argv: Optional[Sequence[str]] = None) -> O
         kernels.build_all()
     if argv is None:
         argv = ["-m", "speakingstyle_torch", *sys.argv[1:]]
-    print(f"[parallel] starting {dp} rank processes", flush=True)
-    return run_workers(argv, dp)
+    print(f"[parallel] starting {world} rank processes", flush=True)
+    return run_workers(argv, world)

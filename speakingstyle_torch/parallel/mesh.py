@@ -1,14 +1,21 @@
-"""Data-parallel rank processes (JAX counterpart:
+"""The rank processes of a (data, model) mesh (JAX counterpart:
 speakingstyle_tpu/parallel/mesh.py).
 
 The JAX package drives every device of a ``Mesh`` from one process and lets
 GSPMD insert the collectives. The port runs one process a rank, each with
 its own CUDA context, joined in a ``torch.distributed`` process group: the
-``Mesh`` here is that group's description (``dp`` ranks on the ``data``
-axis; ``tp``, the ``model`` axis, is 1 until ROADMAP.md queue A item 6b).
-The state is replicated and the global batch is split by rows over the
-ranks, which is the JAX package's pure-DP layout (``P("data")`` for the
-batch, ``P()`` for the state).
+``Mesh`` here is that group's description, ``dp`` ranks on the ``data``
+axis times ``tp`` on the ``model`` axis, laid out as the JAX package's
+``devices.reshape(data, model)``: ``dp_rank = rank // tp``, ``tp_rank =
+rank % tp``. The global batch is split by rows over ``dp_rank`` (every tp
+rank of a data-parallel group sees the same rows), the JAX package's
+``P("data")``; the parameters are replicated, or split over ``tp`` by
+``parallel/partition.py``'s layout.
+
+* Groups: ``"world"``; ``"dp"``, the ranks of one ``tp_rank`` (the
+  gradient and BatchNorm all-reduces); ``"tp"``, the ranks of one
+  ``dp_rank`` (``parallel/tensor.py``'s collectives). Each has a CPU gloo
+  host twin where the device backend is NCCL.
 
 * ``init_distributed`` joins the rendezvous torchrun (or
   ``parallel/launch.py``) describes in the environment: ``RANK``,
@@ -22,9 +29,10 @@ batch, ``P()`` for the state).
 * On the step's path the data collectives are ``all_reduce`` and
   ``broadcast`` only: gloo runs both on CUDA tensors, so one code path
   serves NCCL and a shared card. Host values (flags, counts, gauges) go
-  over a CPU gloo group (the world itself under gloo).
+  over a CPU gloo group (the device group itself under gloo).
 """
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -53,11 +61,10 @@ class BatchShardingError(ValueError):
 
 @dataclass
 class Mesh:
-    """A data-parallel process group as the trainers see it: ``dp`` ranks,
-    this process's ``rank`` and ``local_rank``, its ``device`` and the
-    group's ``backend``. An unjoined mesh (``make_mesh``,
-    ``resolve_mesh``) only describes the shape; ``init_distributed``
-    returns a joined one."""
+    """A process group as the trainers see it: ``dp`` x ``tp`` ranks, this
+    process's ``rank`` and ``local_rank``, its ``device`` and the group's
+    ``backend``. An unjoined mesh (``make_mesh``, ``resolve_mesh``) only
+    describes the shape; ``init_distributed`` returns a joined one."""
 
     dp: int = 1
     tp: int = 1
@@ -67,6 +74,9 @@ class Mesh:
     backend: Optional[str] = None
     backend_reason: str = ""
     host_group: object = None  # the CPU gloo group (None: the world, under gloo)
+    # "dp" / "tp" -> (device group, host group, its global ranks); a group
+    # of None is the world
+    groups: Dict[str, tuple] = field(default_factory=dict)
 
     axis_names = AXIS_NAMES
 
@@ -82,10 +92,46 @@ class Mesh:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def world(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch of ``global_batch`` rows."""
         b = local_batch_size(global_batch, self)
-        return slice(self.rank * b, (self.rank + 1) * b)
+        return slice(self.dp_rank * b, (self.dp_rank + 1) * b)
+
+    def ranks(self, group: str = "world") -> List[int]:
+        """The global ranks of this rank's ``group``, in group order."""
+        if group == "world":
+            return list(range(self.world))
+        if group in self.groups:
+            return list(self.groups[group][2])
+        if group == "dp":
+            return [d * self.tp + self.tp_rank for d in range(self.dp)]
+        return [self.dp_rank * self.tp + t for t in range(self.tp)]
+
+    def _alone(self, group: str) -> bool:
+        """This rank is all of ``group`` within a larger mesh (a collective
+        over it is the identity and is skipped; at world size 1 the
+        collectives still run)."""
+        return self.world > 1 and len(self.ranks(group)) == 1
+
+    def _groups(self, group: str):
+        """(device group, host group) of ``group``."""
+        if group == "world" or group not in self.groups:
+            if group != "world" and len(self.ranks(group)) != self.world:
+                raise RuntimeError(f"the mesh has no {group!r} group")
+            return None, self.host_group
+        return self.groups[group][:2]
 
     # -- collectives --------------------------------------------------------
 
@@ -93,41 +139,57 @@ class Mesh:
         if not self.joined:
             raise RuntimeError("the mesh has no process group: call init_distributed()")
 
-    def all_reduce_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Sum ``tensors`` over the ranks in place, in flat buckets (one
-        collective a bucket), inside a ``dp.all_reduce`` profiler range."""
+    def all_reduce_(self, tensors: Sequence[torch.Tensor], group: str = "dp") -> None:
+        """Sum ``tensors`` over ``group``'s ranks in place, in flat buckets
+        (one collective a bucket), inside a ``<group>.all_reduce`` profiler
+        range."""
         import torch.distributed as dist
         from torch.profiler import record_function
 
         self._check()
-        with record_function("dp.all_reduce"):
-            _bucketed(tensors, dist.all_reduce)
+        if self._alone(group):
+            return
+        g = self._groups(group)[0]
+        with record_function(f"{group}.all_reduce"):
+            _bucketed(tensors, lambda flat: dist.all_reduce(flat, group=g))
 
-    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Broadcast ``tensors`` from rank 0 in place, in flat buckets."""
+    def broadcast_(self, tensors: Sequence[torch.Tensor], group: str = "dp") -> None:
+        """Broadcast ``tensors`` in place from the first rank of ``group``
+        (data-parallel rank 0 of this tp rank, by default), in flat
+        buckets."""
         import torch.distributed as dist
 
         self._check()
-        _bucketed(tensors, lambda flat: dist.broadcast(flat, src=0))
+        ranks = self.ranks(group)
+        if self._alone(group):
+            return
+        g = self._groups(group)[0]
+        _bucketed(tensors, lambda flat: dist.broadcast(flat, src=ranks[0], group=g))
 
-    def host_all_reduce(self, values: Sequence[float], op: str = "sum") -> List[float]:
-        """All-reduce a few host numbers (float64) over the CPU group."""
+    def host_all_reduce(self, values: Sequence[float], op: str = "sum",
+                        group: str = "world") -> List[float]:
+        """All-reduce a few host numbers (float64) over ``group``'s CPU
+        group."""
         import torch.distributed as dist
 
         self._check()
         t = torch.tensor(list(values), dtype=torch.float64)
+        if self._alone(group):
+            return t.tolist()
         red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(t, op=red, group=self.host_group)
+        dist.all_reduce(t, op=red, group=self._groups(group)[1])
         return t.tolist()
 
-    def host_gather(self, values: Sequence[float]) -> List[List[float]]:
-        """Every rank's ``values`` (the same count on each), by rank."""
-        k = len(values)
-        rows = [0.0] * (self.dp * k)
-        rows[self.rank * k: (self.rank + 1) * k] = [float(v) for v in values]
-        flat = self.host_all_reduce(rows, "sum")
-        return [flat[r * k: (r + 1) * k] for r in range(self.dp)]
+    def host_gather(self, values: Sequence[float], group: str = "world") -> List[List[float]]:
+        """Every rank's ``values`` of ``group`` (the same count on each), in
+        group order."""
+        k, ranks = len(values), self.ranks(group)
+        at = ranks.index(self.rank)
+        rows = [0.0] * (len(ranks) * k)
+        rows[at * k: (at + 1) * k] = [float(v) for v in values]
+        flat = self.host_all_reduce(rows, "sum", group)
+        return [flat[r * k: (r + 1) * k] for r in range(len(ranks))]
 
     def host_broadcast(self, value: float) -> float:
         """Rank 0's ``value`` on every rank."""
@@ -167,8 +229,12 @@ def _buckets(tensors: Sequence[torch.Tensor]):
 
 def _bucketed(tensors: Sequence[torch.Tensor], collective) -> None:
     """``collective(flat)`` in place on each bucket of ``tensors``,
-    flattened, and the result copied back."""
+    flattened, and the result copied back (a contiguous tensor alone in its
+    bucket is its own flat buffer)."""
     for bucket in _buckets(tensors):
+        if len(bucket) == 1 and bucket[0].is_contiguous():
+            collective(bucket[0].view(-1))
+            continue
         flat = torch.cat([t.reshape(-1) for t in bucket])
         collective(flat)
         offset = 0
@@ -251,11 +317,13 @@ def rendezvous_env() -> Optional[Dict[str, str]]:
     return {k: os.environ[k] for k in ENV_KEYS if k in os.environ}
 
 
-def init_distributed(device="cuda", dp: Optional[int] = None, verbose: bool = True) -> Mesh:
-    """Join the rendezvous of the environment; returns the joined Mesh.
+def init_distributed(device="cuda", dp: Optional[int] = None, tp: int = 1,
+                     verbose: bool = True) -> Mesh:
+    """Join the rendezvous of the environment; returns the joined Mesh of
+    ``WORLD_SIZE / tp`` data-parallel by ``tp`` tensor-parallel ranks.
     ``device`` "cpu" runs the rank on the CPU; otherwise (None too) the rank takes
     ``cuda:{LOCAL_RANK % cards}`` and raises where there is no card.
-    ``dp``, when given, must equal ``WORLD_SIZE``."""
+    ``dp``, when given, times ``tp`` must equal ``WORLD_SIZE``."""
     import datetime
 
     import torch.distributed as dist
@@ -267,8 +335,8 @@ def init_distributed(device="cuda", dp: Optional[int] = None, verbose: bool = Tr
     world, rank = int(env["WORLD_SIZE"]), int(env.get("RANK", "0"))
     local_rank = int(env.get("LOCAL_RANK", str(rank)))
     local_world = int(env.get("LOCAL_WORLD_SIZE", str(world)))
-    if dp is not None and dp != world:
-        raise ValueError(f"the mesh asks for dp={dp} but the rendezvous has "
+    if world % tp or (dp is not None and dp * tp != world):
+        raise ValueError(f"the mesh asks for dp={dp} x tp={tp} but the rendezvous has "
                          f"WORLD_SIZE={world}")
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -286,21 +354,51 @@ def init_distributed(device="cuda", dp: Optional[int] = None, verbose: bool = Tr
         dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S), **kw)
     host_group = dist.new_group(backend="gloo") if backend == "nccl" else None
-    mesh = Mesh(dp=world, tp=1, rank=rank, local_rank=local_rank, device=dev,
-                backend=backend, backend_reason=why, host_group=host_group)
+    dp = world // tp
+    mesh = Mesh(dp=dp, tp=tp, rank=rank, local_rank=local_rank, device=dev,
+                backend=backend, backend_reason=why, host_group=host_group,
+                groups=_subgroups(rank, dp, tp, backend) if tp > 1 else {})
     if verbose and rank == 0:
-        print(f"[parallel] data parallel over {world} rank(s): backend {backend} ({why})",
+        tensor = f" x tensor parallel over {tp}" if tp > 1 else ""
+        print(f"[parallel] data parallel over {dp} rank(s){tensor}: backend {backend} ({why})",
               flush=True)
     return mesh
 
 
-def check_replicas(digest: str, mesh: Optional[Mesh], what: str) -> None:
-    """Raise unless every rank's ``digest`` (a hex sha256 of its state)
-    equals this rank's: the first 48 bits of each, gathered over the host
-    group."""
-    if mesh is None or mesh.dp == 1:
+def regroup(mesh: Mesh, tp: int) -> Mesh:
+    """The ranks of a joined mesh re-formed as ``world / tp`` data-parallel
+    by ``tp`` tensor-parallel ranks: new ``dp`` and ``tp`` groups over the
+    process group already started (every rank calls it, in one order)."""
+    if mesh.world % tp:
+        raise ValueError(f"{mesh.world} ranks do not divide into tp={tp}")
+    dp = mesh.world // tp
+    return dataclasses.replace(mesh, dp=dp, tp=tp, groups=_subgroups(
+        mesh.rank, dp, tp, mesh.backend) if tp > 1 else {})
+
+
+def _subgroups(rank: int, dp: int, tp: int, backend: str) -> Dict[str, tuple]:
+    """This rank's "tp" and "dp" groups of a dp x tp mesh (every rank
+    creates every group, in one order, as ``new_group`` requires)."""
+    import torch.distributed as dist
+
+    out = {}
+    for kind, members in (("tp", [[d * tp + t for t in range(tp)] for d in range(dp)]),
+                          ("dp", [[d * tp + t for d in range(dp)] for t in range(tp)])):
+        for ranks in members:
+            g = dist.new_group(ranks)
+            host = dist.new_group(ranks, backend="gloo") if backend == "nccl" else g
+            if rank in ranks:
+                out[kind] = (g, host, ranks)
+    return out
+
+
+def check_replicas(digest: str, mesh: Optional[Mesh], what: str, group: str = "world") -> None:
+    """Raise unless every rank of ``group`` has this rank's ``digest`` (a
+    hex sha256 of its state): the first 48 bits of each, gathered over the
+    host group."""
+    if mesh is None or len(mesh.ranks(group)) == 1:
         return
-    seen = [int(v[0]) for v in mesh.host_gather([float(int(digest[:12], 16))])]
+    seen = [int(v[0]) for v in mesh.host_gather([float(int(digest[:12], 16))], group)]
     if len(set(seen)) != 1:
         raise RuntimeError(f"{what}: the ranks' states differ (digest prefixes "
                            f"{[f'{v:012x}' for v in seen]})")

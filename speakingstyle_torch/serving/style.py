@@ -215,29 +215,45 @@ class StyleService:
     def get(self, style_id: str) -> Optional[StyleVectors]:
         """Cache lookup by style_id; counts a hit (and refreshes the LRU
         order) or nothing."""
-        with self._cache_lock:
-            entry = self._entries.get(style_id)
-            if entry is not None:
-                self._entries.move_to_end(style_id)
-                self._hits.inc()
-        return entry
+        return self._lookup([style_id])[0]
 
-    def _insert(self, entry: StyleVectors) -> StyleVectors:
+    def _lookup(self, keys: Sequence[str]) -> List[Optional[StyleVectors]]:
+        """``get`` of several keys under one hold of the cache lock, so the
+        entries one ``encode_mels`` call stores (``_insert_many``) are seen
+        all or none: a caller racing it misses the same keys, and covers
+        them with the same programs, or none."""
+        out = []
         with self._cache_lock:
-            existing = self._entries.get(entry.key)
-            if existing is not None:
-                self._entries.move_to_end(entry.key)
-                return existing
-            self._seq += 1
-            entry = StyleVectors(gamma=entry.gamma, beta=entry.beta, key=entry.key,
-                                 ref_frames=entry.ref_frames, speaker=entry.speaker,
-                                 created_seq=self._seq)
-            self._entries[entry.key] = entry
+            for key in keys:
+                entry = self._entries.get(key)
+                if entry is not None:
+                    self._entries.move_to_end(key)
+                    self._hits.inc()
+                out.append(entry)
+        return out
+
+    def _insert_many(self, entries: Sequence[StyleVectors]) -> List[StyleVectors]:
+        """Store ``entries`` under one hold of the cache lock; each key
+        already present keeps (and returns) its entry."""
+        out = []
+        with self._cache_lock:
+            for entry in entries:
+                existing = self._entries.get(entry.key)
+                if existing is not None:
+                    self._entries.move_to_end(entry.key)
+                    out.append(existing)
+                    continue
+                self._seq += 1
+                entry = StyleVectors(gamma=entry.gamma, beta=entry.beta, key=entry.key,
+                                     ref_frames=entry.ref_frames, speaker=entry.speaker,
+                                     created_seq=self._seq)
+                self._entries[entry.key] = entry
+                out.append(entry)
             while len(self._entries) > self._capacity:
                 self._entries.popitem(last=False)
                 self._evictions.inc()
             self._entries_gauge.set(len(self._entries))
-        return entry
+        return out
 
     def clear(self) -> int:
         """Drop every cached style (weights that change under the service
@@ -274,12 +290,11 @@ class StyleService:
         batch. Duplicates within one call encode once. ``eager`` runs the
         programs eagerly instead of replaying their graphs."""
         keys = list(keys) if keys is not None else [None] * len(mels)
+        keys = [keys[i] or self.digest_mel(mel) for i, mel in enumerate(mels)]
         resolved: Dict[int, StyleVectors] = {}
         pending: "OrderedDict[str, List[int]]" = OrderedDict()
         pending_mel: Dict[str, np.ndarray] = {}
-        for i, mel in enumerate(mels):
-            key = keys[i] or self.digest_mel(mel)
-            entry = self.get(key)
+        for i, (mel, key, entry) in enumerate(zip(mels, keys, self._lookup(keys))):
             if entry is not None:
                 resolved[i] = entry
                 continue
@@ -292,14 +307,19 @@ class StyleService:
                 _, r = self.lattice.cover(1, pending_mel[key].shape[0])
                 by_bucket.setdefault(r, []).append(key)
             cap = self.lattice.max_batch
-            for r, bucket_keys in by_bucket.items():
-                for at in range(0, len(bucket_keys), cap):
-                    chunk = bucket_keys[at: at + cap]
-                    encoded = self._encode_chunk([pending_mel[k] for k in chunk], r, speaker,
-                                                 chunk, eager=eager)
-                    for key, entry in zip(chunk, encoded):
-                        for i in pending[key]:
-                            resolved[i] = entry
+            done: List[Tuple[str, StyleVectors]] = []
+            try:
+                for r, bucket_keys in by_bucket.items():
+                    for at in range(0, len(bucket_keys), cap):
+                        chunk = bucket_keys[at: at + cap]
+                        encoded = self._encode_chunk([pending_mel[k] for k in chunk], r,
+                                                     speaker, chunk, eager=eager)
+                        done += zip(chunk, encoded)
+            finally:  # what was encoded is cached, at once, even if a later chunk failed
+                stored = self._insert_many([entry for _, entry in done])
+            for (key, _), entry in zip(done, stored):
+                for i in pending[key]:
+                    resolved[i] = entry
         return [resolved[i] for i in range(len(mels))]
 
     def encode_mel(self, mel: np.ndarray, key: Optional[str] = None,
@@ -315,7 +335,7 @@ class StyleService:
         Tenant traffic never uses it: it pays a dispatch on every call."""
         m = np.asarray(mel, np.float32)
         _, r = self.lattice.cover(1, m.shape[0])
-        return self._encode_chunk([m], r, speaker, [self.digest_mel(m)], insert=False)[0]
+        return self._encode_chunk([m], r, speaker, [self.digest_mel(m)])[0]
 
     def encode_wav_bytes(self, data: bytes, speaker: Optional[str] = None) -> StyleVectors:
         """Reference wav bytes -> StyleVectors, content-addressed by the
@@ -334,12 +354,11 @@ class StyleService:
 
     @dispatching
     def _encode_chunk(self, mels: List[np.ndarray], r: int, speaker: Optional[str],
-                      chunk_keys: List[str], eager: bool = False,
-                      insert: bool = True) -> List[StyleVectors]:
+                      chunk_keys: List[str], eager: bool = False) -> List[StyleVectors]:
         """One padded encoder dispatch: prepare on miss (counted; waiting
         for the compile lock with the device gate released), pad into pool
-        leases, run, read back, insert into the cache (unless ``insert`` is
-        False). A failed encode never reaches the cache."""
+        leases, run, read back; the entries, not yet cached (the caller
+        stores them). A failed encode never reaches the cache."""
         with self._attempts_lock:
             self._encode_attempts += 1
             attempt = self._encode_attempts
@@ -378,9 +397,6 @@ class StyleService:
             "serve_style_encode_seconds", labels={"bucket": style_bucket_label(point)},
             help="wall time of one padded reference-encoder dispatch",
         ).observe(time.monotonic() - t0)
-        out_entries = []
-        for i, (key, mel) in enumerate(zip(chunk_keys, mels)):
-            entry = StyleVectors(gamma=gammas[i].copy(), beta=betas[i].copy(), key=key,
-                                 ref_frames=int(mel.shape[0]), speaker=speaker)
-            out_entries.append(self._insert(entry) if insert else entry)
-        return out_entries
+        return [StyleVectors(gamma=gammas[i].copy(), beta=betas[i].copy(), key=key,
+                             ref_frames=int(mel.shape[0]), speaker=speaker)
+                for i, (key, mel) in enumerate(zip(chunk_keys, mels))]

@@ -31,11 +31,14 @@ step directory exists only once it is complete.
   event. The ``checkpoint_corrupt@N`` and ``manifest_missing@N`` fault
   kinds drill both, counted on the manager's 1-based ``verify_count``.
 
-* **Data parallelism** (``mesh``): the state is replicated, so the format
-  is the one-process one and a step saved at one dp restores at any other
-  bit for bit. Rank 0 alone writes; before any rank reads a step (a
-  restore, the sentinel's rollback) every rank waits on a barrier until
-  rank 0's writes are in place.
+* **Data and tensor parallelism** (``mesh``): a checkpoint is always the
+  whole, one-process state (the trainer gathers split leaves and moments
+  over ``tp`` before a save, ``training/trainer.py::_SavedState``), so a
+  step saved at one (dp, tp) restores at any other bit for bit: ``restore``
+  cuts the whole state to the target's layout (``TrainState.local``).
+  Rank 0 alone writes; before any rank reads a step (a restore, the
+  sentinel's rollback) every rank waits on a barrier until rank 0's writes
+  are in place.
 
 ``restore_weights`` does the same for inference, filling a model's
 parameters and BatchNorm statistics without an optimizer. A step
@@ -143,8 +146,8 @@ class CheckpointManager:
                  async_save: bool = False, keep_best: bool = False, fault_plan=None,
                  events=None, registry=None, mesh=None):
         self.directory = os.path.abspath(directory)
-        # a data-parallel rank other than 0 writes nothing
-        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
+        # a rank other than 0 writes nothing
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.writer = self.mesh is None or self.mesh.is_main
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep or None
@@ -171,7 +174,7 @@ class CheckpointManager:
         directory. With ``async_save`` (and not ``block``) this returns once
         the host snapshot is taken, and the write finishes on a background
         thread. ``val_loss`` goes into the manifest for keep-best. On a
-        data-parallel rank other than 0 this writes nothing."""
+        rank other than 0 of a mesh this writes nothing."""
         if not self.writer:
             return self._step_dir(step)
         self.wait()  # one write in flight; its buffers are the snapshot's
@@ -382,10 +385,12 @@ class CheckpointManager:
         ``ignore_layers``: regexes matched against the parameters'
         '/'-joined Flax paths (as the JAX package names them); a matching
         parameter keeps its fresh value and the optimizer starts anew, as in
-        the JAX package."""
+        the JAX package. A tensor-parallel state keeps its shards of the
+        saved leaves."""
         _, loaded, _ = self.load_verified(step, strict)
         if ignore_layers:
-            _fill_model(state.model, loaded["model"], ignore_layers)
+            local = getattr(state, "local", lambda d: d)(loaded)
+            _fill_model(state.model, local["model"], ignore_layers)
             state.step = int(loaded["step"])
         else:
             state.load_state_dict(loaded)

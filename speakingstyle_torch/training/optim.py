@@ -19,6 +19,12 @@ The update is the JAX package's optax chain, step for step:
 * ``grad_acc_step = k > 1`` is ``optax.MultiSteps``: the running mean of k
   micro-batch gradients (``acc + (g - acc) / (n + 1)``), then one update;
   the other k - 1 calls leave the parameters as they are.
+* ``shard(sharded, tp_sum)`` (tensor parallelism, ``training/trainer.py``):
+  the slots that hold a rank's shard of a split leaf. The clip's global
+  norm then counts each logical parameter once: ``tp_sum`` (an all-reduce
+  over ``tp``) of the shards' sums of squares, plus the replicated leaves'
+  sum, taken once. Adam and the L2 term are elementwise and run on the
+  shards and their moments as they are.
 * ``update(grads, reduce)``: a data-parallel rank passes its all-reduce,
   which the update applies to the gradients it is about to clip: this
   call's with k = 1, the accumulated mean at the last micro-step with k > 1
@@ -82,6 +88,26 @@ class Optimizer:
         self.acc = zeros() if self.k > 1 else None
         self.count = 0      # inner (Adam) updates taken
         self.mini_step = 0  # micro-batches accumulated toward the next update
+        self.sharded: List[int] = []  # slots of split leaves (tensor parallelism)
+        self.tp_sum = None
+
+    def shard(self, sharded: Sequence[bool], tp_sum: Callable) -> None:
+        """Mark the slots that hold a shard of a split leaf; ``tp_sum(t)``
+        sums a device scalar over the tensor-parallel ranks in place."""
+        self.sharded = [i for i, s in enumerate(sharded) if s]
+        self.tp_sum = tp_sum if self.sharded else None
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the logical gradient: each parameter once."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.tp_sum is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms.square()
+        split = torch.zeros(len(grads), dtype=torch.bool, device=sq.device)
+        split[self.sharded] = True
+        shards = sq[split].sum().reshape(1)
+        self.tp_sum(shards)
+        return torch.sqrt(shards[0] + sq[~split].sum())
 
     def lr(self) -> float:
         """The lr the next update applies."""
@@ -102,7 +128,7 @@ class Optimizer:
             grads, self.acc = self.acc, [torch.zeros_like(a) for a in self.acc]
         if reduce is not None:
             reduce(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads)
         scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
         grads = torch._foreach_mul(grads, scale)
         if self.wd:

@@ -53,6 +53,20 @@ over the group on the losses they log, the sentinel's flag (MIN) and a
 SIGTERM stop, so every rank rolls back or flushes at the same step. Rank 0's
 registry carries ``train_achieved_flops_per_sec`` and
 ``device_memory_watermark_bytes`` with a ``device`` label a rank.
+
+Tensor parallelism (``mesh.tp > 1``; ranks ``dp_rank = rank // tp``,
+``tp_rank = rank % tp``) computes the same step with the parameters split
+by ``parallel/partition.py``'s layout (``train.parallel.partition_rules``
+over the defaults): each rank keeps its shard of every split leaf and of
+its Adam moments, the modules run their column / row pairs on the shards
+and gather the rest (``parallel/tensor.py``), every tp rank of a
+data-parallel group takes the same rows, draws the same dropout bits and
+computes the same replicated gradients. So the data-parallel machinery
+above runs over the ``dp`` group (the gradient and BatchNorm all-reduces,
+the loss shares, the FiLM term on the ranks of data-parallel rank 0), the
+clip's norm counts each logical parameter once (``Optimizer.shard``), the
+sentinel, stops and rollbacks agree over the world, and a checkpoint is
+gathered whole (rank 0 writes it) and cut to any layout on restore.
 """
 
 import math
@@ -121,10 +135,20 @@ def _dp(mesh) -> bool:
     return mesh is not None and mesh.dp > 1
 
 
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.world > 1
+
+
+def _first_dp(mesh) -> bool:
+    """This rank holds data-parallel rank 0's rows (every tp rank of it)."""
+    return not _dp(mesh) or mesh.dp_rank == 0
+
+
 def rank_rng(seed: int, arrays: Dict, mesh=None) -> DropoutRNG:
     """A step's dropout draws: seeded alike on every rank, offset to this
-    rank's first row of the global batch."""
-    rank = mesh.rank if _dp(mesh) else 0
+    rank's first row of the global batch (the tp ranks of a data-parallel
+    group draw the same bits)."""
+    rank = mesh.dp_rank if _dp(mesh) else 0
     return DropoutRNG(seed, arrays["texts"].device, rank=rank,
                       row_offset=rank * arrays["texts"].shape[0])
 
@@ -139,18 +163,16 @@ def apply_gradients(state: TrainState, losses: Dict, nan_sentinel: bool, mesh=No
     place; returns (the detached losses, with ``_finite`` under
     ``nan_sentinel``, the gradients). A parameter the loss does not reach
     (a distilled student's grafted reference encoder) gets a zero
-    gradient, as JAX's ``value_and_grad`` gives it. Under data parallelism
-    the gradients are all-reduced (SUM) before the update (at the last
+    gradient, as JAX's ``value_and_grad`` gives it. On a mesh the
+    gradients go through ``gradient_sync`` before the update (at the last
     micro-step under gradient accumulation), and the losses stay this
     rank's shares (``global_losses`` sums them)."""
     grads = torch.autograd.grad(losses["total_loss"], trainable(state.model),
                                 materialize_grads=True)
-    reduce = None
-    if _dp(mesh):
-        if state.optimizer.k == 1:
-            mesh.all_reduce_(grads)
-        else:
-            reduce = mesh.all_reduce_
+    reduce = gradient_sync(state, mesh)
+    if reduce is not None and state.optimizer.k == 1:
+        reduce(grads)
+        reduce = None
     losses = {k: v.detach() for k, v in losses.items()}
     if nan_sentinel:
         losses["_finite"] = resilience.all_finite(losses, grads)
@@ -159,16 +181,38 @@ def apply_gradients(state: TrainState, losses: Dict, nan_sentinel: bool, mesh=No
     return losses, grads
 
 
+def gradient_sync(state: TrainState, mesh=None):
+    """fn(grads) in place, or None on one rank: the SUM over the ``dp``
+    group, then, under tensor parallelism, the replicated leaves' gradients
+    broadcast from tp rank 0. Every tp rank computes those from the same
+    activations, but the card's backward is not bitwise deterministic
+    (atomics in the embedding and scatter backward, cuDNN's weight
+    gradients), and a replicated leaf must stay one value on every rank."""
+    if not _multi(mesh):
+        return None
+    tp_replicated = [] if state.layout is None else \
+        [i for i, d in enumerate(state.layout.opt_dims) if d is None]
+
+    def sync(grads):
+        if _dp(mesh):
+            mesh.all_reduce_(grads)
+        if tp_replicated:
+            mesh.broadcast_([grads[i] for i in tp_replicated], group="tp")
+
+    return sync
+
+
 def global_losses(losses: Dict, mesh=None):
     """(the logged losses as host floats, the sentinel's flag) of a step's
-    losses; under data parallelism the ranks' shares summed and the flag's
-    MIN over the ranks (one rank's non-finite value trips every rank). The
-    one host synchronisation of a log boundary."""
+    losses; under data parallelism the ranks' shares summed over the ``dp``
+    group, and the flag's MIN over every rank (one rank's non-finite value
+    trips every rank). The one host synchronisation of a log boundary."""
     finite = bool(losses.get("_finite", True))
     host = {k: float(v) for k, v in public_losses(losses).items()}
     if _dp(mesh):
         keys = [k for k in host if k != "film_gate_l2"]  # a value, not a share
-        host.update(zip(keys, mesh.host_all_reduce([host[k] for k in keys], "sum")))
+        host.update(zip(keys, mesh.host_all_reduce([host[k] for k in keys], "sum", "dp")))
+    if _multi(mesh):
         finite = mesh.host_all_reduce([1.0 if finite else 0.0], "min")[0] > 0
     return host, finite
 
@@ -190,7 +234,7 @@ def make_train_step(cfg: Config, mesh=None):
         rng = rank_rng(seed * 1_000_003 + state.step, arrays, mesh)
         losses = compute_losses(state.model, cfg, arrays, deterministic=False, rng=rng,
                                 counts=counts if _dp(mesh) else None,
-                                param_terms=not _dp(mesh) or mesh.is_main)
+                                param_terms=_first_dp(mesh))
         return apply_gradients(state, losses, nan_sentinel, mesh)
 
     return step
@@ -204,7 +248,7 @@ def make_eval_step(cfg: Config, mesh=None):
     def step(state: TrainState, arrays: Dict, counts: Optional[Dict] = None):
         return compute_losses(state.model, cfg, arrays, deterministic=True,
                               counts=counts if _dp(mesh) else None,
-                              param_terms=not _dp(mesh) or mesh.is_main)
+                              param_terms=_first_dp(mesh))
 
     return step
 
@@ -222,9 +266,9 @@ def evaluate(eval_step, state, batches, mesh=None) -> Dict[str, float]:
             sums[k] = sums.get(k, 0.0) + v * batch.n_real
     if _dp(mesh):
         keys = sorted(sums)
-        local = [0.0 if (k == "film_gate_l2" and not mesh.is_main) else float(sums[k])
+        local = [0.0 if (k == "film_gate_l2" and not _first_dp(mesh)) else float(sums[k])
                  for k in keys]
-        sums = dict(zip(keys, mesh.host_all_reduce(local, "sum")))
+        sums = dict(zip(keys, mesh.host_all_reduce(local, "sum", "dp")))
     return {k: float(v) / count for k, v in sums.items()} if count else {}
 
 
@@ -263,8 +307,9 @@ def batch_streams(cfg: Config, start_step: int = 0, pad_multiple: int = 1):
 
 
 def broadcast_state(state: TrainState, mesh) -> None:
-    """Rank 0's parameters, buffers and Adam moments on every rank (flat
-    buckets). A rank's gradient accumulator stays its own."""
+    """Data-parallel rank 0's parameters, buffers and Adam moments (its
+    shards, under tensor parallelism) on every rank of its ``dp`` group
+    (flat buckets). A rank's gradient accumulator stays its own."""
     if not _dp(mesh):
         return
     opt = state.optimizer
@@ -277,38 +322,98 @@ def local_accumulator(state: TrainState, mesh) -> None:
     """After a restore: the checkpoint's accumulator (the global one) stays
     on rank 0 and the other ranks' start at 0, so the ranks' accumulators
     still sum to the global one."""
-    if _dp(mesh) and not mesh.is_main and state.optimizer.acc is not None:
+    if not _first_dp(mesh) and state.optimizer.acc is not None:
         for a in state.optimizer.acc:
             a.zero_()
 
 
 class _SavedState:
-    """What a data-parallel checkpoint stores: the state with the ranks'
-    accumulators summed (between micro-steps under gradient accumulation),
-    so that it restores at any dp."""
+    """What a checkpoint stores: the state with the data-parallel ranks'
+    accumulators summed (between micro-steps under gradient accumulation)
+    and, under tensor parallelism, every split leaf and moment gathered
+    whole over ``tp`` (on every rank, in the constructor: a collective), so
+    that it restores at any (dp, tp)."""
 
     def __init__(self, state: TrainState, mesh):
-        self.state, self.acc = state, None
+        self.state, self.acc, self.whole = state, None, None
         opt = state.optimizer
         if _dp(mesh) and opt.acc is not None and opt.mini_step:
             self.acc = [a.clone() for a in opt.acc]
             mesh.all_reduce_(self.acc)
+        if state.layout is not None:
+            self.whole = self._gathered(mesh)
 
-    def state_dict(self, copy: bool = True) -> Dict:
+    def _local(self, copy: bool) -> Dict:
         d = self.state.state_dict(copy)
         if self.acc is not None:
             d["optimizer"]["acc"] = self.acc
         return d
 
+    @torch.no_grad()
+    def _gathered(self, mesh) -> Dict:
+        from speakingstyle_torch.parallel.tensor import gather_whole
 
-def build_state(cfg: Config, device) -> TrainState:
+        lay, d = self.state.layout, self._local(copy=False)
+        whole = lambda t, dim: t if dim is None else gather_whole(t, dim, mesh)  # noqa: E731
+        d["model"] = {k: whole(v, lay.dim(k)) for k, v in d["model"].items()}
+        for key in ("mu", "nu", "acc"):
+            if d["optimizer"].get(key) is not None:
+                d["optimizer"][key] = [whole(t, dim) for t, dim in
+                                       zip(d["optimizer"][key], lay.opt_dims)]
+        return d
+
+    def state_dict(self, copy: bool = True) -> Dict:
+        return self.whole if self.whole is not None else self._local(copy)
+
+
+def build_state(cfg: Config, device, mesh=None) -> TrainState:
     """The model from the config and the corpus stats, seeded random
-    weights (``train.seed``), on ``device``, and its optimizer."""
+    weights (``train.seed``), on ``device``, and its optimizer; with a
+    tensor-parallel ``mesh``, this rank's shards (``shard_model``)."""
     from speakingstyle_torch.models.factory import build_model, init_weights
-    from speakingstyle_torch.training.optim import Optimizer
 
     model = init_weights(build_model(cfg), cfg.train.seed).to(device)
-    return TrainState(step=0, model=model, optimizer=Optimizer(trainable(model), cfg.train))
+    return shard_model(model, cfg, mesh)
+
+
+def shard_model(model, cfg: Config, mesh=None) -> TrainState:
+    """A TrainState of ``model`` (whole weights) and a fresh optimizer; on
+    a mesh of tp > 1 the layout of ``train.parallel.partition_rules`` over
+    the defaults is applied first (the model keeps this rank's slices) and
+    the optimizer's clip counts each split leaf once over ``tp``."""
+    from speakingstyle_torch.parallel.partition import (
+        TPLayout, apply_layout, parse_rule_overrides, tp_layout,
+    )
+    from speakingstyle_torch.training.optim import Optimizer
+
+    layout = None
+    if mesh is not None and mesh.tp > 1:
+        dims = tp_layout(model, mesh.tp, parse_rule_overrides(cfg.train.parallel.partition_rules))
+        apply_layout(model, dims, mesh)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        layout = TPLayout(dims, mesh.tp, mesh.tp_rank, names)
+    optimizer = Optimizer(trainable(model), cfg.train)
+    if layout is not None:
+        optimizer.shard([d is not None for d in layout.opt_dims],
+                        lambda t: mesh.all_reduce_([t], group="tp"))
+    return TrainState(step=0, model=model, optimizer=optimizer, layout=layout)
+
+
+def check_state_replicas(state: TrainState, mesh, what: str) -> None:
+    """Raise unless the replicated leaves are equal on every rank and, under
+    tensor parallelism, each shard on every rank of its ``dp`` group."""
+    from speakingstyle_torch.obs.buildinfo import weights_digest
+    from speakingstyle_torch.parallel.mesh import check_replicas
+
+    if not _multi(mesh):
+        return
+    sd = state.model.state_dict()
+    dims = state.layout.dims if state.layout is not None else {}
+    check_replicas(weights_digest({k: v for k, v in sd.items() if dims.get(k) is None}),
+                   mesh, what)
+    if dims:
+        check_replicas(weights_digest({k: v for k, v in sd.items() if dims.get(k) is not None}),
+                       mesh, f"{what} (shards)", "dp")
 
 
 def _summary_writer(log_dir: str):
@@ -461,8 +566,8 @@ def _profile_stop(prof, profile_dir: str, step: int) -> None:
 def resolve_run_mesh(cfg: Config, device):
     """The mesh a run on ``device`` trains on: ``train.parallel`` resolved
     (the batch gate first, before any process group), then joined. A mesh
-    of dp > 1 needs rank processes: this process joins the rendezvous of
-    its environment (``torchrun``, or the workers ``parallel/launch.py``
+    of dp x tp > 1 needs rank processes: this process joins the rendezvous
+    of its environment (``torchrun``, or the workers ``parallel/launch.py``
     starts) or the group already started."""
     from speakingstyle_torch.parallel.mesh import (
         init_distributed, local_batch_size, resolve_mesh, visible_devices,
@@ -473,23 +578,19 @@ def resolve_run_mesh(cfg: Config, device):
     mesh = resolve_mesh(cfg.train.parallel, n_devices=n_devices)
     if mesh is None:
         return None
-    if mesh.tp > 1:
-        raise NotImplementedError(
-            f"a mesh of tp={mesh.tp}: the port trains data-parallel only; tensor "
-            "parallelism over the mesh's model axis is ROADMAP.md queue A item 6b")
     # the startup gate: the batch and the nearest valid sizes named,
     # before any transfer or collective
     local_batch_size(cfg.train.optimizer.batch_size, mesh)
-    if mesh.dp == 1:
+    if mesh.world == 1:
         return None
     if not os.environ.get("WORLD_SIZE"):
         raise RuntimeError(
-            f"a data-parallel mesh of dp={mesh.dp} trains as {mesh.dp} rank processes: run "
-            f"`python -m speakingstyle_torch train ... --data_parallel {mesh.dp}` (which "
-            "starts them), or start them with torchrun (under SPEAKINGSTYLE_MULTIHOST the "
-            "environment must name the rendezvous: RANK, WORLD_SIZE, MASTER_ADDR, "
-            "MASTER_PORT)")
-    return init_distributed(device, dp=mesh.dp)
+            f"a mesh of dp={mesh.dp} x tp={mesh.tp} trains as {mesh.world} rank processes: "
+            f"run `python -m speakingstyle_torch train ... --data_parallel {mesh.dp} "
+            f"--model_parallel {mesh.tp}` (which starts them), or start them with torchrun "
+            "(under SPEAKINGSTYLE_MULTIHOST the environment must name the rendezvous: RANK, "
+            "WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    return init_distributed(device, dp=mesh.dp, tp=mesh.tp)
 
 
 def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
@@ -505,8 +606,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
     ``default_synth_callback``). ``profile_dir``: a ``torch.profiler`` trace
     of steps [profile_steps) of this run, exported as a chrome trace. Each
     train step runs inside a ``train.step`` profiler range. The mesh is
-    ``train.parallel`` resolved (``resolve_run_mesh``): with dp > 1 this
-    process trains as the rank its environment names."""
+    ``train.parallel`` resolved (``resolve_run_mesh``): with dp x tp > 1
+    this process trains as the rank its environment names."""
     from speakingstyle_torch.data.dataset import SpeechDataset
     from speakingstyle_torch.data.prefetch import DevicePrefetcher
     from speakingstyle_torch.device import resolve_device
@@ -543,6 +644,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
               if log and cfg.train.obs.events else None)
     logger = TrainLogger(cfg.train.path.log_path, registry=registry, events=events) if log else None
     state = build_state(cfg, device)
+    if mesh is not None and mesh.tp > 1:  # this rank's shards, a fresh optimizer
+        state = shard_model(state.model, cfg, mesh)
     sync_batch_stats(state.model, mesh)
     ckpt = CheckpointManager(cfg.train.path.ckpt_path, max_to_keep=res.max_to_keep or None,
                              async_save=res.async_checkpointing, keep_best=res.keep_best,
@@ -574,7 +677,8 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
         logger.event("train_start", **dict(
             obs.build_info(), step=step, total_step=total_step, device=str(device),
             device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
-            device_count=pad_mult, mesh_shape={"data": pad_mult, "model": 1},
+            device_count=mesh.world if mesh is not None else 1,
+            mesh_shape={"data": pad_mult, "model": mesh.tp if mesh is not None else 1},
             dp_backend=mesh.backend if mesh is not None else None,
             checkpoint_step=ckpt.last_restored_step, weights_digest=ckpt.last_weights_digest))
     # the train step's card is built once, on the first step (one
@@ -610,7 +714,7 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                 if plan.fire("nan_grads", step + 1):
                     # under data parallelism one shard's rows only (rank 0's):
                     # the sentinel's MIN over the ranks must trip them all
-                    arrays = faults.poison_batch(arrays, rank=mesh.rank if mesh else None)
+                    arrays = faults.poison_batch(arrays, rank=mesh.dp_rank if mesh else None)
                     fault_ctr.inc()
                     if logger:
                         logger.event("fault_fire", kind="nan_grads", step=step + 1)
@@ -696,7 +800,10 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                                               timing["mel_frames_per_sec"])
                     window_t0, window_step0, window_frames = time.perf_counter(), step, 0
                     window_wait = window_compute = 0.0
-                if main and synth_callback is not None and step % steps.synth_step == 0:
+                # every tp rank of the first data-parallel group runs the
+                # model (its collectives); rank 0 alone has a logger
+                if _first_dp(mesh) and synth_callback is not None \
+                        and step % steps.synth_step == 0:
                     synth_callback(state, batch, arrays, step, state.model)
                 if step % steps.val_step == 0:
                     with DevicePrefetcher(val_batches.epoch(shuffle=False), device,
@@ -742,11 +849,7 @@ def run_training(cfg: Config, device=None, restore_step: Optional[int] = None,
                          kernel_launches=launches)
             logger.close()
         ckpt.close()
-    if _dp(mesh):
-        from speakingstyle_torch.obs.buildinfo import weights_digest
-        from speakingstyle_torch.parallel.mesh import check_replicas
-
-        check_replicas(weights_digest(state.model.state_dict()), mesh, f"train step {step}")
+    check_state_replicas(state, mesh, f"train step {step}")
     return state
 
 
@@ -766,7 +869,7 @@ def device_gauges(registry, program_card, step_time: float, device, mesh=None) -
         if device.type == "cuda" or program_card is not None else None
     memory = math.nan if memory is None else float(memory)
     rows = {str(device): (flops, memory)}
-    if _dp(mesh):  # labelled rank<r>/<device>: ranks may share a card
+    if _multi(mesh):  # labelled rank<r>/<device>: ranks may share a card
         ranks = mesh.host_gather([flops, memory, -1 if device.index is None else device.index])
         if not mesh.is_main:
             return

@@ -615,6 +615,48 @@ def test_serve_command_refuses_the_ring_long_form_tier(tmp_path):
         main(["serve", "-t", str(train), "--restore_step", "1", "--device", "cpu"])
 
 
+def test_a_serve_parallel_yaml_loads_in_both_packages(tmp_path):
+    """A train.yaml holding only ``serve: {parallel: {mesh: [1, 1]}}`` (the
+    JAX package's replica mesh) loads in both packages to the same
+    ``ParallelConfig`` fields; the port validates it as the JAX package
+    does."""
+    import dataclasses
+
+    import yaml
+
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_tpu.configs.config import load_config as j_load
+
+    train = tmp_path / "train.yaml"
+    train.write_text(yaml.safe_dump({"serve": {"parallel": {"mesh": [1, 1]}}}))
+    got, want = load_config(train=str(train)).serve.parallel, j_load(train=str(train)).serve.parallel
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.is_single()
+    train.write_text(yaml.safe_dump({"serve": {"parallel": {"mesh": [1, 2, 3]}}}))
+    with pytest.raises(ValueError, match="mesh must be"):
+        load_config(train=str(train))
+
+
+def test_serve_and_replica_refuse_a_replica_mesh_naming_6c(tmp_path):
+    """``serve.parallel.mesh: [1, 2]`` (one replica across devices) exits
+    naming ROADMAP queue A item 6c in ``serve`` and ``replica``, before
+    anything is loaded; ``[1, 1]`` passes that check."""
+    import yaml
+
+    from speakingstyle_torch.__main__ import main
+
+    train = tmp_path / "train.yaml"
+    train.write_text(yaml.safe_dump({"serve": {"parallel": {"mesh": [1, 2]}}}))
+    with pytest.raises(SystemExit, match="queue A item 6c"):
+        main(["serve", "-t", str(train), "--restore_step", "1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="queue A item 6c"):
+        main(["replica", "-t", str(train), "--restore_step", "1", "--replica_id", "r1",
+              "--router", "127.0.0.1:9", "--device", "cpu"])
+    train.write_text(yaml.safe_dump({"serve": {"parallel": {"mesh": [1, 1]}}}))
+    with pytest.raises(FileNotFoundError):  # past the check: no checkpoint to restore
+        main(["serve", "-t", str(train), "--restore_step", "1", "--device", "cpu"])
+
+
 def test_serve_command_with_two_replicas_on_the_cpu(tmp_path, corpus):  # noqa: F811
     """``serve --replicas 2 --device cpu --enable_rollout`` over a saved
     checkpoint: it binds at once with /healthz answering 503 (each replica

@@ -888,18 +888,11 @@ def _flat_tree(tree, prefix=""):
     return out
 
 
-@pytest.mark.cuda
-def test_data_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_path):
-    """Two rank processes on the card over gloo (they share it: NCCL refuses
-    two ranks on one device), three chained data-parallel steps of a tiny
-    model in full float32 on the kernel path (fused attention, fused conv)
-    and on the plain path (einsum attention, cuDNN convs): both ranks equal
-    after every step, the kernels launched on every step of the kernel
-    path and never on the plain path, the losses within 1e-5 and each
-    gradient within 2e-2 of its largest element (chip_smoke.py's
-    F32_GRAD_RTOL: the L1 mel losses flip where two forwards straddle a
-    target), a leaf whose gradient is zero in exact arithmetic held below
-    1e-3 of the step's largest."""
+def _parallel_paths_on_card(tmp_path, world, tp):
+    """``world`` rank processes on the card over gloo (``tp`` of them a
+    tensor-parallel group), 3 chained steps of a tiny model (two heads
+    everywhere: tp = 2 splits one a rank) in full float32 on the kernel
+    path and on the plain path, held as the data-parallel test says."""
     from speakingstyle_torch.data.synthetic import generate_corpus
 
     from torch_dp import run_ranks, tiny_configs
@@ -911,11 +904,11 @@ def test_data_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_p
                         ("plain", {"attention_kernel": "einsum", "conv_impl": "xla"})):
         (tmp_path / path).mkdir()
         paths = tiny_configs(tmp_path / path, corpus, **model)
-        runs[path] = run_ranks("train_steps", 2, tmp_path / path, paths=paths, steps=3,
-                               device="cuda")
+        runs[path] = run_ranks("train_steps", world, tmp_path / path, paths=paths, steps=3,
+                               device="cuda", tp=tp)
     for path, ranks in runs.items():
         for s in range(3):
-            assert ranks[0][s]["digest"] == ranks[1][s]["digest"], (path, s)
+            assert len({r[s]["digest"] for r in ranks}) == 1, (path, s)
             launched = ranks[0][s]["launches"]["fused_attention_fwd"]
             assert (launched > 0) == (path == "kernels"), (path, s, launched)
     for s, (k, p) in enumerate(zip(runs["kernels"][0], runs["plain"][0])):
@@ -931,3 +924,27 @@ def test_data_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_p
                 assert np.abs(got[name]).max() <= 1e-3 * top, name
             else:
                 assert np.abs(got[name] - w).max() <= 2e-2 * scale, name
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_path):
+    """Two rank processes on the card as (dp = 1, tp = 2) over gloo: each
+    kernel at a rank's local shapes (half the heads, half the filters), the
+    kernel path against the plain path as the data-parallel test holds
+    them; the whole states equal on both ranks after every step."""
+    _parallel_paths_on_card(tmp_path, 2, 2)
+
+
+@pytest.mark.cuda
+def test_data_parallel_kernel_path_matches_plain_path_on_card(cuda_device, tmp_path):
+    """Two rank processes on the card over gloo (they share it: NCCL refuses
+    two ranks on one device), three chained data-parallel steps of a tiny
+    model in full float32 on the kernel path (fused attention, fused conv)
+    and on the plain path (einsum attention, cuDNN convs): both ranks equal
+    after every step, the kernels launched on every step of the kernel
+    path and never on the plain path, the losses within 1e-5 and each
+    gradient within 2e-2 of its largest element (chip_smoke.py's
+    F32_GRAD_RTOL: the L1 mel losses flip where two forwards straddle a
+    target), a leaf whose gradient is zero in exact arithmetic held below
+    1e-3 of the step's largest."""
+    _parallel_paths_on_card(tmp_path, 2, 1)

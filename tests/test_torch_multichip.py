@@ -3,8 +3,10 @@
 pure-DP cases (config validation, ``resolve_mesh``, the batch gate's
 message, cross-mesh resume bit for bit, the shard-local poison against the
 agreed sentinel, the rollback drill with a gauge a rank), the ``train``
-command's ``--data_parallel`` (its ranks, a killed rank, the refusals of
-``--model_parallel`` and ``seq``), and the kernel build's lock.
+command's ``--data_parallel`` and ``--model_parallel`` (its ranks, a killed
+rank, the refusals of ``seq`` and of partition rules over ``seq`` or
+``data``), and the kernel build's lock. The tensor-parallel steps are
+``tests/test_torch_tp.py``'s.
 """
 
 import dataclasses
@@ -30,9 +32,11 @@ pytestmark = pytest.mark.usefixtures("no_tensorflow")
 def test_parallel_config_validation():
     from speakingstyle_torch.configs.config import ParallelConfig
 
-    ParallelConfig(mesh=[4, 2], seq=1)  # valid (tp > 1 is refused at training, not here)
+    ParallelConfig(mesh=[4, 2], seq=1, partition_rules=[["a/kernel$", "none,model"]])
     for bad in (dict(mesh=[8]), dict(mesh=[4, 0]), dict(mesh=[-2, 1]), dict(seq=0),
-                dict(partition_rules=[["kernel"]])):
+                dict(partition_rules=[["kernel"]]),
+                dict(partition_rules=[["a/kernel$", "none,modle"]]),
+                dict(partition_rules=[["a/(kernel$", "none,model"]])):
         with pytest.raises(ValueError):
             ParallelConfig(**bad)
 
@@ -74,18 +78,29 @@ def test_local_batch_size_structured_error():
 
 
 def test_check_train_supported_names_6b_and_6c():
+    """Tensor parallelism (item 6b) is admitted now, with partition rules
+    over ``model``; the sequence axis, and a rule naming it, still name
+    item 6c, and a rule naming ``data`` (GSPMD shards parameters over it)
+    names item 6d."""
     from speakingstyle_torch.configs.config import (
         ParallelConfig, ShardingConfig, TrainConfig, check_train_supported,
     )
 
-    check_train_supported(TrainConfig(parallel=ParallelConfig(mesh=[2, 1])))
+    for ok in (TrainConfig(parallel=ParallelConfig(mesh=[2, 1])),
+               TrainConfig(parallel=ParallelConfig(mesh=[2, 2])),
+               TrainConfig(sharding=ShardingConfig(model_axis=2)),
+               TrainConfig(parallel=ParallelConfig(
+                   mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "none,model"]]))):
+        check_train_supported(ok)
     check_train_supported(TrainConfig(), n_devices=4)
-    for bad in (TrainConfig(parallel=ParallelConfig(mesh=[2, 2])),
-                TrainConfig(sharding=ShardingConfig(model_axis=2))):
-        with pytest.raises(NotImplementedError, match="queue A item 6b"):
+    for bad in (TrainConfig(parallel=ParallelConfig(seq=2)),
+                TrainConfig(parallel=ParallelConfig(
+                    mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "seq,none"]]))):
+        with pytest.raises(NotImplementedError, match="queue A item 6c"):
             check_train_supported(bad)
-    with pytest.raises(NotImplementedError, match="queue A item 6c"):
-        check_train_supported(TrainConfig(parallel=ParallelConfig(seq=2)))
+    with pytest.raises(NotImplementedError, match="queue A item 6d"):
+        check_train_supported(TrainConfig(parallel=ParallelConfig(
+            mesh=[2, 2], partition_rules=[["mel_linear/kernel$", "data,model"]])))
 
 
 # ---------------------------------------------------------------- cross-mesh resume
@@ -385,20 +400,51 @@ def test_a_rank_without_a_card_raises(monkeypatch):
         init_distributed("cuda")
 
 
-def test_model_parallel_and_seq_exit_naming_6b_and_6c(tmp_path, corpus):
+def test_model_parallel_and_seq_exit_naming_6b_and_6c(tmp_path, corpus, monkeypatch):
+    """``train --model_parallel 2`` and ``--data_parallel 2 --model_parallel
+    2`` train on the CPU as 2 and 4 rank processes over gloo (one log.txt,
+    each step once, the last step's checkpoint whole: one process restores
+    it); ``train.parallel.mesh: [1, 2]`` and ``sharding.model_axis: 2``
+    resolve to the same mesh. ``seq`` and a partition rule naming ``seq``
+    exit naming item 6c, one naming ``data`` item 6d, before any rank
+    starts."""
     from speakingstyle_torch.__main__ import main
+    from speakingstyle_torch.cli.train import build_parser, resolve_shape
+    from speakingstyle_torch.configs.config import load_config
+    from speakingstyle_torch.training.checkpoint import CheckpointManager
+    from speakingstyle_torch.training.trainer import build_state
 
-    paths = write_configs(tmp_path, corpus)
-    with pytest.raises(SystemExit, match="queue A item 6b"):
-        main(train_args(paths, "--model_parallel", "2"))
-    (tmp_path / "seq").mkdir()
-    paths = write_configs(tmp_path / "seq", corpus, parallel={"seq": 2})
-    with pytest.raises(SystemExit, match="queue A item 6c"):
-        main(train_args(paths))
-    (tmp_path / "tp").mkdir()
-    paths = write_configs(tmp_path / "tp", corpus, parallel={"mesh": [1, 2]})
-    with pytest.raises(SystemExit, match="queue A item 6b"):
-        main(train_args(paths))
+    for k, v in child_env(tmp_path).items():
+        monkeypatch.setenv(k, v)
+    for name, flags, steps in (("tp", ["--model_parallel", "2"], 2),
+                               ("dptp", ["--data_parallel", "2", "--model_parallel", "2"], 1)):
+        (tmp_path / name).mkdir()
+        paths = write_configs(tmp_path / name, corpus, optimizer={"batch_size": 4},
+                              step={"val_step": 1000, "save_step": 100})
+        assert main(train_args(paths, *flags, "--max_steps", str(steps))) is None
+        log = (tmp_path / name / "log" / "log.txt").read_text().splitlines()
+        assert [l.split(",")[0] for l in log if l.startswith("[train]")] == [
+            f"[train] Step {s + 1}" for s in range(steps)]
+        cfg = load_config(paths["preprocess"], paths["model"], paths["train"])
+        state = CheckpointManager(cfg.train.path.ckpt_path).restore(
+            build_state(cfg, torch.device("cpu")), step=steps)
+        assert state.step == steps and state.optimizer.count == steps
+    for name, train in (("mesh", {"parallel": {"mesh": [1, 2]}}),
+                        ("axis", {"sharding": {"model_axis": 2, "data_axis": 1}})):
+        (tmp_path / name).mkdir()
+        paths = write_configs(tmp_path / name, corpus, optimizer={"batch_size": 4}, **train)
+        cfg = load_config(paths["preprocess"], paths["model"], paths["train"])
+        assert resolve_shape(build_parser().parse_args(train_args(paths)[1:]), cfg) == (1, 2)
+    for name, parallel, item in (
+            ("seq", {"seq": 2}, "6c"),
+            ("seq_rule", {"mesh": [1, 2], "partition_rules": [["mel_linear/kernel$",
+                                                               "seq,none"]]}, "6c"),
+            ("data_rule", {"mesh": [2, 2], "partition_rules": [["mel_linear/kernel$",
+                                                                "data,model"]]}, "6d")):
+        (tmp_path / name).mkdir()
+        paths = write_configs(tmp_path / name, corpus, parallel=parallel)
+        with pytest.raises(SystemExit, match=f"queue A item {item}"):
+            main(train_args(paths))
 
 
 def test_the_kernel_build_holds_the_build_directory_lock(tmp_path, monkeypatch):

@@ -563,7 +563,7 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     ``cluster``, ``trace`` and ``slo`` blocks loads in both packages to the
     same values;
     the port's defaults of every key it shares with the JAX package are
-    the JAX package's."""
+    the JAX package's, and since ``serve.parallel`` it has every key."""
     from speakingstyle_tpu.configs import config as jc
     from speakingstyle_torch.configs import config as tc
 
@@ -587,9 +587,10 @@ def test_serve_keys_load_with_the_jax_defaults(tmp_path):
     shared = set(_fields(t)) & set(_fields(j))
     assert {k: _fields(t)[k] for k in shared} == {k: _fields(j)[k] for k in shared}
     assert set(_fields(t)) - set(_fields(j)) == set()
-    assert set(_fields(j)) - set(_fields(t)) == {"parallel"}
+    assert set(_fields(j)) - set(_fields(t)) == set()
     assert t.cluster.lease_ttl_s == j.cluster.lease_ttl_s == 1.5
-    for name in ("fleet", "cluster", "trace", "slo", "autoscale", "rollout", "longform"):
+    for name in ("fleet", "cluster", "trace", "slo", "autoscale", "rollout", "longform",
+                 "parallel"):
         assert _fields(getattr(tc.ServeConfig(), name)) == _fields(getattr(jc.ServeConfig(), name))
 
 

@@ -1,9 +1,11 @@
-"""Data-parallel rank processes for the port's tests, over gloo on the CPU.
+"""Data- and tensor-parallel rank processes for the port's tests, over gloo
+on the CPU.
 
 ``run_ranks(fn, world, tmp_path, **kwargs)`` starts ``world`` processes of
 this file (``parallel/launch.py::run_workers``: a free port of 127.0.0.1,
 so xdist's parallel workers cannot collide), each of which joins the
-process group, calls ``fn(mesh, **kwargs)`` of this module and saves what it
+process group (``tp`` of the kwargs: the tensor-parallel ranks, 1 by
+default), calls ``fn(mesh, **kwargs)`` of this module and saves what it
 returns to ``tmp_path``; the caller gets the ranks' results in rank order.
 The module imports torch and the port only (no JAX), so a rank starts in a
 few seconds; TensorFlow is blocked in the ranks, as the ``no_tensorflow``
@@ -66,34 +68,57 @@ def _cfg(paths, **train):
         if train else cfg
 
 
-def _state(cfg, variables, device="cpu"):
+def _state(cfg, variables, device="cpu", mesh=None):
     """A TrainState on ``device`` from a Flax variables file (numpy pickle)
-    or, without one, from ``train.seed``."""
+    or, without one, from ``train.seed``; this rank's shards on a mesh of
+    tp > 1."""
     import pickle
 
     import torch
 
     from speakingstyle_torch.compat.from_jax import load_flax_variables
     from speakingstyle_torch.models.factory import build_model
-    from speakingstyle_torch.training.optim import Optimizer
-    from speakingstyle_torch.training.state import TrainState
-    from speakingstyle_torch.training.trainer import build_state, trainable
+    from speakingstyle_torch.training.trainer import build_state, shard_model
 
     if variables is None:
-        return build_state(cfg, torch.device(device))
+        return build_state(cfg, torch.device(device), mesh)
     with open(variables, "rb") as fh:
         model = load_flax_variables(build_model(cfg), pickle.load(fh))
     model.postnet.dropout = 0.0
-    model = model.to(device)
-    return TrainState(0, model, Optimizer(trainable(model), cfg.train))
+    return shard_model(model.to(device), cfg, mesh)
 
 
-def _host_tree(model, grads=None):
+def whole_model(cfg, state, mesh):
+    """A one-device model holding ``state``'s weights gathered whole over
+    tp (the state's own model without a layout)."""
+    from speakingstyle_torch.models.factory import build_model
+
+    if state.layout is None:
+        return state.model
+    model = build_model(cfg)
+    model.postnet.dropout = state.model.postnet.dropout
+    model.load_state_dict(whole_tensors(state.model.state_dict(), state.layout, mesh))
+    return model
+
+
+def whole_tensors(named, layout, mesh):
+    """{name: tensor} of this rank's shards -> the whole tensors."""
+    from speakingstyle_torch.parallel.tensor import gather_whole
+
+    return {k: v if layout is None or layout.dim(k) is None
+            else gather_whole(v.detach(), layout.dim(k), mesh) for k, v in named.items()}
+
+
+def _host_tree(model, grads=None, state=None, mesh=None):
+    """The Flax tree of ``model`` (whole) or, with ``grads`` (``state``'s
+    optimizer order, this rank's shards), of the gathered gradients."""
     from speakingstyle_torch.compat.from_jax import to_flax_tree
-    from speakingstyle_torch.training.trainer import trainable
 
     if grads is not None:
-        tree = to_flax_tree(model, {id(p): g for p, g in zip(trainable(model), grads)})
+        names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+        whole = whole_tensors(dict(zip(names, grads)), state.layout, mesh)
+        by_name = dict(model.named_parameters())
+        tree = to_flax_tree(model, {id(by_name[n]): g for n, g in whole.items()})
         return {"params": _numpy(tree["params"])}
     return _numpy(to_flax_tree(model))
 
@@ -138,13 +163,17 @@ def _numpy(tree):
     return np.array(tree)
 
 
-def train_steps(mesh, paths, steps=3, variables=None, poison_at=None, device="cpu"):
-    """``steps`` chained data-parallel train steps (``make_train_step`` with
-    the mesh) on the global batches ``run_training`` cuts at dp: per step
-    the global losses, the sentinel's agreed flag, the gradients the update
-    applied, the parameters and BatchNorm statistics after it, and the
-    weights digest. ``poison_at``: the step whose batch the ``nan_grads``
-    drill poisons (rank 0's rows)."""
+def train_steps(mesh, paths, steps=3, variables=None, poison_at=None, device="cpu",
+                clip_norm=False):
+    """``steps`` chained data- (and tensor-) parallel train steps
+    (``make_train_step`` with the mesh) on the global batches
+    ``run_training`` cuts at dp: per step the global losses, the
+    sentinel's agreed flag, the gradients the update applied, the
+    parameters and BatchNorm statistics after it (gathered whole over tp),
+    and the weights digest of the whole state. ``poison_at``: the step
+    whose batch the ``nan_grads`` drill poisons (rank 0's rows).
+    ``clip_norm``: also the optimizer's global norm of each step's
+    gradients."""
     import torch
 
     from speakingstyle_torch.models.loss import loss_counts
@@ -160,7 +189,7 @@ def train_steps(mesh, paths, steps=3, variables=None, poison_at=None, device="cp
     if device != "cpu":  # full float32 (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cfg = _cfg(paths)
-    state = _state(cfg, variables, device)
+    state = _state(cfg, variables, device, mesh)
     sync_batch_stats(state.model, mesh)
     broadcast_state(state, mesh)
     step = make_train_step(cfg, mesh)
@@ -170,16 +199,21 @@ def train_steps(mesh, paths, steps=3, variables=None, poison_at=None, device="cp
         batch = next(batches)
         arrays = to_device(shard_batch(batch.arrays(), mesh), mesh.device)
         if poison_at == i + 1:
-            arrays = faults.poison_batch(arrays, rank=mesh.rank)
+            arrays = faults.poison_batch(arrays, rank=mesh.dp_rank)
         before = kernel_launches()
         losses, grads = step(state, arrays, loss_counts(batch.arrays()))
         host, finite = global_losses(losses, mesh)
         launches = {k: v - before[k] for k, v in kernel_launches().items()}
+        whole = whole_model(cfg, state, mesh)
         out.append({"losses": host, "finite": finite, "local_finite": bool(losses["_finite"]),
-                    "rows": int(arrays["texts"].shape[0]), "grads": _host_tree(state.model, grads),
-                    "after": _host_tree(state.model),
-                    "digest": weights_digest(state.model.state_dict()),
+                    "rows": int(arrays["texts"].shape[0]),
+                    "grads": _host_tree(whole, grads, state, mesh), "after": _host_tree(whole),
+                    "digest": weights_digest(whole.state_dict()),
+                    "local_digest": weights_digest(state.model.state_dict()),
                     "mel_frames": float(arrays["mel_lens"].sum()), "launches": launches})
+        if clip_norm:
+            out[-1]["clip_norm"] = float(state.optimizer.global_norm(
+                [g.float() for g in grads]))
     return out
 
 
@@ -199,7 +233,8 @@ def run(mesh, paths, max_steps, faults=None, restore_step=None, **train):
     if faults:
         os.environ["SPEAKINGSTYLE_FAULTS"] = faults
     cfg = _cfg(paths)
-    tr = dataclasses.replace(cfg.train, parallel=ParallelConfig(mesh=[mesh.dp, 1]))
+    tr = dataclasses.replace(cfg.train, parallel=ParallelConfig(
+        mesh=[mesh.dp, mesh.tp], partition_rules=cfg.train.parallel.partition_rules))
     if train:
         tr = dataclasses.replace(
             tr, step=dataclasses.replace(tr.step, **train.get("step", {})),
@@ -208,29 +243,58 @@ def run(mesh, paths, max_steps, faults=None, restore_step=None, **train):
     registry = obs.MetricsRegistry()
     state = run_training(cfg, device=torch.device("cpu"), max_steps=max_steps,
                          restore_step=restore_step, registry=registry)
-    return {"step": state.step, "digest": weights_digest(state.model.state_dict()),
+    return {"step": state.step,
+            "digest": weights_digest(whole_model(cfg, state, mesh).state_dict()),
             "gauges": registry.snapshot()["gauges"]}
 
 
 def restored(mesh, paths, step):
     """A fresh state restored from ``step`` as ``run_training`` restores it
-    at this dp (the barrier, rank 0's broadcast, the accumulator rule):
-    every leaf of its state dict, flattened."""
+    at this (dp, tp) (the barrier, the broadcast, the accumulator rule): every
+    leaf of its state dict, flattened, gathered whole over tp as a
+    checkpoint gathers it."""
     import torch
 
     from speakingstyle_torch.obs.buildinfo import flatten
     from speakingstyle_torch.training.checkpoint import CheckpointManager
     from speakingstyle_torch.training.trainer import (
-        broadcast_state, build_state, local_accumulator,
+        _SavedState, broadcast_state, build_state, local_accumulator,
     )
 
     cfg = _cfg(paths)
-    state = build_state(cfg, torch.device("cpu"))
+    state = build_state(cfg, torch.device("cpu"), mesh)
     CheckpointManager(cfg.train.path.ckpt_path, mesh=mesh).restore(state, step=step)
     broadcast_state(state, mesh)
     local_accumulator(state, mesh)
     return {"state": {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
-                      for k, v in flatten(state.state_dict()).items()}}
+                      for k, v in flatten(_SavedState(state, mesh).state_dict()).items()}}
+
+
+def tp_collectives(mesh, seed=0):
+    """``parallel/tensor.py`` on this rank of a tp group: a split tensor
+    gathered whole, ``gather_param``'s gradient (this rank's slice of the
+    whole gradient), ``copy_to_tp``'s (summed over tp) and
+    ``reduce_from_tp``'s forward (summed) and gradient (as it came)."""
+    import torch
+
+    from speakingstyle_torch.parallel.partition import local_slice
+    from speakingstyle_torch.parallel.tensor import copy_to_tp, gather_param, reduce_from_tp
+
+    g = torch.Generator().manual_seed(seed)
+    whole = torch.randn(6, 4 * mesh.tp, 3, generator=g)
+    upstream = torch.randn(whole.shape, generator=g)
+    w = local_slice(whole, 1, mesh.tp, mesh.tp_rank).requires_grad_()
+    got = gather_param(w, 1, mesh)
+    (got * upstream).sum().backward()
+    x = torch.randn(5, 7, generator=g).requires_grad_()
+    part = torch.randn(5, 7, generator=g) * (mesh.tp_rank + 1)
+    (copy_to_tp(x, mesh) * part).sum().backward()
+    y = torch.randn(5, 7, generator=g).mul(mesh.tp_rank + 1).requires_grad_()
+    red = reduce_from_tp(y, mesh)
+    (red * part).sum().backward()
+    return {"whole": whole, "gathered": got.detach(), "w_grad": w.grad,
+            "slice": local_slice(upstream, 1, mesh.tp, mesh.tp_rank), "x_grad": x.grad,
+            "part": part, "reduced": red.detach(), "y": y.detach(), "y_grad": y.grad}
 
 
 def vocoder_steps(mesh, wav_dir, steps, batch_size, segment, learning_rates):
@@ -316,7 +380,7 @@ def _worker(fn: str, job: str) -> None:
     torch.set_num_threads(1)
     with open(job) as fh:
         kwargs = json.load(fh)
-    mesh = init_distributed(kwargs.get("device", "cpu"))
+    mesh = init_distributed(kwargs.get("device", "cpu"), tp=kwargs.pop("tp", 1))
     try:
         result = globals()[fn](mesh, **kwargs)
         torch.save(result, f"{job}.rank{mesh.rank}.pt")
