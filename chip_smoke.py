@@ -238,14 +238,34 @@ printing one JSON line:
    The train phase's kernel cases also run each kernel at the local
    shapes of tp = 2 and 4 (``*_tp2_*``, ``*_tp4_*``).
 
+22. ``serve_ring`` (after ``serve_cluster``, from the same checkpoint): the
+   ring long-form tier (``serve.longform.mesh_seq: 2``) as the serve
+   command builds it on one engine, at full width on the kernel path in
+   float32 and the preset's long-form lattice (src {512, 1024} x mel {6144,
+   12288}): ``RingTier`` starts one helper rank process (the two ranks share
+   the card over gloo), broadcasts rank 0's weights (digests checked) and
+   prepares its 4 points (cards without graphs, ``kind=acoustic_ring``).
+   A chapter of 600-900 phonemes on /synthesize/longform (every count set
+   to 0 just before and read just after) answers ``X-Longform-Tier: ring``
+   at ``b1.s1024.m12288`` with mel_len x 256 samples; a repeat prepares
+   nothing and equals it; a traced ring dispatch counts kernel #3 by name
+   as credited and kernel #1 not at all; the mel is held against a
+   one-process dense free run (einsum attention over 12288 frames) of the
+   same weights and inputs (``SERVE_RING_RTOL`` x max |mel|); kernel #3 at
+   the ring's shapes against its plain version; ``longform_ring_error``
+   and a killed helper each answer the next chapter chunked, the server
+   up. Rotation and gather ms, the helper's spawn-to-ready seconds, each
+   rank's memory and the dense oracle's are printed.
+
 Every timed case also gives ``bound_share`` (bound ms / kernel ms) and
 ``vs_library`` (kernel ms / library ms, null without a library call).
 A ``phase_seconds`` line gives each phase's seconds and the total.
 
 Then a summary line of every kernel (with its launches a distill step and
 in the traces of the ``serve_http`` and ``serve_fleet`` traffic, the
-``serve_tiers`` phase and the ``serve_cluster`` processes' windows, and a
-data-parallel and a tensor-parallel rank's train step),
+``serve_tiers`` phase and the ``serve_cluster`` processes' windows, the
+``serve_ring`` chapter, and a data-parallel and a tensor-parallel rank's
+train step),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a card, or a directory without the
@@ -5987,6 +6007,354 @@ def serve_cluster_phase(tmp, step, seed, dev, smi):
 
 # ---------------------------------------------------------------- phase 20: data-parallel training
 
+# ---------------------------------------------------------------- phase 22
+
+# the ring cell: the LJSpeech preset at full width on the kernel path in
+# float32 (the ring's softmax is float32, and the dense oracle's bound is a
+# float32 one), a one-point interactive lattice for the chunked tier and the
+# vocoder windows (448 frames + the overlap a side fit 512; a chunk holds
+# 512 / 12 = 42 phonemes), style (1, 1000), and the preset's long-form ring
+# lattice on a sequence mesh of 2 ranks
+SERVE_RING_MODEL = {"attention_kernel": "fused", "conv_impl": "pallas",
+                    "compute_dtype": "float32"}
+SERVE_RING_LATTICE = {"batch_buckets": [1], "src_buckets": [128], "mel_buckets": [512],
+                      "style": {"ref_buckets": [1000]}, "fleet": {"stream_window": 448},
+                      "longform": {"mesh_seq": 2, "src_buckets": [512, 1024],
+                                   "mel_buckets": [6144, 12288], "max_chunks": 128}}
+SERVE_RING_LABEL = "2 ranks sharing one card over gloo"
+# a chapter's phonemes: past the 512-phoneme point, inside the 1024 one
+SERVE_RING_PHONEMES = (600, 900)
+# the ring's mel against a one-process dense free run (einsum attention)
+# of the same weights, style and padded geometry, relative to max |mel|:
+# float32 throughout, two softmax blocks merged against one softmax over
+# 12288 keys, f32 sums in other orders through ten FFT blocks and the
+# postnet: the bar of the float32 acoustic comparisons
+SERVE_RING_RTOL = ACOUSTIC_RTOL
+# a repeat chapter against the first (the same program on the same inputs)
+SERVE_RING_REPEAT_ATOL = 1e-5
+# seconds within which a chapter after a killed helper is answered (chunked)
+SERVE_RING_KILL_S = 120.0
+
+
+def ring_chapter(frontend, lo, hi):
+    """(text, phoneme ids) of a chapter of the smoke texts in turn with
+    between ``lo`` and ``hi`` phonemes, the ids as the long-form service
+    plans them (each sentence's G2P, concatenated)."""
+    import numpy as np
+
+    from speakingstyle_torch.serving.longform import split_sentences
+
+    sentences = []
+    while True:
+        sentences.append(TEXTS[len(sentences) % len(TEXTS)])
+        text = " ".join(sentences)
+        ids = np.concatenate([frontend.sequence(s) for s in split_sentences(text)])
+        if ids.size >= lo:
+            if ids.size > hi:
+                fail(f"serve_ring: no chapter of the smoke texts has {lo}-{hi} phonemes")
+            return text, ids.astype(np.int32)
+
+
+def ring_inputs_of(tier, seq, style):
+    """The padded inputs ``RingTier.synthesize`` stages for ``seq`` (speaker
+    0, neutral controls) at the covering ring bucket."""
+    import torch
+
+    from speakingstyle_torch.serving.ring_ranks import ring_inputs
+
+    bucket = tier.lattice.cover(1, len(seq), len(seq) * tier.cfg.serve.frames_per_phoneme)
+    x = ring_inputs(tier.ring_cfg, bucket.l_src, bucket.t_mel)
+    x["texts"].zero_()
+    x["texts"][0, :len(seq)] = torch.from_numpy(seq).long()
+    x["src_lens"][0] = len(seq)
+    x["gammas"][0, 0] = torch.from_numpy(style.gamma)
+    x["betas"][0, 0] = torch.from_numpy(style.beta)
+    return bucket, x
+
+
+def serve_ring_phase(tmp, step, seed, dev, smi):
+    """The ring long-form tier on the card (``serve.longform.mesh_seq: 2``):
+    the serve command's single-engine branch in this process, on
+    ``restored_phase``'s checkpoint at full width (``SERVE_RING_MODEL``,
+    ``SERVE_RING_LATTICE``): ``load_engine`` and ``precompile``, then
+    ``RingTier`` (one helper rank process started, rank 0's weights
+    broadcast and their digests checked) prepares its 4 points, attached to
+    ``SynthesisServer``'s LongformService. The ranks share the card over
+    gloo: a check of the path, not a multi-card measurement.
+
+    1. A chapter of ``SERVE_RING_PHONEMES`` phonemes on
+       /synthesize/longform, every kernel count set to 0 just before and
+       read just after: 200 with ``X-Longform-Tier: ring`` at
+       ``b1.s1024.m12288``, mel_len x hop samples (the mel_len of the same
+       chapter through ``RingTier.synthesize``), nothing prepared, TTFA.
+    2. The same chapter again: nothing prepared, its mel within
+       ``SERVE_RING_REPEAT_ATOL`` of the first, the helper's own mel of
+       that run bit-equal to rank 0's (sha256); rank 0's peak memory of a
+       dispatch, the rotation and gather ms of both ranks, the helper's
+       memory.
+    3. A ring dispatch under torch.profiler: kernel #3's launches counted
+       by name equal the credits (31), kernel #1's are 0 (the ring layers
+       bypass it).
+    4. The dense oracle: one process, einsum attention over the whole
+       12288 frames, the same weights, style and padded inputs: the same
+       durations and mel_len, the mel within ``SERVE_RING_RTOL`` x max
+       |mel|; its peak memory beside the ring's.
+    5. Kernel #3 at the ring's shapes (B = 1, T = 1024 and 12288) against
+       its plain version, float32 and bfloat16.
+    6. ``longform_ring_error`` on the next ring attempt: the chapter is
+       answered chunked and counted in ``serve_longform_degraded_total``.
+    7. The helper killed: the next chapter is answered chunked within
+       ``SERVE_RING_KILL_S``, the ring stays down, /synthesize and /healthz
+       still answer.
+
+    Returns ({kernel: launches of step 1}, {case: kernel case})."""
+    import hashlib
+    import threading
+
+    import numpy as np
+    import torch
+    import yaml
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speakingstyle_torch.cli import config_from_args
+    from speakingstyle_torch.cli.serve import build_parser, model_version_string
+    from speakingstyle_torch.faults import FaultPlan
+    from speakingstyle_torch.models.factory import build_model
+    from speakingstyle_torch.obs.quality import validate_wav
+    from speakingstyle_torch.serving.engine import SynthesisRequest, load_engine
+    from speakingstyle_torch.serving.frontend import TextFrontend, load_ref_mel
+    from speakingstyle_torch.serving.longform import RingTier
+    from speakingstyle_torch.serving.ring_ranks import ring_leaves, ring_program
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    out = os.path.join(tmp, "serve_ring")
+    os.makedirs(out)
+    os.symlink(os.path.join(tmp, "ckpt"), os.path.join(out, "ckpt"))
+    cli_args = smoke_configs(out, SERVE_RING_MODEL)
+    train_yaml = cli_args[cli_args.index("-t") + 1]
+    with open(train_yaml) as f:
+        train = yaml.safe_load(f)
+    train["serve"] = SERVE_RING_LATTICE
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump(train, f)
+    args = build_parser().parse_args(cli_args + ["--restore_step", str(step), "--seed",
+                                                 str(seed)])
+    cfg = config_from_args(args)
+    lf = cfg.serve.longform
+    sr = cfg.preprocess.preprocessing.audio.sampling_rate
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, info = load_engine(cfg, step, device=dev, vocoder_seed=seed + 1)
+    hop = engine.vocoder.hop_factor
+    precompile_s = engine.precompile()
+    wavs, _ = write_smoke_inputs(out, cfg, seed)
+    ref = load_ref_mel(cfg, wavs[0])
+    frontend = TextFrontend(cfg, ref)
+    server = SynthesisServer(engine, frontend, host="127.0.0.1", port=0,
+                             model_info=dict(info, version=model_version_string(info)))
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    # the serve command's ring branch (cli/serve.py); the server is shut
+    # down whether or not it came to serve
+    ring = None
+    try:
+        ring = RingTier(cfg, engine.model, engine)
+        ring_precompile_s = ring.precompile()
+        torch.cuda.synchronize()
+        cards = [r for r in engine.programs() if r.get("label_kind") == "acoustic_ring"]
+        want_labels = sorted(f"b1.s{l}.m{t}" for l in lf.src_buckets for t in lf.mel_buckets)
+        if sorted(c["label_bucket"] for c in cards) != want_labels or any(
+                c["graph"] or c["label_mesh"] != "seq2" for c in cards):
+            fail(f"serve_ring: the ring's program cards {cards}")
+        emit("serve_ring_start", nvidia_smi=smi, label=SERVE_RING_LABEL,
+             entry="cli.serve: load_engine + precompile, RingTier + precompile",
+             model=SERVE_RING_MODEL, lattice=SERVE_RING_LATTICE, restore_step=step,
+             engine_precompile_s=precompile_s, helper_pids=[p.pid for p in ring.group.procs],
+             spawn_to_ready_s=ring.startup_s, ring_precompile_s=ring_precompile_s,
+             ring_programs=[{k: c.get(k) for k in ("name", "flops", "label_bucket",
+                                                   "launches_per_replay")} for c in cards],
+             weights_digest=ring.digest,
+             memory_reserved_by_ring_bytes=torch.cuda.memory_reserved(dev) - reserved0)
+        server.longform.ring = ring
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        address = server.address[:2]
+        reg = server.registry
+        text, seq = ring_chapter(frontend, *SERVE_RING_PHONEMES)
+
+        # 1. the chapter over HTTP: the main path of the ring tier
+        compiles = (engine.compile_count, engine.style.compile_count)
+        reset_counts()
+        status, headers, body, ttfa, secs = stream_call(address, {"text": text},
+                                                        path="/synthesize/longform")
+        launches = read_counts()
+        if status != 200 or headers.get("X-Longform-Tier") != "ring":
+            fail(f"serve_ring: the chapter answered {status} on tier "
+                 f"{headers.get('X-Longform-Tier')}: {body[:300]!r}")
+        pcm = pcm_of("serve_ring chapter", body, sr)
+        style = engine.style.encode_mels([ref])[0]  # the chapter's, from the cache
+        req = SynthesisRequest(id="ring_direct", sequence=seq, style=style)
+        first = ring.synthesize(req)
+        verdict = validate_wav(pcm, sr, cfg.serve.quality)
+        chapter = {"phonemes": int(seq.size), "status": status, "tier": "ring",
+                   "bucket": [first.bucket.l_src, first.bucket.t_mel], "mel_len": first.mel_len,
+                   "samples": int(pcm.size), "ttfa_s": ttfa, "seconds": secs,
+                   "quality_ok": verdict.ok, "launches": launches}
+        if (first.bucket.l_src, first.bucket.t_mel) != (lf.src_buckets[-1], lf.mel_buckets[-1]) \
+                or pcm.size != first.mel_len * hop or not verdict.ok \
+                or (engine.compile_count, engine.style.compile_count) != compiles \
+                or reg.value("serve_longform_degraded_total"):
+            fail(f"serve_ring: the chapter {chapter}")
+        for name in ("fused_attention_fwd", "fused_conv1d_fwd"):
+            if not launches[name]:
+                fail(f"serve_ring: {name} never launched on the ring chapter: {launches}")
+
+        # 2. a repeat: nothing prepared, the same mel; memory and collectives
+        stats0 = dict(ring.mesh.stats)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        again = ring.synthesize(req)
+        ring_s = time.perf_counter() - t0
+        ring_peak = torch.cuda.max_memory_allocated(dev) - base
+        d = {k: ring.mesh.stats[k] - stats0[k] for k in stats0}
+        helper = ring.group.helper_stats()
+        # the forward across processes: the helper's own mel of that run
+        # (its durations are rank 0's; its pitch and energy embeddings its
+        # own) against rank 0's, bit for bit, or the ranks' blocks of the
+        # ring came from different activations
+        same_forward = helper[1].get("mel_digest") == hashlib.sha256(
+            np.ascontiguousarray(again.mel).tobytes()).hexdigest()
+        if not same_forward:
+            fail(f"serve_ring: the helper's forward differs from rank 0's: {helper}")
+        repeat_diff = float(np.abs(again.mel - first.mel).max()) \
+            if again.mel_len == first.mel_len else None
+        if engine.compile_count != compiles[0] or repeat_diff is None \
+                or repeat_diff > SERVE_RING_REPEAT_ATOL:
+            fail(f"serve_ring: the repeat chapter prepared {engine.compile_count - compiles[0]} "
+                 f"program(s), its mel {repeat_diff} from the first")
+
+        # 3. one ring dispatch traced: kernel #3 counted by name = credited
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        reset_counts()
+        prof.start()
+        try:
+            prime_trace()
+            ring.synthesize(req)
+            torch.cuda.synchronize()
+        finally:
+            prof.stop()
+        credited = read_counts()
+        _, busy, by_name, ours = device_time(
+            "serve_ring", [e for e in prof.events() if e.device_type == DeviceType.CUDA])
+        in_trace = check_trace("serve_ring", by_name, credited)
+        if in_trace["fused_attention_fwd"] or not in_trace["fused_conv1d_fwd"]:
+            fail(f"serve_ring: a ring dispatch's trace counts {in_trace}")
+
+        # 4. the dense oracle on the card
+        bucket, x = ring_inputs_of(ring, seq, style)
+        dense_cfg = dataclasses.replace(ring.ring_cfg, model=dataclasses.replace(
+            ring.ring_cfg.model, attention_impl="dense", attention_kernel="einsum"))
+        dense = build_model(dense_cfg, n_position=ring.lattice.max_mel + 1)
+        with torch.no_grad():
+            for dst, src in zip(ring_leaves(dense), ring_leaves(ring.model)):
+                dst.copy_(src)
+        dense = dense.to(dev).eval()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = ring_program(dense, bucket.t_mel, True)(
+                **{k: v.to(dev) for k, v in x.items()})
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        dense_s = time.perf_counter() - t0
+        dense_peak = torch.cuda.max_memory_allocated(dev) - base
+        del dense
+        torch.cuda.empty_cache()
+        mel_len = int(want["mel_lens"][0])
+        wmel = want["mel_postnet"][0, :mel_len]
+        scale = float(np.abs(wmel).max())
+        same_durations = bool(np.array_equal(want["durations"][0, :seq.size], first.durations))
+        err = float(np.abs(first.mel - wmel).max()) if mel_len == first.mel_len else None
+        oracle = {"mel_len": mel_len, "same_durations": same_durations, "max_abs_err": err,
+                  "max_abs_mel": scale, "rtol": SERVE_RING_RTOL,
+                  "bound": SERVE_RING_RTOL * scale, "dense_s": dense_s,
+                  "dense_peak_bytes": dense_peak, "ring_rank0_peak_bytes": ring_peak}
+        if not same_durations or err is None or err > SERVE_RING_RTOL * scale:
+            fail(f"serve_ring: the ring's mel against the dense free run {oracle}")
+
+        # 5. kernel #3 at the ring's shapes
+        lengths = {"src": (1, bucket.l_src, [int(seq.size)]),
+                   "mel": (1, bucket.t_mel, [first.mel_len])}
+        g = torch.Generator().manual_seed(seed)
+        cases = []
+        with strict_float32():
+            for dtype in (torch.float32, torch.bfloat16):
+                for case in conv_cases(cfg):
+                    if case[1] != "ref":
+                        cases.append(conv_case(case, lengths, dtype, g, dev, prefix="ring"))
+                        emit("kernels", **cases[-1])
+        bad = [c["case"] for c in cases if not c["ok"]]
+        if bad:
+            fail(f"serve_ring: kernel #3 disagrees with its plain version at {bad}")
+
+        # 6. an injected ring failure degrades the chapter to chunked
+        degraded0 = reg.value("serve_longform_degraded_total")
+        server.longform.fault_plan = FaultPlan.parse(
+            f"longform_ring_error@{server.longform._ring_attempts + 1}")
+        status, headers, body, _, drill_s = stream_call(address, {"text": text},
+                                                        path="/synthesize/longform")
+        server.longform.fault_plan = None
+        ring_error = {"status": status, "tier": headers.get("X-Longform-Tier"),
+                      "chunks": headers.get("X-Longform-Chunks"), "seconds": drill_s,
+                      "degraded": reg.value("serve_longform_degraded_total") - degraded0,
+                      "ring_available": ring.available}
+        if status != 200 or ring_error["tier"] != "chunked" or ring_error["degraded"] != 1 \
+                or not ring.available:
+            fail(f"serve_ring: longform_ring_error {ring_error}")
+
+        # 7. the helper killed: chunked, within the bound; the server up
+        proc = ring.group.procs[0]
+        proc.kill()
+        proc.wait(timeout=30)
+        t0 = time.perf_counter()
+        status, headers, body, _, _ = stream_call(address, {"text": text},
+                                                  path="/synthesize/longform")
+        kill_s = time.perf_counter() - t0
+        interactive = http_call(address, "POST", "/synthesize", {"text": TEXTS[0]})[0]
+        health = http_call(address, "GET", "/healthz")[0]
+        killed = {"status": status, "tier": headers.get("X-Longform-Tier"), "seconds": kill_s,
+                  "bound_s": SERVE_RING_KILL_S, "ring_available": ring.available,
+                  "broken": ring.group.broken, "interactive": interactive, "healthz": health}
+        if status != 200 or killed["tier"] != "chunked" or kill_s > SERVE_RING_KILL_S \
+                or ring.available or interactive != 200 or health != 200:
+            fail(f"serve_ring: after the killed helper {killed}")
+        emit("serve_ring", nvidia_smi=smi, label=SERVE_RING_LABEL, chapter=chapter,
+             repeat={"max_abs_diff": repeat_diff, "bound": SERVE_RING_REPEAT_ATOL,
+                     "ring_s": ring_s, "prepared": engine.compile_count - compiles[0]},
+             rank0_collectives={"rotations": d["rotations"],
+                                "rotate_ms_each": 1e3 * d["rotate_s"] / max(d["rotations"], 1),
+                                "rotate_ms": 1e3 * d["rotate_s"], "gathers": d["gathers"],
+                                "gather_ms": 1e3 * d["gather_s"],
+                                "bytes_sent": d["bytes_sent"]},
+             helper=helper, forward_bit_equal_across_ranks=same_forward,
+             memory_reserved_rank0_bytes=torch.cuda.memory_reserved(dev),
+             compute_apps=compute_apps(),
+             traced={"launches": in_trace, "credited": credited, "busy_ms": busy,
+                     "ours_ms": ours, "top_ms": dict(sorted(
+                         ((n[:80], round(ms, 3)) for n, (ms, _) in by_name.items()),
+                         key=lambda kv: -kv[1])[:8])},
+             dense_oracle=oracle, ring_error=ring_error, helper_killed=killed,
+             ring_seconds=reg.histogram("serve_longform_ring_seconds").snapshot())
+    finally:
+        server.shutdown()
+        if ring is not None:
+            ring.close()
+    return launches, {c["case"]: c for c in cases}
+
+
 TRAIN_DP_RANKS = 2
 TRAIN_DP_LABEL = "2 ranks sharing one card over gloo"
 TRAIN_DP_STEPS = 2   # the parity steps (strict float32); the first is a warm-up for times
@@ -6819,6 +7187,9 @@ def main(argv=None) -> int:
                                dev, smi)
         cluster_launches = timed("serve_cluster", serve_cluster_phase, restore_tmp, step,
                                  args.seed, dev, smi)
+        ring_launches, ring_cases = timed("serve_ring", serve_ring_phase, restore_tmp, step,
+                                          args.seed, dev, smi)
+    cases.update(ring_cases)
     timed("convert_reference", convert_phase, cfg, args.seed, dev, attn_per, conv_per)
     timed("train_vocoder", vocoder_phase, cfg, args.seed, dev, attn_per)
     train_counts, train_sm16_counts, train_cases, distill_per_step, (
@@ -6828,7 +7199,7 @@ def main(argv=None) -> int:
     emit("phase_seconds", phases=PHASE_S, total_s=time.perf_counter() - T0,
          serve_http_s=PHASE_S["serve_http"], serve_fleet_s=PHASE_S["serve_fleet"],
          serve_tiers_s=PHASE_S["serve_tiers"], serve_cluster_s=PHASE_S["serve_cluster"],
-         train_dp_s=PHASE_S["train_dp"])
+         serve_ring_s=PHASE_S["serve_ring"], train_dp_s=PHASE_S["train_dp"])
 
     sources = {
         "fused_attention_fwd": ("speakingstyle_torch/csrc/fused_attention.cu",
@@ -6880,6 +7251,10 @@ def main(argv=None) -> int:
             # the profile windows of the two replica processes and of this
             # one (the StyleService), each equal to its process's credits
             "serve_cluster_launches": cluster_launches[name],
+            # the serve_ring phase's chapter over HTTP (the StyleService's
+            # encode of its reference, then one ring-attention free run on
+            # rank 0 of 2 processes sharing the card), by the wrappers' counts
+            "serve_ring_launches": ring_launches[name],
             # a train step of each data-parallel rank (train_dp: 2 ranks
             # sharing the card over gloo), by the wrappers' counts and, in
             # a traced step, by name in the trace

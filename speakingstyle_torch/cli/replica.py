@@ -31,7 +31,7 @@ Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 card: it never registers, and the router's spawn fails on
 ``serve.cluster.spawn_grace_s``. A replica spanning hosts
 (``--coordinator_address`` / ``--num_processes`` / ``--process_id``) is
-ROADMAP.md queue A item 6c (``torch.distributed``): the command exits
+ROADMAP.md queue A item 6c-ii (``torch.distributed``): the command exits
 non-zero when they are set, as it does for ``serve.parallel`` past ``mesh:
 [1, 1]``. Usually ``serve --cluster`` spawns it:
 
@@ -48,7 +48,7 @@ from speakingstyle_torch.cli import add_config_args, config_from_args
 
 MULTIHOST_MISSING = ("a replica spanning hosts (--coordinator_address, --num_processes, "
                      "--process_id: one replica as a torch.distributed process group) is "
-                     "multi-device serving, ROADMAP.md queue A item 6c; run one process a replica")
+                     "multi-device serving, ROADMAP.md queue A item 6c-ii; run one process a replica")
 
 
 def build_parser(parser=None):
@@ -68,7 +68,7 @@ def build_parser(parser=None):
                         help="bind address of the replica's HTTP server")
     parser.add_argument("--port", type=int, default=0, help="bind port (0: a free one)")
     parser.add_argument("--coordinator_address", default=None,
-                        help="a replica spanning hosts (ROADMAP.md queue A item 6c: refused)")
+                        help="a replica spanning hosts (ROADMAP.md queue A item 6c-ii: refused)")
     parser.add_argument("--num_processes", type=int, default=None,
                         help="with --coordinator_address (refused)")
     parser.add_argument("--process_id", type=int, default=None,

@@ -18,10 +18,18 @@ serving/server.py:
 
 ``POST /synthesize/longform`` serves chapters on the chunked long-form tier
 (serving/longform.py) over the same backend, on one engine or behind
-``--replicas N``. ``serve.longform.mesh_seq > 1`` asks for the ring tier,
-which is multi-device work (ROADMAP.md queue A item 6c): the command exits
-non-zero naming it, as it does for ``serve.parallel`` past ``mesh: [1, 1]``
-(one replica across devices, the same item).
+``--replicas N``. On one engine ``serve.longform.mesh_seq > 1`` adds the
+ring tier (JAX ``cli/serve.py:413-430``): after the server is built the
+command starts the ring's ``mesh_seq - 1`` helper rank processes
+(serving/ring_ranks.py; this process is rank 0), prepares every ring point
+(``serve.longform.{src,mel}_buckets``), prints the count and the seconds
+and attaches the tier, so a chapter that fits a ring bucket is one
+ring-attention free run (``X-Longform-Tier: ring``); a ring that does not
+start (a helper that exits or never joins, a failed preparation) ends the
+command with a non-zero exit, not a chunked-only server. A fleet serves the
+chunked tier only, as the JAX command does. ``serve.parallel`` past
+``mesh: [1, 1]`` (one replica across devices) exits non-zero naming
+ROADMAP.md queue A item 6c-ii.
 
 ``serve.trace`` sizes the span ring and arms span recording,
 ``serve.slo.enabled`` starts the SLO burn-rate engine, and one
@@ -74,7 +82,6 @@ import sys
 
 from speakingstyle_torch.cli import add_config_args, config_from_args
 from speakingstyle_torch.configs.config import check_serve_supported
-from speakingstyle_torch.serving.longform import RING_MISSING
 
 
 def build_parser(parser=None):
@@ -259,8 +266,6 @@ def main(args):
     cfg = config_from_args(args)
     replicas = args.replicas if args.replicas is not None else cfg.serve.fleet.replicas
     cluster = replicas > 1 and (args.cluster or cfg.serve.cluster.enabled)
-    if cfg.serve.longform.mesh_seq > 1:
-        raise SystemExit(RING_MISSING)
     try:
         check_serve_supported(cfg.serve)
     except NotImplementedError as e:
@@ -321,6 +326,34 @@ def main(args):
               f"{scfg.fast_window_s:g}s/{scfg.slow_window_s:g}s", flush=True)
     server = SynthesisServer(frontend=TextFrontend(cfg, default_ref), host=args.host,
                              port=args.port, events=events, slo=slo, **server_kwargs)
+    ring = None
+    if replicas <= 1 and cfg.serve.longform.mesh_seq > 1:
+        # the ring tier: one program set over its own sequence mesh,
+        # prepared now (start-up, not the request path) and attached to the
+        # server's LongformService, so both tiers share the one engine
+        from speakingstyle_torch.serving.longform import RingTier
+
+        lf = cfg.serve.longform
+        print(f"starting the ring's {lf.mesh_seq - 1} helper rank process(es) and preparing "
+              f"{len(lf.src_buckets) * len(lf.mel_buckets)} ring-attention long-form points "
+              f"(seq mesh of {lf.mesh_seq}) ...", flush=True)
+        try:
+            ring = RingTier(cfg, engine.model, engine)
+            ring_secs = ring.precompile()
+        except BaseException as e:
+            # no fallback to the chunked tier: a ring that does not start
+            # (a helper that never joins, a failed preparation) ends the
+            # command, its helpers stopped and its socket closed
+            if ring is not None:
+                ring.close()
+            server.shutdown()
+            if isinstance(e, Exception):
+                raise SystemExit(f"serve: the ring long-form tier did not start: "
+                                 f"{type(e).__name__}: {e}") from e
+            raise
+        print(f"ring tier ready in {ring.startup_s + ring_secs:.1f}s ({ring.startup_s:.1f}s to "
+              f"join its {lf.mesh_seq} ranks, {ring_secs:.1f}s preparing)", flush=True)
+        server.longform.ring = ring
 
     # SIGTERM: stop accepting, drain in-flight streams, flush admitted
     # requests, exit; shutdown() must run off the serve_forever thread
@@ -346,6 +379,8 @@ def main(args):
         if slo is not None:
             slo.close()
         server.shutdown()
+        if ring is not None:
+            ring.close()
         if events is not None:
             events.close()
     print("server stopped", flush=True)

@@ -16,8 +16,10 @@ one). With ``dp x tp > 1`` the command starts that many rank processes of
 itself on this host (``parallel/launch.py``; ranks sharing a card use gloo,
 else NCCL) and exits with their code; under torchrun, or with
 ``SPEAKINGSTYLE_MULTIHOST`` set, it trains as the rank the environment
-names. ``seq > 1`` or a partition rule naming ``seq`` (ROADMAP.md queue A
-item 6c) and a rule naming ``data`` (item 6d) exit non-zero naming them.
+names. A partition rule naming ``data`` (ROADMAP.md queue A item 6d) exits
+non-zero naming it. ``seq > 1`` trains on the ``(dp, tp)`` mesh with dense
+attention and a rule naming ``seq`` raises the JAX trainer's error, as the
+JAX command does (it builds no sequence axis to train on).
 
     python -m speakingstyle_torch train -p preprocess.yaml -m model.yaml \\
         -t train.yaml [--max_steps N] [--restore_step -1] [--device cpu] \\
@@ -73,9 +75,9 @@ def resolve_shape(args, cfg) -> Tuple[int, int]:
     """(dp, tp) of this run (speakingstyle_tpu/cli/train.py:84-115): the
     flags, then ``train.parallel``, then ``train.sharding`` (``data_axis:
     -1`` = the visible devices not claimed by tp, at least 1: the cards, or
-    1 on the CPU); exits naming the ROADMAP item for ``seq`` and for a
-    partition rule naming ``seq`` or ``data``, and on a batch ``dp`` does
-    not divide, before any rank starts."""
+    1 on the CPU); exits naming the ROADMAP item for a partition rule
+    naming ``data``, and on a batch ``dp`` does not divide, before any rank
+    starts."""
     from speakingstyle_torch.configs.config import check_train_supported
     from speakingstyle_torch.parallel.mesh import (
         BatchShardingError, local_batch_size, make_mesh, resolve_mesh, visible_devices,
@@ -139,7 +141,8 @@ def main(args):
     # this process trains: alone, or as the rank its environment names
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, parallel=ParallelConfig(
-            mesh=[dp, tp], partition_rules=cfg.train.parallel.partition_rules)))
+            mesh=[dp, tp], seq=cfg.train.parallel.seq,
+            partition_rules=cfg.train.parallel.partition_rules)))
     vocoder = None
     if args.synth and args.vocoder_ckpt:
         from speakingstyle_torch.device import resolve_device

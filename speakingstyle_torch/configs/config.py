@@ -206,7 +206,11 @@ class ModelConfig:
     # "fused" = the attention kernel of ops/fused_attention.py,
     # "einsum" = plain tensor math
     attention_kernel: str = "fused"
-    # "dense" only: the sequence-parallel ring is not ported yet
+    # "dense", or "ring": sequence-parallel exact attention
+    # (parallel/ring_attention.py) in the encoder and decoder stacks, for
+    # inference past max_seq_len; build the model with a seq mesh
+    # (models/factory.build_model(..., seq_mesh=...)); sequence lengths
+    # must divide by its seq axis
     attention_impl: str = "dense"
     # read for schema parity; dropout is the identity at inference
     dropout_impl: str = "hash"
@@ -237,6 +241,13 @@ class ModelConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype}"
+            )
+        if self.attention_impl == "ring" and self.attention_softmax_dtype != "float32":
+            # the ring's streaming softmax is float32 by design
+            # (parallel/ring_attention.py)
+            raise ValueError(
+                'attention_impl="ring" supports only '
+                'attention_softmax_dtype="float32"'
             )
 
 
@@ -400,7 +411,8 @@ class TrainConfig:
             )
 
 
-SEQ_MISSING = "the sequence axis (ring attention) is ROADMAP.md queue A item 6c"
+SEQ_MISSING = ("serving across devices (serve.parallel past mesh [1, 1]: one replica over "
+               "several devices, and a replica spanning hosts) is ROADMAP.md queue A item 6c-ii")
 DATA_RULE_MISSING = ("parameters sharded over the mesh's data axis (a partition rule naming "
                      "'data', which GSPMD takes) are ROADMAP.md queue A item 6d; the port "
                      "splits parameters over the model axis only")
@@ -410,16 +422,16 @@ def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
     """Raise ``NotImplementedError`` for a mesh the port does not train on:
     data parallelism (``dp > 1``) and tensor parallelism (``tp > 1``, the
     partition rules over the ``model`` axis) run as rank processes over
-    ``torch.distributed``; the sequence axis (``seq > 1``, or a partition
-    rule naming ``seq``: ROADMAP.md queue A item 6c) and a partition rule
-    naming ``data`` (item 6d) do not. ``n_devices`` is what
-    ``sharding.data_axis = -1`` ("every device") resolves to."""
+    ``torch.distributed``; a partition rule naming ``data`` (ROADMAP.md
+    queue A item 6d) does not. ``seq > 1`` trains as the JAX trainer does,
+    on the ``(dp, tp)`` mesh of ``parallel.mesh`` with dense attention (the
+    trainer builds no sequence axis), and a rule naming ``seq`` raises where
+    the JAX trainer's sharding does, at tp > 1
+    (``parallel/partition.py::tp_layout``).
+    ``n_devices`` is what ``sharding.data_axis = -1`` ("every device")
+    resolves to."""
     par, sh = train.parallel, train.sharding
-    if par.seq > 1:
-        raise NotImplementedError(f"train.parallel.seq {par.seq}: {SEQ_MISSING}")
     axes = par.rule_axes()
-    if "seq" in axes:
-        raise NotImplementedError(f"train.parallel.partition_rules name 'seq': {SEQ_MISSING}")
     if "data" in axes:
         raise NotImplementedError(f"train.parallel.partition_rules: {DATA_RULE_MISSING}")
     if sh.model_axis < 1:
@@ -432,12 +444,13 @@ def check_train_supported(train: TrainConfig, n_devices: int = 1) -> None:
 def check_serve_supported(serve) -> None:
     """Raise ``NotImplementedError`` for a replica mesh the port does not
     serve on: ``serve.parallel`` past ``mesh: [1, 1]``, ``seq: 1`` is one
-    replica across devices, ROADMAP.md queue A item 6c."""
+    replica across devices (``SEQ_MISSING``). The ring long-form tier
+    (``serve.longform.mesh_seq > 1``) is served."""
     par = serve.parallel
     if not par.is_single():
         raise NotImplementedError(
-            f"serve.parallel (mesh {par.mesh}, seq {par.seq}): a replica across devices is "
-            "ROADMAP.md queue A item 6c; the port serves a replica on one device (mesh [1, 1])")
+            f"serve.parallel (mesh {par.mesh}, seq {par.seq}): {SEQ_MISSING}; the port serves "
+            "a replica on one device (mesh [1, 1])")
 
 
 # ---------------------------------------------------------------------------
@@ -843,9 +856,10 @@ class LongformConfig:
     through the batcher or the fleet, and joins them with an equal-power
     crossfade, streamed chunk by chunk in bounded memory. The ring tier
     (``mesh_seq > 1``: one chapter-length utterance as one ring-attention
-    program over a sequence mesh, at ``src_buckets`` / ``mel_buckets``)
-    is ROADMAP.md queue A item 6c: its keys are accepted and validated, and
-    ``serve`` refuses ``mesh_seq > 1``."""
+    program over a sequence mesh of ``mesh_seq`` ranks, at ``src_buckets``
+    / ``mel_buckets``) is ``RingTier``; ``serve`` builds it on one engine
+    and serves the chunked tier only behind a fleet, as the JAX command
+    does."""
 
     # sequence-mesh size of the ring tier; 0 or 1 = the chunked tier only
     mesh_seq: int = 0
@@ -974,8 +988,8 @@ class ServeConfig:
     serving/lifecycle.py, serving/longform.py, serving/cluster.py,
     cli/serve.py). ``parallel`` is one replica's mesh: ``[1, 1]`` (the
     default) is the one-device engine; ``serve`` and ``replica`` refuse
-    more, which is serving across devices (ROADMAP.md queue A item 6c), as
-    they refuse ``longform.mesh_seq > 1``."""
+    more, which is serving across devices (ROADMAP.md queue A item
+    6c-ii)."""
 
     batch_buckets: List[int] = field(default_factory=lambda: [1, 2, 4, 8])
     src_buckets: List[int] = field(default_factory=lambda: [32, 64, 128, 256])
@@ -1037,6 +1051,12 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+
+
+def config_from_dict(data: Dict[str, Any]) -> Config:
+    """The ``Config`` of a nested dict (``dataclasses.asdict`` of one, sent
+    as JSON to another process), validated as a loaded one is."""
+    return _build(Config, data)
 
 
 def load_yaml(path: str) -> Dict[str, Any]:

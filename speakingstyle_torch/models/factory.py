@@ -38,12 +38,21 @@ def load_dataset_stats(cfg: Config) -> Tuple[tuple, tuple, int]:
     return pitch_stats, energy_stats, n_speakers
 
 
-def build_model(cfg: Config, n_position: Optional[int] = None) -> FastSpeech2:
+def build_model(cfg: Config, n_position: Optional[int] = None, seq_mesh=None) -> FastSpeech2:
     """FastSpeech2 with the dataset stats' bins and speaker count; its
     parameters are uninitialised until ``init_weights`` or
-    ``compat.from_jax.load_flax_variables`` fills them."""
+    ``compat.from_jax.load_flax_variables`` fills them. ``seq_mesh`` (a
+    ``parallel.mesh.SeqMesh``) is required when ``cfg.model.attention_impl
+    == "ring"`` and dropped otherwise, as in the JAX package."""
+    if cfg.model.attention_impl == "ring" and seq_mesh is None:
+        raise ValueError(
+            'attention_impl="ring" needs a seq mesh: '
+            "build_model(cfg, seq_mesh=make_seq_mesh())"
+        )
+    if cfg.model.attention_impl != "ring":
+        seq_mesh = None
     pitch_stats, energy_stats, n_speakers = load_dataset_stats(cfg)
-    return FastSpeech2(cfg, pitch_stats, energy_stats, n_speakers, n_position)
+    return FastSpeech2(cfg, pitch_stats, energy_stats, n_speakers, n_position, seq_mesh=seq_mesh)
 
 
 def _fill(module: nn.Module, name: str, shape, g: torch.Generator) -> torch.Tensor:

@@ -11,6 +11,11 @@ are the same forward, told apart by whether ``d_targets`` is None.
 ``deterministic=False`` (training) turns on dropout at the JAX package's
 sites, with masks from ``rng`` (an ``ops.dropout.DropoutRNG``), and runs
 the postnet's BatchNorm on batch statistics, updating its running ones.
+``seq_mesh`` (``model.attention_impl="ring"``, through
+``models/factory.build_model``) runs the encoder's and decoder's attention
+as ring attention over that sequence mesh; in the free run the ranks then
+take rank 0's predicted durations, so every rank regulates to the same
+frames.
 """
 
 from typing import Optional
@@ -32,9 +37,10 @@ from speakingstyle_torch.parallel.tensor import param
 class FastSpeech2(nn.Module):
     def __init__(self, config: Config, pitch_stats: tuple = (-3.0, 12.0),
                  energy_stats: tuple = (-2.0, 10.0), n_speakers: int = 1,
-                 n_position: Optional[int] = None):
+                 n_position: Optional[int] = None, seq_mesh=None):
         super().__init__()
         self.config = config
+        self.seq_mesh = seq_mesh
         m, pp = config.model, config.preprocess.preprocessing
         tf, ref = m.transformer, m.reference_encoder
         self.dtype = torch_dtype(m.compute_dtype)
@@ -54,7 +60,8 @@ class FastSpeech2(nn.Module):
             )
         # train.sharding.remat checkpoints the encoder's and decoder's FFT
         # blocks (not the reference encoder's), as the JAX package does
-        stack = dict(common, attention_impl=m.attention_impl, remat=config.train.sharding.remat)
+        stack = dict(common, attention_impl=m.attention_impl, remat=config.train.sharding.remat,
+                     seq_mesh=seq_mesh)
         self.encoder = Encoder(
             tf.encoder_layer, tf.encoder_hidden, tf.encoder_head, tf.conv_filter_size,
             tuple(tf.conv_kernel_size), n_position, film=self.use_ref,
@@ -72,7 +79,7 @@ class FastSpeech2(nn.Module):
             d_model=tf.encoder_hidden, filter_size=m.variance_predictor.filter_size,
             kernel_size=m.variance_predictor.kernel_size, film=self.use_ref,
             conv_impl=m.conv_impl, dtype=self.dtype, dropout=m.variance_predictor.dropout,
-            dropout_impl=m.dropout_impl,
+            dropout_impl=m.dropout_impl, seq_mesh=seq_mesh,
         )
         self.decoder = Decoder(
             tf.decoder_layer, tf.decoder_hidden, tf.decoder_head, tf.conv_filter_size,

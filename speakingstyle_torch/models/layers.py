@@ -17,6 +17,13 @@ attention runs its ``n_head / tp`` heads on the rank's column slices of
 q/k/v and its row slice of ``fc``, and the conv FFN its ``d_inner / tp``
 filters, each ending in one all-reduce over ``tp`` before the replicated
 bias; the dropout after either sees the replicated tensor.
+
+Sequence parallelism (``attention_impl="ring"`` with a ``seq_mesh``, a
+``parallel.mesh.SeqMesh``): the attention's scores run through
+``parallel/ring_attention.py`` in float32, each rank on its block of the
+sequence, and every other layer runs whole on every rank, as in the JAX
+package (``models/layers.py:71-89``); the attention kernel is bypassed
+there.
 """
 
 import math
@@ -73,18 +80,18 @@ class FiLM(nn.Module):
 class MultiHeadSelfAttention(nn.Module):
     """Post-LN multi-head self-attention. ``attention_kernel="fused"`` goes
     through the attention kernel (ops/fused_attention.py), ``"einsum"``
-    through the plain tensor math of the JAX package's dense path."""
+    through the plain tensor math of the JAX package's dense path; a
+    ``seq_mesh`` (``attention_impl="ring"``) through ring attention, before
+    either is looked at."""
 
     def __init__(self, n_head: int, d_model: int, dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
                  attention_impl: str = "dense", dropout: float = 0.0,
-                 dropout_impl: str = "hash"):
+                 dropout_impl: str = "hash", seq_mesh=None):
         super().__init__()
-        if attention_impl != "dense":
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r}: the sequence-parallel ring "
-                "is not ported yet"
-            )
+        if attention_impl not in ("dense", "ring"):
+            raise ValueError(f"attention_impl must be dense|ring, got {attention_impl!r}")
+        self.seq_mesh = seq_mesh
         if attention_kernel not in ("einsum", "fused"):
             raise ValueError(f"attention_kernel must be einsum|fused, got {attention_kernel!r}")
         self.n_head, self.d_model = n_head, d_model
@@ -107,7 +114,7 @@ class MultiHeadSelfAttention(nn.Module):
         B, L, _ = x.shape
         d_head = self.d_model // self.n_head
         residual = x
-        mesh = self._head_mesh()
+        mesh = None if self.seq_mesh is not None else self._head_mesh()
         if mesh is None:
             n_head = self.n_head
             q, k, v = (
@@ -121,7 +128,15 @@ class MultiHeadSelfAttention(nn.Module):
                          getattr(self, n).bias.to(self.dtype)).reshape(B, L, n_head, d_head)
                 for n in ("w_qs", "w_ks", "w_vs")
             )
-        if self.attention_kernel == "fused":
+        if self.seq_mesh is not None:
+            from speakingstyle_torch.parallel.ring_attention import ring_self_attention
+
+            # f32 end to end inside the ring; [B, L, H, D] -> [B, H, L, D]
+            out = ring_self_attention(
+                *(t.transpose(1, 2).float() for t in (q, k, v)),
+                attention_bias(pad_mask, torch.float32), mesh=self.seq_mesh,
+            ).transpose(1, 2).to(self.dtype)
+        elif self.attention_kernel == "fused":
             out = fused_mha(q, k, v, pad_mask, softmax_dtype=self.softmax_dtype)
         else:
             # made on the device: a host tensor copied in would be a host
@@ -178,12 +193,12 @@ class FFTBlock(nn.Module):
                  conv_impl: str = "xla", dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
                  attention_impl: str = "dense", dropout: float = 0.0,
-                 dropout_impl: str = "hash"):
+                 dropout_impl: str = "hash", seq_mesh=None):
         super().__init__()
         self.slf_attn = MultiHeadSelfAttention(
             n_head, d_model, dtype=dtype, softmax_dtype=softmax_dtype,
             attention_kernel=attention_kernel, attention_impl=attention_impl,
-            dropout=dropout, dropout_impl=dropout_impl,
+            dropout=dropout, dropout_impl=dropout_impl, seq_mesh=seq_mesh,
         )
         self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, conv_impl=conv_impl, dtype=dtype,
                                dropout=dropout, dropout_impl=dropout_impl)

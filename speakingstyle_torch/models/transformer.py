@@ -9,7 +9,8 @@ non-reentrant), trading the block's forward FLOPs for its activation
 memory, as ``nn.remat`` does in the JAX package. The recompute replays the
 forward's dropout masks (``ops.dropout.ReplayRNG``) and, under tensor
 parallelism, its collectives (every tp rank recomputes the same blocks in
-the same order).
+the same order). A ``seq_mesh`` (``attention_impl="ring"``) runs every
+block's attention as ring attention over it.
 """
 
 from typing import Tuple
@@ -36,7 +37,7 @@ class FFTStack(nn.Module):
                  conv_impl: str = "xla", dtype=torch.float32,
                  softmax_dtype=torch.float32, attention_kernel: str = "einsum",
                  attention_impl: str = "dense", dropout: float = 0.0,
-                 dropout_impl: str = "hash", remat: bool = False):
+                 dropout_impl: str = "hash", remat: bool = False, seq_mesh=None):
         super().__init__()
         self.n_layers, self.remat = n_layers, remat
         self.register_buffer("pe", position_table(n_position, d_model), persistent=False)
@@ -45,7 +46,7 @@ class FFTStack(nn.Module):
                 d_model, n_head, d_inner, kernel_sizes, film=film,
                 conv_impl=conv_impl, dtype=dtype, softmax_dtype=softmax_dtype,
                 attention_kernel=attention_kernel, attention_impl=attention_impl,
-                dropout=dropout, dropout_impl=dropout_impl,
+                dropout=dropout, dropout_impl=dropout_impl, seq_mesh=seq_mesh,
             ))
 
     def forward(self, x, pad_mask, gammas=None, betas=None, deterministic: bool = True,

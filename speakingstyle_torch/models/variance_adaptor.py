@@ -57,9 +57,11 @@ class VarianceAdaptor(nn.Module):
                  energy_feature_level: str = "phoneme_level", d_model: int = 256,
                  filter_size: int = 256, kernel_size: int = 3, film: bool = True,
                  conv_impl: str = "xla", dtype=torch.float32, dropout: float = 0.0,
-                 dropout_impl: str = "hash"):
+                 dropout_impl: str = "hash", seq_mesh=None):
         super().__init__()
         self.dtype = dtype
+        # a sequence mesh's ranks regulate to rank 0's predicted durations
+        self.seq_mesh = seq_mesh
         self.pitch_level, self.energy_level = pitch_feature_level, energy_feature_level
         mk = lambda with_film: VariancePredictor(
             d_model, filter_size, kernel_size, film=with_film, conv_impl=conv_impl, dtype=dtype,
@@ -101,6 +103,8 @@ class VarianceAdaptor(nn.Module):
             durations = duration_target
         else:
             durations = predicted_durations(log_d_pred, src_pad_mask, d_control)
+            if self.seq_mesh is not None:
+                self.seq_mesh.broadcast_([durations])
         x, mel_lens, mel_pad_mask = length_regulate(x, durations, max_mel_len)
         if self.pitch_level == "frame_level":
             p_pred, p_emb = self._variance("pitch", x, mel_pad_mask, pitch_target, p_control, *dr)

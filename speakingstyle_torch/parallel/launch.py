@@ -18,6 +18,10 @@ rank.
   same step as the others: the trainers agree on a stop over the group).
 * A worker that exits non-zero stops the others; the command exits
   non-zero naming that rank (``WorkerFailed``).
+
+``start_workers`` starts some ranks and returns at once: ``serve`` starts
+the helper ranks of its ring long-form tier with it (it is rank 0 itself,
+serving/ring_ranks.py).
 """
 
 import os
@@ -68,17 +72,24 @@ def worker_env(rank: int, world: int, port: int, base: Optional[Dict] = None) ->
     return env
 
 
+def start_workers(argv: Sequence[str], ranks: Sequence[int], world: int, port: int,
+                  env: Optional[Dict] = None) -> List[subprocess.Popen]:
+    """Start ``[python, *argv]`` once for each of ``ranks`` of a ``world``-rank
+    rendezvous on ``port`` of 127.0.0.1 and return the processes (the
+    caller waits for them, or stops them with ``stop_all``)."""
+    procs = [subprocess.Popen([sys.executable, *argv], env=worker_env(r, world, port, env))
+             for r in ranks]
+    print("[parallel] " + ", ".join(f"rank {r} pid {p.pid}" for r, p in zip(ranks, procs)),
+          flush=True)
+    return procs
+
+
 def run_workers(argv: Sequence[str], world: int, env: Optional[Dict] = None) -> int:
     """Run ``[python, *argv]`` as ``world`` ranks on this host and wait for
     them; returns 0, or raises ``WorkerFailed`` for the first rank that
     exited non-zero (the others are stopped). SIGTERM / SIGINT received
     meanwhile are forwarded to every worker."""
-    port = free_port()
-    procs: List[subprocess.Popen] = [
-        subprocess.Popen([sys.executable, *argv], env=worker_env(r, world, port, env))
-        for r in range(world)]
-    print("[parallel] " + ", ".join(f"rank {r} pid {p.pid}" for r, p in enumerate(procs)),
-          flush=True)
+    procs = start_workers(argv, range(world), world, free_port(), env)
 
     def forward(signum, frame):
         for p in procs:

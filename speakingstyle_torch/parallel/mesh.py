@@ -30,10 +30,25 @@ rank of a data-parallel group sees the same rows), the JAX package's
   ``broadcast`` only: gloo runs both on CUDA tensors, so one code path
   serves NCCL and a shared card. Host values (flags, counts, gauges) go
   over a CPU gloo group (the device group itself under gloo).
+
+The sequence axis is a mesh of its own, as in the JAX package
+(``make_seq_mesh``: a 1-D ``("seq",)`` mesh beside the ``(data, model)``
+one): ``SeqMesh``, ``n`` ranks each holding block ``rank`` of a sequence,
+joined in a gloo group that is not the process's default group (a server
+keeps serving on its own when the group breaks), with a short timeout of
+its own (``RING_TIMEOUT_S``). Its collectives stage every tensor through
+host memory (pinned where it comes from the card): ``rotate`` is JAX's
+``ppermute`` with ``perm = [(i, (i + 1) % n)]`` as a gloo send to the next
+rank and a receive from the previous one, which gloo runs on CPU tensors
+only; ``gather`` is the whole sequence from every rank's block by ``n - 1``
+rotations (exact: nothing is summed); ``broadcast_`` sends rank 0's
+values.
 """
 
 import dataclasses
+import datetime
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -49,6 +64,9 @@ ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR
 BUCKET_BYTES = 64 << 20
 # seconds a collective waits for the other ranks before the group fails
 GROUP_TIMEOUT_S = 1800.0
+# the same for a sequence group: a ring rank that does not answer within
+# this fails the ring program (a server then serves without the ring)
+RING_TIMEOUT_S = 60.0
 
 
 class BatchShardingError(ValueError):
@@ -419,3 +437,125 @@ def shard_batch(arrays: Dict, mesh: Optional[Mesh]) -> Dict:
         return arrays
     rows = mesh.rows(next(iter(arrays.values())).shape[0])
     return {k: v[rows] for k, v in arrays.items()}
+
+
+class SeqMesh:
+    """The ranks of a sequence axis (JAX counterpart: ``make_seq_mesh``'s
+    1-D ``("seq",)`` mesh): ``n`` ranks, this one ``rank``, joined in the
+    gloo ``group``; ``device`` is where this rank computes. The ring's
+    collectives stage through host memory (module docstring) and add their
+    host wall seconds and calls to ``stats``."""
+
+    def __init__(self, n: int, rank: int, group, device=None,
+                 timeout_s: float = RING_TIMEOUT_S):
+        self.n, self.rank, self.group = n, rank, group
+        self.device = torch.device("cpu" if device is None else device)
+        self.timeout = datetime.timedelta(seconds=timeout_s)
+        self.stats = {"rotate_s": 0.0, "rotations": 0, "gather_s": 0.0, "gathers": 0,
+                      "bytes_sent": 0}
+
+    def ranks(self, group: str = "seq") -> List[int]:
+        return list(range(self.n))
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` (pinned when ``t`` is on the card)."""
+        if t.device.type == "cpu":
+            return t.detach().contiguous().clone()
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t.detach())
+        return buf
+
+    def _empty_host(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.device.type == "cuda")
+
+    def _wait(self, works) -> None:
+        for w in works:
+            w.wait(self.timeout)
+
+    def rotate(self, tensors: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
+        """JAX's ``ppermute(x, "seq", [(i, (i + 1) % n)])`` on each tensor
+        (None passes): this rank's tensors go to the next rank, and the
+        previous rank's come back, on this rank's device."""
+        from torch.profiler import record_function
+
+        t0 = time.perf_counter()
+        nxt, prv = (self.rank + 1) % self.n, (self.rank - 1) % self.n
+        out: List[Optional[torch.Tensor]] = []
+        with record_function("seq.rotate"):
+            works, pairs = [], []
+            for tag, t in enumerate(tensors):
+                if t is None:
+                    pairs.append(None)
+                    continue
+                send, recv = self._host(t), self._empty_host(t)
+                works.append(self.group.send([send], nxt, tag))
+                works.append(self.group.recv([recv], prv, tag))
+                pairs.append((send, recv, t.device))
+                self.stats["bytes_sent"] += send.numel() * send.element_size()
+            self._wait(works)
+            for pair in pairs:
+                out.append(None if pair is None else
+                           pair[1].to(pair[2], non_blocking=pair[2].type == "cuda"))
+        self.stats["rotate_s"] += time.perf_counter() - t0
+        self.stats["rotations"] += 1
+        return out
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor of which ``t`` is this rank's block along
+        ``dim``, on every rank: ``n - 1`` rotations of the block, each
+        received block written at its rank's place."""
+        from torch.profiler import record_function
+
+        t0 = time.perf_counter()
+        with record_function("seq.gather"):
+            shape = list(t.shape)
+            m = shape[dim]
+            shape[dim] = m * self.n
+            whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+            whole.narrow(dim, self.rank * m, m).copy_(t)
+            block = t
+            for s in range(1, self.n):
+                block = self.rotate([block])[0]
+                whole.narrow(dim, ((self.rank - s) % self.n) * m, m).copy_(block)
+        self.stats["gather_s"] += time.perf_counter() - t0
+        self.stats["gathers"] += 1
+        return whole
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Rank 0's values of ``tensors`` on every rank, in place."""
+        import torch.distributed as dist
+
+        opts = dist.BroadcastOptions()
+        opts.rootRank = 0
+        for t in tensors:
+            host = self._host(t)
+            self._wait([self.group.broadcast([host], opts)])
+            if self.rank:
+                t.copy_(host)
+
+    def host_gather(self, values: Sequence[float], group: str = "seq") -> List[List[float]]:
+        """Every rank's ``values`` (the same count on each), in rank order."""
+        k = len(values)
+        rows = torch.zeros(self.n * k, dtype=torch.float64)
+        rows[self.rank * k: (self.rank + 1) * k] = torch.tensor([float(v) for v in values],
+                                                                dtype=torch.float64)
+        self._wait([self.group.allreduce([rows])])
+        flat = rows.tolist()
+        return [flat[r * k: (r + 1) * k] for r in range(self.n)]
+
+
+def make_seq_mesh(seq: int, store, rank: int = 0, device=None,
+                  timeout_s: float = RING_TIMEOUT_S) -> SeqMesh:
+    """Join the ``seq``-rank sequence group of ``store`` (a
+    ``torch.distributed`` store every rank reaches: a ``TCPStore`` across
+    processes, a ``HashStore`` across threads) as ``rank``, over
+    127.0.0.1; every rank calls it, and it returns once all have."""
+    import torch.distributed as dist
+
+    if seq < 2:
+        raise ValueError(f"a sequence mesh needs seq >= 2, got {seq}")
+    opts = dist.ProcessGroupGloo._Options()
+    opts._timeout = datetime.timedelta(seconds=timeout_s)
+    opts._devices = [dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")]
+    group = dist.ProcessGroupGloo(dist.PrefixStore("seq", store), rank, seq, opts)
+    return SeqMesh(seq, rank, group, device, timeout_s)

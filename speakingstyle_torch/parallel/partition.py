@@ -15,7 +15,9 @@ replicate) against each parameter's Flax path, the name
 A spec names a Flax dimension; ``tp_layout`` turns it into the dimension of
 the port's tensor (an ``nn.Linear`` stores its kernel transposed) and keeps
 the JAX package's divisibility fallback: a leaf whose split dimension
-``tp`` does not divide stays replicated. The BatchNorm statistics and
+``tp`` does not divide stays replicated. A spec naming an axis the
+``(data, model)`` mesh lacks (``seq``: the trainer builds no sequence axis)
+raises the JAX package's error where its sharding would. The BatchNorm statistics and
 every leaf no rule picks are replicated. The Adam moments follow their
 parameters (``training/optim.py`` builds them from the local shards).
 
@@ -29,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from speakingstyle_torch.parallel.mesh import AXIS_NAMES
 
 Spec = Tuple[Optional[str], ...]
 
@@ -91,16 +95,20 @@ def tp_layout(model: nn.Module, tp: int, rules=None) -> Dict[str, Optional[int]]
         to_torch = list(range(p.dim())) if perm is None else [list(perm).index(f)
                                                                for f in range(p.dim())]
         split = None
-        for f, axis in enumerate(spec):
-            if axis is None:
-                continue
-            if axis != "model":
-                raise ValueError(f"partition rule for {path}: axis {axis!r}; the port splits "
-                                 "parameters over the mesh's model axis only")
-            if f >= p.dim() or p.shape[to_torch[f]] % tp:
-                split = None
-                break
-            split = to_torch[f]
+        # the JAX package's fallback: replicated unless tp divides every
+        # named dimension
+        if all(axis is None or (f < p.dim() and p.shape[to_torch[f]] % tp == 0)
+               for f, axis in enumerate(spec)):
+            for f, axis in enumerate(spec):
+                if axis is None:
+                    continue
+                if axis not in AXIS_NAMES:  # JAX's NamedSharding error, word for word
+                    raise ValueError(f"Resource axis: {axis} of PartitionSpec{spec!r} is not "
+                                     f"found in mesh: {AXIS_NAMES}.")
+                if axis != "model":
+                    raise ValueError(f"partition rule for {path}: axis {axis!r}; the port "
+                                     "splits parameters over the mesh's model axis only")
+                split = to_torch[f]
         out[name] = split
     return out
 

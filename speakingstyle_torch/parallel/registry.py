@@ -431,7 +431,8 @@ class ProgramRegistry:
 
     def prepare(self, fn: Callable, example: Mapping[str, torch.Tensor], *, name: str,
                 device, labels: Optional[Dict[str, str]] = None,
-                precision: str = "f32") -> Tuple[Program, Optional[Dict[str, torch.Tensor]]]:
+                precision: str = "f32",
+                capture: bool = True) -> Tuple[Program, Optional[Dict[str, torch.Tensor]]]:
         """(callable, inputs, name) -> (the ``Program``, the warm-up's
         outputs), with the bookkeeping done; a key prepared before returns
         (its program, None). ``fn(**inputs)`` returns a dict of tensors.
@@ -445,7 +446,17 @@ class ProgramRegistry:
         never under the capture), then the capture follows; the capture
         launches nothing, so the counts its wrappers added are taken back
         (and credited on every replay). Counts one preparation per new key.
-        A new key is prepared holding ``DEVICE_GATE`` exclusively."""
+        A new key is prepared holding ``DEVICE_GATE`` exclusively.
+
+        ``capture=False`` prepares a program that is never captured: one
+        whose run holds host work a graph cannot record (a ring program's
+        gloo collectives, serving/longform.py's ``RingTier``). Its
+        preparation counts, mints its card and runs the warm-up on the
+        caller's stream like the others; its calls run ``fn`` eagerly,
+        holding the gate shared, and its kernels count their own launches
+        as they happen. The preparation still holds the gate exclusively:
+        the warm-up reads the launch counters and FLOP tallies, which are
+        process-wide, and it runs once per point at start-up."""
         from torch.utils.flop_counter import FlopCounterMode
 
         from speakingstyle_torch.obs.cost import ProgramCard, publish_program_gauges
@@ -464,7 +475,7 @@ class ProgramRegistry:
             if prog is not None:
                 return prog, None
             dev_in = {k: v.to(device, non_blocking=True) for k, v in example.items()}
-            cuda = device.type == "cuda"
+            cuda = device.type == "cuda" and capture
             stream = None
             if cuda:
                 if self._stream is None:

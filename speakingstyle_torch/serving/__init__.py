@@ -18,15 +18,16 @@ Layering:
   autoscale.py -- the policy thread that drives the fleet's scale_to()
   tiers.py     -- class -> quality-tier routing over canary-gated tier fleets
   probes.py    -- golden probes of the live fleet against pinned anchors
-  longform.py  -- chapter-length requests as deadline-sharing chunk groups
+  longform.py  -- chapter-length requests: deadline-sharing chunk groups,
+                  or one ring-attention free run (RingTier)
+  ring_ranks.py -- the helper rank processes of a ring tier
   traffic.py   -- the seeded diurnal / flash-crowd load model
   cluster.py   -- replica processes behind the router: leases, the hedged
                   wire dispatch, metrics and trace federation
   server.py    -- the stdlib HTTP front end over the batcher or a router
 
 The package exports what the JAX package's does (the fleet's and the
-cluster's modules are imported by name). The ring long-form tier is
-ROADMAP.md queue A item 6c.
+cluster's modules are imported by name).
 """
 
 from speakingstyle_torch.serving.batcher import (  # noqa: F401

@@ -82,7 +82,9 @@ replica's counters summed and histogram buckets merged; ``/healthz`` has a
 ``cluster`` block (quorum, control address, a lease row a replica) and
 answers 503 until the quorum is READY. A stream (and so a chapter) needs a
 vocoder in this process, which a cluster router has not: 400, as in JAX.
-The ring long-form tier is ROADMAP.md queue A item 6c.
+The ring long-form tier rides in when the caller attaches a ``RingTier``
+to ``server.longform.ring`` (``cli/serve.py`` on one engine, as the JAX
+command does).
 """
 
 import concurrent.futures
@@ -115,6 +117,8 @@ __all__ = ["SynthesisServer", "profile_window", "wav_bytes", "wav_stream_header"
 # how long a handler waits on its request's future (behind a router, no
 # longer than the class deadline and its grace either)
 REQUEST_TIMEOUT_S = 60.0
+# /healthz reads of a router's states around its ready predicate, at most
+HEALTH_READS = 3
 
 
 def wav_bytes(wav: np.ndarray, sampling_rate: int) -> bytes:
@@ -229,7 +233,8 @@ class SynthesisServer:
     whose status is the /healthz ``slo`` block; ``probes`` a
     ``GoldenProber`` whose status is the /healthz ``quality.probes`` block.
     ``router`` may be a ``TierRouter`` (serving/tiers.py). With a frontend
-    the server builds the chunked ``LongformService`` over its backend."""
+    the server builds the ``LongformService`` over its backend (the
+    chunked tier; a ring tier is attached to it by the caller)."""
 
     def __init__(self, engine: Optional[SynthesisEngine] = None,
                  frontend: Optional[TextFrontend] = None, host: Optional[str] = None,
@@ -266,7 +271,9 @@ class SynthesisServer:
             self.backend = self.batcher
         # chapters (POST /synthesize/longform): the chunked tier needs only
         # the frontend and the backend, so it is built whenever a frontend is
-        self.longform = (LongformService(self.cfg, frontend, self.backend,
+        self.longform = (LongformService(self.cfg, frontend, self.backend, engine=engine,
+                                         fault_plan=getattr(engine if engine is not None
+                                                            else router, "fault_plan", None),
                                          registry=self.registry, events=events,
                                          quality=self.quality_gate)
                          if frontend is not None else None)
@@ -285,6 +292,7 @@ class SynthesisServer:
         self._stream_overlap: Optional[int] = None
         self._shutdown_lock = make_lock("SynthesisServer._shutdown_lock")
         self._shut_down = False
+        self._serving = False  # serve_forever ran (once _shut_down is set, it never will)
         self._shutdown_done = threading.Event()
         self._profile_lock = make_lock("SynthesisServer._profile_lock")
         # set while a capture's window counts (``profile_window``)
@@ -411,6 +419,25 @@ class SynthesisServer:
             return self.router.ready()
         return self.engine.is_ready
 
+    def _health(self):
+        """(``is_ready()``, the router's replica states or None) of one
+        instant: a replica may change state between the two reads, so they
+        are read until the states on either side of the predicate agree
+        (each router's predicate is a function of its states), at most
+        ``HEALTH_READS`` times, so the /healthz status contradicts its
+        replica block only while the states keep changing."""
+        if self.router is None:
+            return self.is_ready(), None
+        states = self.router.states()
+        for _ in range(HEALTH_READS):
+            ready = self.router.ready()
+            after = self.router.states()
+            if after == states:
+                break
+            states = after
+        # past HEALTH_READS flapping reads: the last pair, which may disagree
+        return ready, states
+
     def programs(self):
         """The program cards of every live engine (replicas in index
         order; a replica process keeps its own), then the shared style
@@ -520,8 +547,9 @@ class SynthesisServer:
         def c(name):
             return int(counters.get(name, 0))
 
+        ready, states = self._health()
         out = {
-            "ready": self.is_ready(),
+            "ready": ready,
             "uptime_s": round(time.monotonic() - self.started, 1),
             "build": self.build,
             "lattice_points": len(self.router.lattice if self.router is not None
@@ -545,7 +573,7 @@ class SynthesisServer:
             },
         }
         if self.router is not None:
-            out["replicas"] = {str(i): s for i, s in sorted(self.router.states().items())}
+            out["replicas"] = {str(i): s for i, s in sorted(states.items())}
             if hasattr(self.router, "cluster_stats"):
                 # the control plane's view; ready above is quorum-gated
                 out["cluster"] = {"quorum": self.router.ccfg.quorum,
@@ -612,6 +640,10 @@ class SynthesisServer:
         return self.httpd.server_address
 
     def serve_forever(self):
+        with self._shutdown_lock:
+            if self._shut_down:
+                return
+            self._serving = True
         self.httpd.serve_forever()
 
     def drain_streams(self, timeout: Optional[float] = None) -> bool:
@@ -645,7 +677,11 @@ class SynthesisServer:
             self._shutdown_done.set()
 
     def _shutdown(self):
-        self.httpd.shutdown()
+        # socketserver's shutdown() waits for serve_forever's loop to end,
+        # so it would wait for ever on a server that never served (a start
+        # that failed after the socket was bound); such a server only closes
+        if self._serving:
+            self.httpd.shutdown()
         self.httpd.server_close()
         if not self.drain_streams() and self.events is not None:
             self.events.emit("shutdown_drain_timeout",
@@ -695,7 +731,8 @@ def _handler(outer: SynthesisServer):
         def do_GET(self):
             path = self.path.split("?")[0]
             if path == "/healthz":
-                return self._json(200 if outer.is_ready() else 503, outer.stats())
+                body = outer.stats()
+                return self._json(200 if body["ready"] else 503, body)
             if path == "/metrics":
                 if outer.batcher is not None:
                     outer.batcher.refresh_gauges()

@@ -598,21 +598,190 @@ def test_serve_command_refuses_a_fleet_and_runs_on_cuda_unless_told(monkeypatch)
 
 
 def test_serve_command_refuses_the_ring_long_form_tier(tmp_path):
-    """``serve.longform.mesh_seq > 1`` (the ring tier) exits non-zero naming
-    ROADMAP queue A item 6, on one engine and with a fleet, before anything
-    is loaded; mesh_seq 1 is the chunked tier and passes that check."""
+    """``serve.longform.mesh_seq > 1`` (the ring tier) is served since the
+    sequence axis was ported (ROADMAP queue A item 6c-i), so no mesh_seq is
+    refused any more: on one engine and with a fleet (which serves the
+    chunked tier only, as the JAX command does) the command goes past its
+    checks to the restore, as for mesh_seq 1. The name is kept from when
+    the ring tier was refused."""
     import yaml
 
     from speakingstyle_torch.__main__ import main
 
     train = tmp_path / "train.yaml"
-    for mesh_seq, replicas in ((2, "1"), (4, "2")):
+    for mesh_seq, replicas in ((2, "1"), (4, "2"), (1, "1")):
         train.write_text(yaml.safe_dump({"serve": {"longform": {"mesh_seq": mesh_seq}}}))
-        with pytest.raises(SystemExit, match="queue A item 6"):
-            main(["serve", "-t", str(train), "--restore_step", "1", "--replicas", replicas])
-    train.write_text(yaml.safe_dump({"serve": {"longform": {"mesh_seq": 1}}}))
-    with pytest.raises(FileNotFoundError):  # past the check: no checkpoint to restore
-        main(["serve", "-t", str(train), "--restore_step", "1", "--device", "cpu"])
+        with pytest.raises(FileNotFoundError):  # past the checks: no checkpoint to restore
+            main(["serve", "-t", str(train), "--restore_step", "1", "--replicas", replicas,
+                  "--device", "cpu"])
+
+
+# the ring long-form tier of the serve command at the tiny model: 2 ranks,
+# one point past the interactive lattice, within the position table
+RING_LONGFORM = {"mesh_seq": 2, "src_buckets": [32], "mel_buckets": [128],
+                 "crossfade_frames": 1, "deadline_ms_per_chunk": 30000.0}
+# a chapter of the lexicon's words (well under 32 phonemes)
+RING_CHAPTER = "hello world. hi world. hello hi."
+
+
+def ring_checkpoint(root, corpus):  # noqa: F811
+    """``seeded_checkpoint``'s configs and checkpoint (step 3) with
+    ``serve.longform`` = ``RING_LONGFORM``; returns the config paths."""
+    import yaml
+
+    paths, _ = seeded_checkpoint(root, corpus, 3)
+    train = yaml.safe_load(open(paths["train"]))
+    train["serve"]["longform"] = RING_LONGFORM
+    open(paths["train"], "w").write(yaml.safe_dump(train))
+    return paths
+
+
+def test_serve_command_answers_a_chapter_on_the_ring_tier(tmp_path, corpus):  # noqa: F811
+    """``python -m speakingstyle_torch serve --device cpu`` with
+    ``serve.longform.mesh_seq: 2`` (the JAX command's ring branch): it
+    starts its helper rank process, prepares the ring's point before it
+    binds, answers ``POST /synthesize/longform`` with ``X-Longform-Tier:
+    ring`` (a wav streamed through the vocoder; weights from --seed), and on
+    SIGTERM stops the helper and exits 0."""
+    import http.client
+    import signal
+    import subprocess
+    import sys
+
+    paths = ring_checkpoint(tmp_path, corpus)
+    ref = _ref_wav(tmp_path / "ref.wav", seconds=0.3)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "speakingstyle_torch", "serve", "-p", paths["preprocess"],
+         "-m", paths["model"], "-t", paths["train"], "--restore_step", "3", "--device", "cpu",
+         "--ref_audio", ref, "--host", "127.0.0.1", "--port", "0"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                break
+        address = lines[-1].split("http://", 1)[1].split(" ", 1)[0]
+        host, port = address.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        conn.request("POST", "/synthesize/longform", body=json.dumps({"text": RING_CHAPTER}))
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = "".join(lines) + rest
+    assert proc.returncode == 0, out
+    assert "ring tier ready" in out and "1 ring-attention long-form points" in out
+    assert resp.status == 200, body[:300]
+    assert resp.getheader("X-Longform-Tier") == "ring"
+    assert body[:4] == b"RIFF" and len(body) > 44
+    # the helper ran the preparation and the chapter, then stopped
+    assert "[ring 1] stopped after 2 program(s)" in out, out
+    assert "SIGTERM: draining" in out and "server stopped" in out
+
+
+@pytest.mark.parametrize("failure", ["helper_exits", "preparation_fails"])
+def test_serve_command_exits_when_the_ring_does_not_start(failure, tmp_path, corpus,  # noqa: F811
+                                                          monkeypatch):
+    """A ring tier that does not start (its helper process exits before it
+    joins, or a preparation fails after it joined) ends the serve command
+    with a non-zero exit naming the cause, its server closed before it ever
+    served and no helper process left; it neither hangs nor serves the
+    chunked tier alone."""
+    import subprocess
+    import sys
+    import threading
+
+    from speakingstyle_torch.__main__ import main
+    from speakingstyle_torch.parallel import launch
+    from speakingstyle_torch.serving.longform import RingTier
+
+    paths = ring_checkpoint(tmp_path, corpus)
+    helpers = []
+    if failure == "helper_exits":
+        def start_workers(*args, **kwargs):
+            helpers.append(subprocess.Popen([sys.executable, "-c", "raise SystemExit(3)"]))
+            return list(helpers)
+        monkeypatch.setattr(launch, "start_workers", start_workers)
+        cause = "exited"
+    else:
+        def precompile(self):
+            helpers.extend(self.group.procs)
+            raise RuntimeError("CUDA out of memory (injected)")
+        monkeypatch.setattr(RingTier, "precompile", precompile)
+        cause = "CUDA out of memory"
+    raised = []
+
+    def serve():
+        try:
+            main(["serve", "-p", paths["preprocess"], "-m", paths["model"], "-t",
+                  paths["train"], "--restore_step", "3", "--device", "cpu", "--griffin_lim",
+                  "--host", "127.0.0.1", "--port", "0"])
+        except BaseException as e:  # noqa: B036 (SystemExit is the result)
+            raised.append(e)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive(), "serve hung after the ring failed to start"
+    assert len(raised) == 1 and isinstance(raised[0], SystemExit), raised
+    assert raised[0].code and "ring long-form tier did not start" in str(raised[0].code)
+    assert cause in str(raised[0].code)
+    assert helpers and all(p.poll() is not None for p in helpers)
+
+
+def test_seq_axis_in_training_does_what_the_jax_trainer_does(tmp_path, corpus):  # noqa: F811
+    """One set of YAMLs for both packages' trainers (ROADMAP queue A item
+    6c-i); the JAX trainer builds no sequence axis:
+
+    * ``parallel.seq: 2`` (mesh [1, 1]): the JAX trainer's mesh is the
+      (data, model) mesh of 1 x 1, and the port trains on one device (a
+      step, dense attention);
+    * with ``mesh: [1, 2]`` and a partition rule naming ``seq``: the same
+      ValueError from both trainers' sharding, word for word;
+    * ``model.attention_impl: ring``: the same ValueError from both
+      trainers' ``build_model`` (a ring model needs a seq mesh)."""
+    from speakingstyle_torch.models.factory import build_model, init_weights
+    from speakingstyle_torch.parallel.mesh import Mesh
+    from speakingstyle_torch.training.trainer import run_training, shard_model
+    from speakingstyle_tpu.parallel.mesh import resolve_mesh as j_resolve_mesh
+    from speakingstyle_tpu.training.trainer import run_training as j_run
+    from test_torch_training import LIBRARY_MODEL, load_both
+
+    def both(name, model=LIBRARY_MODEL, **parallel):
+        (tmp_path / name).mkdir()
+        return load_both(write_configs(tmp_path / name, corpus, model, step={"val_step": 1000},
+                                       obs={"program_card": False}, parallel=parallel))
+
+    def jax_run(jcfg):
+        with jax.default_prng_impl("threefry2x32"):
+            return j_run(dataclasses.replace(jcfg, train=dataclasses.replace(
+                jcfg.train, fast_prng=False)), max_steps=1)
+
+    jcfg, tcfg = both("seq", seq=2)
+    mesh = j_resolve_mesh(jcfg.train.parallel)
+    assert mesh.axis_names == ("data", "model") and mesh.devices.shape == (1, 1)
+    assert run_training(tcfg, device="cpu", max_steps=1).step == 1
+    jcfg, tcfg = both("seq_rule", mesh=[1, 2],
+                      partition_rules=[["mel_linear/kernel$", "seq,none"]])
+    with pytest.raises(ValueError) as want:
+        jax_run(jcfg)
+    with pytest.raises(ValueError) as got:  # the sharding step of a tp rank
+        shard_model(init_weights(build_model(tcfg)), tcfg, Mesh(dp=1, tp=2))
+    assert str(got.value) == str(want.value) and "Resource axis: seq" in str(got.value)
+    jcfg, tcfg = both("ring", model=dict(LIBRARY_MODEL, attention_impl="ring"))
+    with pytest.raises(ValueError) as want:
+        jax_run(jcfg)
+    with pytest.raises(ValueError) as got:
+        run_training(tcfg, device="cpu", max_steps=1)
+    assert str(got.value) == str(want.value) and "seq mesh" in str(got.value)
 
 
 def test_a_serve_parallel_yaml_loads_in_both_packages(tmp_path):

@@ -21,7 +21,8 @@ Four layers, the chunked cases of ``tests/test_longform.py``:
   int16 rounding); the 413 body's pointer and the ``max_chunks`` 413.
 
 The ring tier's cases (``tests/test_longform.py:318``, ``:617``, ``:680``)
-wait for ROADMAP.md queue A item 6; here the port refuses a ring.
+are in ``tests/test_torch_ring.py``; here a service without a ring admits
+every tier as chunked, as the JAX service does.
 """
 
 import importlib
@@ -286,14 +287,27 @@ def test_service_without_a_ring_admits_every_tier_as_chunked(name):
 
 
 def test_a_ring_tier_is_refused_naming_queue_a_item_6():
-    p = pkg("torch")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        p.longform.LongformService(svc_cfg(p), FakeFrontend(), FakeBackend(),
-                                   ring=SimpleNamespace(max_src=1, max_mel=1))
-    cfg = p.config.LongformConfig(mesh_seq=2, src_buckets=[512], mel_buckets=[6144])
-    assert cfg.mesh_seq == 2  # the keys load; serve refuses them
-    with pytest.raises(ValueError, match="divisible"):
-        p.config.LongformConfig(mesh_seq=3, src_buckets=[512], mel_buckets=[6144])
+    """A ring tier is accepted since ROADMAP queue A item 6c-i (the name is
+    kept from when it was refused): without an engine that vocodes, or
+    past its buckets, a chapter is still admitted chunked, in both
+    packages; the ring keys are validated alike."""
+    for name in PKGS:
+        p = pkg(name)
+        ring = SimpleNamespace(max_src=12, max_mel=24)
+        without_vocoder = p.longform.LongformService(svc_cfg(p), FakeFrontend(), FakeBackend(),
+                                                     ring=ring)
+        assert without_vocoder.admit("x", {"text": "hi there."}).tier == "chunked"
+        vocoder = ("gen", "params") if name == "tpu" else object()
+        svc = p.longform.LongformService(svc_cfg(p), FakeFrontend(), FakeBackend(),
+                                         engine=SimpleNamespace(vocoder=vocoder), ring=ring,
+                                         registry=p.obs.MetricsRegistry())
+        assert svc.admit("x", {"text": "hi there."}).tier == "ring"  # 6 ids, 12 frames
+        assert svc.admit("x", {"text": "hi there.", "tier": "chunked"}).tier == "chunked"
+        assert svc.admit("x", chapter(2)).tier == "chunked"  # 24 ids: past max_src
+        cfg = p.config.LongformConfig(mesh_seq=2, src_buckets=[512], mel_buckets=[6144])
+        assert cfg.mesh_seq == 2
+        with pytest.raises(ValueError, match="divisible"):
+            p.config.LongformConfig(mesh_seq=3, src_buckets=[512], mel_buckets=[6144])
 
 
 class GatedEngine:

@@ -78,10 +78,12 @@ def test_local_batch_size_structured_error():
 
 
 def test_check_train_supported_names_6b_and_6c():
-    """Tensor parallelism (item 6b) is admitted now, with partition rules
-    over ``model``; the sequence axis, and a rule naming it, still name
-    item 6c, and a rule naming ``data`` (GSPMD shards parameters over it)
-    names item 6d."""
+    """Tensor parallelism (item 6b) is admitted, with partition rules over
+    ``model``, and so are the sequence axis and a rule naming it (item
+    6c-i: the JAX trainer builds no sequence axis, so ``seq > 1`` trains on
+    the (dp, tp) mesh and the rule fails where its sharding fails,
+    ``partition.tp_layout``); a rule naming ``data`` (GSPMD shards
+    parameters over it) names item 6d."""
     from speakingstyle_torch.configs.config import (
         ParallelConfig, ShardingConfig, TrainConfig, check_train_supported,
     )
@@ -90,14 +92,12 @@ def test_check_train_supported_names_6b_and_6c():
                TrainConfig(parallel=ParallelConfig(mesh=[2, 2])),
                TrainConfig(sharding=ShardingConfig(model_axis=2)),
                TrainConfig(parallel=ParallelConfig(
-                   mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "none,model"]]))):
+                   mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "none,model"]])),
+               TrainConfig(parallel=ParallelConfig(seq=2)),
+               TrainConfig(parallel=ParallelConfig(
+                   mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "seq,none"]]))):
         check_train_supported(ok)
     check_train_supported(TrainConfig(), n_devices=4)
-    for bad in (TrainConfig(parallel=ParallelConfig(seq=2)),
-                TrainConfig(parallel=ParallelConfig(
-                    mesh=[1, 2], partition_rules=[["mel_linear/kernel$", "seq,none"]]))):
-        with pytest.raises(NotImplementedError, match="queue A item 6c"):
-            check_train_supported(bad)
     with pytest.raises(NotImplementedError, match="queue A item 6d"):
         check_train_supported(TrainConfig(parallel=ParallelConfig(
             mesh=[2, 2], partition_rules=[["mel_linear/kernel$", "data,model"]])))
@@ -406,8 +406,11 @@ def test_model_parallel_and_seq_exit_naming_6b_and_6c(tmp_path, corpus, monkeypa
     each step once, the last step's checkpoint whole: one process restores
     it); ``train.parallel.mesh: [1, 2]`` and ``sharding.model_axis: 2``
     resolve to the same mesh. ``seq`` and a partition rule naming ``seq``
-    exit naming item 6c, one naming ``data`` item 6d, before any rank
-    starts."""
+    resolve to the (dp, tp) mesh of ``parallel.mesh`` (item 6c-i: the JAX
+    trainer builds no sequence axis; what the rule then does is
+    ``tests/test_torch_cli.py::test_seq_axis_in_training_does_what_the_jax_trainer_does``);
+    a rule naming ``data`` exits naming item 6d, before any rank starts.
+    The name is kept from when ``seq`` exited naming item 6c."""
     from speakingstyle_torch.__main__ import main
     from speakingstyle_torch.cli.train import build_parser, resolve_shape
     from speakingstyle_torch.configs.config import load_config
@@ -435,16 +438,20 @@ def test_model_parallel_and_seq_exit_naming_6b_and_6c(tmp_path, corpus, monkeypa
         paths = write_configs(tmp_path / name, corpus, optimizer={"batch_size": 4}, **train)
         cfg = load_config(paths["preprocess"], paths["model"], paths["train"])
         assert resolve_shape(build_parser().parse_args(train_args(paths)[1:]), cfg) == (1, 2)
-    for name, parallel, item in (
-            ("seq", {"seq": 2}, "6c"),
+    for name, parallel, shape in (
+            ("seq", {"seq": 2}, (1, 1)),
             ("seq_rule", {"mesh": [1, 2], "partition_rules": [["mel_linear/kernel$",
-                                                               "seq,none"]]}, "6c"),
-            ("data_rule", {"mesh": [2, 2], "partition_rules": [["mel_linear/kernel$",
-                                                                "data,model"]]}, "6d")):
+                                                               "seq,none"]]}, (1, 2))):
         (tmp_path / name).mkdir()
-        paths = write_configs(tmp_path / name, corpus, parallel=parallel)
-        with pytest.raises(SystemExit, match=f"queue A item {item}"):
-            main(train_args(paths))
+        paths = write_configs(tmp_path / name, corpus, optimizer={"batch_size": 4},
+                              parallel=parallel)
+        cfg = load_config(paths["preprocess"], paths["model"], paths["train"])
+        assert resolve_shape(build_parser().parse_args(train_args(paths)[1:]), cfg) == shape
+    (tmp_path / "data_rule").mkdir()
+    paths = write_configs(tmp_path / "data_rule", corpus, parallel={
+        "mesh": [2, 2], "partition_rules": [["mel_linear/kernel$", "data,model"]]})
+    with pytest.raises(SystemExit, match="queue A item 6d"):
+        main(train_args(paths))
 
 
 def test_the_kernel_build_holds_the_build_directory_lock(tmp_path, monkeypatch):

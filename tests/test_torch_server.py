@@ -491,6 +491,58 @@ def test_healthz_503_until_precompiled(tmp_path):
         stop(server, thread)
 
 
+def test_a_server_that_never_served_shuts_down_at_once(tmp_path):
+    """``shutdown()`` before ``serve_forever()`` ever ran (a start-up that
+    failed after the socket was bound) closes the socket and the backend
+    without waiting for a serve loop, and a ``serve_forever()`` after it
+    returns at once."""
+    import socket
+
+    from speakingstyle_torch.serving.frontend import TextFrontend
+    from speakingstyle_torch.serving.server import SynthesisServer
+
+    engine = build_port_engine(tmp_path)
+    server = SynthesisServer(engine, TextFrontend(engine.cfg), host="127.0.0.1", port=0)
+    host, port = server.address[:2]
+    done = threading.Thread(target=server.shutdown, daemon=True)
+    done.start()
+    done.join(timeout=30)
+    assert not done.is_alive()
+    with pytest.raises(OSError):  # the port is closed
+        socket.create_connection((host, port), timeout=5).close()
+    assert not server.batcher.thread.is_alive()
+    loop = threading.Thread(target=server.serve_forever, daemon=True)
+    loop.start()
+    loop.join(timeout=5)
+    assert not loop.is_alive()
+
+
+def test_healthz_reads_a_flapping_router_a_bounded_number_of_times():
+    """/healthz reads a router's states around its ready predicate until
+    two reads agree, and at most ``HEALTH_READS`` times when they keep
+    changing (then the last pair)."""
+    from speakingstyle_torch.serving.server import HEALTH_READS, SynthesisServer
+
+    class Router:
+        def __init__(self, flap):
+            self.flap, self.reads = flap, 0
+
+        def states(self):
+            self.reads += 1
+            return {0: "ready" if not self.flap or self.reads % 2 else "draining"}
+
+        def ready(self):
+            return True
+
+    steady = Router(flap=False)
+    assert SynthesisServer._health(SimpleNamespace(router=steady)) == (True, {0: "ready"})
+    assert steady.reads == 2
+    flapping = Router(flap=True)
+    ready, states = SynthesisServer._health(SimpleNamespace(router=flapping))
+    assert ready is True and states in ({0: "ready"}, {0: "draining"})
+    assert flapping.reads == HEALTH_READS + 1
+
+
 def test_shed_429_then_shutdown_503(tmp_path):
     """With the dispatch thread held and the queue at its high watermark,
     a request is shed: 429 with Retry-After; once released every admitted

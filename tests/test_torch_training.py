@@ -228,11 +228,12 @@ def test_batchnorm_train_mode_matches_flax():
 
 
 def test_unported_settings_raise(monkeypatch):
-    """Only the sequence axis and partition rules over ``seq`` or ``data``
-    are refused now; data parallelism (any dp, and ``sharding.data_axis =
-    -1`` on several devices), tensor parallelism (``mesh: [dp, tp]``,
-    ``sharding.model_axis``), remat, fault injection and the resilience
-    defaults (the JAX package's) are ported."""
+    """Only partition rules over ``data`` are refused now; data parallelism
+    (any dp, and ``sharding.data_axis = -1`` on several devices), tensor
+    parallelism (``mesh: [dp, tp]``, ``sharding.model_axis``), the sequence
+    axis (``seq > 1`` trains on the (dp, tp) mesh, as the JAX trainer
+    does), remat, fault injection and the resilience defaults (the JAX
+    package's) are ported."""
     from speakingstyle_torch.configs.config import (
         ParallelConfig, ResilienceConfig, ShardingConfig, TrainConfig, check_train_supported,
     )
@@ -245,11 +246,11 @@ def test_unported_settings_raise(monkeypatch):
                                                        async_checkpointing=True)),
                TrainConfig(parallel=ParallelConfig(mesh=[2, 1])),
                TrainConfig(parallel=ParallelConfig(mesh=[2, 2])),
-               TrainConfig(sharding=ShardingConfig(model_axis=2))):
+               TrainConfig(sharding=ShardingConfig(model_axis=2)),
+               TrainConfig(parallel=ParallelConfig(seq=2))):
         check_train_supported(ok)
     check_train_supported(TrainConfig(), n_devices=4)
-    for bad in (TrainConfig(parallel=ParallelConfig(seq=2)),
-                TrainConfig(parallel=ParallelConfig(partition_rules=[["a/kernel$", "data"]]))):
+    for bad in (TrainConfig(parallel=ParallelConfig(partition_rules=[["a/kernel$", "data"]])),):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6[cd]"):
             check_train_supported(bad)
 
